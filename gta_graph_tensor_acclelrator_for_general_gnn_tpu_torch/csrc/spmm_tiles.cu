@@ -1,0 +1,114 @@
+// K1 spmm_tiles: edge-tile SpMM, y[r] += w_e * x[s] over the tiles of each
+// row block.
+//
+// Replaces the TPU kernel ops/spmm.py:_spmm_kernel of the JAX package,
+// which gathers and scatters through one-hot matmuls because the TPU has no
+// fast dynamic gather.  Hopper gathers rows directly, so this kernel reads
+// the same host-built tile arrays and indexes x by the sender instead.
+//
+// Bound on the card: memory.  Each edge reads one x row (F elements) and
+// its three index/weight words and adds F values into y; there is no reuse
+// beyond the L2 cache.  The tiles are TPU-shaped (512 slots, ~10% full on
+// the sparse tail), and the row blocks are skewed: after the hubs+labels
+// reorder a few row blocks own most tiles.
+//
+// Design: one warp per tile, so the work spreads evenly over the card
+// whatever the row-block skew.  The warp reads 32 slots at a time, keeps
+// the live ones by ballot (skipping pad slots, src >= C or dst >= R, before
+// any address is formed, so the pad row x[cb*C + C] is never read, and
+// skipping dead tiles, cb < 0, whole), and for each live edge its lanes
+// gather the x row and add w*x into y with f32 global atomics (coalesced,
+// one row per edge).  y is zeroed by the wrapper, so row stripes without
+// edges read 0.  The atomics make the f32 summation order vary from run to
+// run: results differ from a fixed-order sum by f32 rounding only.  As on
+// the TPU, w*x rounds to the input dtype before the f32 sum.
+#include "common.cuh"
+
+namespace {
+
+using gta::round_to;
+using gta::to_f;
+
+constexpr int WARPS = 8;
+
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(WARPS * 32)
+spmm_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_cb,
+                  const int16_t* __restrict__ src_local,
+                  const int16_t* __restrict__ dst_local,
+                  const WT* __restrict__ weight, const XT* __restrict__ x,
+                  float* __restrict__ y, int T, int R, int C, int ET, int F,
+                  int64_t n_x, int64_t n_out) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const int cb = tile_cb[t];
+  if (cb < 0) return;  // dead tile
+  const int64_t row0 = static_cast<int64_t>(tile_rb[t]) * R;
+  const int64_t col0 = static_cast<int64_t>(cb) * C;
+  const int64_t base = static_cast<int64_t>(t) * ET;
+  for (int e0 = 0; e0 < ET; e0 += 32) {
+    const int e = e0 + lane;
+    int s = C, d = R;
+    float w = 0.f;
+    if (e < ET) {
+      s = src_local[base + e];
+      d = dst_local[base + e];
+      w = to_f(weight[base + e]);
+    }
+    const bool live = s >= 0 && s < C && d >= 0 && d < R && col0 + s < n_x &&
+                      row0 + d < n_out;
+    unsigned todo = __ballot_sync(0xffffffffu, live);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int sj = __shfl_sync(0xffffffffu, s, j);
+      const int dj = __shfl_sync(0xffffffffu, d, j);
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const XT* xr = x + (col0 + sj) * F;
+      float* yr = y + (row0 + dj) * F;
+      for (int f = lane; f < F; f += 32) atomicAdd(yr + f, round_to<XT>(wj * to_f(xr[f])));
+    }
+  }
+}
+
+template <typename XT, typename WT>
+cudaError_t launch(const int* rb, const int* cb, const int16_t* s, const int16_t* d,
+                   const void* w, const void* x, float* y, int T, int R, int C,
+                   int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
+  const int blocks = (T + WARPS - 1) / WARPS;
+  spmm_tiles_kernel<XT, WT><<<blocks, WARPS * 32, 0, st>>>(
+      rb, cb, s, d, static_cast<const WT*>(w), static_cast<const XT*>(x), y, T, R,
+      C, ET, F, n_x, n_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* gta_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int gta_spmm_tiles(const void* tile_rb, const void* tile_cb,
+                              const void* src_local, const void* dst_local,
+                              const void* weight, int w_dtype, const void* x,
+                              int x_dtype, void* y, int T, int R, int C, int ET,
+                              int F, int64_t n_x, int64_t n_out, void* stream) {
+  auto rb = static_cast<const int*>(tile_rb);
+  auto cb = static_cast<const int*>(tile_cb);
+  auto s = static_cast<const int16_t*>(src_local);
+  auto d = static_cast<const int16_t*>(dst_local);
+  auto yy = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool xb = x_dtype == gta::BF16, wb = w_dtype == gta::BF16;
+  cudaError_t err;
+  if (xb && wb)
+    err = launch<__nv_bfloat16, __nv_bfloat16>(rb, cb, s, d, weight, x, yy, T, R, C, ET, F, n_x, n_out, st);
+  else if (xb)
+    err = launch<__nv_bfloat16, float>(rb, cb, s, d, weight, x, yy, T, R, C, ET, F, n_x, n_out, st);
+  else if (wb)
+    err = launch<float, __nv_bfloat16>(rb, cb, s, d, weight, x, yy, T, R, C, ET, F, n_x, n_out, st);
+  else
+    err = launch<float, float>(rb, cb, s, d, weight, x, yy, T, R, C, ET, F, n_x, n_out, st);
+  return static_cast<int>(err);
+}
