@@ -10,14 +10,23 @@ Reddit's node count, and checks every hand-written kernel on the way:
   2. build: compiles the kernels from ``csrc/`` (seconds printed);
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
      on the edge cases of ``utils/fixtures.kernel_cases``;
-  4. slice: builds the graph and the hybrid splits, checks K1-K4 again at
+  4. slice: builds the graph, lowers each model once per dtype with the
+     hybrid splits and their transposed twins
+     (``make_apply(build_transpose=True)``), checks K1-K4 again at
      every shape the slice gives them, both layers' (error and time beside
      the plain version; each row's error within its bound, see
      ``fixtures.kernel_error``), then
-     serves 3 bf16 requests and 1 float32 request per model through
-     ``Model.make_apply(schedules=...)``; checks that every kernel's launch
-     count rose, and compares each answer with the per-op path
-     (``make_apply(schedules=None)``) on the card.
+     serves 3 bf16 requests and 1 float32 request per model through that
+     forward under ``torch.inference_mode()``; checks that every kernel's
+     launch count rose, and compares each answer with the per-op path
+     (``make_apply(schedules=None)``) on the card;
+  5. training: on the same lowered forward, checks the GAT backward
+     kernels K5-K8 against their plain versions on the fixture cases and at
+     both layers' shapes (and times them in bf16), compares one float32
+     loss and every parameter's gradient with autograd through the per-op
+     path, then takes 1 warm-up and 4 timed bf16 AdamW steps per model
+     through ``models/train.make_train_step``: each loss finite, the last
+     below the first, and every one of K1-K8 launched during the steps.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -54,10 +63,27 @@ KERNELS = {
                       replaces=f"{JAX_PKG}/ops/gat.py:206"),
     "gat_dense_blocks": dict(source=f"{PKG}/csrc/gat_dense_blocks.cu",
                              replaces=f"{JAX_PKG}/ops/dense.py:371"),
+    "gat_bwd_tiles_dad": dict(source=f"{PKG}/csrc/gat_bwd_tiles_dad.cu",
+                              replaces=f"{JAX_PKG}/ops/gat.py:1346"),
+    "gat_bwd_tiles_src": dict(source=f"{PKG}/csrc/gat_bwd_tiles_src.cu",
+                              replaces=f"{JAX_PKG}/ops/gat.py:1418"),
+    "gat_dense_bwd_dad": dict(source=f"{PKG}/csrc/gat_dense_bwd_dad.cu",
+                              replaces=f"{JAX_PKG}/ops/dense.py:625"),
+    "gat_dense_bwd_src": dict(source=f"{PKG}/csrc/gat_dense_bwd_src.cu",
+                              replaces=f"{JAX_PKG}/ops/dense.py:667"),
 }
 # kernel path vs per-op path: the per-op path rounds only the matmul
 # operands to bf16, the kernels also their gathered rows and products
 E2E_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# float32 training: kernel path against autograd of the per-op path,
+# relative to max |per-op|.  The kernels hold their plain versions to 1e-5
+# of each cell's scale (phase 3 and 5b) and a served answer holds the
+# per-op path to 1e-4 (E2E_TOL); the backward adds one more pass of sums
+# of the same terms, and dad's softmax sums cancel, which magnifies their
+# rounding relative to the result: a tenfold margin on the forward bound.
+GRAD_TOL = {"loss": 1e-4, "grad": 1e-3}
+LR = 1e-2
+TRAIN_STEPS = 4    # timed bf16 steps per model, after one warm-up step
 
 
 def say(msg: str) -> None:
@@ -70,7 +96,7 @@ class Checks:
 
     def __init__(self):
         self.worst = {}      # kernel -> max abs err at the slice shapes
-        self.times = {}      # kernel -> {layer: (ms, plain_ms)}
+        self.times = {}      # kernel -> {call: (ms, plain_ms)}
 
     def compare(self, c, slice_shape: bool = False) -> None:
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
@@ -81,6 +107,22 @@ class Checks:
             f"{err:.3e}, worst row at {share:.3f} of its bound{terms}")
         if slice_shape:
             self.worst[c.kernel] = max(self.worst.get(c.kernel, 0.0), err)
+
+    def slice_case(self, kernel, case, dtype_name, kern, plain, dev, *,
+                   split=None, terms=None, scale=None, timed_as=None):
+        """Compare ``kern()`` with ``plain()`` at a shape of the slice;
+        with ``timed_as``, also time both (CUDA events, median of REPEATS)
+        as that call of a request or step."""
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase
+        self.compare(KernelCase(kernel, case, dtype_name, kern(), plain(),
+                                split, terms, scale), slice_shape=True)
+        if timed_as is not None:
+            ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS)
+            ms_p = median_ms(plain, device=dev, warmup=1, repeats=REPEATS)
+            self.times.setdefault(kernel, {})[timed_as] = (ms_k, ms_p)
+            say(f"  {kernel:18s} {timed_as:9s} kernel {ms_k:.4f} ms   "
+                f"plain {ms_p:.4f} ms")
 
 
 def edge_case_checks(checks: Checks, dev) -> None:
@@ -101,8 +143,7 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase, row_terms
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -143,17 +184,221 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
                                                    a_d, ms), HD),
             }
             for kname, (kern, plain, split) in runs.items():
-                checks.compare(KernelCase(
-                    kname, f"layer {li} F={F} H={H} HD={HD}", name, kern(),
-                    plain(), split, terms[kname]), slice_shape=True)
-                if timed:
-                    ms_k = median_ms(kern, device=dev, warmup=1,
-                                     repeats=REPEATS)
-                    ms_p = median_ms(plain, device=dev, warmup=1,
-                                     repeats=REPEATS)
-                    checks.times.setdefault(kname, {})[li] = (ms_k, ms_p)
-                    say(f"  {kname:18s} layer {li} kernel {ms_k:.4f} ms   "
-                        f"plain {ms_p:.4f} ms")
+                checks.slice_case(kname, f"layer {li} F={F} H={H} HD={HD}",
+                                  name, kern, plain, dev, split=split,
+                                  terms=terms[kname],
+                                  timed_as=f"layer {li}" if timed else None)
+
+
+def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
+    """K1 and K2 at the shapes of GCN's backward dx = Aᵀ ȳ: each layer's
+    transposed twin (its tail tiles and 'rc' count blocks, the swapped
+    separable scales), layer 0 at F = 128 and layer 1 at F = 41, in bf16
+    and float32; timed in bf16."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for li, (F, tw) in enumerate(zip((HIDDEN, N_CLASS), twins)):
+        tg, bg = tw.tiles, tw.dense
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[1]
+            timed = f"l{li} twin" if dt == torch.bfloat16 else None
+            x = torch.randn((n, F), generator=gen, device=dev).to(dt)
+            xs = (x * tw.col_scale[:, None].to(dt)).contiguous()
+            checks.slice_case(
+                "spmm_tiles", f"layer {li} twin F={F}", name,
+                lambda: SP.spmm_tiles(tg, x, tg.weight),
+                lambda: SP._spmm_reference(tg, x), dev,
+                terms=row_terms(tg), timed_as=timed)
+            checks.slice_case(
+                "spmm_dense_blocks", f"layer {li} twin F={F}", name,
+                lambda: D.spmm_dense_blocks(bg, xs, bg.values),
+                lambda: D._spmm_dense_reference(bg, xs, bg.values), dev,
+                terms=row_terms(bg), timed_as=timed)
+
+
+def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
+    """K5-K8 at every shape the GAT training step gives them: layer 0 (4
+    heads of 32) and layer 1 (1 head of 41), on that layer's forward split
+    and its transposed twin, in bf16 and float32 (random inputs; the tail
+    kernels read their side values rounded to the compute dtype, as the
+    step does), each cell held to its plain version scaled by its sum of
+    elementary-term magnitudes; timed in bf16 beside the plain version."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
+
+    rng = np.random.default_rng(0)
+    for li, (H, HD) in enumerate(((HEADS, HIDDEN), (1, N_CLASS))):
+        hyb, twin = pairs[li]
+        terms = {"gat_bwd_tiles_dad": row_terms(hyb.tiles),
+                 "gat_bwd_tiles_src": row_terms(twin.tiles),
+                 "gat_dense_bwd_dad": row_terms(hyb.dense)[:n],
+                 "gat_dense_bwd_src": row_terms(twin.dense)[:n]}
+        a_s = rng.standard_normal((n, H)).astype(np.float32)
+        msrc = torch.tensor(a_s.max(0, keepdims=True), device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[1]
+            h = torch.tensor(rng.standard_normal((n, HD), dtype=np.float32),
+                             device=dev).to(dt)
+            gbar = torch.tensor(rng.standard_normal((n, HD),
+                                                    dtype=np.float32),
+                                device=dev).to(dt)
+            for tail, side_dt in ((True, dt), (False, torch.float32)):
+                side = fixtures.bwd_side(rng, n, H, side_dt, dev, a_s=a_s)
+                runs = fixtures.bwd_runs(hyb.tiles, twin.tiles, hyb.dense,
+                                         twin.dense, h, gbar, side, msrc)
+                for k, (kern, plain, mag, split) in runs.items():
+                    if k.startswith("gat_bwd_tiles") != tail:
+                        continue
+                    checks.slice_case(
+                        k, f"layer {li} H={H} HD={HD}", name, kern, plain,
+                        dev, split=split, terms=terms[k], scale=mag(),
+                        timed_as=(f"layer {li}" if dt == torch.bfloat16
+                                  else None))
+
+
+def training_phase(checks: Checks, models, fwd, hg, g, dev):
+    """Phase 5 on the kernel path ``fwd`` that phase 4 served through
+    (lowered with the twins); returns each kernel's launches during the
+    bf16 steps."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+
+    say("== 5a training: transposed twins (built in phase 4)")
+    pairs = {}       # model -> [(forward split, transposed twin)] per layer
+    for mname in models:
+        for li, fn in enumerate(fwd[mname]["bfloat16"].layer_fns):
+            for kind, _, data, twin in fn.plans:
+                if not kind.endswith("_hybrid"):
+                    continue
+                if twin is None:
+                    raise AssertionError(f"{mname} layer {li}: no twin")
+                nb = twin.dense.n_blocks if twin.dense is not None else 0
+                say(f"  {mname} layer {li} {kind} twin: dense edges "
+                    f"{twin.n_dense_edges} in {nb} blocks, tail edges "
+                    f"{twin.n_sparse_edges} in {twin.tiles.n_tiles} tiles")
+                pairs.setdefault(mname, []).append((data, twin))
+
+    say("== 5b backward kernels: edge cases and the step's shapes")
+    for c in fixtures.bwd_kernel_cases(dev):
+        checks.compare(c)
+    bwd_slice_checks(checks, pairs["GAT-2l"], dev, hg.n_node)
+    say("== 5b K1, K2 at the shapes of GCN's backward (the twins)")
+    twin_spmm_checks(checks, [tw for _, tw in pairs["GCN-2l"]], dev,
+                     hg.n_node)
+
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((hg.n_node, F_IN),
+                                         dtype=np.float32), device=dev)
+    # learnable labels: a random linear probe of the features
+    wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS),
+                                          dtype=np.float32), device=dev)
+    y = (x @ wy).argmax(dim=1)
+    mask = torch.ones(hg.n_node, dtype=torch.bool, device=dev)
+
+    say("== 5c float32 gradients: kernel path against per-op autograd")
+    say(f"bound: loss {GRAD_TOL['loss']:.0e} relative to max(1, |loss|), "
+        f"each gradient {GRAD_TOL['grad']:.0e} relative to max |per-op|")
+    for mname, model in models.items():
+        res = {}
+        for path, fn in (("kernel", fwd[mname].pop("float32")),
+                         ("per-op", model.make_apply(None))):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss = TT.masked_cross_entropy(fn(dict(model.params), g, x), y,
+                                           mask)
+            loss.backward()
+            torch.cuda.synchronize(dev)
+            res[path] = (loss.item(), {k: p.grad.detach().clone()
+                                       for k, p in model.params.items()})
+            say(f"  {mname} {path}: loss {res[path][0]:.6f}, forward + "
+                f"backward {time.perf_counter() - t0:.2f} s, peak device "
+                f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+                " GiB")
+            del loss
+        (lk, gk), (lr, gr) = res["kernel"], res["per-op"]
+        rel = abs(lk - lr) / max(1.0, abs(lr))
+        say(f"  {mname} loss: relative {rel:.3e}")
+        if not rel <= GRAD_TOL["loss"]:
+            raise AssertionError(f"{mname}: loss {lk} vs per-op {lr}")
+        for k in gr:
+            if not bool(torch.isfinite(gk[k]).all()):
+                raise AssertionError(f"{mname} {k}: non-finite gradient")
+            err = float((gk[k] - gr[k]).abs().max())
+            rel = err / float(gr[k].abs().max())
+            say(f"  {mname} d{k}: max abs err {err:.3e}, relative {rel:.3e}")
+            if not rel <= GRAD_TOL["grad"]:
+                raise AssertionError(f"{mname} d{k}: relative error {rel}")
+        model.zero_grad(set_to_none=True)
+        del res, gk, gr
+
+    say("== 5d bf16 training steps (AdamW, full batch)")
+    counted = {"spmm_tiles": SP.spmm_tiles,
+               "spmm_dense_blocks": D.spmm_dense_blocks,
+               "gat_tiles": A.gat_tiles, "gat_dense_blocks": D.gat_dense_blocks,
+               "gat_bwd_tiles_dad": A.gat_bwd_tiles_dad,
+               "gat_bwd_tiles_src": A.gat_bwd_tiles_src,
+               "gat_dense_bwd_dad": D.gat_dense_bwd_dad,
+               "gat_dense_bwd_src": D.gat_dense_bwd_src}
+    step_ms = {}
+
+    def steps(mname, model, path, fn, n_steps):
+        state = TT.TrainState(model.params, TT.adamw(model.params, LR))
+        step = TT.make_train_step(fn)
+        losses, times = [], []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(n_steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss = step(state, g, x, y, mask)
+            end.record()
+            end.synchronize()
+            losses.append(float(loss))
+            if i > 0:
+                times.append(start.elapsed_time(end))
+        step_ms[(mname, path)] = times
+        say(f"  {mname} {path}: losses {['%.5f' % v for v in losses]}, "
+            f"step ms {['%.2f' % t for t in times]} (median "
+            f"{statistics.median(times):.2f}), peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{mname} {path}: non-finite loss")
+        if path == "kernel" and not losses[-1] < losses[0]:
+            raise AssertionError(f"{mname}: loss did not fall {losses}")
+        model.zero_grad(set_to_none=True)
+
+    for fn in counted.values():
+        fn.launches = 0
+    for mname, model in models.items():
+        steps(mname, model, "kernel", fwd[mname]["bfloat16"],
+              1 + TRAIN_STEPS)
+    launches = {k: f.launches for k, f in counted.items()}
+    say(f"launches during the kernel-path steps: {launches}")
+    for mname, model in models.items():
+        steps(mname, model, "per-op", model.make_apply(torch.bfloat16), 3)
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "training steps")
+    for (mname, path), v in sorted(step_ms.items()):
+        say(f"step {mname} bf16 {path}: median {statistics.median(v):.3f} ms"
+            f" over {len(v)} steps {['%.3f' % t for t in v]}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -226,19 +471,21 @@ def main(argv=None) -> int:
                               n_layers=2, heads=HEADS, generator=gen,
                               device=dev),
     }
-    fwd = {}
+    fwd = {}         # per model and dtype: the kernel path, with twins
     hybs = {}
     for mname, model in models.items():
         sched = hybrid_schedules(model.layers)
-        t0 = time.perf_counter()
-        fwd[mname] = {
-            dtn: model.make_apply(dt, schedules=sched, host_graph=hg,
-                                  device=dev)
-            for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None))}
-        say(f"{mname}: schedules {[sc.key()[:48] for sc in sched]}, "
-            f"lowering (hybrid builds) {time.perf_counter() - t0:.1f} s")
+        say(f"{mname}: schedules {[sc.key()[:48] for sc in sched]}")
+        fwd[mname] = {}
+        for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
+            t0 = time.perf_counter()
+            fwd[mname][dtn] = model.make_apply(
+                dt, schedules=sched, host_graph=hg, device=dev,
+                build_transpose=True)
+            say(f"  {dtn} lowering (forward splits, transposed graph and "
+                f"twins) {time.perf_counter() - t0:.1f} s")
         for li, fn in enumerate(fwd[mname]["bfloat16"].layer_fns):
-            for kind, _, data in fn.plans:
+            for kind, _, data, _ in fn.plans:
                 if kind.endswith("_hybrid"):
                     hybs.setdefault(mname, []).append(data)
                     nb = data.dense.n_blocks if data.dense is not None else 0
@@ -283,6 +530,7 @@ def main(argv=None) -> int:
                     f"{start.elapsed_time(end):.2f} ms")
     launches = {k: fn.launches for k, fn in counted.items()}
     say(f"launches during the requests: {launches}")
+    serving_launches = launches
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched by the "
@@ -324,15 +572,20 @@ def main(argv=None) -> int:
         say(f"latency {mname} {dtn} {path}: median {statistics.median(v):.3f}"
             f" ms over {len(v)} requests {['%.3f' % t for t in v]}")
 
+    launches = training_phase(checks, models, fwd, hg, g, dev)
+
     kernels = []
     for k, meta in KERNELS.items():
-        # per request: the kernel's calls at both layers' shapes
+        # per bf16 training step: every call at both layers' shapes (K1
+        # and K2 also run GCN's backward over the twins)
         ms_k = sum(t[0] for t in checks.times[k].values())
         ms_p = sum(t[1] for t in checks.times[k].values())
-        kernels.append(dict(name=k, route="cuda", source=meta["source"],
-                            replaces=meta["replaces"], launches=launches[k],
-                            max_abs_err=checks.worst[k], ms=ms_k,
-                            plain_ms=ms_p))
+        row = dict(name=k, route="cuda", source=meta["source"],
+                   replaces=meta["replaces"], launches=launches[k],
+                   max_abs_err=checks.worst[k], ms=ms_k, plain_ms=ms_p)
+        if k in serving_launches:
+            row["serving_launches"] = serving_launches[k]
+        kernels.append(row)
     say(json.dumps({"kernels": kernels}))
     say(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ to one NVIDIA H100.
 The same four-primitive message-passing IR, model zoo builders, schedules
 and host-side graph preprocessing; plain PyTorch for the per-op path, and
 hand-written CUDA kernels for Hopper (``csrc/``) in place of the TPU's
-Pallas kernels.  This slice runs the serving forward of GCN and GAT on the
-hybrid density-split path.  The package imports torch and numpy, never jax.
+Pallas kernels.  GCN and GAT run on the hybrid density-split path, served
+forward and trained full-batch (``models/train.py``), with the backward on
+the kernels over the transposed graph's split.  The package imports torch
+and numpy, never jax.
 """
 
 from . import ir

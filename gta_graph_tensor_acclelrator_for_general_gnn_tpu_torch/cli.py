@@ -1,18 +1,25 @@
 """Command line of the PyTorch port.
 
 ``run`` serves one forward pass of a model over a dataset and reports its
-output and, on a CUDA device, its latency from CUDA events:
+output and, on a CUDA device, its latency from CUDA events; ``train``
+trains it full-batch and reports the JAX CLI's keys (loss, accuracies and,
+on a CUDA device, the epoch time from CUDA events):
 
     python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli run \\
         --dataset cora --network GAT --schedule sched.json --device cuda
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli train \\
+        --dataset cora --network GAT --schedule sched.json --device cuda
 
 ``--schedule`` reads the schedule JSON of the JAX package's CLI (one
-schedule, or ``{"layers": [...]}`` per layer).  ``train``, ``tune`` and
+schedule, or ``{"layers": [...]}`` per layer).  With a schedule, ``train``
+also splits the transposed graph so that gradients run on the kernels; the
+JAX CLI does that only with ``--compiled``.  ``--compiled``, ``tune`` and
 ``bench`` are not ported yet and exit with status 2.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -43,6 +50,43 @@ def load_schedules(path, n_layers):
     return [one(spec)] * n_layers
 
 
+def _print(out, as_json: bool) -> None:
+    if as_json:
+        print(json.dumps(out))
+    else:
+        for k, v in out.items():
+            print(f"{k}: {v}")
+
+
+def _train(args, ds, model, sched, dtype, device) -> int:
+    """``train``: full-batch training, the JAX CLI's output keys."""
+    import math
+
+    import torch
+
+    from .models.train import train_node_classifier
+    state, res = train_node_classifier(
+        ds, args.network, epochs=args.epochs, lr=args.lr,
+        compute_dtype=dtype, seed=args.seed, model=model, schedules=sched,
+        build_transpose=sched is not None, device=device)
+    out = dict(dataset=args.dataset, network=args.network,
+               synthetic_data=ds.synthetic, node_reorder=args.node_reorder,
+               dtype="bfloat16" if args.bf16 else "float32",
+               device=str(device))
+    if sched:
+        out["schedule"] = [s.key() for s in sched]
+    if args.ckpt:
+        from .utils.checkpoint import save_state
+        out["ckpt_step"] = save_state(args.ckpt, state)
+    out.update(train_loss=res.train_loss, train_acc=res.train_acc,
+               val_acc=res.val_acc, test_acc=res.test_acc,
+               epoch_time_s=res.epoch_time_s, edges_per_s=res.edges_per_s)
+    if device.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(device)
+    _print(out, args.json)
+    return 0 if math.isfinite(res.train_loss) else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="gta-torch",
@@ -69,11 +113,18 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true",
                    help="print one JSON object instead of text")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint dir: train saves its final state here")
+    p.add_argument("--compiled", action="store_true",
+                   help="schedule picked by the latency model (not ported)")
     args = p.parse_args(argv)
 
-    if args.command != "run":
-        print(f"gta-torch {args.command}: not yet ported (ROADMAP.md "
-              "Queue 1)", file=sys.stderr)
+    if args.command not in ("run", "train") or args.compiled:
+        what = "--compiled" if args.compiled else args.command
+        print(f"gta-torch {what}: not yet ported (ROADMAP.md Queue 1 "
+              f"{'item 10' if args.compiled else 'item 6'})", file=sys.stderr)
         return 2
 
     import numpy as np
@@ -89,10 +140,13 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else None
     ds = load_dataset(args.dataset, seed=args.seed)
-    hg, x_np = ds.host_graph, ds.x
     if args.node_reorder != "none":
-        hg, perm = reorder_nodes(hg, args.node_reorder)
-        x_np = x_np[perm]
+        hg, perm = reorder_nodes(ds.host_graph, args.node_reorder)
+        ds = dataclasses.replace(
+            ds, host_graph=hg, x=ds.x[perm], y=ds.y[perm],
+            train_mask=ds.train_mask[perm], val_mask=ds.val_mask[perm],
+            test_mask=ds.test_mask[perm])
+    hg, x_np = ds.host_graph, ds.x
     model = build_model(args.network, x_np.shape[1], ds.n_class,
                         hidden=args.hidden, n_layers=args.layers,
                         heads=args.heads, reorder=args.reorder,
@@ -100,6 +154,8 @@ def main(argv=None) -> int:
                         device=device)
     sched = (load_schedules(args.schedule, args.layers)
              if args.schedule else None)
+    if args.command == "train":
+        return _train(args, ds, model, sched, dtype, device)
     fwd = model.make_apply(dtype, schedules=sched,
                            host_graph=hg if sched else None, device=device)
     g = hg.to_device(device)
@@ -123,11 +179,7 @@ def main(argv=None) -> int:
                        latency_ms_min=float(np.min(times)),
                        edges_per_s=hg.n_edge * args.layers
                        / (float(np.median(times)) / 1e3))
-    if args.json:
-        print(json.dumps(out))
-    else:
-        for k, v in out.items():
-            print(f"{k}: {v}")
+    _print(out, args.json)
     return 0 if out["finite"] else 1
 
 

@@ -18,7 +18,8 @@ import torch
 
 from .. import ir
 from ..graph import (GraphTensor, HostGraph, TiledGraph, hybrid_graph,
-                     separable_weight_scales, tile_graph)
+                     separable_weight_scales, tile_graph,
+                     transpose_host_graph)
 from ..ops import dense as dense_mod
 from ..ops import gat as gat_mod
 from ..ops import spmm as spmm_mod
@@ -293,6 +294,20 @@ NOT_PORTED = {
 }
 
 
+def _needs_grad(plan, ref, w_asrc_of) -> bool:
+    """True when autograd would need the gradient of a non-hybrid kernel
+    block: its kernels have no backward in the port yet."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(plan, _SpmmPlan):
+        ins = [ref(plan.in_op)]
+    else:
+        w = w_asrc_of(plan)
+        ins = [ref(plan.h_op), ref(plan.adst_op),
+               w if w is not None else ref(plan.asrc_op)]
+    return any(t.requires_grad for t in ins)
+
+
 def lower_schedule(
     graph: ir.OpGraph,
     schedule: Schedule,
@@ -300,6 +315,7 @@ def lower_schedule(
     compute_dtype: Optional[torch.dtype] = None,
     *,
     device="cpu",
+    build_transpose: bool = False,
     tile_cache: Optional[Dict] = None,
 ) -> Callable[[Dict[str, torch.Tensor], GraphTensor, torch.Tensor],
               torch.Tensor]:
@@ -307,11 +323,21 @@ def lower_schedule(
 
     Host side, once: builds the tilings and hybrid splits the matched
     blocks need, on ``device``.  ``tile_cache`` shares them across the
-    layers of a model.  Serving forward only: the transposed tilings of the
-    kernel backward and the sparse-input first layer are not ported yet."""
+    layers of a model.  ``build_transpose`` also splits the TRANSPOSED
+    graph (kept in ``tile_cache["transpose"]``) for every hybrid block, so
+    its gradient runs the kernels (dx = Aᵀ ȳ, and the attention backward
+    K5-K8) instead of autograd of the full-graph formulation; it doubles
+    the set-up and the split's device memory.  The backward of the
+    non-hybrid ``spmm`` and ``gat`` kinds and the sparse-input first layer
+    are not ported yet: taking a gradient through those kinds raises."""
     cache = tile_cache if tile_cache is not None else {}
     tiled: Dict[tuple, TiledGraph] = cache.setdefault("tiled", {})
     hybrids: Dict[tuple, object] = cache.setdefault("hybrids", {})
+    host_graph_t = None
+    if build_transpose:
+        if "transpose" not in cache:
+            cache["transpose"] = transpose_host_graph(host_graph)
+        host_graph_t = cache["transpose"][0]
 
     def get_tiled(tc: TileConfig, unit_weight: bool) -> TiledGraph:
         key = (id(host_graph), str(device), tc.block_rows, tc.block_cols,
@@ -324,26 +350,30 @@ def lower_schedule(
         return tiled[key]
 
     def get_hybrid(tc: TileConfig, unit_weight: bool, kind: str,
-                   heads: int = 1, head_dim: int = 128):
+                   heads: int = 1, head_dim: int = 128,
+                   hg: Optional[HostGraph] = None):
         """The density-split build of the JAX package's hybrid recipe: int8
         count blocks on the dense grid (budget-capped threshold), the edge
         tail at the schedule's tile geometry; weighted SpMM keeps exactness
         through separable scales when the weights are the symmetric norm,
-        else float32 weight blocks."""
-        key = (id(host_graph), str(device), tc.key(), unit_weight, kind,
+        else float32 weight blocks.  ``hg`` (default the forward graph) is
+        the graph split; the threshold and scales are computed over it, so
+        a transposed twin gets its own, as in the JAX package."""
+        hg = hg if hg is not None else host_graph
+        key = (id(hg), str(device), tc.key(), unit_weight, kind,
                heads, head_dim)
         if key not in hybrids:
             scales = (None if (unit_weight or kind == "gat")
-                      else separable_weight_scales(host_graph))
+                      else separable_weight_scales(hg))
             int8 = unit_weight or kind == "gat" or scales is not None
             drows = tc.dense_block or tc.block_rows
             dcols = tc.dense_block or tc.block_cols
             thr = dense_mod.hybrid_threshold(
-                host_graph, kind, heads=heads, head_dim=head_dim,
+                hg, kind, heads=heads, head_dim=head_dim,
                 value_bytes=1 if int8 else 4, dense_rows=drows,
                 dense_cols=dcols)
             hyb = hybrid_graph(
-                host_graph, block_rows=drows, block_cols=dcols,
+                hg, block_rows=drows, block_cols=dcols,
                 sparse_block_rows=tc.block_rows,
                 sparse_block_cols=tc.block_cols, tile_edges=tc.tile_edges,
                 min_nnz=thr, unit_weight=unit_weight,
@@ -357,25 +387,31 @@ def lower_schedule(
             hybrids[key] = hyb
         return hybrids[key]
 
-    plans: List[tuple] = []       # (kind, block, tc, plan, graph data)
+    # (kind, block, tc, plan, graph data, transposed twin or None)
+    plans: List[tuple] = []
     for block, tc in zip(schedule.blocks, schedule.tiles):
         kind, plan = classify_block(graph, block, tc)
         if kind in NOT_PORTED:
             raise NotImplementedError(
                 f"block {block} lowers to {kind!r}, which the port does not "
                 f"run yet: ROADMAP.md {NOT_PORTED[kind]}")
+        twin = None
         if kind == "spmm_hybrid":
-            data = get_hybrid(tc, not plan.weighted, "spmm")
+            args = (tc, not plan.weighted, "spmm")
         elif kind == "gat_hybrid":
             hd = graph.width_of(plan.h_op)
-            data = get_hybrid(tc, True, "gat", plan.heads, hd // plan.heads)
+            args = (tc, True, "gat", plan.heads, hd // plan.heads)
+        if kind in ("spmm_hybrid", "gat_hybrid"):
+            data = get_hybrid(*args)
+            if host_graph_t is not None:
+                twin = get_hybrid(*args, hg=host_graph_t)
         elif kind == "spmm":
             data = get_tiled(tc, not plan.weighted)
         elif kind == "gat":
             data = get_tiled(tc, unit_weight=True)
         else:
             data = None
-        plans.append((kind, block, tc, plan, data))
+        plans.append((kind, block, tc, plan, data, twin))
 
     outputs = list(graph.outputs)
     inv_deg = None
@@ -412,13 +448,19 @@ def lower_schedule(
                 return params[prod.extra["weight"][0]]
             return None
 
-        for kind, block, tc, plan, data in plans:
+        for kind, block, tc, plan, data, twin in plans:
+            if kind in ("spmm", "gat") and _needs_grad(plan, ref, w_asrc_of):
+                raise NotImplementedError(
+                    f"block {block} lowers to {kind!r}, whose backward the "
+                    "port does not run yet (ROADMAP.md Queue 1 items 4-5): "
+                    "use the hybrid path to train")
             if kind == "spmm":
                 vals[plan.out_op] = seg_out(
                     plan, spmm_mod.spmm(data, kin(ref(plan.in_op))))
             elif kind == "spmm_hybrid":
                 vals[plan.out_op] = seg_out(plan, dense_mod.spmm_hybrid(
-                    data, g, kin(ref(plan.in_op)), weighted=plan.weighted))
+                    data, g, kin(ref(plan.in_op)), weighted=plan.weighted,
+                    hyb_t=twin))
             elif kind in ("gat", "gat_hybrid"):
                 w_as = w_asrc_of(plan)
                 kw = dict(negative_slope=plan.negative_slope,
@@ -431,7 +473,7 @@ def lower_schedule(
                 else:
                     vals[plan.out_op] = dense_mod.gat_hybrid(
                         data, g, kin(ref(plan.h_op)), a_src,
-                        kin(ref(plan.adst_op)), **kw)
+                        kin(ref(plan.adst_op)), hyb_t=twin, **kw)
             else:
                 for oid in block:
                     vals[oid] = _eval_op(graph.by_id[oid], vals, params, g,
@@ -440,6 +482,7 @@ def lower_schedule(
             return vals[outputs[0]]
         return {o: vals[o] for o in outputs}
 
-    # (kind, block, graph data) per block, for inspection and kernel checks
-    apply.plans = [(p[0], p[1], p[4]) for p in plans]
+    # (kind, block, graph data, transposed twin) per block, for inspection
+    # and kernel checks
+    apply.plans = [(p[0], p[1], p[4], p[5]) for p in plans]
     return apply

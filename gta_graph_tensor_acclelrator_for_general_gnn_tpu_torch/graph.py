@@ -529,6 +529,31 @@ def hybrid_graph(
                        n_sparse_edges=g.n_edge - int(in_dense.sum()))
 
 
+def transpose_host_graph(g: HostGraph) -> Tuple[HostGraph, np.ndarray]:
+    """The transposed graph Aᵀ (senders and receivers swapped, weights
+    kept, edges sorted by their new receiver) and ``perm``: edge i of the
+    transposed graph is edge ``perm[i]`` of ``g`` (pad edges map to the
+    last pad slot).  The backward of y = A x is dx = Aᵀ ȳ, the same
+    kernels over the transposed graph's tilings."""
+    ne = g.n_edge
+    pad = g.e_pad - ne
+    order = np.argsort(g.senders[:ne], kind="stable")
+    gt = HostGraph(
+        senders=np.concatenate([g.receivers[:ne][order],
+                                np.full(pad, g.n_node, np.int32)]),
+        receivers=np.concatenate([g.senders[:ne][order],
+                                  np.full(pad, g.n_node, np.int32)]),
+        edge_mask=np.concatenate([np.ones(ne, bool), np.zeros(pad, bool)]),
+        edge_weight=np.concatenate([g.edge_weight[:ne][order],
+                                    np.zeros(pad, np.float32)]),
+        n_node=g.n_node,
+        n_edge=ne,
+    )
+    perm = np.concatenate([order.astype(np.int64),
+                           np.full(pad, max(g.e_pad - 1, 0), np.int64)])
+    return gt, perm
+
+
 def separable_weight_scales(g: HostGraph
                             ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(row_scale, col_scale) with ``w_e == row_scale[r] * col_scale[s]``

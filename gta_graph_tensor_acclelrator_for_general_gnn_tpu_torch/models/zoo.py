@@ -1,8 +1,9 @@
 """Multi-layer models stacked from single-layer op graphs.
 
 Counterpart of the JAX package's ``models/zoo.py``: :class:`Model` is an
-``nn.Module`` holding the parameters of its layer stack, under the JAX
-names and in the ``[in, out]`` layout.
+``nn.Module`` holding the trainable parameters of its layer stack, under
+the JAX names and in the ``[in, out]`` layout.  Serving runs its forward
+under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -31,25 +32,28 @@ class Model(nn.Module):
         self.params = nn.ParameterDict()
         for g in layers:
             for k, v in L.init_params(g, gen, dtype, device).items():
-                self.params[k] = nn.Parameter(v, requires_grad=False)
+                self.params[k] = nn.Parameter(v)
 
     def load_params(self, params: Mapping[str, torch.Tensor]) -> None:
         """Copy ``params`` (e.g. from :func:`~..compiler.lower.params_from_numpy`)
         into the model."""
         for k, v in params.items():
-            self.params[k].data.copy_(v)
+            with torch.no_grad():
+                self.params[k].copy_(v)
 
     def make_apply(self, compute_dtype: Optional[torch.dtype] = None,
                    schedules: Union[None, Schedule, Sequence[Schedule]] = None,
                    host_graph: Optional[HostGraph] = None, *,
-                   device="cpu"):
+                   device="cpu", build_transpose: bool = False):
         """Forward over the layer stack: ``apply(params, g, x)``.
 
         Without ``schedules`` every layer runs op by op (the oracle path).
         ``schedules`` (one per layer, or one for all) lower each layer
         through :func:`~..compiler.fusion.lower_schedule`, so matched blocks
         run on the Hopper kernels; that needs ``host_graph`` to build the
-        tilings on ``device``."""
+        tilings on ``device`` (shared across the stack's layers).
+        ``build_transpose`` also splits the transposed graph so that
+        gradients run on the kernels (training)."""
         if schedules is None:
             fns = [L.lower(g, compute_dtype) for g in self.layers]
         else:
@@ -60,7 +64,9 @@ class Model(nn.Module):
                 raise ValueError("schedules need host_graph")
             shared_cache: dict = {}
             fns = [lower_schedule(g, s, host_graph, compute_dtype,
-                                  device=device, tile_cache=shared_cache)
+                                  device=device,
+                                  build_transpose=build_transpose,
+                                  tile_cache=shared_cache)
                    for g, s in zip(self.layers, schedules)]
 
         def apply(params: Mapping[str, torch.Tensor], g: GraphTensor,

@@ -1,6 +1,9 @@
 """Build and load the hand-written Hopper kernels under ``csrc/``.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call for ``sm_90a`` into a
+Each ``csrc/*.cu`` source compiles for ``sm_90a`` in its own ``nvcc``
+process, all started together (one ``nvcc`` over every source compiles
+them one after another: the build would take the sum of the sources'
+times instead of the slowest one's), and one more call links them into a
 shared library with a plain C interface, loaded with ``ctypes``.  Tensors
 pass as ``data_ptr()`` integers and launches go to PyTorch's current
 stream.  Every entry point returns ``cudaGetLastError()`` after its launch;
@@ -29,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
+LINK_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib = None
 build_seconds = None   # wall seconds of the build this process ran, if any
@@ -49,6 +53,16 @@ _SIGNATURES = {
     "gta_gat_dense_blocks": [VP, VP, VP, VP, I32, I32, VP, I32, VP, VP, VP,
                              VP, I32, I32, I32, I32, I32, I64, I64, I64,
                              F32, VP],
+    "gta_gat_bwd_tiles_dad": [VP, VP, VP, VP, VP, I32, VP, VP, I32, VP, VP,
+                              VP, I32, I32, I32, I32, I32, I32, I64, F32,
+                              VP],
+    "gta_gat_bwd_tiles_src": [VP, VP, VP, VP, VP, I32, VP, VP, I32, VP, VP,
+                              VP, I32, I32, I32, I32, I32, I32, I64, F32,
+                              VP],
+    "gta_gat_dense_bwd_dad": [VP, VP, VP, VP, I32, VP, VP, I32, VP, VP, VP,
+                              I32, I32, I32, I32, I32, I64, F32, VP],
+    "gta_gat_dense_bwd_src": [VP, VP, VP, VP, I32, VP, VP, I32, VP, VP, VP,
+                              I32, I32, I32, I32, I32, I64, F32, VP],
 }
 
 
@@ -67,6 +81,36 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _build(so: Path, cu) -> str:
+    """Compile every source to an object file, all ``nvcc`` processes at
+    once, then link them into ``so``; returns the compilers' output."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o", str(o), str(p)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cu, objs)]
+        logs, failed = [], []
+        for p, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {p.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(p.name)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        part = Path(tmp) / so.name
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(part),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        os.replace(part, so)
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib, build_seconds, build_log
@@ -81,19 +125,9 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libgta_torch_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", tmp,
-               *[str(p) for p in cu]]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _build(so, cu)
         build_seconds = time.perf_counter() - t0
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,16 +1,21 @@
 """Dense-adjacency-block kernels and the hybrid (density-split) wrappers.
 
-Counterpart of the JAX package's ``ops/dense.py`` (forward only).  Blocks
-whose nnz passes a threshold are stored dense and aggregated block by block;
-the sparse remainder runs on the edge-tile kernels; both produce partial
-sums over the same rows, which add exactly.
+Counterpart of the JAX package's ``ops/dense.py``.  Blocks whose nnz
+passes a threshold are stored dense and aggregated block by block; the
+sparse remainder runs on the edge-tile kernels; both produce partial sums
+over the same rows, which add exactly.  The hybrid wrappers are autograd
+Functions whose backward runs on kernels over the transposed graph's split.
 
 Kernels: K2 ``csrc/spmm_dense_blocks.cu`` (replaces the TPU
 ``_spmm_dense_kernel`` / ``_spmm_dense_super_kernel``) behind
-:func:`spmm_dense_blocks`, and K4 ``csrc/gat_dense_blocks.cu`` (replaces
+:func:`spmm_dense_blocks`; K4 ``csrc/gat_dense_blocks.cu`` (replaces
 ``_gat_dense_kernel_t`` / ``_gat_dense_kernel``) behind
-:func:`gat_dense_blocks`.  Each wrapper takes its plain PyTorch version for a
-CPU tensor and launches its kernel for a CUDA tensor, or raises.
+:func:`gat_dense_blocks`; K7 ``csrc/gat_dense_bwd_dad.cu`` (replaces
+``_gat_dense_bwd_dad_kernel``) behind :func:`gat_dense_bwd_dad`; K8
+``csrc/gat_dense_bwd_src.cu`` (replaces ``_gat_dense_bwd_src_kernel``)
+behind :func:`gat_dense_bwd_src`.  Each wrapper takes its plain PyTorch
+version for a CPU tensor and launches its kernel for a CUDA tensor, or
+raises.
 
 The thresholds below are the JAX package's FLOP-balance rules, which were
 fitted to the TPU; the port keeps them so both packages build the same
@@ -25,7 +30,7 @@ import torch
 
 from ..graph import DenseBlockGraph, GraphTensor, HybridGraph, block_nnz
 from . import _ext
-from .gat import _gat_forward, _leaky
+from .gat import _edge_grad, _gat_forward, _leaky
 from .spmm import _PLAIN_CHUNK, spmm
 
 # ---------------------------------------------------------------------------
@@ -300,6 +305,191 @@ def gat_dense_partial_t(bg: DenseBlockGraph, h_src, a_src, a_dst, msrc, *,
 
 
 # ---------------------------------------------------------------------------
+# dense masked attention backward (K7, K8)
+#
+# Per head and cell (r, c) of a 'cr' count block, with alpha = p * count /
+# den[r] under the forward's shift bound and s2[r] = <gbar_r, out_r>:
+#   te = <gbar_r, h_c>,  dz = alpha (te - s2[r]) leaky'(a_s[c] + a_d[r])
+#   dad[r] += sum_c dz                 K7 over the rb-major split bg
+#   das[c] += sum_r dz, dh[c] += sum_r alpha gbar_r
+#                                      K8 over the transposed graph's split
+#                                      bg_t, whose rows are the senders c
+# Side values stay float32 here; only alpha rounds to h's dtype before the
+# dh product, as in the TPU kernels.
+# ---------------------------------------------------------------------------
+
+
+def _gat_dense_bwd_reference(bg: DenseBlockGraph, h: torch.Tensor,
+                             gbar: torch.Tensor, values: torch.Tensor,
+                             side: torch.Tensor, msrc: torch.Tensor, *,
+                             src_mode: bool,
+                             negative_slope: float = 0.2,
+                             magnitude: bool = False) -> torch.Tensor:
+    """Plain version of K7 (``src_mode=False``: dad [n, H] over ``bg``)
+    and K8 (``src_mode=True``: [das | dh] [n, H + HD] over the transposed
+    graph's split, rows = original senders).  ``side`` [N, 4H] float32 is
+    [a_s | a_d | 1/den | s2].  ``magnitude`` sums the magnitudes of the
+    elementary terms instead, as the tail's plain version does (the scale
+    of a check: these sums cancel)."""
+    R, C = bg.block_rows, bg.block_cols
+    H = msrc.shape[1]
+    HD = h.shape[1]
+    D = HD // H
+    n = h.shape[0]
+    RB, CB = bg.n_row_blocks, bg.n_col_blocks
+    width = H + (HD if src_mode else 0)
+    npad = max(RB * R, CB * C, n)
+    hp, gp, sp = (_pad_rows(t.float(), npad) for t in (h, gbar, side))
+    ms = msrc.float().reshape(1, 1, 1, H)
+    rdt = h.dtype
+    acc = torch.zeros((RB, R, width), dtype=torch.float32, device=h.device)
+    ar_r = torch.arange(R, device=h.device)
+    ar_c = torch.arange(C, device=h.device)
+    step = max(1, _PLAIN_CHUNK // (4 * R * C * max(H, 1)))
+    for b0 in range(0, bg.n_blocks, step):
+        rb = bg.blk_rb[b0:b0 + step].long()
+        cnt = values[b0:b0 + step].float()
+        if bg.values_layout == "cr":
+            cnt = cnt.transpose(1, 2)                          # [b, R, C]
+        rows = rb[:, None] * R + ar_r                          # [b, R]
+        cols = bg.blk_cb[b0:b0 + step].long()[:, None] * C + ar_c
+        s, d = (rows[:, :, None], cols[:, None, :]) if src_mode else (
+            cols[:, None, :], rows[:, :, None])
+        xr = (hp if src_mode else gp)[rows].view(-1, R, H, D)
+        xc = (gp if src_mode else hp)[cols].view(-1, C, H, D)
+        a_s = sp[s, :H]
+        a_d, rden, s2 = (sp[d, k * H:(k + 1) * H] for k in (1, 2, 3))
+        if magnitude:
+            xr, xc, s2 = xr.abs(), xc.abs(), -s2.abs()
+        te = torch.einsum("brhd,bchd->brch", xr, xc)           # [b, R, C, H]
+        alpha, dz = _edge_grad(a_s, a_d, rden, s2, ms, cnt[..., None], te,
+                               negative_slope)
+        part = dz.sum(dim=2)                                   # [b, R, H]
+        if src_mode:
+            ar = alpha.to(rdt).float() if rdt != torch.float32 else alpha
+            dh = torch.einsum("brch,bchd->brhd", ar, xc).reshape(-1, R, HD)
+            part = torch.cat([part, dh], dim=2)
+        acc.index_add_(0, rb, part)
+    return acc.view(RB * R, width)[:n]
+
+
+def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
+                   negative_slope, src_mode: bool, entry: str):
+    from .gat import _require_bwd
+    dev = h.device
+    _require_bwd(h, gbar, side, msrc, dev)
+    _ext.require(values, "values", dev, (torch.int8, h.dtype), 3)
+    _require_blocks(bg, dev)
+    R, C = bg.block_rows, bg.block_cols
+    if bg.values_layout != "cr" or tuple(values.shape) != (
+            bg.n_blocks, C, R):
+        raise ValueError(f"{entry} takes 'cr' values [B, C, R]; got "
+                         f"{bg.values_layout!r} {tuple(values.shape)}")
+    H = msrc.shape[1]
+    HD = h.shape[1]
+    n = h.shape[0]
+    # segments add their rows atomically: unvisited stripes stay 0
+    out = torch.zeros((n, H + (HD if src_mode else 0)), dtype=torch.float32,
+                      device=dev)
+    n_seg = int(bg.segments.shape[0])
+    if n_seg == 0 or n == 0:
+        return out
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            bg.segments.data_ptr(), bg.row_blocks.data_ptr(),
+            bg.blk_cb.data_ptr(), values.data_ptr(),
+            _ext.DTYPE_CODE[values.dtype], h.data_ptr(), gbar.data_ptr(),
+            _ext.DTYPE_CODE[h.dtype], side.data_ptr(), msrc.data_ptr(),
+            out.data_ptr(), n_seg, R, C, HD, H, n, float(negative_slope),
+            _ext.stream(h))
+    _ext.check(rc, entry)
+    return out
+
+
+def gat_dense_bwd_dad(bg: DenseBlockGraph, h: torch.Tensor,
+                      gbar: torch.Tensor, values: torch.Tensor,
+                      side: torch.Tensor, msrc: torch.Tensor, *,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """K7 wrapper: dad [n, H] float32 over the rb-major 'cr' dense split.
+    ``h`` and ``gbar`` [N, HD] share a dtype, ``values`` holds int8 counts
+    or is of that dtype, ``side`` [N, 4H] float32 is [a_s | a_d | 1/den |
+    s2] and ``msrc`` [1, H] the forward's shift bound.  CPU tensors take
+    the plain version; CUDA tensors launch or raise."""
+    if h.device.type == "cpu":
+        return _gat_dense_bwd_reference(bg, h, gbar, values, side, msrc,
+                                        src_mode=False,
+                                        negative_slope=negative_slope)
+    out = _gat_dense_bwd(bg, h, gbar, values, side, msrc, negative_slope,
+                         False, "gta_gat_dense_bwd_dad")
+    gat_dense_bwd_dad.launches += 1
+    return out
+
+
+gat_dense_bwd_dad.launches = 0
+
+
+def gat_dense_bwd_src(bg_t: DenseBlockGraph, h: torch.Tensor,
+                      gbar: torch.Tensor, values: torch.Tensor,
+                      side: torch.Tensor, msrc: torch.Tensor, *,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """K8 wrapper: [das | dh] [n, H + HD] float32 over the TRANSPOSED
+    graph's 'cr' dense split (rows = original senders); arguments as
+    :func:`gat_dense_bwd_dad`.  CPU tensors take the plain version; CUDA
+    tensors launch or raise."""
+    if h.device.type == "cpu":
+        return _gat_dense_bwd_reference(bg_t, h, gbar, values, side, msrc,
+                                        src_mode=True,
+                                        negative_slope=negative_slope)
+    out = _gat_dense_bwd(bg_t, h, gbar, values, side, msrc, negative_slope,
+                         True, "gta_gat_dense_bwd_src")
+    gat_dense_bwd_src.launches += 1
+    return out
+
+
+gat_dense_bwd_src.launches = 0
+
+
+def gat_dense_bwd(bg: DenseBlockGraph, bg_t: DenseBlockGraph,
+                  h_src: torch.Tensor, a_src: torch.Tensor,
+                  a_dst: torch.Tensor, den: torch.Tensor, out: torch.Tensor,
+                  gbar: torch.Tensor, *, negative_slope: float = 0.2):
+    """Dense-block attention gradients (dh, das, dad), the dense edges'
+    share of the full gradient.  ``den`` is the COMBINED forward
+    denominator [N, H] and ``out`` the combined normalized output, so the
+    tail's share (:func:`~.gat._gat_bwd_fused`) adds elementwise.  ``bg``
+    is the rb-major 'cr' split, ``bg_t`` the split of the transposed graph
+    on the same grid.  Either may be None (that split has no dense
+    blocks): dad comes from ``bg`` alone and (dh, das) from ``bg_t``
+    alone, so each is the share of the edges its own split sends dense."""
+    from .gat import bwd_node_terms
+    for b in (bg, bg_t):
+        if b is not None and b.values_layout != "cr":
+            raise ValueError("gat_dense_bwd needs 'cr' blocks")
+    dt = h_src.dtype
+    s2, rden = bwd_node_terms(gbar, out, den)
+    msrc = a_src.float().amax(0, keepdim=True)
+    side = torch.cat([a_src.float(), a_dst.float(), rden, s2],
+                     dim=1).contiguous()
+    hc = h_src.contiguous()
+    gc = gbar.to(dt).contiguous()
+
+    def vals(b):
+        return (b.values if _is_int(b.values) else b.values.to(dt)
+                ).contiguous()
+
+    n, H, HD = hc.shape[0], a_dst.shape[1], hc.shape[1]
+    dad = (gat_dense_bwd_dad(bg, hc, gc, vals(bg), side, msrc,
+                             negative_slope=negative_slope)
+           if bg is not None else hc.new_zeros((n, H), dtype=torch.float32))
+    sd = (gat_dense_bwd_src(bg_t, hc, gc, vals(bg_t), side, msrc,
+                            negative_slope=negative_slope)
+          if bg_t is not None
+          else hc.new_zeros((n, H + HD), dtype=torch.float32))
+    return sd[:, H:].to(dt), sd[:, :H], dad
+
+
+# ---------------------------------------------------------------------------
 # full-graph plain formulations and the hybrid wrappers
 # ---------------------------------------------------------------------------
 
@@ -349,12 +539,7 @@ def _gat_reference_g(g: GraphTensor, h, a_src, a_dst, slope,
     return out[:n]
 
 
-def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
-                *, weighted: bool = True) -> torch.Tensor:
-    """Density-split SpMM, [N, F] float32: the edge tail on K1 plus the
-    dense blocks on K2 (with the separable scales when the blocks hold
-    counts).  ``g`` and ``weighted`` serve the backward, not ported yet
-    (ROADMAP.md Queue 1 item 4)."""
+def _spmm_hybrid_run(hyb: HybridGraph, x: torch.Tensor) -> torch.Tensor:
     y = spmm(hyb.tiles, x)
     if hyb.dense is not None:
         yd = spmm_dense(hyb.dense, x, row_scale=hyb.row_scale,
@@ -363,34 +548,146 @@ def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
     return y
 
 
+class _SpmmHybrid(torch.autograd.Function):
+    """y = A x on the hybrid kernels; dx = Aᵀ ȳ on the same kernels over
+    the transposed graph's split ``hyb_t``, or without it autograd of the
+    full-graph segment formulation (the JAX package's fallback)."""
+
+    @staticmethod
+    def forward(ctx, x, hyb, hyb_t, g, weighted):
+        ctx.hyb_t, ctx.g, ctx.weighted = hyb_t, g, weighted
+        ctx.save_for_backward(x)
+        return _spmm_hybrid_run(hyb, x)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        (x,) = ctx.saved_tensors
+        if ctx.hyb_t is not None:
+            dx = _spmm_hybrid_run(ctx.hyb_t, gbar.to(x.dtype).contiguous())
+            return dx[: x.shape[0]].to(x.dtype), None, None, None, None
+        if ctx.g is None:
+            raise ValueError("spmm_hybrid backward needs hyb_t or g")
+        with torch.enable_grad():
+            xv = x.detach().requires_grad_(True)
+            y = _spmm_ref_g(ctx.g, xv, ctx.weighted)
+            (dx,) = torch.autograd.grad(y, xv, gbar.float())
+        return dx, None, None, None, None
+
+
+def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
+                *, weighted: bool = True,
+                hyb_t: Optional[HybridGraph] = None) -> torch.Tensor:
+    """Density-split SpMM, [N, F] float32: the edge tail on K1 plus the
+    dense blocks on K2 (with the separable scales when the blocks hold
+    counts).  Differentiable in ``x``: with ``hyb_t``, the split of the
+    transposed graph built the same way, the gradient dx = Aᵀ ȳ runs K1
+    and K2 over it; without, autograd of the full-graph formulation over
+    ``g`` (``weighted`` edge weights), which holds [E, F] edge tensors."""
+    return _SpmmHybrid.apply(x, hyb, hyb_t, g, weighted)
+
+
 def _a_s_kernel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a_src at the tail kernel's precision (operands in h's dtype, f32
     sum): msrc and the dense partial must see the logits the tail derives."""
     return h.float() @ w.to(h.dtype).float()
 
 
+def _gat_hybrid_raw(hyb: HybridGraph, h, sw, d, wmode: bool, slope: float):
+    """Raw [num | den] of the tail (K3) plus the dense blocks (K4) under
+    one shift bound."""
+    sv = _a_s_kernel(h, sw) if wmode else sw
+    msrc = sv.float().amax(0, keepdim=True)
+    acc = _gat_forward(hyb.tiles, h, None if wmode else sw, d,
+                       w_asrc=sw if wmode else None, negative_slope=slope,
+                       normalize=False, msrc=msrc)
+    if hyb.dense is not None:
+        accd = gat_dense_partial(hyb.dense, h, sv, d, msrc,
+                                 negative_slope=slope)
+        acc = acc + accd[: acc.shape[0]]
+    return acc
+
+
+class _GatHybrid(torch.autograd.Function):
+    """gat_hybrid with the kernel backward: the tail's share on K5/K6
+    (:func:`~.gat._gat_bwd_fused`) plus the dense share on K7/K8
+    (:func:`gat_dense_bwd`), both from the combined den and output, added
+    in float32.  Each split covers every edge once, so the forward split
+    gives dad and the twin (dh, das) whichever of them has dense blocks.
+    Without a twin, autograd of the full-graph formulation, unweighted as
+    the attention kernels are."""
+
+    @staticmethod
+    def forward(ctx, h, sw, d, hyb, hyb_t, g, slope, wmode):
+        acc = _gat_hybrid_raw(hyb, h, sw, d, wmode, slope)
+        H = d.shape[1]
+        HD = h.shape[1]
+        num, den = acc[:, :HD], acc[:, HD:]
+        y = num / torch.clamp(den, min=1e-20).repeat_interleave(HD // H,
+                                                                dim=1)
+        ctx.hyb, ctx.hyb_t, ctx.g = hyb, hyb_t, g
+        ctx.slope, ctx.wmode = slope, wmode
+        if hyb_t is None:
+            ctx.save_for_backward(h, sw, d)
+        else:
+            ctx.save_for_backward(h, sw, d, y, den)
+        return y
+
+    @staticmethod
+    def backward(ctx, gbar):
+        from .gat import _gat_bwd_fused
+        none = (None,) * 5
+        if ctx.hyb_t is None:
+            return _gat_hybrid_fallback_grads(ctx, gbar) + none
+        h, sw, d, y, den = ctx.saved_tensors
+        hyb, hyb_t, slope = ctx.hyb, ctx.hyb_t, ctx.slope
+        s_all = _a_s_kernel(h, sw) if ctx.wmode else sw
+        dh, das, dad = _gat_bwd_fused(hyb.tiles, hyb_t.tiles, h, s_all, d,
+                                      den, y, gbar, slope)
+        if hyb.dense is not None or hyb_t.dense is not None:
+            dhd, dasd, dadd = gat_dense_bwd(hyb.dense, hyb_t.dense, h, s_all,
+                                            d, den, y, gbar,
+                                            negative_slope=slope)
+            dh = (dh.float() + dhd.float()).to(h.dtype)
+            das = das.float() + dasd
+            dad = dad.float() + dadd
+        if ctx.wmode:
+            # the chain rule through a_s = h @ w, in float32
+            das32 = das.float()
+            dh = (dh.float() + das32 @ sw.float().T).to(h.dtype)
+            dw = (h.float().T @ das32).to(sw.dtype)
+            return (dh, dw, dad.to(d.dtype)) + none
+        return (dh, das.to(sw.dtype), dad.to(d.dtype)) + none
+
+
+def _gat_hybrid_fallback_grads(ctx, gbar):
+    """(dh, dsw, dad) by autograd of the full-graph formulation over
+    ``ctx.g``, for a call without a twin: unweighted, since hybrid
+    attention graphs are built unit-weight, so a symmetric-norm ``g``
+    still gets the gradient of the function the kernels compute."""
+    if ctx.g is None:
+        raise ValueError("gat_hybrid backward needs hyb_t or g")
+    h, sw, d = ctx.saved_tensors
+    with torch.enable_grad():
+        hv, sv, dv = (t.detach().requires_grad_(True) for t in (h, sw, d))
+        a_s = hv.float() @ sv.float() if ctx.wmode else sv
+        y = _gat_reference_g(ctx.g, hv, a_s, dv, ctx.slope, weighted=False)
+        return torch.autograd.grad(y, (hv, sv, dv), gbar.float())
+
+
 def gat_hybrid(hyb: HybridGraph, g: Optional[GraphTensor],
                h_src: torch.Tensor, a_src: Optional[torch.Tensor],
                a_dst: torch.Tensor, *, negative_slope: float = 0.2,
-               w_asrc: Optional[torch.Tensor] = None) -> torch.Tensor:
+               w_asrc: Optional[torch.Tensor] = None,
+               hyb_t: Optional[HybridGraph] = None) -> torch.Tensor:
     """Density-split GAT attention, [N, HD] float32.  The tail (K3) and the
     dense blocks (K4) accumulate raw [num | den] under ONE shift bound (the
     global per-head max of a_src), so the combine is one add and divide.
     ``w_asrc`` [HD, H] replaces ``a_src`` when a_src is a linear map of h:
-    the tail derives a_s in-kernel and msrc and the dense partial use the
-    same-precision values.  The backward is ROADMAP.md Queue 2 #6-#9."""
-    H = a_dst.shape[1]
-    HD = h_src.shape[1]
-    D = HD // H
-    sv = _a_s_kernel(h_src, w_asrc) if w_asrc is not None else a_src
-    msrc = sv.float().amax(0, keepdim=True)
-    acc = _gat_forward(hyb.tiles, h_src,
-                       None if w_asrc is not None else a_src, a_dst,
-                       w_asrc=w_asrc, negative_slope=negative_slope,
-                       normalize=False, msrc=msrc)
-    if hyb.dense is not None:
-        accd = gat_dense_partial(hyb.dense, h_src, sv, a_dst, msrc,
-                                 negative_slope=negative_slope)
-        acc = acc + accd[: acc.shape[0]]
-    num, den = acc[:, :HD], acc[:, HD:]
-    return num / torch.clamp(den, min=1e-20).repeat_interleave(D, dim=1)
+    the tail derives a_s in-kernel and msrc, the dense partial and the
+    backward use the same-precision values, and the gradient is (dh, dw,
+    dad).  ``hyb_t``, the split of the transposed graph on the same grid,
+    runs the backward on kernels K5-K8; without it the backward
+    differentiates the full-graph formulation over ``g``."""
+    wmode = w_asrc is not None
+    return _GatHybrid.apply(h_src, w_asrc if wmode else a_src, a_dst, hyb,
+                            hyb_t, g, negative_slope, wmode)

@@ -1,6 +1,9 @@
-"""Fused GAT attention over edge tiles (forward).
+"""Fused GAT attention over edge tiles, and its tile-domain backward.
 
-Counterpart of the JAX package's ``ops/gat.py``.  The kernel is K3
+Counterpart of the JAX package's ``ops/gat.py``.  The backward kernels
+are K5 ``csrc/gat_bwd_tiles_dad.cu`` and K6 ``csrc/gat_bwd_tiles_src.cu``
+(replacing ``_gat_bwd_dad_kernel(_tt)`` and ``_gat_bwd_dsrc_kernel(_tt)``)
+behind :func:`_gat_bwd_fused`.  The forward kernel is K3
 ``csrc/gat_tiles.cu``, the Hopper replacement of the TPU kernels
 ``_gat_kernel_t`` and ``_gat_kernel``: per destination row it accumulates
 the softmax numerator and denominator of the edge attention under the
@@ -191,6 +194,207 @@ def _gat_forward(
                      negative_slope=negative_slope, normalize=normalize, **kw)
 
 
+# ---------------------------------------------------------------------------
+# tile-domain backward (K5, K6)
+#
+# Per head, with alpha the forward's weight of edge s -> d recomputed from
+# the saved combined denominator (alpha = p * mult / den[d], p under the
+# forward's shift bound):
+#   te = <gbar_d, h_s>,  dz = alpha (te - s2[d]) leaky'(a_s[s] + a_d[d])
+#   dad[d] += dz                  K5 over the forward tiling (rows = dst)
+#   das[s] += dz, dh[s] += alpha gbar_d   K6 over the transposed tiling
+# ``side`` [N, 4H] float32 packs [a_s | a_d | 1/den | s2] per node.
+# ---------------------------------------------------------------------------
+
+
+def _bwd_side(side: torch.Tensor, idx: torch.Tensor, H: int, part: int):
+    return side.index_select(0, idx)[:, part * H:(part + 1) * H]
+
+
+def _edge_grad(a_s, a_d, rden, s2, ms, mult, te, slope):
+    """alpha and dz of a batch of edges [e, H], float32, in the kernels'
+    order of operations."""
+    lraw = a_s + a_d
+    p = torch.exp(torch.clamp(_leaky(lraw, slope) - _leaky(ms + a_d, slope),
+                              max=60.0))
+    alpha = p * mult * rden
+    dz = alpha * (te - s2) * torch.where(lraw >= 0, 1.0, slope)
+    return alpha, dz
+
+
+def _gat_bwd_tiles_reference(tg: TiledGraph, h: torch.Tensor,
+                             gbar: torch.Tensor, side: torch.Tensor,
+                             msrc: torch.Tensor, *, src_mode: bool,
+                             negative_slope: float = 0.2,
+                             magnitude: bool = False) -> torch.Tensor:
+    """Plain version of K5 (``src_mode=False``: dad [n, H] over the forward
+    tiling) and K6 (``src_mode=True``: [das | dh] [n, H + HD] over the
+    transposed tiling, whose rows are the original senders), at the TPU
+    kernels' rounding points: the values scattered round to h's dtype
+    before the f32 sums (the side values arrive already rounded).
+    ``magnitude`` sums the magnitudes of the elementary terms instead
+    (alpha |leaky'| (sum |g h| + |s2|) for dz, |alpha g| for dh): the scale
+    of a check, since these sums cancel (a softmax gradient sums to zero
+    over a row's edges, and te - s2 may cancel too)."""
+    H = msrc.shape[1]
+    HD = h.shape[1]
+    D = HD // H
+    R, C, ET = tg.block_rows, tg.block_cols, tg.tile_edges
+    out = torch.zeros((tg.n_row_blocks * R, H + (HD if src_mode else 0)),
+                      dtype=torch.float32, device=h.device)
+    ms = msrc.float().reshape(1, H)
+    step = max(1, _PLAIN_CHUNK // max(ET * (2 * HD + 8 * H), 1))
+    for t0 in range(0, tg.n_tiles, step):
+        t1 = t0 + step
+        cb = tg.tile_cb[t0:t1].long()[:, None]
+        rb = tg.tile_rb[t0:t1].long()[:, None]
+        sl = tg.src_local[t0:t1].long()
+        dl = tg.dst_local[t0:t1].long()
+        valid = (cb >= 0) & (sl < C) & (dl < R)
+        row = (rb * R + dl)[valid]
+        col = (cb * C + sl)[valid]
+        s, d = (row, col) if src_mode else (col, row)
+        gd = gbar.index_select(0, d).float()
+        hs = h.index_select(0, s).float()
+        s2 = _bwd_side(side, d, H, 3)
+        if magnitude:
+            gd, hs, s2 = gd.abs(), hs.abs(), -s2.abs()
+        te = (hs * gd).view(-1, H, D).sum(-1)
+        alpha, dz = _edge_grad(
+            _bwd_side(side, s, H, 0), _bwd_side(side, d, H, 1),
+            _bwd_side(side, d, H, 2), s2, ms,
+            tg.weight[t0:t1].float()[valid][:, None], te, negative_slope)
+        v = (torch.cat([dz, alpha.repeat_interleave(D, dim=1) * gd], dim=1)
+             if src_mode else dz)
+        if h.dtype != torch.float32:
+            v = v.to(h.dtype).float()
+        out.index_add_(0, row, v.abs() if magnitude else v)
+    return out[: tg.n_node]
+
+
+def _require_bwd(h, gbar, side, msrc, dev):
+    H = msrc.shape[1]
+    HD = h.shape[1]
+    _ext.require(h, "h", dev, (torch.float32, torch.bfloat16), 2)
+    _ext.require(gbar, "gbar", dev, (h.dtype,), 2)
+    _ext.require(side, "side", dev, (torch.float32,), 2)
+    _ext.require(msrc, "msrc", dev, (torch.float32,), 2)
+    if HD % H or HD > 256 or H > 32:
+        raise ValueError(f"the backward kernels take HD % H == 0, HD <= 256, "
+                         f"H <= 32; got HD={HD}, H={H}")
+    if (tuple(gbar.shape) != tuple(h.shape)
+            or tuple(side.shape) != (h.shape[0], 4 * H)
+            or tuple(msrc.shape) != (1, H)):
+        raise ValueError(f"inconsistent shapes: h {tuple(h.shape)}, gbar "
+                         f"{tuple(gbar.shape)}, side {tuple(side.shape)}, "
+                         f"msrc {tuple(msrc.shape)}")
+
+
+def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
+                   src_mode: bool, entry: str) -> torch.Tensor:
+    dev = h.device
+    _require_bwd(h, gbar, side, msrc, dev)
+    _ext.require(tg.weight, "weight", dev, (torch.float32, torch.bfloat16), 2)
+    for name in ("src_local", "dst_local"):
+        _ext.require(getattr(tg, name), name, dev, (torch.int16,), 2)
+    for name in ("tile_rb", "tile_cb"):
+        _ext.require(getattr(tg, name), name, dev, (torch.int32,), 1)
+    H = msrc.shape[1]
+    HD = h.shape[1]
+    # the kernel adds into a zeroed buffer with atomics
+    out = torch.zeros((tg.n_node, H + (HD if src_mode else 0)),
+                      dtype=torch.float32, device=dev)
+    if tg.n_tiles == 0 or tg.n_node == 0:
+        return out
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            tg.tile_rb.data_ptr(), tg.tile_cb.data_ptr(),
+            tg.src_local.data_ptr(), tg.dst_local.data_ptr(),
+            tg.weight.data_ptr(), _ext.DTYPE_CODE[tg.weight.dtype],
+            h.data_ptr(), gbar.data_ptr(), _ext.DTYPE_CODE[h.dtype],
+            side.data_ptr(), msrc.data_ptr(), out.data_ptr(), tg.n_tiles,
+            tg.block_rows, tg.block_cols, tg.tile_edges, HD, H,
+            min(h.shape[0], tg.n_node), float(negative_slope),
+            _ext.stream(h))
+    _ext.check(rc, entry)
+    return out
+
+
+def gat_bwd_tiles_dad(tg: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
+                      side: torch.Tensor, msrc: torch.Tensor, *,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """K5 wrapper: dad [n, H] float32 over the forward tail tiling.  ``h``
+    and ``gbar`` [N, HD] share a dtype; ``side`` [N, 4H] float32 is
+    [a_s | a_d | 1/den | s2]; ``msrc`` [1, H] is the forward's shift bound.
+    CPU tensors take the plain version; CUDA tensors launch or raise."""
+    if h.device.type == "cpu":
+        return _gat_bwd_tiles_reference(tg, h, gbar, side, msrc,
+                                        src_mode=False,
+                                        negative_slope=negative_slope)
+    out = _gat_bwd_tiles(tg, h, gbar, side, msrc, negative_slope, False,
+                         "gta_gat_bwd_tiles_dad")
+    gat_bwd_tiles_dad.launches += 1
+    return out
+
+
+gat_bwd_tiles_dad.launches = 0
+
+
+def gat_bwd_tiles_src(tg_t: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
+                      side: torch.Tensor, msrc: torch.Tensor, *,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """K6 wrapper: [das | dh] [n, H + HD] float32 over the TRANSPOSED tail
+    tiling (its rows are the original senders); arguments as
+    :func:`gat_bwd_tiles_dad`.  CPU tensors take the plain version; CUDA
+    tensors launch or raise."""
+    if h.device.type == "cpu":
+        return _gat_bwd_tiles_reference(tg_t, h, gbar, side, msrc,
+                                        src_mode=True,
+                                        negative_slope=negative_slope)
+    out = _gat_bwd_tiles(tg_t, h, gbar, side, msrc, negative_slope, True,
+                         "gta_gat_bwd_tiles_src")
+    gat_bwd_tiles_src.launches += 1
+    return out
+
+
+gat_bwd_tiles_src.launches = 0
+
+
+def bwd_node_terms(gbar: torch.Tensor, out: torch.Tensor,
+                   den: torch.Tensor) -> tuple:
+    """(s2, 1/den) [N, H] float32: s2 = <gbar, out> per head, the softmax
+    backward's row term, and the reciprocal of the combined denominator."""
+    n, H = den.shape
+    D = gbar.shape[1] // H
+    s2 = (gbar.float().view(n, H, D) * out.float().view(n, H, D)).sum(-1)
+    return s2, 1.0 / torch.clamp(den.float(), min=1e-20)
+
+
+def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h: torch.Tensor,
+                   a_s: torch.Tensor, a_d: torch.Tensor, den: torch.Tensor,
+                   out: torch.Tensor, gbar: torch.Tensor, slope: float,
+                   a_s_bound: Optional[torch.Tensor] = None):
+    """Tile-domain GAT attention backward: (dh, das, dad) of the tail
+    edges, no [E]-shaped intermediate.  ``den`` [N, H] is the forward's
+    (combined) raw denominator, ``out`` its normalized output; the shift
+    bound is the per-head max of ``a_s`` (or of ``a_s_bound``, the a_src
+    the forward bounded with).  As on the TPU, h, gbar, a_s, a_d, 1/den
+    and s2 enter the kernels rounded to h's dtype."""
+    H = a_d.shape[1]
+    dt = h.dtype
+    s2, rden = bwd_node_terms(gbar, out, den)
+    msrc = (a_s if a_s_bound is None else a_s_bound).float().amax(
+        0, keepdim=True)
+    side = torch.cat([v.to(dt).float() for v in (a_s, a_d, rden, s2)],
+                     dim=1).contiguous()
+    hc = h.contiguous()
+    gc = gbar.to(dt).contiguous()
+    dad = gat_bwd_tiles_dad(tg, hc, gc, side, msrc, negative_slope=slope)
+    sd = gat_bwd_tiles_src(tg_t, hc, gc, side, msrc, negative_slope=slope)
+    return sd[:, H:].to(dt), sd[:, :H].to(a_s.dtype), dad.to(a_d.dtype)
+
+
 def _gat_reference(tg: TiledGraph, h_src, a_src, a_dst, negative_slope):
     """Segment formulation over the tile edge lists with the EXACT per-row
     max (the JAX package's differentiable twin): it ignores multiplicity
@@ -265,7 +469,8 @@ def gat_attention(
     w_asrc: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused multi-head GAT edge-softmax + aggregation, [N, HD] float32
-    (forward; the tiled backward is ROADMAP.md Queue 2 #8-#9).  Pass
+    (forward only: its backward ``_gat_vjp`` is ROADMAP.md Queue 1 item
+    5; the hybrid path's backward runs :func:`_gat_bwd_fused`).  Pass
     ``w_asrc`` [HD, H] instead of ``a_src`` when a_src is a linear map of
     h."""
     return _gat_forward(tg, h_src, None if w_asrc is not None else a_src,

@@ -38,9 +38,11 @@ ROW_FLOOR = 1e-6
 
 
 class KernelCase(NamedTuple):
-    """One kernel-against-plain comparison.  ``split``: the num width of a
-    raw [num | den] output; ``terms``: the terms each output row sums
-    (:func:`row_terms`)."""
+    """One kernel-against-plain comparison.  ``split``: the width of the
+    first column group of the output (num of [num | den], das of [das |
+    dh]); ``terms``: the terms each output row sums (:func:`row_terms`);
+    ``scale``: per-element magnitudes that replace |ref| as the scale (the
+    sums of |term| of the backward kernels, whose sums cancel)."""
     kernel: str
     case: str
     dtype_name: str
@@ -48,6 +50,7 @@ class KernelCase(NamedTuple):
     ref: Any
     split: Optional[int] = None
     terms: Any = None
+    scale: Any = None
 
 
 def row_terms(graph):
@@ -77,16 +80,18 @@ def kernel_error(c: KernelCase) -> Tuple[float, float]:
     takes; the case passes at or below 1).
 
     A row's bound is its scale times max(KERNEL_TOL, SUM_ORDER sqrt(terms)
-    u).  The scale is max |ref| over the row's column group: the whole row,
-    or with ``split`` the num columns and the den columns apart, since den
+    u).  The scale is max |ref| (or ``c.scale``) over the row's column
+    group: the whole row, or with ``split`` the two groups apart, since den
     runs orders of magnitude above num.  A scale below ``ROW_FLOOR`` of the
     group's largest (or of 1) is raised to it, so an all-zero row must come
-    out zero."""
+    out zero.  Against a sum of |term| scale the bf16 tolerance covers any
+    number of one-ulp flips of rounded terms (each at most 2^-8 of its
+    term)."""
     import torch
     if c.out.numel() == 0:
         return 0.0, 0.0
     err = (c.out.float() - c.ref.float()).abs()
-    mag = c.ref.float().abs()
+    mag = (c.ref if c.scale is None else c.scale).float().abs()
     tol = torch.full((mag.shape[0],), KERNEL_TOL[c.dtype_name],
                      device=mag.device)
     if c.terms is not None:
@@ -238,3 +243,111 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                         D.gat_dense_blocks(bd, h, bd.values, a_s, a_d, ms),
                         D._gat_dense_reference(bd, h, bd.values, a_s, a_d,
                                                ms), HD)
+
+
+BWD_KERNELS = ("gat_bwd_tiles_dad", "gat_bwd_tiles_src", "gat_dense_bwd_dad",
+               "gat_dense_bwd_src")
+
+
+def bwd_side(rng: np.random.Generator, n: int, heads: int, dtype,
+             device, a_s=None):
+    """A side panel [n, 4H] float32 [a_s | a_d | 1/den | s2] of plausible
+    magnitudes, rounded to ``dtype`` (what the tail kernels read)."""
+    import torch
+    a_s = rng.normal(size=(n, heads)) if a_s is None else a_s
+    den = rng.uniform(0.5, 40.0, size=(n, heads))
+    vals = np.concatenate([a_s, rng.normal(size=(n, heads)), 1.0 / den,
+                           rng.normal(size=(n, heads))], axis=1)
+    return torch.tensor(vals, dtype=dtype, device=device).float()
+
+
+def bwd_runs(tg, tg_t, bg, bg_t, h, gbar, side, msrc):
+    """{kernel: (kernel call, plain call, magnitude call, split)} of K5-K8
+    on one forward / transposed pair of tail tilings and dense splits."""
+    from ..ops import dense as D
+    from ..ops import gat as A
+    H = msrc.shape[1]
+
+    def tail(tgx, src):
+        kern = A.gat_bwd_tiles_src if src else A.gat_bwd_tiles_dad
+        return (lambda: kern(tgx, h, gbar, side, msrc),
+                lambda: A._gat_bwd_tiles_reference(tgx, h, gbar, side, msrc,
+                                                   src_mode=src),
+                lambda: A._gat_bwd_tiles_reference(tgx, h, gbar, side, msrc,
+                                                   src_mode=src,
+                                                   magnitude=True),
+                H if src else None)
+
+    def dense(bgx, src):
+        kern = D.gat_dense_bwd_src if src else D.gat_dense_bwd_dad
+        return (lambda: kern(bgx, h, gbar, bgx.values, side, msrc),
+                lambda: D._gat_dense_bwd_reference(bgx, h, gbar, bgx.values,
+                                                   side, msrc, src_mode=src),
+                lambda: D._gat_dense_bwd_reference(bgx, h, gbar, bgx.values,
+                                                   side, msrc, src_mode=src,
+                                                   magnitude=True),
+                H if src else None)
+
+    return {"gat_bwd_tiles_dad": tail(tg, False),
+            "gat_bwd_tiles_src": tail(tg_t, True),
+            "gat_dense_bwd_dad": dense(bg, False),
+            "gat_dense_bwd_src": dense(bg_t, True)}
+
+
+def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K5-K8 on the edge-case graph and its transpose, in float32 and
+    bfloat16, at 4 heads of 32 and 1 head of 41 (unaligned rows): the
+    hybrid split's tails (a merged slot of more than 127 copies, pad slots,
+    a dead tile made by hand in each tiling) and 'cr' count blocks with an
+    unvisited row block; the gap row's sources sit past the shift-bound
+    gap.  Checked against the plain versions, scaled by each output cell's
+    sum of elementary-term magnitudes (the plain versions' ``magnitude``
+    mode)."""
+    import dataclasses
+
+    import torch
+
+    from .. import graph as G
+    s, r, n, _ = edge_case_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    hg_t, _ = G.transpose_host_graph(hg)
+    # min_nnz 100: the four community blocks go dense, the cross blocks
+    # stay in the tails
+    kw = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=100,
+              unit_weight=True, values_dtype=np.int8, block_layout="cr",
+              device=device)
+    hy, hy_t = G.hybrid_graph(hg, **kw), G.hybrid_graph(hg_t, **kw)
+    if float(hy.tiles.weight.float().max()) <= 1.0 or float(
+            hy_t.tiles.weight.float().max()) <= 1.0:
+        raise AssertionError("fixture lost its merged multi-edge slot")
+
+    def dead(tg):
+        cb = tg.tile_cb.clone()
+        cb[0] = -1
+        return dataclasses.replace(tg, tile_cb=cb)
+
+    tg, tg_t = dead(hy.tiles), dead(hy_t.tiles)
+    terms = {"gat_bwd_tiles_dad": row_terms(tg),
+             "gat_bwd_tiles_src": row_terms(tg_t),
+             "gat_dense_bwd_dad": row_terms(hy.dense)[:n],
+             "gat_dense_bwd_src": row_terms(hy_t.dense)[:n]}
+    rng = np.random.default_rng(seed)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for H, HD in ((4, 128), (1, 41)):
+            h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
+                             device=device)
+            gbar = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
+                                device=device)
+            a_s = gap_a_src(rng, n, H)
+            msrc = torch.tensor(a_s.max(0, keepdims=True), device=device)
+            # the tail kernels read side values rounded to the compute
+            # dtype, the dense kernels float32 ones
+            for tail, side_dt in ((True, dt), (False, torch.float32)):
+                side = bwd_side(rng, n, H, side_dt, device, a_s=a_s)
+                runs = bwd_runs(tg, tg_t, hy.dense, hy_t.dense, h, gbar,
+                                side, msrc)
+                for k, (kern, plain, mag, split) in runs.items():
+                    if k.startswith("gat_bwd_tiles") == tail:
+                        yield KernelCase(k, f"H={H} HD={HD}", name, kern(),
+                                         plain(), split, terms[k], mag())

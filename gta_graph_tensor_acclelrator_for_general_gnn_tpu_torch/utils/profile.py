@@ -1,11 +1,14 @@
-"""Where the device time of one served request goes.
+"""Where the device time of one served request, or one training step,
+goes.
 
-Builds the serving slice of ``chip_smoke.py`` (GCN-2l and GAT-2l at the
-Reddit widths on a 232,965-node synthetic community graph), serves three
-warm-up bf16 requests per model, then traces one more with
-``torch.profiler`` and prints:
+Builds the slice of ``chip_smoke.py`` (GCN-2l and GAT-2l at the Reddit
+widths on a 232,965-node synthetic community graph), serves three warm-up
+bf16 requests per model, then traces one more with ``torch.profiler``;
+with ``--train`` it also splits the transposed graph, takes one warm-up
+bf16 AdamW step per model (``models/train.make_train_step``, full batch)
+and traces the next.  For each it prints:
 
-- the request's host wall time, synchronised before and after;
+- the host wall time, synchronised before and after;
 - the device's busy time: the union of the trace's kernel, memcpy and
   memset intervals, so that overlapping work counts once (summing
   ``key_averages()`` rows would count an operator and its kernels twice);
@@ -14,7 +17,7 @@ warm-up bf16 requests per model, then traces one more with
 
 Needs one CUDA device::
 
-    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train]
 
 Chrome traces go to ``build/profile/`` at the repository root (or
 ``--out``).
@@ -75,14 +78,15 @@ def summarize(events: List[Dict], wall_ms: float) -> Dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=OUT_DIR)
+    ap.add_argument("--train", action="store_true",
+                    help="also trace one bf16 training step per model")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
-
     from .. import graph as G
     from ..compiler.fusion import hybrid_schedules
     from ..data.datasets import synthetic_coo
+    from ..models import train as TT
     from ..models.zoo import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,37 +104,57 @@ def main(argv=None) -> int:
     args.out.mkdir(parents=True, exist_ok=True)
     print(f"device {torch.cuda.get_device_name(0)}; graph N={hg.n_node} "
           f"E={hg.n_edge}", flush=True)
+    # learnable labels for the training step: a linear probe of x
+    wy = torch.tensor(np.random.default_rng(1).standard_normal(
+        (F_IN, N_CLASS), dtype=np.float32), device=dev)
+    y = (x @ wy).argmax(dim=1)
+    mask = torch.ones(hg.n_node, dtype=torch.bool, device=dev)
     for net in ("GCN", "GAT"):
         model = build_model(net, F_IN, N_CLASS, hidden=HIDDEN, n_layers=2,
                             reorder=net == "GCN", heads=HEADS,
                             generator=gen, device=dev)
         fwd = model.make_apply(torch.bfloat16,
                                schedules=hybrid_schedules(model.layers),
-                               host_graph=hg, device=dev)
+                               host_graph=hg, device=dev,
+                               build_transpose=args.train)
         params = dict(model.params)
         with torch.inference_mode():
             for _ in range(3):
                 fwd(params, g, x)
-            torch.cuda.synchronize(dev)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                fwd(params, g, x)
-                torch.cuda.synchronize(dev)
-                wall = (time.perf_counter() - t0) * 1e3
-        path = args.out / f"trace_{net}.json"
-        prof.export_chrome_trace(str(path))
-        events = device_events(json.loads(path.read_text()))
-        if not events:
-            raise RuntimeError("the trace holds no device events")
-        st = summarize(events, wall)
-        print(f"{net}-2l bf16 request: wall {st['wall_ms']:.3f} ms "
-              f"(profiled), device busy {st['busy_ms']:.3f} ms, idle share "
-              f"{st['idle_share']:.3f}", flush=True)
-        for name, t, c in st["by_name"][:14]:
-            print(f"  {t:9.3f} ms  {c:3d}x  {name[:90]}", flush=True)
+            _trace(f"{net}-2l bf16 request", args.out / f"trace_{net}.json",
+                   lambda: fwd(params, g, x), dev)
+        if args.train:
+            state = TT.TrainState(model.params,
+                                  TT.adamw(model.params, 1e-2))
+            step = TT.make_train_step(fwd)
+            step(state, g, x, y, mask)
+            _trace(f"{net}-2l bf16 training step",
+                   args.out / f"trace_{net}_train.json",
+                   lambda: step(state, g, x, y, mask), dev)
     return 0
+
+
+def _trace(what: str, path: Path, fn, dev) -> None:
+    """Trace one synchronised call of ``fn`` and print its summary."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(path))
+    events = device_events(json.loads(path.read_text()))
+    if not events:
+        raise RuntimeError("the trace holds no device events")
+    st = summarize(events, wall)
+    print(f"{what}: wall {st['wall_ms']:.3f} ms (profiled), device busy "
+          f"{st['busy_ms']:.3f} ms, idle share {st['idle_share']:.3f}",
+          flush=True)
+    for name, t, c in st["by_name"][:16]:
+        print(f"  {t:9.3f} ms  {c:3d}x  {name[:90]}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-"""PyTorch port: the hand-written CUDA kernels K1-K4 against their plain
-PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases``.
+"""PyTorch port: the hand-written CUDA kernels K1-K8 against their plain
+PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases`` (the
+forward kernels K1-K4) and ``utils/fixtures.bwd_kernel_cases`` (the GAT
+backward kernels K5-K8).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed.  On a machine with a CUDA device:
@@ -10,7 +12,8 @@ JAX is not installed.  On a machine with a CUDA device:
 ``gpu`` test skips without a CUDA device: a CUDA kernel has no CPU mode.
 Tolerance: |kernel - plain| <= KERNEL_TOL[dtype] times each row's scale,
 num and den columns apart, widened only for f32 rows that sum more than
-1,759 terms (``utils/fixtures.kernel_error`` says why)."""
+1,759 terms (``utils/fixtures.kernel_error`` says why); the backward
+kernels' scale is each cell's sum of |term|, since their sums cancel."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -102,6 +105,29 @@ def test_profile_counts_overlapping_device_time_once():
     assert st["by_name"][0] == ("a", pytest.approx(2.0), 2)
 
 
+def _check_bwd_cases(device):
+    seen = set()
+    for c in fixtures.bwd_kernel_cases(device):
+        assert c.out.device == c.ref.device == device, (c.kernel, c.case)
+        fixtures.check_kernel(c)
+        seen.add((c.kernel, c.dtype_name))
+    assert seen == {(k, d) for k in fixtures.BWD_KERNELS
+                    for d in fixtures.KERNEL_TOL}
+
+
+def test_bwd_kernel_cases_run_on_cpu():
+    """The backward case list runs on the CPU, where every wrapper takes
+    its plain version; a fault planted in one cell of an output fails the
+    sum-of-|term| check."""
+    _check_bwd_cases(torch.device("cpu"))
+    c = next(c for c in fixtures.bwd_kernel_cases(torch.device("cpu"))
+             if c.kernel == "gat_dense_bwd_src")
+    bad = c.out.clone()
+    bad[7, 0] += 0.05 * float(c.scale[7].abs().max())
+    with pytest.raises(AssertionError):
+        fixtures.check_kernel(c._replace(out=bad))
+
+
 def test_kernel_cases_run_on_cpu():
     """The case list itself (graphs, inputs, wrappers) runs on the CPU,
     where every wrapper takes its plain version."""
@@ -118,3 +144,67 @@ def test_kernels_match_plain_versions_on_cuda():
     _ext.library()
     _check_cases(dev)
     torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+def test_bwd_kernels_match_plain_versions_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K5-K8 have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    _check_bwd_cases(dev)
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tail_only", ["forward", "twin"])
+def test_gat_hybrid_backward_on_cuda_when_one_split_has_no_dense_blocks(
+        monkeypatch, tail_only):
+    """With a twin, gat_hybrid's backward stays on the kernels even when
+    only one of the two splits has dense blocks: the dense backward kernel
+    of the split that has them launches (K7 for the forward split, K8 for
+    the twin), the full-graph formulation is never called, and the float32
+    gradients match the same call on CPU tensors (the plain versions)
+    within 1e-4 of each gradient's max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3-K8 have no CPU mode")
+    import numpy as np
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    hg_t, _ = G.transpose_host_graph(hg)
+    split = dict(block_rows=128, block_cols=128, tile_edges=128,
+                 unit_weight=True, values_dtype=np.int8, block_layout="cr")
+
+    def boom(*a, **k):
+        raise AssertionError("full-graph backward taken")
+
+    monkeypatch.setattr(D, "_gat_reference_g", boom)
+    grads = {}
+    for device in (torch.device("cpu"), dev):
+        # min_nnz 0 sends every edge of that split to the tail
+        hyb, twin = (G.hybrid_graph(g, min_nnz=0 if tail else 100,
+                                    device=device, **split)
+                     for g, tail in ((hg, tail_only == "forward"),
+                                     (hg_t, tail_only == "twin")))
+        assert (hyb.dense is None) == (tail_only == "forward")
+        assert (twin.dense is None) == (tail_only == "twin")
+        gen = torch.Generator().manual_seed(0)
+        h, a_s, a_d, gy = (torch.randn(shape, generator=gen) for shape in
+                           ((n, 16), (n, 4), (n, 4), (n, 16)))
+        tv = [t.to(device).requires_grad_(True) for t in (h, a_s, a_d)]
+        D.gat_dense_bwd_dad.launches = D.gat_dense_bwd_src.launches = 0
+        y = D.gat_hybrid(hyb, None, *tv, hyb_t=twin)
+        grads[device.type] = torch.autograd.grad(
+            (y * gy.to(device)).sum(), tv)
+    assert D.gat_dense_bwd_dad.launches == int(tail_only == "twin")
+    assert D.gat_dense_bwd_src.launches == int(tail_only == "forward")
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), err

@@ -39,7 +39,7 @@ GAT_TILE = dict(block_rows=128, block_cols=256, tile_edges=128,
 
 
 def _close(port, ref, tol=1e-5):
-    port = port.float().cpu().numpy()
+    port = port.detach().float().cpu().numpy()
     ref = np.asarray(ref, np.float32)
     assert port.shape == ref.shape
     bound = tol * max(1.0, float(np.abs(ref).max()))
@@ -100,7 +100,7 @@ def test_slice_forward_matches_jax(graphs, net):
     fwd = tm.make_apply(schedules=st, host_graph=ht)
     want = "spmm_hybrid" if net == "GCN" else "gat_hybrid"
     for fn in fwd.layer_fns:
-        hyb = [d for k, _, d in fn.plans if k == want]
+        hyb = [d for k, _, d, _ in fn.plans if k == want]
         assert len(hyb) == 1 and hyb[0].dense is not None
         assert hyb[0].n_dense_edges > 0 and hyb[0].n_sparse_edges > 0
     for f in (TSp.spmm_tiles, TDn.spmm_dense_blocks, TA.gat_tiles,
@@ -215,4 +215,4 @@ def test_cli_run_on_cpu(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["finite"] and out["out_shape"] == [200, 4]
     assert "latency_ms_median" not in out    # no device time from a CPU run
-    assert TCLI.main(["train"]) == 2
+    assert TCLI.main(["tune"]) == 2
