@@ -26,11 +26,26 @@ Reddit's node count, and checks every hand-written kernel on the way:
      loss and every parameter's gradient with autograd through the per-op
      path, then takes 1 warm-up and 4 timed bf16 AdamW steps per model
      through ``models/train.make_train_step``: each loss finite, the last
-     below the first, and every one of K1-K8 launched during the steps.
+     below the first, and every one of K1-K8 launched during the steps;
+  6. grouped tail: (a) K9 and K10 against their plain versions on the
+     fixture's grouped tilings; (b) the root bench's two Reddit recipes
+     (``bench.spmm_recipe``, ``bench.gat_recipe``: int8 dense blocks plus a
+     512²/ET128/G16 grouped tail, F = 128 and H = 4 x 32, bf16) on the same
+     graph, K9 and K10 checked and timed at their shapes, each recipe served
+     and compared with the same split built with a per-tile tail; (c)
+     GCN-2l lowered on PATH_GROUPED 512²/ET128 with the transposed twin:
+     one bf16 and one float32 request against the per-op path, float32
+     gradients against per-op autograd (K9 launched in the backward), and 1
+     warm-up and 2 timed bf16 AdamW steps.
 
-Prints one JSON line of kernel results, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises: the script
-then exits non-zero without that line.  Needs one CUDA device.
+Prints one JSON line of kernel results (per kernel its launches on the main
+path, its worst error at the slice's shapes, and summed over its timed
+calls its time, the plain version's, its bound on the card from
+``utils/roofline`` and the time of the library call that computes the same
+function, ``torch.sparse.mm`` for K1, K2 and K9, else null), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises: the script then exits non-zero without that line.  Needs
+one CUDA device.
 
     python3 chip_smoke.py                 # E = 11,461,589 (a tenth of Reddit)
     python3 chip_smoke.py --edges 114615892
@@ -71,6 +86,10 @@ KERNELS = {
                               replaces=f"{JAX_PKG}/ops/dense.py:625"),
     "gat_dense_bwd_src": dict(source=f"{PKG}/csrc/gat_dense_bwd_src.cu",
                               replaces=f"{JAX_PKG}/ops/dense.py:667"),
+    "spmm_grouped": dict(source=f"{PKG}/csrc/spmm_grouped.cu",
+                         replaces=f"{JAX_PKG}/ops/spmm.py:45"),
+    "gat_grouped": dict(source=f"{PKG}/csrc/gat_grouped.cu",
+                        replaces=f"{JAX_PKG}/ops/gat.py:323"),
 }
 # kernel path vs per-op path: the per-op path rounds only the matmul
 # operands to bf16, the kernels also their gathered rows and products
@@ -96,7 +115,32 @@ class Checks:
 
     def __init__(self):
         self.worst = {}      # kernel -> max abs err at the slice shapes
-        self.times = {}      # kernel -> {call: (ms, plain_ms)}
+        # kernel -> {call: (ms, plain_ms, roofline.Work, library ms or None)}
+        self.times = {}
+        self.csr = {}        # (graph id, dtype) -> CSR of its edges
+
+    def sparse_mm(self, graph, x):
+        """The library call that computes K1's, K2's and K9's function:
+        ``torch.sparse.mm`` with a CSR matrix of ``graph``'s edges in x's
+        dtype (built once, outside the timing)."""
+        import torch
+
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline
+        key = (id(graph), x.dtype)
+        if key not in self.csr:
+            self.csr[key] = roofline.csr_of(graph, x.dtype, x.shape[0])
+        a = self.csr[key]
+        try:
+            torch.sparse.mm(a, x)
+        except NotImplementedError as e:
+            # a PyTorch build without this dtype's sparse product: the
+            # yardstick runs in float32 and says so
+            say(f"  torch.sparse.mm in {x.dtype}: {e}; timed in float32")
+            key, x = (id(graph), torch.float32), x.float()
+            if key not in self.csr:
+                self.csr[key] = roofline.csr_of(graph, x.dtype, x.shape[0])
+            a = self.csr[key]
+        return lambda: torch.sparse.mm(a, x)
 
     def compare(self, c, slice_shape: bool = False) -> None:
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
@@ -109,10 +153,13 @@ class Checks:
             self.worst[c.kernel] = max(self.worst.get(c.kernel, 0.0), err)
 
     def slice_case(self, kernel, case, dtype_name, kern, plain, dev, *,
-                   split=None, terms=None, scale=None, timed_as=None):
+                   split=None, terms=None, scale=None, timed_as=None,
+                   work=None, library=None):
         """Compare ``kern()`` with ``plain()`` at a shape of the slice;
         with ``timed_as``, also time both (CUDA events, median of REPEATS)
-        as that call of a request or step."""
+        as that call of a request or step, beside the call's bound
+        (``work()``, a ``roofline.Work``) and the library call's time
+        (``library``, where one PyTorch call computes the same function)."""
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase
         self.compare(KernelCase(kernel, case, dtype_name, kern(), plain(),
@@ -120,9 +167,15 @@ class Checks:
         if timed_as is not None:
             ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS)
             ms_p = median_ms(plain, device=dev, warmup=1, repeats=REPEATS)
-            self.times.setdefault(kernel, {})[timed_as] = (ms_k, ms_p)
-            say(f"  {kernel:18s} {timed_as:9s} kernel {ms_k:.4f} ms   "
-                f"plain {ms_p:.4f} ms")
+            ms_l = (median_ms(library, device=dev, warmup=1, repeats=REPEATS)
+                    if library is not None else None)
+            w = work()
+            self.times.setdefault(kernel, {})[timed_as] = (ms_k, ms_p, w,
+                                                           ms_l)
+            lib = "" if ms_l is None else f"   torch.sparse.mm {ms_l:.4f} ms"
+            say(f"  {kernel:18s} {timed_as:11s} kernel {ms_k:.4f} ms   "
+                f"plain {ms_p:.4f} ms   bound {w.bound_ms:.4f} ms "
+                f"({w.bound_by}){lib}")
 
 
 def edge_case_checks(checks: Checks, dev) -> None:
@@ -143,6 +196,7 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
 
     gen = torch.Generator(device=dev)
@@ -165,29 +219,39 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
             a_d = torch.randn((n, H), generator=gen, device=dev).to(dt).float()
             a_s = h.float() @ w.float()
             ms = a_s.amax(0, keepdim=True)
+            # kernel, plain version, column split, bound, library call
             runs = {
-                "spmm_tiles": (lambda: SP.spmm_tiles(tg, x, tg.weight),
-                               lambda: SP._spmm_reference(tg, x), None),
+                "spmm_tiles": (
+                    lambda: SP.spmm_tiles(tg, x, tg.weight),
+                    lambda: SP._spmm_reference(tg, x), None,
+                    lambda: RL.spmm_tail(tg, x, tg.weight.element_size()),
+                    checks.sparse_mm(tg, x) if timed else None),
                 "spmm_dense_blocks": (
                     lambda: D.spmm_dense_blocks(bg, xs, bg.values),
-                    lambda: D._spmm_dense_reference(bg, xs, bg.values), None),
+                    lambda: D._spmm_dense_reference(bg, xs, bg.values), None,
+                    lambda: RL.spmm_dense(bg, xs),
+                    checks.sparse_mm(bg, xs) if timed else None),
                 "gat_tiles": (
                     lambda: A.gat_tiles(tga, h, tga.weight, a_d, ms, w_asrc=w,
                                         normalize=False),
                     lambda: A._gat_tiles_reference(tga, h, tga.weight, a_d,
                                                    ms, w_asrc=w,
-                                                   normalize=False), HD),
+                                                   normalize=False), HD,
+                    lambda: RL.gat_tail(tga, h, H, tga.weight.element_size()),
+                    None),
                 "gat_dense_blocks": (
                     lambda: D.gat_dense_blocks(bga, h, bga.values, a_s, a_d,
                                                ms),
                     lambda: D._gat_dense_reference(bga, h, bga.values, a_s,
-                                                   a_d, ms), HD),
+                                                   a_d, ms), HD,
+                    lambda: RL.gat_dense(bga, h, H), None),
             }
-            for kname, (kern, plain, split) in runs.items():
+            for kname, (kern, plain, split, work, lib) in runs.items():
                 checks.slice_case(kname, f"layer {li} F={F} H={H} HD={HD}",
                                   name, kern, plain, dev, split=split,
                                   terms=terms[kname],
-                                  timed_as=f"layer {li}" if timed else None)
+                                  timed_as=f"layer {li}" if timed else None,
+                                  work=work, library=lib)
 
 
 def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
@@ -199,6 +263,7 @@ def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
 
     gen = torch.Generator(device=dev)
@@ -214,12 +279,16 @@ def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
                 "spmm_tiles", f"layer {li} twin F={F}", name,
                 lambda: SP.spmm_tiles(tg, x, tg.weight),
                 lambda: SP._spmm_reference(tg, x), dev,
-                terms=row_terms(tg), timed_as=timed)
+                terms=row_terms(tg), timed_as=timed,
+                work=lambda: RL.spmm_tail(tg, x, tg.weight.element_size()),
+                library=checks.sparse_mm(tg, x) if timed else None)
             checks.slice_case(
                 "spmm_dense_blocks", f"layer {li} twin F={F}", name,
                 lambda: D.spmm_dense_blocks(bg, xs, bg.values),
                 lambda: D._spmm_dense_reference(bg, xs, bg.values), dev,
-                terms=row_terms(bg), timed_as=timed)
+                terms=row_terms(bg), timed_as=timed,
+                work=lambda: RL.spmm_dense(bg, xs),
+                library=checks.sparse_mm(bg, xs) if timed else None)
 
 
 def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
@@ -232,6 +301,7 @@ def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
 
     rng = np.random.default_rng(0)
@@ -254,6 +324,16 @@ def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
                 side = fixtures.bwd_side(rng, n, H, side_dt, dev, a_s=a_s)
                 runs = fixtures.bwd_runs(hyb.tiles, twin.tiles, hyb.dense,
                                          twin.dense, h, gbar, side, msrc)
+                mb = hyb.tiles.weight.element_size()
+                works = {
+                    "gat_bwd_tiles_dad": lambda: RL.gat_bwd_tail(
+                        hyb.tiles, h, H, mb, False),
+                    "gat_bwd_tiles_src": lambda: RL.gat_bwd_tail(
+                        twin.tiles, h, H, mb, True),
+                    "gat_dense_bwd_dad": lambda: RL.gat_dense_bwd(
+                        hyb.dense, h, H, False),
+                    "gat_dense_bwd_src": lambda: RL.gat_dense_bwd(
+                        twin.dense, h, H, True)}
                 for k, (kern, plain, mag, split) in runs.items():
                     if k.startswith("gat_bwd_tiles") != tail:
                         continue
@@ -261,7 +341,7 @@ def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
                         k, f"layer {li} H={H} HD={HD}", name, kern, plain,
                         dev, split=split, terms=terms[k], scale=mag(),
                         timed_as=(f"layer {li}" if dt == torch.bfloat16
-                                  else None))
+                                  else None), work=works[k])
 
 
 def training_phase(checks: Checks, models, fwd, hg, g, dev):
@@ -398,6 +478,277 @@ def training_phase(checks: Checks, models, fwd, hg, g, dev):
     for (mname, path), v in sorted(step_ms.items()):
         say(f"step {mname} bf16 {path}: median {statistics.median(v):.3f} ms"
             f" over {len(v)} steps {['%.3f' % t for t in v]}")
+    return launches
+
+
+def _rel_err(y, ref) -> float:
+    return float((y - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def bench_recipes(checks: Checks, hg, dev) -> dict:
+    """Phase 6b: the root bench's two Reddit recipes on the smoke's graph.
+    K9 and K10 checked (bf16 and float32) and timed (bf16) at the recipes'
+    tail shapes, K10 also at GAT-2l's last layer (1 head of 41); then each
+    recipe serves requests (REPEATS after a warm-up, timed with CUDA events)
+    and its answer is held to the same split with a per-tile tail, within
+    the bf16 end-to-end bound.  Returns K9's and K10's launches during the
+    requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import bench as B
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
+
+    recipes = {}
+    for name, build in (("SpMM", B.spmm_recipe), ("GAT", B.gat_recipe)):
+        for tail in ("grouped", "tiles"):
+            rc = build(hg, dev, tail)
+            recipes[(name, tail)] = rc
+            say(f"  {name} recipe, {tail} tail: {rc.detail()}")
+
+    rs = recipes[("SpMM", "grouped")]
+    tg, x = rs.split.tiles, rs.inputs["x"]
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        w = None if tg.weight_all_unit else tg.weight
+        timed = dt == torch.bfloat16
+        checks.slice_case(
+            "spmm_grouped", "bench SpMM tail F=128", str(dt).split(".")[1],
+            lambda: SP.spmm_grouped(tg, xd, w),
+            lambda: SP._spmm_grouped_reference(tg, xd), dev,
+            terms=row_terms(tg), timed_as="bench" if timed else None,
+            work=lambda: RL.spmm_tail(tg, xd, 0 if w is None else 4),
+            library=checks.sparse_mm(tg, xd) if timed else None)
+    rg = recipes[("GAT", "grouped")]
+    tga = rg.split.tiles
+    terms = row_terms(tga)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for H, HD in ((HEADS, HIDDEN), (1, N_CLASS)):
+        for dt in (torch.bfloat16, torch.float32):
+            if HD == HIDDEN:
+                h, wa, ad = (rg.inputs[k] for k in ("h", "w_asrc", "a_dst"))
+            else:
+                h = torch.randn((hg.n_node, HD), generator=gen, device=dev)
+                wa = torch.randn((HD, H), generator=gen, device=dev) / HD**0.5
+                ad = torch.randn((hg.n_node, H), generator=gen, device=dev)
+            h, wa = h.to(dt), wa.to(dt)
+            ms = D._a_s_kernel(h, wa).amax(0, keepdim=True)
+            timed = dt == torch.bfloat16 and HD == HIDDEN
+            checks.slice_case(
+                "gat_grouped", f"bench GAT tail H={H} HD={HD}",
+                str(dt).split(".")[1],
+                lambda: A.gat_grouped(tga, h, ad, ms, wa),
+                lambda: A._gat_grouped_reference(tga, h, ad, ms, wa), dev,
+                split=HD, terms=terms, timed_as="bench" if timed else None,
+                work=lambda: RL.gat_tail(tga, h, H, 0 if tga.weight_all_unit
+                                         else 4))
+    del terms
+
+    counted = {"spmm_grouped": SP.spmm_grouped, "gat_grouped": A.gat_grouped}
+    for fn in counted.values():
+        fn.launches = 0
+    out = {}
+    with torch.inference_mode():
+        for name in ("SpMM", "GAT"):
+            run = recipes[(name, "grouped")].run
+            ms = median_ms(run, device=dev, warmup=1, repeats=REPEATS)
+            out[name] = run()
+            say(f"  {name} recipe, grouped tail: request {ms:.3f} ms, "
+                f"{hg.n_edge / (ms * 1e-3) / 1e9:.3f} Gedge/s over "
+                f"{hg.n_edge} edges")
+    launches = {k: fn.launches for k, fn in counted.items()}
+    say(f"launches during the recipes' requests: {launches}")
+    with torch.inference_mode():
+        for name in ("SpMM", "GAT"):
+            run = recipes[(name, "tiles")].run
+            ms = median_ms(run, device=dev, warmup=1, repeats=REPEATS)
+            ref = run()
+            y = out[name]
+            if y.shape != ref.shape or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{name} recipe: output {y.shape}, "
+                                     "finite?")
+            rel = _rel_err(y, ref)
+            say(f"  {name} recipe, per-tile tail: request {ms:.3f} ms; "
+                f"grouped vs per-tile: relative {rel:.3e} (bound "
+                f"{E2E_TOL['bfloat16']:.0e})")
+            if not rel <= E2E_TOL["bfloat16"]:
+                raise AssertionError(f"{name} recipe: grouped tail differs "
+                                     f"from per-tile by {rel}")
+    return launches
+
+
+def grouped_gcn(checks: Checks, model, hg, g, dev) -> int:
+    """Phase 6c: GCN-2l on PATH_GROUPED 512²/ET128 (G = 16) with the
+    transposed twin, lowered once per dtype over one tile cache.  K9
+    checked at both layers' shapes on the tiling and its twin (timed in
+    bf16); a bf16 and a float32 request against the per-op path; float32
+    loss and gradients against per-op autograd, K9 launched in the
+    backward; 1 warm-up and 2 timed bf16 AdamW steps.  Returns K9's
+    launches during the requests, the gradient pass and the steps."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
+        classify_block, lower_schedule)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
+
+    tc = S.TileConfig(512, 512, 128, S.PATH_GROUPED)
+    scheds = []
+    for layer in model.layers:
+        part = S.aggregation_partition(layer)
+        scheds.append(S.Schedule(blocks=part, tiles=tuple(
+            tc if classify_block(layer, b, tc)[0] == "spmm_grouped"
+            else S.TileConfig(path=S.PATH_XLA) for b in part)))
+    cache: dict = {}
+    fns = {}
+    for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
+        t0 = time.perf_counter()
+        fns[dtn] = [lower_schedule(layer, s, hg, dt, device=dev,
+                                   build_transpose=True, tile_cache=cache)
+                    for layer, s in zip(model.layers, scheds)]
+        say(f"  {dtn} lowering (grouped tiling, transposed graph and twin "
+            f"on the first) {time.perf_counter() - t0:.1f} s")
+    (tg, twin), = {(id(d), id(t)): (d, t) for fn in fns["bfloat16"]
+                   for k, _, d, t in fn.plans if k == "spmm_grouped"}.values()
+    for what, t in (("tiling", tg), ("twin", twin)):
+        say(f"  GCN-2l grouped {what}: {t.n_chunks} chunks, {t.total_slots} "
+            f"slots for {RL.live_slots(t)} edges "
+            f"({t.total_slots / max(RL.live_slots(t), 1):.1f} slots per "
+            "edge)")
+
+    def stack(layer_fns):
+        def apply(params, gg, x):
+            for fn in layer_fns:
+                x = fn(params, gg, x)
+            return x
+        return apply
+
+    # Here the hub rows sit in the tail (up to ~209k terms in a row) and
+    # their random-sign terms cancel, so the f32 reordering error of the
+    # atomics scales with the sum of |terms|, not with |sum|: each cell is
+    # held to its sum of term magnitudes, as the backward kernels are.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for li, F in enumerate((HIDDEN, N_CLASS)):
+        for what, t in (("", tg), (" twin", twin)):
+            terms = row_terms(t)
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn((hg.n_node, F), generator=gen,
+                                device=dev).to(dt)
+                timed = dt == torch.bfloat16
+                checks.slice_case(
+                    "spmm_grouped", f"GCN l{li}{what} F={F}",
+                    str(dt).split(".")[1],
+                    lambda: SP.spmm_grouped(t, x, t.weight),
+                    lambda: SP._spmm_grouped_reference(t, x), dev,
+                    terms=terms, scale=SP._spmm_grouped_reference(
+                        t, x.abs(), weight=t.weight.abs()),
+                    timed_as=f"l{li}{what}" if timed else None,
+                    work=lambda: RL.spmm_tail(t, x, 4),
+                    library=checks.sparse_mm(t, x) if timed else None)
+
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.standard_normal((hg.n_node, F_IN),
+                                         dtype=np.float32), device=dev)
+    SP.spmm_grouped.launches = 0
+    with torch.inference_mode():
+        params = dict(model.params)
+        for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
+            y = stack(fns[dtn])(params, g, x)
+            ref = model.make_apply(dt)(params, g, x)
+            if tuple(y.shape) != (hg.n_node, N_CLASS) or not bool(
+                    torch.isfinite(y).all()):
+                raise AssertionError(f"GCN-2l grouped {dtn}: bad output")
+            rel = _rel_err(y, ref)
+            say(f"  GCN-2l grouped {dtn} request: relative {rel:.3e} to the "
+                f"per-op path (bound {E2E_TOL[dtn]:.0e})")
+            if not rel <= E2E_TOL[dtn]:
+                raise AssertionError(f"GCN-2l grouped {dtn}: {rel}")
+    say(f"  K9 launches in the two requests: {SP.spmm_grouped.launches}")
+    if SP.spmm_grouped.launches <= 0:
+        raise AssertionError("K9 was not launched in the forward")
+    wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS), dtype=np.float32),
+                      device=dev)
+    labels = (x @ wy).argmax(dim=1)
+    mask = torch.ones(hg.n_node, dtype=torch.bool, device=dev)
+    res = {}
+    for path, fn in (("kernel", stack(fns["float32"])),
+                     ("per-op", model.make_apply(None))):
+        model.zero_grad(set_to_none=True)
+        loss = TT.masked_cross_entropy(fn(dict(model.params), g, x), labels,
+                                       mask)
+        before = SP.spmm_grouped.launches
+        loss.backward()
+        if path == "kernel":
+            bwd = SP.spmm_grouped.launches - before
+            say(f"  K9 launches in the float32 backward: {bwd}")
+            if bwd <= 0:
+                raise AssertionError("K9 was not launched in the backward")
+        res[path] = (loss.item(), {k: p.grad.detach().clone()
+                                   for k, p in model.params.items()
+                                   if p.grad is not None})
+    (lk, gk), (lr, gr) = res["kernel"], res["per-op"]
+    rel = abs(lk - lr) / max(1.0, abs(lr))
+    say(f"  GCN-2l grouped float32 loss {lk:.6f}, per-op {lr:.6f}, relative "
+        f"{rel:.3e}")
+    if not rel <= GRAD_TOL["loss"] or set(gk) != set(gr):
+        raise AssertionError(f"GCN-2l grouped loss {lk} vs {lr}")
+    for k in gr:
+        err = float((gk[k] - gr[k]).abs().max()) / float(gr[k].abs().max())
+        say(f"  GCN-2l grouped d{k}: relative {err:.3e}")
+        if not (bool(torch.isfinite(gk[k]).all())
+                and err <= GRAD_TOL["grad"]):
+            raise AssertionError(f"GCN-2l grouped d{k}: {err}")
+    model.zero_grad(set_to_none=True)
+
+    state = TT.TrainState(model.params, TT.adamw(model.params, LR))
+    step = TT.make_train_step(stack(fns["bfloat16"]))
+    losses, times = [], []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, g, x, labels, mask)
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        if i > 0:
+            times.append(start.elapsed_time(end))
+    say(f"  GCN-2l grouped bf16 steps: losses "
+        f"{['%.5f' % v for v in losses]}, step ms "
+        f"{['%.3f' % t for t in times]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"GCN-2l grouped steps: losses {losses}")
+    model.zero_grad(set_to_none=True)
+    return SP.spmm_grouped.launches
+
+
+def grouped_phase(checks: Checks, model, hg, g, dev) -> dict:
+    """Phase 6; returns K9's and K10's launches on its main-path runs."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    say("== 6a grouped kernels K9, K10: edge cases")
+    for c in fixtures.grouped_kernel_cases(dev):
+        checks.compare(c)
+    say("== 6b the root bench's Reddit recipes on the smoke's graph")
+    launches = bench_recipes(checks, hg, dev)
+    checks.csr.clear()
+    say("== 6c GCN-2l on PATH_GROUPED with the transposed twin")
+    launches["spmm_grouped"] += grouped_gcn(checks, model, hg, g, dev)
+    checks.csr.clear()
+    say(f"launches of K9, K10 in phase 6: {launches}; phase 6 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched in phase 6")
     return launches
 
 
@@ -573,16 +924,27 @@ def main(argv=None) -> int:
             f" ms over {len(v)} requests {['%.3f' % t for t in v]}")
 
     launches = training_phase(checks, models, fwd, hg, g, dev)
+    checks.csr.clear()
+    del fwd
+    launches.update(grouped_phase(checks, models["GCN-2l"], hg, g, dev))
 
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []
     for k, meta in KERNELS.items():
-        # per bf16 training step: every call at both layers' shapes (K1
-        # and K2 also run GCN's backward over the twins)
-        ms_k = sum(t[0] for t in checks.times[k].values())
-        ms_p = sum(t[1] for t in checks.times[k].values())
+        # summed over the kernel's timed calls: K1-K8 per bf16 training
+        # step (both layers' shapes; K1 and K2 also GCN's backward over the
+        # twins); K9 one bench SpMM request plus one PATH_GROUPED GCN-2l
+        # step (forward and twin at both layers); K10 one bench GAT request
+        calls = list(checks.times[k].values())
+        bound_ms, bound_by = bound_of(c[2] for c in calls)
+        libs = [c[3] for c in calls]
         row = dict(name=k, route="cuda", source=meta["source"],
                    replaces=meta["replaces"], launches=launches[k],
-                   max_abs_err=checks.worst[k], ms=ms_k, plain_ms=ms_p)
+                   max_abs_err=checks.worst[k],
+                   ms=sum(c[0] for c in calls),
+                   plain_ms=sum(c[1] for c in calls), bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   library_ms=None if None in libs else sum(libs))
         if k in serving_launches:
             row["serving_launches"] = serving_launches[k]
         kernels.append(row)

@@ -3,10 +3,10 @@ op by op.
 
 Counterpart of the JAX package's ``compiler/fusion.py``.  Classification
 (:func:`classify_block`) is the JAX package's, so both packages agree on
-what each (block, TileConfig) lowers to.  This slice lowers the kinds
-``xla``, ``spmm``, ``spmm_hybrid``, ``gat`` and ``gat_hybrid``; every other
-kind raises ``NotImplementedError`` naming its ROADMAP.md item instead of
-running silently on the per-op path.
+what each (block, TileConfig) lowers to.  The port lowers the kinds
+``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat`` and
+``gat_hybrid``; every other kind raises ``NotImplementedError`` naming its
+ROADMAP.md item instead of running silently on the per-op path.
 """
 from __future__ import annotations
 
@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..graph import (GraphTensor, HostGraph, TiledGraph, hybrid_graph,
-                     separable_weight_scales, tile_graph,
+from ..graph import (GraphTensor, HostGraph, hybrid_graph, resolve_device,
+                     separable_weight_scales, tile_graph, tile_graph_grouped,
                      transpose_host_graph)
 from ..ops import dense as dense_mod
 from ..ops import gat as gat_mod
@@ -284,7 +284,6 @@ def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
 # kinds this slice does not lower yet, with the ROADMAP.md item that ports
 # each of them
 NOT_PORTED = {
-    "spmm_grouped": "Queue 1 item 7 (grouped tail)",
     "spmm_densefull": "Queue 1 item 9 (PATH_DENSEFULL)",
     "spmm_stream": "Queue 1 item 9 (chunked stream path)",
     "gat_stream": "Queue 1 item 9 (chunked stream path)",
@@ -294,17 +293,14 @@ NOT_PORTED = {
 }
 
 
-def _needs_grad(plan, ref, w_asrc_of) -> bool:
-    """True when autograd would need the gradient of a non-hybrid kernel
-    block: its kernels have no backward in the port yet."""
+def _gat_needs_grad(plan, ref, w_asrc_of) -> bool:
+    """True when autograd would need the gradient of a non-hybrid ``gat``
+    block: its backward (``_gat_vjp``) is not in the port yet."""
     if not torch.is_grad_enabled():
         return False
-    if isinstance(plan, _SpmmPlan):
-        ins = [ref(plan.in_op)]
-    else:
-        w = w_asrc_of(plan)
-        ins = [ref(plan.h_op), ref(plan.adst_op),
-               w if w is not None else ref(plan.asrc_op)]
+    w = w_asrc_of(plan)
+    ins = [ref(plan.h_op), ref(plan.adst_op),
+           w if w is not None else ref(plan.asrc_op)]
     return any(t.requires_grad for t in ins)
 
 
@@ -314,7 +310,7 @@ def lower_schedule(
     host_graph: HostGraph,
     compute_dtype: Optional[torch.dtype] = None,
     *,
-    device="cpu",
+    device=None,
     build_transpose: bool = False,
     tile_cache: Optional[Dict] = None,
 ) -> Callable[[Dict[str, torch.Tensor], GraphTensor, torch.Tensor],
@@ -322,16 +318,18 @@ def lower_schedule(
     """Lower ``graph`` under ``schedule`` to ``apply(params, g, x)``.
 
     Host side, once: builds the tilings and hybrid splits the matched
-    blocks need, on ``device``.  ``tile_cache`` shares them across the
-    layers of a model.  ``build_transpose`` also splits the TRANSPOSED
-    graph (kept in ``tile_cache["transpose"]``) for every hybrid block, so
-    its gradient runs the kernels (dx = Aᵀ ȳ, and the attention backward
-    K5-K8) instead of autograd of the full-graph formulation; it doubles
-    the set-up and the split's device memory.  The backward of the
-    non-hybrid ``spmm`` and ``gat`` kinds and the sparse-input first layer
-    are not ported yet: taking a gradient through those kinds raises."""
+    blocks need, on ``device`` (default the CUDA card).  ``tile_cache``
+    shares them across the layers of a model.  ``build_transpose`` also
+    tiles or splits the TRANSPOSED graph (kept in
+    ``tile_cache["transpose"]``) for every SpMM and hybrid block, so its
+    gradient runs the kernels (dx = Aᵀ ȳ, and the attention backward K5-K8)
+    instead of autograd of the plain formulation; it doubles the set-up
+    and the tilings' device memory.  The backward of the non-hybrid ``gat``
+    kind and the sparse-input first layer are not ported yet: taking a
+    gradient through that kind raises."""
+    device = resolve_device(device)
     cache = tile_cache if tile_cache is not None else {}
-    tiled: Dict[tuple, TiledGraph] = cache.setdefault("tiled", {})
+    tiled: Dict[tuple, object] = cache.setdefault("tiled", {})
     hybrids: Dict[tuple, object] = cache.setdefault("hybrids", {})
     host_graph_t = None
     if build_transpose:
@@ -339,14 +337,21 @@ def lower_schedule(
             cache["transpose"] = transpose_host_graph(host_graph)
         host_graph_t = cache["transpose"][0]
 
-    def get_tiled(tc: TileConfig, unit_weight: bool) -> TiledGraph:
-        key = (id(host_graph), str(device), tc.block_rows, tc.block_cols,
-               tc.tile_edges, unit_weight)
+    def get_tiled(tc: TileConfig, unit_weight: bool,
+                  hg: Optional[HostGraph] = None):
+        """The per-tile tiling, or for PATH_GROUPED the grouped tiling of
+        ``GROUPED_G`` sub-tiles per chunk, of ``hg`` (default the forward
+        graph)."""
+        hg = hg if hg is not None else host_graph
+        grouped = tc.path == S.PATH_GROUPED
+        key = (id(hg), str(device), tc.block_rows, tc.block_cols,
+               tc.tile_edges, unit_weight, grouped)
         if key not in tiled:
-            tiled[key] = tile_graph(
-                host_graph, block_rows=tc.block_rows,
-                block_cols=tc.block_cols, tile_edges=tc.tile_edges,
-                unit_weight=unit_weight, device=device)
+            geo = dict(block_rows=tc.block_rows, block_cols=tc.block_cols,
+                       tile_edges=tc.tile_edges, unit_weight=unit_weight,
+                       device=device)
+            tiled[key] = (tile_graph_grouped(hg, group=S.GROUPED_G, **geo)
+                          if grouped else tile_graph(hg, **geo))
         return tiled[key]
 
     def get_hybrid(tc: TileConfig, unit_weight: bool, kind: str,
@@ -405,8 +410,10 @@ def lower_schedule(
             data = get_hybrid(*args)
             if host_graph_t is not None:
                 twin = get_hybrid(*args, hg=host_graph_t)
-        elif kind == "spmm":
+        elif kind in ("spmm", "spmm_grouped"):
             data = get_tiled(tc, not plan.weighted)
+            if host_graph_t is not None:
+                twin = get_tiled(tc, not plan.weighted, host_graph_t)
         elif kind == "gat":
             data = get_tiled(tc, unit_weight=True)
         else:
@@ -415,7 +422,8 @@ def lower_schedule(
 
     outputs = list(graph.outputs)
     inv_deg = None
-    if any(p[0] in ("spmm", "spmm_hybrid") and p[3].mean for p in plans):
+    if any(p[0] in ("spmm", "spmm_grouped", "spmm_hybrid") and p[3].mean
+           for p in plans):
         deg = np.bincount(host_graph.receivers,
                           minlength=host_graph.n_node + 1)[: host_graph.n_node]
         inv_deg = torch.as_tensor(1.0 / np.maximum(deg, 1),
@@ -449,14 +457,14 @@ def lower_schedule(
             return None
 
         for kind, block, tc, plan, data, twin in plans:
-            if kind in ("spmm", "gat") and _needs_grad(plan, ref, w_asrc_of):
+            if kind == "gat" and _gat_needs_grad(plan, ref, w_asrc_of):
                 raise NotImplementedError(
-                    f"block {block} lowers to {kind!r}, whose backward the "
-                    "port does not run yet (ROADMAP.md Queue 1 items 4-5): "
+                    f"block {block} lowers to 'gat', whose backward the "
+                    "port does not run yet (ROADMAP.md Queue 1 item 5): "
                     "use the hybrid path to train")
-            if kind == "spmm":
-                vals[plan.out_op] = seg_out(
-                    plan, spmm_mod.spmm(data, kin(ref(plan.in_op))))
+            if kind in ("spmm", "spmm_grouped"):
+                vals[plan.out_op] = seg_out(plan, spmm_mod.spmm(
+                    data, kin(ref(plan.in_op)), tg_t=twin))
             elif kind == "spmm_hybrid":
                 vals[plan.out_op] = seg_out(plan, dense_mod.spmm_hybrid(
                     data, g, kin(ref(plan.in_op)), weighted=plan.weighted,

@@ -14,13 +14,16 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..graph import GraphTensor
+from ..graph import GraphTensor, resolve_device
 from ..ops import primitives as P
 
 
 def init_params(graph: ir.OpGraph, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Dict[str, torch.Tensor]:
-    """Glorot-uniform init for every MM weight in the op graph."""
+                dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
+    """Glorot-uniform init for every MM weight in the op graph, drawn on
+    the CPU from ``generator`` and placed on ``device`` (default the CUDA
+    card)."""
+    device = resolve_device(device)
     params: Dict[str, torch.Tensor] = {}
     for name, iw, ow in graph.param_specs():
         limit = (6.0 / (iw + ow)) ** 0.5
@@ -29,10 +32,12 @@ def init_params(graph: ir.OpGraph, generator: torch.Generator,
     return params
 
 
-def params_from_numpy(params: Mapping[str, np.ndarray], device="cpu",
+def params_from_numpy(params: Mapping[str, np.ndarray], device=None,
                       dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """The JAX package's parameters, read back as numpy arrays, as the
-    port's: same names, same ``[in, out]`` layout."""
+    port's: same names, same ``[in, out]`` layout, on ``device`` (default
+    the CUDA card)."""
+    device = resolve_device(device)
     return {k: torch.tensor(np.asarray(v, np.float32), dtype=dtype,
                             device=device) for k, v in params.items()}
 

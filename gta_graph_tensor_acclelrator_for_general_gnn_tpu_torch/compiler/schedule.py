@@ -21,6 +21,7 @@ PATH_GROUPED = "grouped"  # stripe-group chunked SpMM tail
 PATH_DENSEFULL = "densefull"  # one dense adjacency matmul
 PATHS = (PATH_XLA, PATH_ONEHOT, PATH_STREAM, PATH_HYBRID, PATH_GROUPED,
          PATH_DENSEFULL)
+GROUPED_G = 16   # sub-tiles per chunk of PATH_GROUPED tilings (the JAX value)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,25 +21,22 @@
 // Design: one warp per tile, so the work spreads evenly over the card
 // whatever the row-block skew (the [rows, HD+H] accumulator of a whole
 // row block, 270 KB at R = 512, HD+H = 132, would not fit a block's 227 KB
-// anyway).  The warp keeps the live slots of each 32-slot group by ballot
-// (pad slots and dead tiles add nothing and are never addressed); per live
-// edge each lane gathers HD/32 features, a_s is a warp reduction per head
-// (derive mode) with w_asrc staged in shared memory, lane h computes head
-// h's p, and the lanes fetch their head's p by shuffle.  [num | den] adds
-// into a zeroed f32 buffer with global atomics, whose order varies from run
-// to run (f32 rounding only).  When normalizing, a second launch of this
-// library divides num by max(den, 1e-20) per head; rows without edges
-// read 0 either way.
-#include "common.cuh"
+// anyway).  The warp walks the tile by gta::gat_walk (tile_walk.cuh): the
+// live slots of each 32-slot group by ballot (pad slots and dead tiles add
+// nothing and are never addressed); per live edge each lane gathers HD/32
+// features, a_s is a warp reduction per head (derive mode) with w_asrc
+// staged in shared memory, lane h computes head h's p, and the lanes fetch
+// their head's p by shuffle.  [num | den] adds into a zeroed f32 buffer
+// with global atomics, whose order varies from run to run (f32 rounding
+// only).  When normalizing, a second launch of this library divides num by
+// max(den, 1e-20) per head; rows without edges read 0 either way.
+#include "tile_walk.cuh"
 
 namespace {
 
-using gta::leaky;
-using gta::round_to;
 using gta::to_f;
 
 constexpr int WARPS = 8;
-constexpr int MAXF = 8;  // features per lane: HD <= 256
 
 template <typename HT, typename MT>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -55,8 +52,6 @@ gat_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_c
   float* w_s = smem;            // [HD, H] (derive mode)
   float* m_s = w_s + HD * H;    // [H]
   const bool derive = w_asrc != nullptr;
-  const int lane = threadIdx.x & 31;
-  const int W = HD + H, D = HD / H;
   if (derive)
     for (int i = threadIdx.x; i < HD * H; i += blockDim.x) w_s[i] = to_f(w_asrc[i]);
   for (int i = threadIdx.x; i < H; i += blockDim.x) m_s[i] = msrc[i];
@@ -66,65 +61,11 @@ gat_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_c
   if (t >= T) return;
   const int cb = tile_cb[t];
   if (cb < 0) return;  // dead tile
-  const int64_t row0 = static_cast<int64_t>(tile_rb[t]) * R;
-  const int64_t col0 = static_cast<int64_t>(cb) * C;
-  const int64_t base = static_cast<int64_t>(t) * ET;
-  for (int e0 = 0; e0 < ET; e0 += 32) {
-    const int e = e0 + lane;
-    int s = C, d = R;
-    float m = 0.f;
-    if (e < ET) {
-      s = src_local[base + e];
-      d = dst_local[base + e];
-      m = to_f(mult[base + e]);
-    }
-    const bool live = s >= 0 && s < C && d >= 0 && d < R && col0 + s < n_h &&
-                      row0 + d < n_out;
-    unsigned todo = __ballot_sync(0xffffffffu, live);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int64_t src = col0 + __shfl_sync(0xffffffffu, s, j);
-      const int64_t r = row0 + __shfl_sync(0xffffffffu, d, j);
-      const float mj = __shfl_sync(0xffffffffu, m, j);
-      float hv[MAXF];
-#pragma unroll
-      for (int k = 0; k < MAXF; ++k) {
-        const int f = lane + 32 * k;
-        hv[k] = f < HD ? to_f(h[src * HD + f]) : 0.f;
-      }
-      // lane hh < H ends up holding a_s[hh]
-      float my_as = 0.f;
-      if (derive) {
-        for (int hh = 0; hh < H; ++hh) {
-          float part = 0.f;
-#pragma unroll
-          for (int k = 0; k < MAXF; ++k) {
-            const int f = lane + 32 * k;
-            if (f < HD) part = fmaf(hv[k], w_s[f * H + hh], part);
-          }
-          part = gta::warp_sum(part);
-          if (lane == hh) my_as = part;
-        }
-      } else if (lane < H) {
-        my_as = to_f(a_src[src * H + lane]);
-      }
-      float p = 0.f;
-      if (lane < H) {
-        const float ad = r < n_a ? a_dst[r * H + lane] : 0.f;
-        const float z = leaky(my_as + ad, slope) - leaky(m_s[lane] + ad, slope);
-        p = expf(fminf(z, 60.f)) * mj;
-      }
-      float* arow = acc + r * W;
-#pragma unroll
-      for (int k = 0; k < MAXF; ++k) {
-        const int f = lane + 32 * k;
-        const float pf = __shfl_sync(0xffffffffu, p, f < HD ? f / D : 0);
-        if (f < HD) atomicAdd(arow + f, round_to<HT>(pf * hv[k]));
-      }
-      if (lane < H) atomicAdd(arow + HD + lane, round_to<HT>(p));
-    }
-  }
+  gta::gat_walk<HT, MT>(src_local, dst_local, mult, static_cast<int64_t>(t) * ET, ET,
+                        R, C, static_cast<int64_t>(tile_rb[t]) * R,
+                        static_cast<int64_t>(cb) * C, h, w_s, derive, a_src, a_dst,
+                        m_s, acc, HD, H, n_h, n_a, n_out, slope, /*prefix=*/false,
+                        threadIdx.x & 31);
 }
 
 // out[r, f] = num[r, f] / max(den[r, f / D], 1e-20): the TPU kernel's

@@ -13,21 +13,18 @@
 // reorder a few row blocks own most tiles.
 //
 // Design: one warp per tile, so the work spreads evenly over the card
-// whatever the row-block skew.  The warp reads 32 slots at a time, keeps
-// the live ones by ballot (skipping pad slots, src >= C or dst >= R, before
-// any address is formed, so the pad row x[cb*C + C] is never read, and
-// skipping dead tiles, cb < 0, whole), and for each live edge its lanes
-// gather the x row and add w*x into y with f32 global atomics (coalesced,
-// one row per edge).  y is zeroed by the wrapper, so row stripes without
-// edges read 0.  The atomics make the f32 summation order vary from run to
-// run: results differ from a fixed-order sum by f32 rounding only.  As on
-// the TPU, w*x rounds to the input dtype before the f32 sum.
-#include "common.cuh"
+// whatever the row-block skew.  The warp walks the tile's slots by
+// gta::spmm_walk (tile_walk.cuh): live slots by ballot, pad slots never
+// addressed; dead tiles (cb < 0) are skipped whole.  For each live edge its
+// lanes gather the x row and add w*x into y with f32 global atomics
+// (coalesced, one row per edge).  y is zeroed by the wrapper, so row
+// stripes without edges read 0.  The atomics make the f32 summation order
+// vary from run to run: results differ from a fixed-order sum by f32
+// rounding only.  As on the TPU, w*x rounds to the input dtype before the
+// f32 sum.
+#include "tile_walk.cuh"
 
 namespace {
-
-using gta::round_to;
-using gta::to_f;
 
 constexpr int WARPS = 8;
 
@@ -39,37 +36,14 @@ spmm_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_
                   const WT* __restrict__ weight, const XT* __restrict__ x,
                   float* __restrict__ y, int T, int R, int C, int ET, int F,
                   int64_t n_x, int64_t n_out) {
-  const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (t >= T) return;
   const int cb = tile_cb[t];
   if (cb < 0) return;  // dead tile
-  const int64_t row0 = static_cast<int64_t>(tile_rb[t]) * R;
-  const int64_t col0 = static_cast<int64_t>(cb) * C;
-  const int64_t base = static_cast<int64_t>(t) * ET;
-  for (int e0 = 0; e0 < ET; e0 += 32) {
-    const int e = e0 + lane;
-    int s = C, d = R;
-    float w = 0.f;
-    if (e < ET) {
-      s = src_local[base + e];
-      d = dst_local[base + e];
-      w = to_f(weight[base + e]);
-    }
-    const bool live = s >= 0 && s < C && d >= 0 && d < R && col0 + s < n_x &&
-                      row0 + d < n_out;
-    unsigned todo = __ballot_sync(0xffffffffu, live);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int sj = __shfl_sync(0xffffffffu, s, j);
-      const int dj = __shfl_sync(0xffffffffu, d, j);
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      const XT* xr = x + (col0 + sj) * F;
-      float* yr = y + (row0 + dj) * F;
-      for (int f = lane; f < F; f += 32) atomicAdd(yr + f, round_to<XT>(wj * to_f(xr[f])));
-    }
-  }
+  gta::spmm_walk<XT, WT>(src_local, dst_local, weight, static_cast<int64_t>(t) * ET,
+                         ET, R, C, static_cast<int64_t>(tile_rb[t]) * R,
+                         static_cast<int64_t>(cb) * C, x, y, F, n_x, n_out,
+                         /*prefix=*/false, threadIdx.x & 31);
 }
 
 template <typename XT, typename WT>

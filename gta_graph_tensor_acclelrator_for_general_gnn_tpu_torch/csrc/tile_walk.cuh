@@ -1,0 +1,130 @@
+// Slot walks shared by the edge-tile kernels: K1 and K3 walk one tile of a
+// TiledGraph per warp, their grouped counterparts K9 and K10 one sub-tile
+// of a GroupedTiledGraph chunk per warp.  A tile is ET slots of
+// (src_local, dst_local[, weight]); slot e holds edge
+// (col0 + src_local[e]) -> (row0 + dst_local[e]), and pad slots carry
+// src == C or dst == R.
+//
+// The warp reads 32 slots at a time and keeps the live ones by ballot, so a
+// pad slot is never addressed (the pad row x[col0 + C] is never read) and
+// its weight is never loaded.  With `prefix`, the caller asserts that the
+// tile's edges fill a prefix of its slots, as the host builders place them
+// (slot = offset of the edge in its block, mod ET): the walk stops at the
+// first 32 slots without an edge, so an empty sub-tile costs one read of its
+// first 32 index pairs.  Sums go to y / acc by float32 global atomics, whose
+// order varies from run to run (f32 rounding only).
+#pragma once
+#include "common.cuh"
+
+namespace gta {
+
+// y[row0 + d] += round_to<XT>(w * x[col0 + s]) for each live slot; a null
+// `weight` means every edge weighs 1 (the weight stream is not read).
+template <typename XT, typename WT>
+__device__ __forceinline__ void spmm_walk(
+    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
+    const WT* __restrict__ weight, int64_t base, int ET, int R, int C, int64_t row0,
+    int64_t col0, const XT* __restrict__ x, float* __restrict__ y, int F, int64_t n_x,
+    int64_t n_out, bool prefix, int lane) {
+  for (int e0 = 0; e0 < ET; e0 += 32) {
+    const int e = e0 + lane;
+    int s = C, d = R;
+    if (e < ET) {
+      s = src_local[base + e];
+      d = dst_local[base + e];
+    }
+    const bool real = s >= 0 && s < C && d >= 0 && d < R;
+    if (prefix && __ballot_sync(0xffffffffu, real) == 0u) break;
+    const bool live = real && col0 + s < n_x && row0 + d < n_out;
+    const float w = live && weight != nullptr ? to_f(weight[base + e]) : 1.f;
+    unsigned todo = __ballot_sync(0xffffffffu, live);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int sj = __shfl_sync(0xffffffffu, s, j);
+      const int dj = __shfl_sync(0xffffffffu, d, j);
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const XT* xr = x + (col0 + sj) * F;
+      float* yr = y + (row0 + dj) * F;
+      for (int f = lane; f < F; f += 32) atomicAdd(yr + f, round_to<XT>(wj * to_f(xr[f])));
+    }
+  }
+}
+
+constexpr int GAT_MAXF = 8;  // features per lane: HD <= 256
+
+// GAT softmax-aggregate of each live slot src -> r under the global shift
+// bound (see gat_tiles.cu): adds [p * h[src] | p] into acc[r], p per head
+//   p = m * exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60)),
+// m the slot's multiplicity (1 when `mult` is null).  Derive mode: a_s =
+// h[src] . w_s (w_s [HD, H] f32 in shared memory, values of h's dtype),
+// a warp reduction per head; values mode: a_s = a_src[src].  p * h and p
+// round to h's dtype before the f32 sum, as on the TPU.
+template <typename HT, typename MT>
+__device__ __forceinline__ void gat_walk(
+    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
+    const MT* __restrict__ mult, int64_t base, int ET, int R, int C, int64_t row0,
+    int64_t col0, const HT* __restrict__ h, const float* w_s, bool derive,
+    const HT* __restrict__ a_src, const float* __restrict__ a_dst, const float* m_s,
+    float* __restrict__ acc, int HD, int H, int64_t n_h, int64_t n_a, int64_t n_out,
+    float slope, bool prefix, int lane) {
+  const int W = HD + H, D = HD / H;
+  for (int e0 = 0; e0 < ET; e0 += 32) {
+    const int e = e0 + lane;
+    int s = C, d = R;
+    if (e < ET) {
+      s = src_local[base + e];
+      d = dst_local[base + e];
+    }
+    const bool real = s >= 0 && s < C && d >= 0 && d < R;
+    if (prefix && __ballot_sync(0xffffffffu, real) == 0u) break;
+    const bool live = real && col0 + s < n_h && row0 + d < n_out;
+    const float m = live && mult != nullptr ? to_f(mult[base + e]) : 1.f;
+    unsigned todo = __ballot_sync(0xffffffffu, live);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int64_t src = col0 + __shfl_sync(0xffffffffu, s, j);
+      const int64_t r = row0 + __shfl_sync(0xffffffffu, d, j);
+      const float mj = __shfl_sync(0xffffffffu, m, j);
+      float hv[GAT_MAXF];
+#pragma unroll
+      for (int k = 0; k < GAT_MAXF; ++k) {
+        const int f = lane + 32 * k;
+        hv[k] = f < HD ? to_f(h[src * HD + f]) : 0.f;
+      }
+      // lane hh < H ends up holding a_s[hh]
+      float my_as = 0.f;
+      if (derive) {
+        for (int hh = 0; hh < H; ++hh) {
+          float part = 0.f;
+#pragma unroll
+          for (int k = 0; k < GAT_MAXF; ++k) {
+            const int f = lane + 32 * k;
+            if (f < HD) part = fmaf(hv[k], w_s[f * H + hh], part);
+          }
+          part = warp_sum(part);
+          if (lane == hh) my_as = part;
+        }
+      } else if (lane < H) {
+        my_as = to_f(a_src[src * H + lane]);
+      }
+      float p = 0.f;
+      if (lane < H) {
+        const float ad = r < n_a ? a_dst[r * H + lane] : 0.f;
+        const float z = leaky(my_as + ad, slope) - leaky(m_s[lane] + ad, slope);
+        p = expf(fminf(z, 60.f)) * mj;
+      }
+      float* arow = acc + r * W;
+#pragma unroll
+      for (int k = 0; k < GAT_MAXF; ++k) {
+        const int f = lane + 32 * k;
+        const float pf = __shfl_sync(0xffffffffu, p, f < HD ? f / D : 0);
+        if (f < HD) atomicAdd(arow + f, round_to<HT>(pf * hv[k]));
+      }
+      if (lane < H) atomicAdd(arow + HD + lane, round_to<HT>(p));
+    }
+  }
+}
+
+}  // namespace gta

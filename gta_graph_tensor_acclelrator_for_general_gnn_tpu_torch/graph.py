@@ -10,19 +10,38 @@ hold them equal); the containers then hold torch tensors on an explicit
 * :class:`GraphTensor` — the same arrays as torch tensors on a device.
 * :class:`TiledGraph` — block-sparse edge tiles: the input of the edge-tile
   SpMM and GAT kernels.
+* :class:`GroupedTiledGraph` — the stripe-group chunked tiling of the
+  sparse tail: the input of the grouped SpMM and GAT kernels.
 * :class:`DenseBlockGraph` / :class:`HybridGraph` — the density split:
   dense adjacency blocks plus the sparse remainder as edge tiles.
 
 The JAX builders may call a native C++ helper; the port uses the numpy
 formulations, which give identical arrays.
+
+Every entry point that places tensors takes ``device=None``, which means
+the CUDA card (:func:`resolve_device`); the CPU is used only when asked
+for.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device``, or the CUDA card when
+    it is None.  Raises when a CUDA device is meant and none is present:
+    nothing falls back to the CPU unless the caller passes ``"cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested (the default is the CUDA card) but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU")
+    return dev
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,7 +64,8 @@ class HostGraph:
     def e_pad(self) -> int:
         return int(self.senders.shape[0])
 
-    def to_device(self, device="cpu") -> "GraphTensor":
+    def to_device(self, device=None) -> "GraphTensor":
+        device = resolve_device(device)
         return GraphTensor(
             senders=torch.as_tensor(self.senders.astype(np.int64),
                                     device=device),
@@ -245,12 +265,13 @@ def tile_graph(
     block_cols: int = 256,
     tile_edges: int = 512,
     unit_weight: bool = False,
-    device="cpu",
+    device=None,
 ) -> TiledGraph:
     """Host-side tiling of a :class:`HostGraph` into block-sparse edge tiles
     on ``device``.  Local offsets are int16 (blocks below 32k rows/cols);
     ``unit_weight`` tilings store their 0/1 weights in bfloat16, as the JAX
     builder does (both values are exact)."""
+    device = resolve_device(device)
     a = _tile_arrays(g, block_rows, block_cols, tile_edges, unit_weight)
     idt = torch.int16 if max(block_rows, block_cols) < 32000 else torch.int32
 
@@ -273,6 +294,157 @@ def tile_graph(
         n_row_blocks=a["n_row_blocks"],
         n_col_blocks=a["n_col_blocks"],
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedTiledGraph:
+    """Stripe-group chunked edge tiling (see the JAX
+    ``graph.GroupedTiledGraph``), the sparse tail of the bench's Reddit
+    recipes.
+
+    Row blocks form stripe groups of ``group`` consecutive row blocks.  A
+    chunk is ``group`` sub-tiles sharing one (stripe group, col block):
+    sub-tile j holds edges of row block ``grp * group + j``.  A block with
+    more than ``tile_edges`` edges spills into level-k chunks of the same
+    (grp, cb); every chunk carries the deepest level of its group, so
+    skewed blocks pad their neighbours.  Within a sub-tile the live slots
+    are a prefix (slot = offset of the edge in its block, mod ET).
+
+    Attributes (NC = number of chunks, G = group, ET = tile_edges):
+      chunk_grp: int32[NC]  stripe group, ascending
+      chunk_cb:  int32[NC]  col block
+      src_local: int16[NC, G, ET]  sender - cb*C   (pad: block_cols)
+      dst_local: int16[NC, G, ET]  receiver - rb*R (pad: block_rows)
+      edge_id:   int32[NC, G, ET]  index into the edge arrays (pad: e_pad-1)
+      weight:    float32[NC, G, ET]  per-edge weight, 0 on padding
+      grp_first_chunk: first chunk of each stripe group, [n_groups + 1]
+      weight_all_unit: every REAL edge weighs exactly 1.0 (taken from the
+        edges, not the slots, whose padding is 0), so kernels may skip the
+        weight stream.
+    """
+
+    chunk_grp: torch.Tensor
+    chunk_cb: torch.Tensor
+    src_local: torch.Tensor
+    dst_local: torch.Tensor
+    edge_id: torch.Tensor
+    weight: torch.Tensor
+    block_rows: int
+    block_cols: int
+    tile_edges: int
+    group: int
+    n_node: int
+    n_groups: int
+    n_col_blocks: int
+    grp_first_chunk: Tuple[int, ...]
+    weight_all_unit: bool = False
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.chunk_grp.shape[0])
+
+    @property
+    def n_tiles(self) -> int:
+        return self.n_chunks * self.group
+
+    @property
+    def total_slots(self) -> int:
+        return self.n_tiles * self.tile_edges
+
+
+def tile_graph_grouped(
+    g: HostGraph,
+    *,
+    block_rows: int = 512,
+    block_cols: int = 512,
+    tile_edges: int = 128,
+    group: int = 8,
+    unit_weight: bool = False,
+    device=None,
+) -> GroupedTiledGraph:
+    """Host-side grouped tiling on ``device``, the arrays of the JAX
+    ``tile_graph_grouped``: edges keyed by (stripe group, col block, row
+    block); each (rb, cb) run cut into level-k tiles of ``tile_edges``;
+    the level-k tiles of one (grp, cb) form chunk (grp, cb, k) at sub-tile
+    ``rb % group``; chunks in (grp, cb, level) order; a chunk of padding
+    for every stripe group that has no edge."""
+    device = resolve_device(device)
+    ne = g.n_edge
+    s = g.senders[:ne]
+    r = g.receivers[:ne]
+    w = np.ones(ne, np.float32) if unit_weight else g.edge_weight[:ne]
+    nrb = max(_round_up(g.n_node, block_rows) // block_rows, 1)
+    ncb = max(_round_up(g.n_node, block_cols) // block_cols, 1)
+    n_groups = max(-(-nrb // group), 1)
+    ET, G = tile_edges, group
+
+    rb = (r // block_rows).astype(np.int64)
+    cb = (s // block_cols).astype(np.int64)
+    key = ((rb // G) * ncb + cb) * G + rb % G
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    if ne:
+        starts = np.flatnonzero(np.concatenate([[True], ks[1:] != ks[:-1]]))
+        run_len = np.diff(np.concatenate([starts, [ne]]))
+        run_key = ks[starts]
+        run_grpcb = run_key // G
+        run_levels = -(-run_len // ET)
+        gc_start = np.flatnonzero(np.concatenate(
+            [[True], run_grpcb[1:] != run_grpcb[:-1]]))
+        gc_of_run = np.searchsorted(gc_start, np.arange(len(run_key)),
+                                    side="right") - 1
+        gc_levels = np.maximum.reduceat(run_levels, gc_start)
+        chunk_base = np.concatenate([[0], np.cumsum(gc_levels)[:-1]])
+        nc_data = int(gc_levels.sum())
+        gc_key = run_grpcb[gc_start]
+        chunk_grp = np.repeat((gc_key // ncb).astype(np.int32), gc_levels)
+        chunk_cb = np.repeat((gc_key % ncb).astype(np.int32), gc_levels)
+        run_of_edge = np.searchsorted(starts, np.arange(ne),
+                                      side="right") - 1
+        offset = np.arange(ne) - starts[run_of_edge]
+        chunk_of_edge = chunk_base[gc_of_run[run_of_edge]] + offset // ET
+        j_of_edge = run_key[run_of_edge] % G
+        slot = offset % ET
+    else:
+        nc_data = 0
+        chunk_grp = chunk_cb = np.zeros(0, np.int32)
+
+    missing = np.setdiff1d(np.arange(n_groups, dtype=np.int32),
+                           np.unique(chunk_grp))
+    nc = nc_data + len(missing)
+    src_l = np.full((nc, G, ET), block_cols, np.int32)
+    dst_l = np.full((nc, G, ET), block_rows, np.int32)
+    eid = np.full((nc, G, ET), max(g.e_pad - 1, 0), np.int32)
+    wv = np.zeros((nc, G, ET), np.float32)
+    if ne:
+        at = (chunk_of_edge, j_of_edge, slot)
+        src_l[at] = s[order] - chunk_cb[chunk_of_edge].astype(np.int64) \
+            * block_cols
+        dst_l[at] = r[order] % block_rows
+        eid[at] = np.arange(ne, dtype=np.int32)[order]
+        wv[at] = w[order]
+    if len(missing):
+        chunk_grp = np.concatenate([chunk_grp, missing])
+        chunk_cb = np.concatenate([chunk_cb, np.zeros(len(missing), np.int32)])
+        corder = np.argsort(chunk_grp, kind="stable")
+        chunk_grp, chunk_cb = chunk_grp[corder], chunk_cb[corder]
+        src_l, dst_l, eid, wv = (src_l[corder], dst_l[corder], eid[corder],
+                                 wv[corder])
+    grp_first = np.searchsorted(chunk_grp, np.arange(n_groups + 1))
+    idt = torch.int16 if max(block_rows, block_cols) < 32000 else torch.int32
+
+    def dev(v, dtype=None):
+        return torch.as_tensor(np.asarray(v, dtype), device=device)
+
+    return GroupedTiledGraph(
+        chunk_grp=dev(chunk_grp), chunk_cb=dev(chunk_cb),
+        src_local=dev(src_l, np.int16 if idt == torch.int16 else np.int32),
+        dst_local=dev(dst_l, np.int16 if idt == torch.int16 else np.int32),
+        edge_id=dev(eid), weight=dev(wv),
+        block_rows=block_rows, block_cols=block_cols, tile_edges=ET,
+        group=G, n_node=g.n_node, n_groups=n_groups, n_col_blocks=ncb,
+        grp_first_chunk=tuple(int(v) for v in grp_first),
+        weight_all_unit=bool(ne == 0 or np.all(w == 1.0)))
 
 
 # dense blocks per unit of dense-kernel work (see DenseBlockGraph.segments)
@@ -337,12 +509,13 @@ class DenseBlockGraph:
 @dataclasses.dataclass(frozen=True)
 class HybridGraph:
     """Density-split graph: dense blocks plus the sparse remainder as edge
-    tiles.  ``dense`` is None when no block passes the threshold.
-    ``row_scale`` / ``col_scale`` recover separable edge weights for
-    integral (count) dense blocks: w_e = row_scale[r] * col_scale[s]."""
+    tiles (per-tile or grouped).  ``dense`` is None when no block passes
+    the threshold.  ``row_scale`` / ``col_scale`` recover separable edge
+    weights for integral (count) dense blocks: w_e = row_scale[r] *
+    col_scale[s]."""
 
     dense: Optional[DenseBlockGraph]
-    tiles: TiledGraph
+    tiles: Union[TiledGraph, GroupedTiledGraph]
     n_dense_edges: int
     n_sparse_edges: int
     row_scale: Optional[torch.Tensor] = None
@@ -374,19 +547,24 @@ def hybrid_graph(
     block_layout: str = "rc",
     tile_classes: Optional[Sequence[int]] = None,
     tail_format: str = "tiles",
-    device="cpu",
+    tail_group: int = 16,
+    device=None,
 ) -> HybridGraph:
     """Split the adjacency by per-block density (see the JAX
     ``graph.hybrid_graph``): blocks with ``nnz >= min_nnz`` become dense
     value matrices, the rest stays edge-tiled.  ``values_dtype`` is
     ``np.float32`` (summed weights) or an integer type (edge counts; copies
     of one pair beyond the type's maximum merge into one tail slot whose
-    weight is their summed weight).  Only the per-tile tail format is
-    ported: grouped tails and tile classes raise."""
-    if tail_format != "tiles" or tile_classes:
+    weight is their summed weight).  ``tail_format="grouped"`` tiles the
+    remainder as a :class:`GroupedTiledGraph` of ``tail_group`` sub-tiles
+    per chunk; tile classes (``MultiTiledGraph``) are not ported and
+    raise."""
+    if tail_format not in ("tiles", "grouped"):
+        raise ValueError(f"bad tail_format {tail_format!r}")
+    if tile_classes and tail_format != "grouped":
         raise NotImplementedError(
-            "grouped tails and tile classes are not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+            "tile classes (MultiTiledGraph) are not ported yet "
+            "(ROADMAP.md Queue 1 item 9)")
     if block_layout not in ("rc", "cr"):
         raise ValueError(f"bad block_layout {block_layout!r}")
     vdt = np.dtype(values_dtype)
@@ -401,8 +579,19 @@ def hybrid_graph(
          else g.edge_weight[: g.n_edge])
     wd = np.ones(g.n_edge, np.float32) if integral_vals else w
 
+    device = resolve_device(device)
     sbr = sparse_block_rows or block_rows
     sbc = sparse_block_cols or block_cols
+
+    def tail(hg: HostGraph, unit: bool):
+        if tail_format == "grouped":
+            return tile_graph_grouped(
+                hg, block_rows=sbr, block_cols=sbc, tile_edges=tile_edges,
+                group=tail_group, unit_weight=unit, device=device)
+        return tile_graph(hg, block_rows=sbr, block_cols=sbc,
+                          tile_edges=tile_edges, unit_weight=unit,
+                          device=device)
+
     nnz = block_nnz(g, block_rows, block_cols)
     rbn, cbn = nnz.shape
     dense_mask2d = (nnz >= max(min_nnz, 1) if min_nnz > 0
@@ -410,9 +599,7 @@ def hybrid_graph(
     dense_ids = np.flatnonzero(dense_mask2d.reshape(-1))      # rb-major
 
     if len(dense_ids) == 0:
-        tiles = tile_graph(g, block_rows=sbr, block_cols=sbc,
-                           tile_edges=tile_edges, unit_weight=unit_weight,
-                           device=device)
+        tiles = tail(g, unit_weight)
         return HybridGraph(dense=None, tiles=tiles, n_dense_edges=0,
                            n_sparse_edges=g.n_edge)
 
@@ -521,9 +708,9 @@ def hybrid_graph(
         n_node=g.n_node,
         n_edge=n_rest,
     )
-    # rest.edge_weight already carries the requested weights
-    tiles = tile_graph(rest, block_rows=sbr, block_cols=sbc,
-                       tile_edges=tile_edges, unit_weight=False, device=device)
+    # rest.edge_weight already carries the requested weights, and merged
+    # multi-edge slots their copy counts
+    tiles = tail(rest, False)
     return HybridGraph(dense=dense, tiles=tiles,
                        n_dense_edges=int(in_dense.sum()),
                        n_sparse_edges=g.n_edge - int(in_dense.sum()))

@@ -18,7 +18,7 @@ import torch.nn.functional as tF
 from torch.utils.checkpoint import checkpoint
 
 from ..data.datasets import Dataset
-from ..graph import GraphTensor
+from ..graph import GraphTensor, resolve_device
 from .zoo import Model, build_model
 
 
@@ -128,17 +128,18 @@ def train_node_classifier(
     schedules=None,
     build_transpose: bool = False,
     verbose: bool = False,
-    device="cpu",
+    device=None,
 ) -> Tuple[TrainState, FitResult]:
     """Full-batch training of ``network`` on ``ds`` (one step per epoch);
     returns the final state and metrics.  ``schedules`` route layers
     through the kernels; ``build_transpose`` (with schedules) also splits
     the transposed graph so that the gradients run the kernel backward
-    instead of autograd of the full-graph formulation.  The JAX trainer's
+    instead of autograd of the full-graph formulation.  ``device`` defaults
+    to the CUDA card.  The JAX trainer's
     ``sinput`` (a sparse-input first-layer product) is not ported yet
     (ROADMAP.md Queue 1 item 9): the first layer's dense product computes
     the same values."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     model = model or build_model(
         network, ds.x.shape[1], ds.n_class, hidden=hidden,
         n_layers=n_layers, heads=heads,

@@ -15,7 +15,7 @@ from torch import nn
 from .. import ir
 from ..compiler import lower as L
 from ..compiler.schedule import Schedule
-from ..graph import GraphTensor, HostGraph
+from ..graph import GraphTensor, HostGraph, resolve_device
 from .builders import NETWORKS, build_op_graph
 
 
@@ -24,8 +24,9 @@ class Model(nn.Module):
 
     def __init__(self, name: str, layers: List[ir.OpGraph], *,
                  generator: Optional[torch.Generator] = None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.name = name
         self.layers = layers
         gen = generator if generator is not None else torch.Generator()
@@ -44,14 +45,15 @@ class Model(nn.Module):
     def make_apply(self, compute_dtype: Optional[torch.dtype] = None,
                    schedules: Union[None, Schedule, Sequence[Schedule]] = None,
                    host_graph: Optional[HostGraph] = None, *,
-                   device="cpu", build_transpose: bool = False):
+                   device=None, build_transpose: bool = False):
         """Forward over the layer stack: ``apply(params, g, x)``.
 
         Without ``schedules`` every layer runs op by op (the oracle path).
         ``schedules`` (one per layer, or one for all) lower each layer
         through :func:`~..compiler.fusion.lower_schedule`, so matched blocks
         run on the Hopper kernels; that needs ``host_graph`` to build the
-        tilings on ``device`` (shared across the stack's layers).
+        tilings on ``device`` (default the CUDA card; shared across the
+        stack's layers).
         ``build_transpose`` also splits the transposed graph so that
         gradients run on the kernels (training)."""
         if schedules is None:
@@ -88,8 +90,9 @@ def build_model(network: str, in_width: int, n_class: int, *,
                 hidden: int = 128, n_layers: int = 2, heads: int = 4,
                 reorder: bool = False,
                 generator: Optional[torch.Generator] = None,
-                dtype=torch.float32, device="cpu") -> Model:
-    """An ``n_layers`` model of ``network`` ending in ``n_class`` logits.
+                dtype=torch.float32, device=None) -> Model:
+    """An ``n_layers`` model of ``network`` ending in ``n_class`` logits,
+    its parameters on ``device`` (default the CUDA card).
     Hidden layers use the family's activation, the last emits raw logits;
     hidden GAT layers use ``heads`` heads and the last one a single head."""
     if network not in NETWORKS:

@@ -63,6 +63,10 @@ _SIGNATURES = {
                               I32, I32, I32, I32, I32, I64, F32, VP],
     "gta_gat_dense_bwd_src": [VP, VP, VP, VP, I32, VP, VP, I32, VP, VP, VP,
                               I32, I32, I32, I32, I32, I64, F32, VP],
+    "gta_spmm_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
+                         I32, I32, I64, I64, VP],
+    "gta_gat_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, I32, I32,
+                        I32, I32, I32, I32, I32, I64, I64, I64, F32, VP],
 }
 
 

@@ -28,7 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..graph import DenseBlockGraph, GraphTensor, HybridGraph, block_nnz
+from ..graph import (DenseBlockGraph, GraphTensor, HybridGraph, TiledGraph,
+                     block_nnz)
 from . import _ext
 from .gat import _edge_grad, _gat_forward, _leaky
 from .spmm import _PLAIN_CHUNK, spmm
@@ -577,11 +578,12 @@ class _SpmmHybrid(torch.autograd.Function):
 def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
                 *, weighted: bool = True,
                 hyb_t: Optional[HybridGraph] = None) -> torch.Tensor:
-    """Density-split SpMM, [N, F] float32: the edge tail on K1 plus the
-    dense blocks on K2 (with the separable scales when the blocks hold
-    counts).  Differentiable in ``x``: with ``hyb_t``, the split of the
-    transposed graph built the same way, the gradient dx = Aᵀ ȳ runs K1
-    and K2 over it; without, autograd of the full-graph formulation over
+    """Density-split SpMM, [N, F] float32: the edge tail on K1 (K9 for a
+    grouped tail) plus the dense blocks on K2 (with the separable scales
+    when the blocks hold counts).  Differentiable in ``x``: with ``hyb_t``,
+    the split of the transposed graph built the same way, the gradient dx
+    = Aᵀ ȳ runs the same kernels over it; without, autograd of the
+    full-graph formulation over
     ``g`` (``weighted`` edge weights), which holds [E, F] edge tensors."""
     return _SpmmHybrid.apply(x, hyb, hyb_t, g, weighted)
 
@@ -613,8 +615,10 @@ class _GatHybrid(torch.autograd.Function):
     (:func:`gat_dense_bwd`), both from the combined den and output, added
     in float32.  Each split covers every edge once, so the forward split
     gives dad and the twin (dh, das) whichever of them has dense blocks.
-    Without a twin, autograd of the full-graph formulation, unweighted as
-    the attention kernels are."""
+    Without a twin, or with grouped tails (the tail backward kernels read
+    per-tile tilings; JAX's ``kernel_bwd`` rule, dense.py:965-970), autograd
+    of the full-graph formulation, unweighted as the attention kernels
+    are."""
 
     @staticmethod
     def forward(ctx, h, sw, d, hyb, hyb_t, g, slope, wmode):
@@ -626,17 +630,19 @@ class _GatHybrid(torch.autograd.Function):
                                                                 dim=1)
         ctx.hyb, ctx.hyb_t, ctx.g = hyb, hyb_t, g
         ctx.slope, ctx.wmode = slope, wmode
-        if hyb_t is None:
-            ctx.save_for_backward(h, sw, d)
-        else:
+        ctx.kernel_bwd = (hyb_t is not None and type(hyb.tiles) is TiledGraph
+                          and type(hyb_t.tiles) is TiledGraph)
+        if ctx.kernel_bwd:
             ctx.save_for_backward(h, sw, d, y, den)
+        else:
+            ctx.save_for_backward(h, sw, d)
         return y
 
     @staticmethod
     def backward(ctx, gbar):
         from .gat import _gat_bwd_fused
         none = (None,) * 5
-        if ctx.hyb_t is None:
+        if not ctx.kernel_bwd:
             return _gat_hybrid_fallback_grads(ctx, gbar) + none
         h, sw, d, y, den = ctx.saved_tensors
         hyb, hyb_t, slope = ctx.hyb, ctx.hyb_t, ctx.slope
@@ -661,7 +667,8 @@ class _GatHybrid(torch.autograd.Function):
 
 def _gat_hybrid_fallback_grads(ctx, gbar):
     """(dh, dsw, dad) by autograd of the full-graph formulation over
-    ``ctx.g``, for a call without a twin: unweighted, since hybrid
+    ``ctx.g``, for a call without a twin or with grouped tails: unweighted,
+    since hybrid
     attention graphs are built unit-weight, so a symmetric-norm ``g``
     still gets the gradient of the function the kernels compute."""
     if ctx.g is None:
@@ -679,14 +686,15 @@ def gat_hybrid(hyb: HybridGraph, g: Optional[GraphTensor],
                a_dst: torch.Tensor, *, negative_slope: float = 0.2,
                w_asrc: Optional[torch.Tensor] = None,
                hyb_t: Optional[HybridGraph] = None) -> torch.Tensor:
-    """Density-split GAT attention, [N, HD] float32.  The tail (K3) and the
-    dense blocks (K4) accumulate raw [num | den] under ONE shift bound (the
-    global per-head max of a_src), so the combine is one add and divide.
-    ``w_asrc`` [HD, H] replaces ``a_src`` when a_src is a linear map of h:
-    the tail derives a_s in-kernel and msrc, the dense partial and the
-    backward use the same-precision values, and the gradient is (dh, dw,
-    dad).  ``hyb_t``, the split of the transposed graph on the same grid,
-    runs the backward on kernels K5-K8; without it the backward
+    """Density-split GAT attention, [N, HD] float32.  The tail (K3, or K10
+    for a grouped tail, which needs ``w_asrc``) and the dense blocks (K4)
+    accumulate raw [num | den] under ONE shift bound (the global per-head
+    max of a_src), so the combine is one add and divide.  ``w_asrc`` [HD,
+    H] replaces ``a_src`` when a_src is a linear map of h: the tail derives
+    a_s in-kernel and msrc, the dense partial and the backward use the
+    same-precision values, and the gradient is (dh, dw, dad).  ``hyb_t``,
+    the split of the transposed graph on the same grid, runs the backward
+    on kernels K5-K8 when both tails are per-tile; otherwise the backward
     differentiates the full-graph formulation over ``g``."""
     wmode = w_asrc is not None
     return _GatHybrid.apply(h_src, w_asrc if wmode else a_src, a_dst, hyb,

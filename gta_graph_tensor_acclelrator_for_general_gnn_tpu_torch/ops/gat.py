@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``ops/gat.py``.  The backward kernels
 are K5 ``csrc/gat_bwd_tiles_dad.cu`` and K6 ``csrc/gat_bwd_tiles_src.cu``
 (replacing ``_gat_bwd_dad_kernel(_tt)`` and ``_gat_bwd_dsrc_kernel(_tt)``)
-behind :func:`_gat_bwd_fused`.  The forward kernel is K3
+behind :func:`_gat_bwd_fused`.  K10 ``csrc/gat_grouped.cu`` (replacing
+``_gat_grouped_kernel_t``) computes the raw partials over a grouped tiling
+behind :func:`gat_grouped`.  The forward kernel is K3
 ``csrc/gat_tiles.cu``, the Hopper replacement of the TPU kernels
 ``_gat_kernel_t`` and ``_gat_kernel``: per destination row it accumulates
 the softmax numerator and denominator of the edge attention under the
@@ -28,9 +30,9 @@ import torch
 import torch.nn.functional as tF
 
 from .. import ir
-from ..graph import GraphTensor, TiledGraph
+from ..graph import GraphTensor, GroupedTiledGraph, TiledGraph
 from . import _ext
-from .spmm import _PLAIN_CHUNK
+from .spmm import Tiling, _geometry, _live_slots, _require_slots, _unit_steps
 
 NEG = -1e30
 
@@ -39,35 +41,27 @@ def _leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(v >= 0, v, slope * v)
 
 
-def _gat_tiles_reference(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
+def _gat_tiles_reference(tg: Tiling, h: torch.Tensor, mult: torch.Tensor,
                          a_dst: torch.Tensor, msrc: torch.Tensor, *,
                          w_asrc: Optional[torch.Tensor] = None,
                          a_src: Optional[torch.Tensor] = None,
                          negative_slope: float = 0.2,
                          normalize: bool = True) -> torch.Tensor:
-    """Plain version of K3 over the same tile arrays and at the TPU
-    kernel's rounding points: p*hs and p round to h's dtype before the f32
-    sums.  Derive mode (``w_asrc`` [HD, H] in h's dtype) forms a_s = hs @
-    w_asrc in f32; values mode reads ``a_src`` [N, H] in h's dtype."""
+    """Plain version of K3 (and, over a grouped tiling, of K10) over the
+    same tile arrays and at the TPU kernel's rounding points: p*hs and p
+    round to h's dtype before the f32 sums.  Derive mode (``w_asrc`` [HD,
+    H] in h's dtype) forms a_s = hs @ w_asrc in f32; values mode reads
+    ``a_src`` [N, H] in h's dtype."""
     H = a_dst.shape[1]
     HD = h.shape[1]
     D = HD // H
-    R, C, ET = tg.block_rows, tg.block_cols, tg.tile_edges
-    acc = torch.zeros((tg.n_row_blocks * R, HD + H), dtype=torch.float32,
+    acc = torch.zeros((_geometry(tg)[1], HD + H), dtype=torch.float32,
                       device=h.device)
     ms = msrc.float().reshape(1, H)
     ad_all = a_dst.float()
     wf = w_asrc.float() if w_asrc is not None else None
-    step = max(1, _PLAIN_CHUNK // max(ET * (HD + H), 1))
-    for t0 in range(0, tg.n_tiles, step):
-        t1 = t0 + step
-        cb = tg.tile_cb[t0:t1].long()[:, None]
-        rb = tg.tile_rb[t0:t1].long()[:, None]
-        sl = tg.src_local[t0:t1].long()
-        dl = tg.dst_local[t0:t1].long()
-        valid = (cb >= 0) & (sl < C) & (dl < R)
-        src = (cb * C + sl)[valid]
-        dst = (rb * R + dl)[valid]
+    for t0, t1 in _unit_steps(tg, HD + H):
+        valid, src, dst = _live_slots(tg, t0, t1)
         m = mult[t0:t1].float()[valid][:, None]
         hs = h.index_select(0, src).float()
         a_s = hs @ wf if wf is not None else a_src.index_select(0, src).float()
@@ -157,8 +151,69 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
 gat_tiles.launches = 0
 
 
+def _gat_grouped_reference(tg: GroupedTiledGraph, h: torch.Tensor,
+                           a_dst: torch.Tensor, msrc: torch.Tensor,
+                           w_asrc: torch.Tensor, *,
+                           negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain version of K10: K3's formulation in derive mode, raw [num |
+    den], over the grouped arrays; slot weights scale p (a unit tiling's
+    real slots weigh 1, so reading them changes nothing)."""
+    return _gat_tiles_reference(tg, h, tg.weight, a_dst, msrc, w_asrc=w_asrc,
+                                negative_slope=negative_slope,
+                                normalize=False)
+
+
+def gat_grouped(tg: GroupedTiledGraph, h: torch.Tensor, a_dst: torch.Tensor,
+                msrc: torch.Tensor, w_asrc: torch.Tensor, *,
+                negative_slope: float = 0.2) -> torch.Tensor:
+    """K10 wrapper: raw [num | den] [n_node, HD + H] float32 over a grouped
+    tiling, head-major, in derive mode (a_s = h[src] @ ``w_asrc``, [HD,
+    H] in h's dtype).  ``a_dst`` [N, H] and ``msrc`` [1, H] are float32.
+    The kernel reads the weight stream unless ``tg.weight_all_unit``.  CPU
+    tensors take the plain version; CUDA tensors launch or raise."""
+    if h.device.type == "cpu":
+        return _gat_grouped_reference(tg, h, a_dst, msrc, w_asrc,
+                                      negative_slope=negative_slope)
+    dev = h.device
+    H = a_dst.shape[1]
+    HD = h.shape[1]
+    _ext.require(h, "h", dev, (torch.float32, torch.bfloat16), 2)
+    _ext.require(w_asrc, "w_asrc", dev, (h.dtype,), 2)
+    _ext.require(a_dst, "a_dst", dev, (torch.float32,), 2)
+    _ext.require(msrc, "msrc", dev, (torch.float32,), 2)
+    _ext.require(tg.weight, "weight", dev, (torch.float32,), 3)
+    _require_slots(tg, dev, ("chunk_grp", "chunk_cb"))
+    if HD % H or HD > 256 or H > 32:
+        raise ValueError(f"K10 takes HD % H == 0, HD <= 256, H <= 32; got "
+                         f"HD={HD}, H={H}")
+    if tuple(msrc.shape) != (1, H) or tuple(w_asrc.shape) != (HD, H):
+        raise ValueError(f"msrc {tuple(msrc.shape)} or w_asrc "
+                         f"{tuple(w_asrc.shape)} do not fit H={H}, HD={HD}")
+    # the kernel adds into a zeroed buffer with atomics
+    acc = torch.zeros((tg.n_node, HD + H), dtype=torch.float32, device=dev)
+    if tg.n_chunks == 0 or tg.n_node == 0:
+        return acc
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        rc = lib.gta_gat_grouped(
+            tg.chunk_grp.data_ptr(), tg.chunk_cb.data_ptr(),
+            tg.src_local.data_ptr(), tg.dst_local.data_ptr(),
+            None if tg.weight_all_unit else tg.weight.data_ptr(),
+            h.data_ptr(), _ext.DTYPE_CODE[h.dtype], w_asrc.data_ptr(),
+            a_dst.data_ptr(), msrc.data_ptr(), acc.data_ptr(),
+            tg.n_chunks, tg.group, tg.block_rows, tg.block_cols,
+            tg.tile_edges, HD, H, h.shape[0], a_dst.shape[0], tg.n_node,
+            float(negative_slope), _ext.stream(h))
+    _ext.check(rc, "gat_grouped")
+    gat_grouped.launches += 1
+    return acc
+
+
+gat_grouped.launches = 0
+
+
 def _gat_forward(
-    tg: TiledGraph,
+    tg: Tiling,
     h_src: torch.Tensor,
     a_src: Optional[torch.Tensor],
     a_dst: torch.Tensor,
@@ -173,12 +228,22 @@ def _gat_forward(
     ``w_asrc`` [HD, H] instead of ``a_src`` when a_src is a linear map of h:
     the kernel derives a_s from the gathered rows ("derive" mode).  ``msrc``
     [1, H]: the shift bound; hybrid callers pass theirs so that every
-    partial shares it."""
+    partial shares it.  A grouped tiling runs K10, which takes the hybrid
+    partial path only, as in the JAX package: raw output, ``msrc`` and
+    ``w_asrc`` given."""
     H = a_dst.shape[1]
     HD = h_src.shape[1]
     if HD % H:
         raise ValueError(f"HD={HD} is not a multiple of H={H}")
     dt = h_src.dtype
+    if isinstance(tg, GroupedTiledGraph):
+        if normalize or msrc is None or w_asrc is None:
+            raise ValueError("a grouped tiling supports the hybrid partial "
+                             "path only: normalize=False, msrc and w_asrc")
+        return gat_grouped(tg, h_src.contiguous(), a_dst.float().contiguous(),
+                           msrc.float().reshape(1, H).contiguous(),
+                           w_asrc.to(dt).contiguous(),
+                           negative_slope=negative_slope)
     if w_asrc is not None:
         w_k = w_asrc.to(dt)
         if msrc is None:
@@ -239,20 +304,11 @@ def _gat_bwd_tiles_reference(tg: TiledGraph, h: torch.Tensor,
     H = msrc.shape[1]
     HD = h.shape[1]
     D = HD // H
-    R, C, ET = tg.block_rows, tg.block_cols, tg.tile_edges
-    out = torch.zeros((tg.n_row_blocks * R, H + (HD if src_mode else 0)),
+    out = torch.zeros((_geometry(tg)[1], H + (HD if src_mode else 0)),
                       dtype=torch.float32, device=h.device)
     ms = msrc.float().reshape(1, H)
-    step = max(1, _PLAIN_CHUNK // max(ET * (2 * HD + 8 * H), 1))
-    for t0 in range(0, tg.n_tiles, step):
-        t1 = t0 + step
-        cb = tg.tile_cb[t0:t1].long()[:, None]
-        rb = tg.tile_rb[t0:t1].long()[:, None]
-        sl = tg.src_local[t0:t1].long()
-        dl = tg.dst_local[t0:t1].long()
-        valid = (cb >= 0) & (sl < C) & (dl < R)
-        row = (rb * R + dl)[valid]
-        col = (cb * C + sl)[valid]
+    for t0, t1 in _unit_steps(tg, 2 * HD + 8 * H):
+        valid, col, row = _live_slots(tg, t0, t1)
         s, d = (row, col) if src_mode else (col, row)
         gd = gbar.index_select(0, d).float()
         hs = h.index_select(0, s).float()

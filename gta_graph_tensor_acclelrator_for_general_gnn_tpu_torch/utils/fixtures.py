@@ -55,24 +55,23 @@ class KernelCase(NamedTuple):
 
 def row_terms(graph):
     """Terms each output row of a kernel sums, float32: the live slots of a
-    ``TiledGraph`` per node, or the nonzero cells of a ``DenseBlockGraph``'s
-    blocks per padded row."""
+    ``TiledGraph`` or ``GroupedTiledGraph`` per node, or the nonzero cells
+    of a ``DenseBlockGraph``'s blocks per padded row."""
     import torch
 
     from ..graph import DenseBlockGraph
+    from ..ops.spmm import _geometry, _live_slots, _unit_steps
     R = graph.block_rows
     if isinstance(graph, DenseBlockGraph):
         nz = (graph.values != 0).sum(
             dim=1 if graph.values_layout == "cr" else 2)       # [B, R]
         acc = torch.zeros((graph.n_row_blocks, R), device=nz.device)
         return acc.index_add_(0, graph.blk_rb.long(), nz.float()).view(-1)
-    C = graph.block_cols
-    cb = graph.tile_cb.long()[:, None]
-    sl, dl = graph.src_local.long(), graph.dst_local.long()
-    valid = (cb >= 0) & (sl < C) & (dl < R)
-    dst = (graph.tile_rb.long()[:, None] * R + dl)[valid]
-    return torch.bincount(dst, minlength=graph.n_row_blocks * R)[
-        : graph.n_node].float()
+    rows = _geometry(graph)[1]
+    acc = torch.zeros(rows, device=graph.src_local.device)
+    for u0, u1 in _unit_steps(graph, 1):
+        acc += torch.bincount(_live_slots(graph, u0, u1)[2], minlength=rows)
+    return acc[: graph.n_node]
 
 
 def kernel_error(c: KernelCase) -> Tuple[float, float]:
@@ -243,6 +242,77 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                         D.gat_dense_blocks(bd, h, bd.values, a_s, a_d, ms),
                         D._gat_dense_reference(bd, h, bd.values, a_s, a_d,
                                                ms), HD)
+
+
+GROUPED_KERNELS = ("spmm_grouped", "gat_grouped")
+
+
+def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K9 and K10 on grouped tilings of the edge-case graph, in float32 and
+    bfloat16, against their plain versions.  Tilings: the whole graph with
+    symmetric-norm weights at 32-row blocks in groups of 2 (a stripe group
+    without edges gets a chunk of padding; most sub-tiles are empty); the
+    whole graph with unit weights at 128-row blocks in groups of 4 (no
+    weight stream); and the grouped tails of the bench's two hybrid
+    recipes at 128-wide blocks, the 'rc' int8 supergroup-16 split with
+    weighted tail slots and the 'cr' int8 unit split, whose tail holds the
+    merged slot of more than 127 copies (its weight, the copy count, scales
+    p).  K9 at F = 48 and the unaligned F = 41; K10 at 4 heads of 32, 1
+    head of 41 and 16 heads of 1, derive mode."""
+    import torch
+
+    from .. import graph as G
+    from ..ops import gat as A
+    from ..ops import spmm as SP
+
+    s, r, n, _ = edge_case_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, symmetric_norm=True,
+                            edge_pad_multiple=128)
+    hg_u = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    split = dict(block_rows=128, block_cols=128, tile_edges=64, min_nnz=64,
+                 values_dtype=np.int8, tail_format="grouped", tail_group=4,
+                 device=device)
+    tilings = {
+        "weighted R32 G2": G.tile_graph_grouped(
+            hg, block_rows=32, block_cols=64, tile_edges=32, group=2,
+            device=device),
+        "unit R128 G4": G.tile_graph_grouped(
+            hg_u, block_rows=128, block_cols=128, tile_edges=64, group=4,
+            unit_weight=True, device=device),
+        "rc int8 sg16 tail": G.hybrid_graph(hg, supergroup=16,
+                                            **split).tiles,
+        "cr int8 unit tail": G.hybrid_graph(hg_u, unit_weight=True,
+                                            block_layout="cr", **split).tiles,
+    }
+    t32 = tilings["weighted R32 G2"]
+    has_edges = (t32.dst_local < t32.block_rows).flatten(1).any(1)
+    empty = set(range(t32.n_groups)) - set(t32.chunk_grp[has_edges].tolist())
+    if not empty or float(tilings["cr int8 unit tail"].weight.max()) <= 1.0:
+        raise AssertionError("fixture lost its padding chunk or its merged "
+                             "multi-edge slot")
+    rng = np.random.default_rng(seed)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for tag, tg in tilings.items():
+            for F in (48, 41):
+                x = torch.tensor(rng.standard_normal((n, F)), dtype=dt,
+                                 device=device)
+                w = None if tg.weight_all_unit else tg.weight
+                yield KernelCase("spmm_grouped", f"{tag} F={F}", name,
+                                 SP.spmm_grouped(tg, x, w),
+                                 SP._spmm_grouped_reference(tg, x))
+            for H, HD in ((4, 128), (1, 41), (16, 16)):
+                h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
+                                 device=device)
+                w_as = torch.tensor(rng.standard_normal((HD, H))
+                                    / np.sqrt(HD), dtype=dt, device=device)
+                a_d = torch.tensor(rng.standard_normal((n, H)),
+                                   dtype=torch.float32, device=device)
+                ms = (h.float() @ w_as.float()).amax(0, keepdim=True)
+                yield KernelCase(
+                    "gat_grouped", f"{tag} H={H} HD={HD}", name,
+                    A.gat_grouped(tg, h, a_d, ms, w_as),
+                    A._gat_grouped_reference(tg, h, a_d, ms, w_as), HD)
 
 
 BWD_KERNELS = ("gat_bwd_tiles_dad", "gat_bwd_tiles_src", "gat_dense_bwd_dad",

@@ -6,7 +6,10 @@ widths on a 232,965-node synthetic community graph), serves three warm-up
 bf16 requests per model, then traces one more with ``torch.profiler``;
 with ``--train`` it also splits the transposed graph, takes one warm-up
 bf16 AdamW step per model (``models/train.make_train_step``, full batch)
-and traces the next.  For each it prints:
+and traces the next.  ``--grouped`` instead builds the port bench's two
+Reddit recipes (``bench.spmm_recipe``, ``bench.gat_recipe``: int8 dense
+blocks plus a grouped tail) on the same graph and traces one request of
+each after three warm-up requests.  For each it prints:
 
 - the host wall time, synchronised before and after;
 - the device's busy time: the union of the trace's kernel, memcpy and
@@ -17,7 +20,7 @@ and traces the next.  For each it prints:
 
 Needs one CUDA device::
 
-    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train]
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped]
 
 Chrome traces go to ``build/profile/`` at the repository root (or
 ``--out``).
@@ -80,6 +83,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=OUT_DIR)
     ap.add_argument("--train", action="store_true",
                     help="also trace one bf16 training step per model")
+    ap.add_argument("--grouped", action="store_true",
+                    help="trace one request of each of the bench's Reddit "
+                         "recipes (grouped tails) instead of the models")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -104,6 +110,17 @@ def main(argv=None) -> int:
     args.out.mkdir(parents=True, exist_ok=True)
     print(f"device {torch.cuda.get_device_name(0)}; graph N={hg.n_node} "
           f"E={hg.n_edge}", flush=True)
+    if args.grouped:
+        from .. import bench as B
+        for name, build in (("SpMM", B.spmm_recipe), ("GAT", B.gat_recipe)):
+            rc = build(hg, dev)
+            print(f"{name} recipe: {rc.detail()}", flush=True)
+            with torch.inference_mode():
+                for _ in range(3):
+                    rc.run()
+                _trace(f"bench {name} recipe bf16 request",
+                       args.out / f"trace_bench_{name}.json", rc.run, dev)
+        return 0
     # learnable labels for the training step: a linear probe of x
     wy = torch.tensor(np.random.default_rng(1).standard_normal(
         (F_IN, N_CLASS), dtype=np.float32), device=dev)

@@ -1,0 +1,191 @@
+"""The least time an H100 could take for a kernel call: its bound.
+
+A call's bound is the larger of two times: the bytes the function must
+move (each input read once, each output written once) over the card's
+memory rate, and the operations it does on these inputs over the card's
+peak rate for their type.  Where the work depends on the data, this counts
+what the data needs: the live slots of a tiling (pad slots and dead tiles
+excluded) and the nonzero cells of dense blocks, not the padded shapes the
+kernels walk.  An operation is a multiply, an add, a comparison or an
+exponential of one element.
+
+Rates (NVIDIA's data sheet, H100 SXM, dense, at the full 700 W power
+limit): 3.35 TB/s of HBM3; 989 TFLOP/s bf16 on the tensor cores; 67
+TFLOP/s float32 outside them.  The ops of a call with bfloat16 inputs are
+held to the bf16 rate, of one with float32 inputs to the float32 rate.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    bytes: float
+    ops: float
+    ops_per_s: float
+
+    @property
+    def bytes_ms(self) -> float:
+        return self.bytes / HBM_BYTES_PER_S * 1e3
+
+    @property
+    def ops_ms(self) -> float:
+        return self.ops / self.ops_per_s * 1e3
+
+    @property
+    def bound_ms(self) -> float:
+        return max(self.bytes_ms, self.ops_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+
+def bound_of(works) -> tuple:
+    """(bound_ms, bound_by) of several calls: the sum of their bounds, and
+    the side (bytes or operations) that sets the larger share of it."""
+    works = list(works)
+    total = sum(w.bound_ms for w in works)
+    by_bytes = sum(w.bound_ms for w in works if w.bound_by == "bytes")
+    return total, "bytes" if 2 * by_bytes >= total else "operations"
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _rate(dtype) -> float:
+    return PEAK_OPS_PER_S[torch.bfloat16 if dtype == torch.bfloat16
+                          else torch.float32]
+
+
+def live_slots(tg) -> int:
+    """Slots of a TiledGraph or GroupedTiledGraph that hold an edge."""
+    live = (tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
+    if hasattr(tg, "tile_cb"):
+        live &= (tg.tile_cb >= 0)[:, None]
+    return int(live.sum())
+
+
+def nonzero_cells(bg) -> int:
+    return int((bg.values != 0).sum())
+
+
+def spmm_tail(tg, x: torch.Tensor, weight_bytes: int) -> Work:
+    """K1 / K9: per live slot its two int16 indices and its weight
+    (``weight_bytes``, 0 when the kernel reads no weight stream), one
+    multiply and one add per feature; x read once, y [n_node, F] float32
+    written once."""
+    live, F = live_slots(tg), x.shape[1]
+    units = tg.tile_rb if hasattr(tg, "tile_rb") else tg.chunk_grp
+    return Work(bytes=live * (4 + weight_bytes) + 8 * units.numel()
+                + _nbytes(x) + 4 * tg.n_node * F,
+                ops=2.0 * live * F, ops_per_s=_rate(x.dtype))
+
+
+def spmm_dense(bg, x: torch.Tensor) -> Work:
+    """K2: the block values and x read once, the [n_rows, F] float32
+    partial written once; a multiply and an add per nonzero cell and
+    feature."""
+    F = x.shape[1]
+    return Work(bytes=_nbytes(bg.values) + 8 * bg.n_blocks + _nbytes(x)
+                + 4 * bg.n_row_blocks * bg.block_rows * F,
+                ops=2.0 * nonzero_cells(bg) * F, ops_per_s=_rate(x.dtype))
+
+
+def _gat_edge_ops(HD: int, H: int, derive: bool) -> int:
+    """Per edge of the forward: a_s (HD*H multiply-adds in derive mode),
+    p per head (add, two leaky, subtract, min, exp, multiply, ~9), num and
+    den (a multiply and an add per feature, an add per head)."""
+    return 2 * HD * H * derive + 9 * H + 2 * HD + H
+
+
+def gat_tail(tg, h: torch.Tensor, H: int, mult_bytes: int,
+             derive: bool = True) -> Work:
+    """K3 / K10: per live slot its indices and multiplicity; h, a_dst
+    (and a_src in values mode) read once; [num | den] float32 written
+    once."""
+    live, n, HD = live_slots(tg), h.shape[0], h.shape[1]
+    side = 4 * n * H * (1 if derive else 2)
+    return Work(bytes=live * (4 + mult_bytes) + _nbytes(h) + side
+                + 4 * tg.n_node * (HD + H),
+                ops=float(live * _gat_edge_ops(HD, H, derive)),
+                ops_per_s=_rate(h.dtype))
+
+
+def gat_dense(bg, h: torch.Tensor, H: int) -> Work:
+    """K4: block values, h, a_src and a_dst read once, the [n_rows, HD + H]
+    partial written once; the forward's per-edge work per nonzero cell."""
+    n, HD = h.shape
+    return Work(bytes=_nbytes(bg.values) + 8 * bg.n_blocks + _nbytes(h)
+                + 8 * n * H + 4 * bg.n_row_blocks * bg.block_rows * (HD + H),
+                ops=float(nonzero_cells(bg) * _gat_edge_ops(HD, H, False)),
+                ops_per_s=_rate(h.dtype))
+
+
+def _bwd_edge_ops(HD: int, H: int, src_mode: bool) -> int:
+    """Per edge of the backward: te (a multiply-add per feature), alpha and
+    dz (~10 per head), the dad add; with ``src_mode`` also das and dh
+    (a multiply-add per feature)."""
+    return 2 * HD + 11 * H + (2 * HD + H if src_mode else 0)
+
+
+def _bwd_bytes(h: torch.Tensor, H: int, n_out: int, src_mode: bool) -> int:
+    n, HD = h.shape
+    return 2 * _nbytes(h) + 16 * n * H + 4 * n_out * (H + (HD if src_mode
+                                                          else 0))
+
+
+def gat_bwd_tail(tg, h: torch.Tensor, H: int, mult_bytes: int,
+                 src_mode: bool) -> Work:
+    """K5 (dad) / K6 (das, dh over the transposed tiling): per live slot
+    its indices and multiplicity; h, gbar and the [N, 4H] side panel read
+    once, the output written once."""
+    live, HD = live_slots(tg), h.shape[1]
+    return Work(bytes=live * (4 + mult_bytes)
+                + _bwd_bytes(h, H, tg.n_node, src_mode),
+                ops=float(live * _bwd_edge_ops(HD, H, src_mode)),
+                ops_per_s=_rate(h.dtype))
+
+
+def gat_dense_bwd(bg, h: torch.Tensor, H: int, src_mode: bool) -> Work:
+    """K7 / K8: the blocks' counts, h, gbar and the side panel read once,
+    the output written once; the backward's per-edge work per nonzero
+    cell."""
+    HD = h.shape[1]
+    return Work(bytes=_nbytes(bg.values) + 8 * bg.n_blocks
+                + _bwd_bytes(h, H, h.shape[0], src_mode),
+                ops=float(nonzero_cells(bg) * _bwd_edge_ops(HD, H, src_mode)),
+                ops_per_s=_rate(h.dtype))
+
+
+def csr_of(graph, dtype, n_cols: int) -> torch.Tensor:
+    """The same edges as one sparse CSR matrix [rows, n_cols] of ``dtype``
+    (values: the slot weights of a tiling, the counts of dense blocks), the
+    input of the library call ``torch.sparse.mm`` that computes K1's, K2's
+    and K9's function."""
+    from ..graph import DenseBlockGraph
+    from ..ops.spmm import _live_slots, _unit_steps
+    if isinstance(graph, DenseBlockGraph):
+        R, C = graph.block_rows, graph.block_cols
+        b, i, j = torch.nonzero(graph.values, as_tuple=True)
+        rows = graph.blk_rb.long()[b] * R + i
+        cols = graph.blk_cb.long()[b] * C + j
+        vals = graph.values[b, i, j]
+        n_rows = graph.n_row_blocks * R
+    else:
+        parts = []
+        for u0, u1 in _unit_steps(graph, 8):
+            mask, src, dst = _live_slots(graph, u0, u1)
+            parts.append((dst, src, graph.weight[u0:u1][mask]))
+        rows, cols, vals = (torch.cat(p) for p in zip(*parts))
+        n_rows = graph.n_node
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals.to(dtype),
+                                  (n_rows, n_cols))
+    return coo.coalesce().to_sparse_csr()

@@ -33,6 +33,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+CPU = "cpu"     # the port's entry points default to the CUDA card
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 # edge-case graph split: community blocks dense, cross blocks in the tails
@@ -73,7 +74,8 @@ def edge_pair():
     hj_t, _ = JG.transpose_host_graph(hj)
     ht_t, _ = TG.transpose_host_graph(ht)
     out = (JG.hybrid_graph(hj, **SPLIT), JG.hybrid_graph(hj_t, **SPLIT),
-           TG.hybrid_graph(ht, **SPLIT), TG.hybrid_graph(ht_t, **SPLIT))
+           TG.hybrid_graph(ht, **SPLIT, device=CPU),
+           TG.hybrid_graph(ht_t, **SPLIT, device=CPU))
     for hy in out:
         assert hy.dense is not None and hy.n_sparse_edges > 0
         # 200 copies of the hot pair: 127 in a dense cell, 73 in one slot
@@ -171,19 +173,21 @@ def sym_pair():
     agg = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=60,
                values_dtype=np.int8, supergroup=16)
 
-    def scaled(mod, hg, to):
-        hy = mod.hybrid_graph(hg, **agg)
+    def scaled(mod, hg, to, dev):
+        hy = mod.hybrid_graph(hg, **agg, **dev)
         rs, cs = mod.separable_weight_scales(hg)
         return dataclasses.replace(hy, row_scale=to(rs), col_scale=to(cs))
 
     out = {}
-    for name, mod, hg, to in (("jax", JG, hj, jnp.asarray),
-                              ("port", TG, ht, torch.as_tensor)):
+    for name, mod, hg, to, dev in (
+            ("jax", JG, hj, jnp.asarray, {}),
+            ("port", TG, ht, torch.as_tensor, dict(device=CPU))):
         hg_t, _ = mod.transpose_host_graph(hg)
-        out[name] = dict(g=hg.to_device(), host=(hg, hg_t),
-                         att=(mod.hybrid_graph(hg, **ATT_SPLIT),
-                              mod.hybrid_graph(hg_t, **ATT_SPLIT)),
-                         agg=(scaled(mod, hg, to), scaled(mod, hg_t, to)))
+        out[name] = dict(g=hg.to_device(**dev), host=(hg, hg_t),
+                         att=(mod.hybrid_graph(hg, **ATT_SPLIT, **dev),
+                              mod.hybrid_graph(hg_t, **ATT_SPLIT, **dev)),
+                         agg=(scaled(mod, hg, to, dev),
+                              scaled(mod, hg_t, to, dev)))
     return out
 
 
@@ -258,7 +262,7 @@ def test_gat_hybrid_grads_when_one_split_has_no_dense_blocks(
     assert hyb.dense is not None and twin.dense is not None
     # min_nnz 0: no block goes dense, every edge stays in the tail
     tail = TG.hybrid_graph(t["host"][tail_only == "twin"],
-                           **{**ATT_SPLIT, "min_nnz": 0})
+                           **{**ATT_SPLIT, "min_nnz": 0}, device=CPU)
     assert tail.dense is None
     if tail_only == "forward":
         hyb = tail

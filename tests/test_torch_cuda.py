@@ -1,7 +1,8 @@
-"""PyTorch port: the hand-written CUDA kernels K1-K8 against their plain
+"""PyTorch port: the hand-written CUDA kernels K1-K10 against their plain
 PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases`` (the
-forward kernels K1-K4) and ``utils/fixtures.bwd_kernel_cases`` (the GAT
-backward kernels K5-K8).
+forward kernels K1-K4), ``utils/fixtures.bwd_kernel_cases`` (the GAT
+backward kernels K5-K8) and ``utils/fixtures.grouped_kernel_cases`` (the
+grouped-tail kernels K9 and K10).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed.  On a machine with a CUDA device:
@@ -23,6 +24,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import _ext  # n
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 KERNELS = {"spmm_tiles", "spmm_dense_blocks", "gat_tiles", "gat_dense_blocks"}
+CPU = torch.device("cpu")   # the port's entry points default to the card
 
 
 def _check_cases(device):
@@ -75,7 +77,7 @@ def test_row_terms_count_live_slots_and_dense_cells():
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
     s, r, n, _ = fixtures.edge_case_graph()
     hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
-    geo = dict(block_rows=128, block_cols=128, tile_edges=128)
+    geo = dict(block_rows=128, block_cols=128, tile_edges=128, device=CPU)
     deg = torch.bincount(torch.from_numpy(r.astype(np.int64)),
                          minlength=n).float()
     assert torch.equal(fixtures.row_terms(G.tile_graph(hg, **geo)), deg)
@@ -119,8 +121,8 @@ def test_bwd_kernel_cases_run_on_cpu():
     """The backward case list runs on the CPU, where every wrapper takes
     its plain version; a fault planted in one cell of an output fails the
     sum-of-|term| check."""
-    _check_bwd_cases(torch.device("cpu"))
-    c = next(c for c in fixtures.bwd_kernel_cases(torch.device("cpu"))
+    _check_bwd_cases(CPU)
+    c = next(c for c in fixtures.bwd_kernel_cases(CPU)
              if c.kernel == "gat_dense_bwd_src")
     bad = c.out.clone()
     bad[7, 0] += 0.05 * float(c.scale[7].abs().max())
@@ -131,7 +133,7 @@ def test_bwd_kernel_cases_run_on_cpu():
 def test_kernel_cases_run_on_cpu():
     """The case list itself (graphs, inputs, wrappers) runs on the CPU,
     where every wrapper takes its plain version."""
-    _check_cases(torch.device("cpu"))
+    _check_cases(CPU)
 
 
 @pytest.mark.gpu
@@ -155,6 +157,43 @@ def test_bwd_kernels_match_plain_versions_on_cuda():
     dev = torch.device("cuda", 0)
     _ext.library()
     _check_bwd_cases(dev)
+    torch.cuda.synchronize(dev)
+
+
+def _check_grouped_cases(device):
+    seen = set()
+    for c in fixtures.grouped_kernel_cases(device):
+        assert c.out.device == c.ref.device == device, (c.kernel, c.case)
+        fixtures.check_kernel(c)
+        seen.add((c.kernel, c.dtype_name))
+    assert seen == {(k, d) for k in fixtures.GROUPED_KERNELS
+                    for d in fixtures.KERNEL_TOL}
+
+
+def test_grouped_kernel_cases_run_on_cpu():
+    """The grouped case list (tilings with a padding chunk, unit and
+    weighted streams, a merged multi-edge slot) runs on the CPU, where the
+    K9 and K10 wrappers take their plain versions; a fault in one num
+    cell fails the row-scaled check."""
+    _check_grouped_cases(CPU)
+    c = next(c for c in fixtures.grouped_kernel_cases(CPU)
+             if c.kernel == "gat_grouped")
+    bad = c.out.clone()
+    row = int(c.ref[:, 0].abs().argmax())
+    bad[row, 0] *= 1.05
+    with pytest.raises(AssertionError):
+        fixtures.check_kernel(c._replace(out=bad))
+
+
+@pytest.mark.gpu
+def test_grouped_kernels_match_plain_versions_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K9 and K10 have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    _check_grouped_cases(dev)
     torch.cuda.synchronize(dev)
 
 
@@ -187,7 +226,7 @@ def test_gat_hybrid_backward_on_cuda_when_one_split_has_no_dense_blocks(
 
     monkeypatch.setattr(D, "_gat_reference_g", boom)
     grads = {}
-    for device in (torch.device("cpu"), dev):
+    for device in (CPU, dev):
         # min_nnz 0 sends every edge of that split to the tail
         hyb, twin = (G.hybrid_graph(g, min_nnz=0 if tail else 100,
                                     device=device, **split)

@@ -25,6 +25,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 F32_TOL = 1e-5
+CPU = "cpu"     # the port's entry points default to the CUDA card
 # (HD, H): the narrow GAT-Cora layer-3 shape and the wide Reddit shape
 SHAPES = [(16, 16), (128, 4)]
 
@@ -59,7 +60,7 @@ def _inputs(n, HD, H, seed=3, gap=False):
 def _tiles(hj, ht):
     geo = dict(block_rows=128, block_cols=128, tile_edges=128,
                unit_weight=True)
-    return J.tile_graph(hj, **geo), T.tile_graph(ht, **geo)
+    return J.tile_graph(hj, **geo), T.tile_graph(ht, **geo, device=CPU)
 
 
 @pytest.mark.parametrize("HD,H", SHAPES)
@@ -106,7 +107,7 @@ def test_gat_shift_gap_row_collapses_like_jax():
     _close(exact, JA._gat_reference(tj, jnp.asarray(h), jnp.asarray(a_s),
                                     jnp.asarray(a_d), 0.2))
     gj = float(JA.gat_shift_gap(hj.to_device(), jnp.asarray(a_s)))
-    gt = float(TA.gat_shift_gap(ht.to_device(), torch.from_numpy(a_s)))
+    gt = float(TA.gat_shift_gap(ht.to_device(CPU), torch.from_numpy(a_s)))
     assert gt > TA.SHIFT_GAP_SAFE
     np.testing.assert_allclose(gt, gj, rtol=1e-6)
 
@@ -117,7 +118,7 @@ def test_gat_dense_partial_matches_jax(layout, HD, H):
     hj, ht, _ = _hosts()
     kw = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=64,
               unit_weight=True, values_dtype=np.int8, block_layout=layout)
-    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw)
+    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw, device=CPU)
     h, a_s, a_d, _ = _inputs(hj.n_node, HD, H)
     ms = a_s.max(0, keepdims=True)
     pj = JDn.gat_dense_partial(yj_.dense, jnp.asarray(h), jnp.asarray(a_s),
@@ -145,24 +146,24 @@ def test_gat_hybrid_matches_jax(mode):
     kw = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=64,
               sparse_block_rows=256, sparse_block_cols=128, unit_weight=True,
               values_dtype=np.int8, block_layout="cr")
-    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw)
+    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw, device=CPU)
     assert float(yt_.tiles.weight.float().max()) == 73.0
     h, a_s, a_d, w = _inputs(hj.n_node, 128, 4)
     if mode == "derive":
         oj = JDn.gat_hybrid(yj_, hj.to_device(), jnp.asarray(h), None,
                             jnp.asarray(a_d), w_asrc=jnp.asarray(w),
                             interpret=True)
-        ot = TDn.gat_hybrid(yt_, ht.to_device(), torch.from_numpy(h), None,
+        ot = TDn.gat_hybrid(yt_, ht.to_device(CPU), torch.from_numpy(h), None,
                             torch.from_numpy(a_d), w_asrc=torch.from_numpy(w))
     else:
         oj = JDn.gat_hybrid(yj_, hj.to_device(), jnp.asarray(h),
                             jnp.asarray(a_s), jnp.asarray(a_d),
                             interpret=True)
-        ot = TDn.gat_hybrid(yt_, ht.to_device(), torch.from_numpy(h),
+        ot = TDn.gat_hybrid(yt_, ht.to_device(CPU), torch.from_numpy(h),
                             torch.from_numpy(a_s), torch.from_numpy(a_d))
     _close(ot, oj)
     # inside the shift-bound domain the exact full-graph softmax agrees
-    ref = TDn._gat_reference_g(ht.to_device(), torch.from_numpy(h),
+    ref = TDn._gat_reference_g(ht.to_device(CPU), torch.from_numpy(h),
                                torch.from_numpy(a_s) if mode == "values"
                                else torch.from_numpy(h) @ torch.from_numpy(w),
                                torch.from_numpy(a_d), 0.2, weighted=False)
@@ -183,13 +184,13 @@ def test_gat_bf16_rounding_points_match_jax():
     hj, ht, _ = _hosts()
     kw = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=64,
               unit_weight=True, values_dtype=np.int8, block_layout="cr")
-    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw)
+    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw, device=CPU)
     h, _, a_d, w = _inputs(hj.n_node, 128, 4)
     bf = jnp.bfloat16
     oj = JDn.gat_hybrid(yj_, hj.to_device(), jnp.asarray(h, bf), None,
                         jnp.asarray(a_d, bf), w_asrc=jnp.asarray(w, bf),
                         interpret=True)
-    ot = TDn.gat_hybrid(yt_, ht.to_device(), torch.from_numpy(h).bfloat16(),
+    ot = TDn.gat_hybrid(yt_, ht.to_device(CPU), torch.from_numpy(h).bfloat16(),
                         None, torch.from_numpy(a_d).bfloat16(),
                         w_asrc=torch.from_numpy(w).bfloat16())
     _close(ot, oj, tol=1e-3)

@@ -23,6 +23,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data import datasets
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 PORT_DIR = pathlib.Path(T.__file__).parent
+CPU = "cpu"     # the port's entry points default to the CUDA card
 
 
 def _np(a):
@@ -67,7 +68,7 @@ def _assert_tiles_equal(tj, tt):
 def test_build_host_graph_matches_jax(symmetric_norm, self_loops):
     hj, ht = _host_pair(symmetric_norm, self_loops)
     _assert_host_equal(hj, ht)
-    g = ht.to_device("cpu")
+    g = ht.to_device(CPU)
     assert g.senders.dtype == torch.int64 and g.e_pad == hj.e_pad
 
 
@@ -91,7 +92,7 @@ def test_tile_graph_matches_jax(unit_weight):
     tj = J.tile_graph(hj, block_rows=128, block_cols=128, tile_edges=128,
                       unit_weight=unit_weight)
     tt = T.tile_graph(ht, block_rows=128, block_cols=128, tile_edges=128,
-                      unit_weight=unit_weight)
+                      unit_weight=unit_weight, device=CPU)
     _assert_tiles_equal(tj, tt)
     assert tt.weight.dtype == (torch.bfloat16 if unit_weight
                                else torch.float32)
@@ -122,7 +123,7 @@ def test_hybrid_graph_matches_jax(case):
     elif case == "cr_int8_unit":
         kw.update(values_dtype=np.int8, unit_weight=True, block_layout="cr")
     yj = JG.hybrid_graph(hj, **kw)
-    yt = TG.hybrid_graph(ht, **kw)
+    yt = TG.hybrid_graph(ht, **kw, device=CPU)
     assert (yj.n_dense_edges, yj.n_sparse_edges) == (yt.n_dense_edges,
                                                      yt.n_sparse_edges)
     assert yt.n_dense_edges > 0 and yt.n_sparse_edges > 0
@@ -156,7 +157,7 @@ def test_hybrid_graph_without_dense_blocks():
     yj = JG.hybrid_graph(hj, block_rows=128, block_cols=128, tile_edges=128,
                          min_nnz=0)
     yt = TG.hybrid_graph(ht, block_rows=128, block_cols=128, tile_edges=128,
-                         min_nnz=0)
+                         min_nnz=0, device=CPU)
     assert yt.dense is None and yj.dense is None
     _assert_tiles_equal(yj.tiles, yt.tiles)
 
@@ -164,7 +165,7 @@ def test_hybrid_graph_without_dense_blocks():
 def test_unported_builder_options_raise():
     _, ht = _host_pair()
     with pytest.raises(NotImplementedError):
-        TG.hybrid_graph(ht, min_nnz=64, tail_format="grouped")
+        TG.hybrid_graph(ht, min_nnz=64, tile_classes=(64, 128), device=CPU)
     with pytest.raises(NotImplementedError):
         TG.reorder_nodes(ht, "cluster")
 

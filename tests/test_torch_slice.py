@@ -31,6 +31,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as TSp  # noqa: E402
 
 N, E, F_IN, HIDDEN, N_CLASS = 600, 5000, 24, 32, 5
+CPU = "cpu"     # the port's entry points default to the CUDA card
 # the slice's geometry shrunk to this graph: tail tiles and dense grid 128
 SPMM_TILE = dict(block_rows=128, block_cols=128, tile_edges=128,
                  dense_block=128)
@@ -78,9 +79,9 @@ def _jax_schedules(model):
 def _models(net):
     kw = dict(hidden=HIDDEN, n_layers=2, reorder=(net == "GCN"), heads=4)
     jm = J.build_model(net, F_IN, N_CLASS, **kw)
-    tm = T.build_model(net, F_IN, N_CLASS, **kw)
+    tm = T.build_model(net, F_IN, N_CLASS, **kw, device=CPU)
     pj = jm.init(jax.random.key(0))
-    pt = T.params_from_numpy({k: np.asarray(v) for k, v in pj.items()})
+    pt = T.params_from_numpy({k: np.asarray(v) for k, v in pj.items()}, CPU)
     tm.load_params(pt)
     return jm, tm, pj, pt
 
@@ -97,7 +98,7 @@ def test_slice_forward_matches_jax(graphs, net):
     assert [a.key() for a in sj] == [b.key() for b in st]
     x = np.random.default_rng(0).standard_normal((N, F_IN)).astype(
         np.float32)
-    fwd = tm.make_apply(schedules=st, host_graph=ht)
+    fwd = tm.make_apply(schedules=st, host_graph=ht, device=CPU)
     want = "spmm_hybrid" if net == "GCN" else "gat_hybrid"
     for fn in fwd.layer_fns:
         hyb = [d for k, _, d, _ in fn.plans if k == want]
@@ -106,7 +107,7 @@ def test_slice_forward_matches_jax(graphs, net):
     for f in (TSp.spmm_tiles, TDn.spmm_dense_blocks, TA.gat_tiles,
               TDn.gat_dense_blocks):
         f.launches = 0
-    yt = fwd(pt, ht.to_device(), torch.from_numpy(x))
+    yt = fwd(pt, ht.to_device(CPU), torch.from_numpy(x))
     yj = jm.make_apply(schedules=sj, host_graph=hj)(
         pj, hj.to_device(), jnp.asarray(x))
     assert yt.shape == (N, N_CLASS) and bool(torch.isfinite(yt).all())
@@ -114,7 +115,7 @@ def test_slice_forward_matches_jax(graphs, net):
     # CPU tensors take the plain versions: nothing was launched
     assert TSp.spmm_tiles.launches == TDn.gat_dense_blocks.launches == 0
     # the per-op oracle of both packages agrees with the kernel path
-    y0t = tm(ht.to_device(), torch.from_numpy(x))
+    y0t = tm(ht.to_device(CPU), torch.from_numpy(x))
     y0j = jm.make_apply()(pj, hj.to_device(), jnp.asarray(x))
     _close(y0t, y0j)
     _close(yt, np.asarray(y0j), tol=1e-4)
@@ -134,8 +135,9 @@ def test_slice_bf16_close_to_jax(graphs, net):
         gat_tile=TS.TileConfig(path=TS.PATH_HYBRID, **GAT_TILE))
     x = np.random.default_rng(1).standard_normal((N, F_IN)).astype(
         np.float32)
-    yt = tm.make_apply(torch.bfloat16, schedules=st, host_graph=ht)(
-        pt, ht.to_device(), torch.from_numpy(x))
+    yt = tm.make_apply(torch.bfloat16, schedules=st, host_graph=ht,
+                       device=CPU)(
+        pt, ht.to_device(CPU), torch.from_numpy(x))
     yj = jm.make_apply(jnp.bfloat16, schedules=_jax_schedules(jm),
                        host_graph=hj)(pj, hj.to_device(), jnp.asarray(x))
     _close(yt, yj, tol=1e-2)
@@ -149,10 +151,10 @@ def test_per_op_lower_matches_jax(graphs, network, reorder):
     gj = J.build_op_graph(network, 12, 8, heads=2, reorder=reorder)
     gt = T.build_op_graph(network, 12, 8, heads=2, reorder=reorder)
     pj = J.init_params(gj, jax.random.key(1))
-    pt = T.params_from_numpy({k: np.asarray(v) for k, v in pj.items()})
+    pt = T.params_from_numpy({k: np.asarray(v) for k, v in pj.items()}, CPU)
     x = np.random.default_rng(2).standard_normal((N, 12)).astype(np.float32)
     yj = J.lower(gj)(pj, hj.to_device(), jnp.asarray(x))
-    yt = T.lower(gt)(pt, ht.to_device(), torch.from_numpy(x))
+    yt = T.lower(gt)(pt, ht.to_device(CPU), torch.from_numpy(x))
     _close(yt, yj)
 
 
@@ -181,16 +183,16 @@ def test_unported_kinds_raise(graphs):
     g = T.build_op_graph("GCN", 8, 8)
     part = TS.aggregation_partition(g)
     sched = TS.Schedule(blocks=part, tiles=tuple(
-        TS.TileConfig(path=TS.PATH_GROUPED) for _ in part))
+        TS.TileConfig(path=TS.PATH_DENSEFULL) for _ in part))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.lower_schedule(g, sched, ht)
+        TF.lower_schedule(g, sched, ht, device=CPU)
     assert TS.Schedule.from_key(sched.key()) == sched
 
 
 def test_model_init_is_seeded_glorot():
-    a = T.build_model("GAT", 10, 3, hidden=8,
+    a = T.build_model("GAT", 10, 3, hidden=8, device=CPU,
                       generator=torch.Generator().manual_seed(4))
-    b = T.build_model("GAT", 10, 3, hidden=8,
+    b = T.build_model("GAT", 10, 3, hidden=8, device=CPU,
                       generator=torch.Generator().manual_seed(4))
     for k, v in a.params.items():
         assert torch.equal(v, b.params[k])
@@ -205,7 +207,8 @@ def test_cli_run_on_cpu(tmp_path, capsys):
         {"blocks": [list(b) for b in s.blocks],
          "tiles": [list(t.key()) for t in s.tiles]}
         for s in TF.hybrid_schedules(
-            T.build_model("GCN", 32, 4, hidden=16, reorder=True).layers,
+            T.build_model("GCN", 32, 4, hidden=16, reorder=True,
+                          device=CPU).layers,
             spmm_tile=TS.TileConfig(path=TS.PATH_HYBRID, **SPMM_TILE))]}
     path = tmp_path / "sched.json"
     path.write_text(json.dumps(spec))

@@ -28,6 +28,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as T
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 F32_TOL = 1e-5
+CPU = "cpu"     # the port's entry points default to the CUDA card
 
 
 def _close(port, ref, tol=F32_TOL):
@@ -59,7 +60,7 @@ def test_spmm_matches_jax(unit_weight):
                unit_weight=unit_weight)
     x = _x(hj.n_node, 16)
     yj = JS.spmm(J.tile_graph(hj, **geo), jnp.asarray(x), interpret=True)
-    yt = TS.spmm(T.tile_graph(ht, **geo), torch.from_numpy(x))
+    yt = TS.spmm(T.tile_graph(ht, **geo, device=CPU), torch.from_numpy(x))
     _close(yt, yj)
 
 
@@ -68,7 +69,7 @@ def test_spmm_dead_tile_and_edge_vals_match_jax():
     per-edge values multiply the tile weights."""
     hj, ht, _ = _hosts()
     geo = dict(block_rows=128, block_cols=128, tile_edges=128)
-    tj, tt = J.tile_graph(hj, **geo), T.tile_graph(ht, **geo)
+    tj, tt = J.tile_graph(hj, **geo), T.tile_graph(ht, **geo, device=CPU)
     tj = dataclasses.replace(tj, tile_cb=tj.tile_cb.at[1].set(-1))
     cb = tt.tile_cb.clone()
     cb[1] = -1
@@ -90,7 +91,7 @@ def test_spmm_bf16_rounding_point_matches_jax():
     x = _x(hj.n_node, 16)
     yj = JS.spmm(J.tile_graph(hj, **geo), jnp.asarray(x, jnp.bfloat16),
                  interpret=True)
-    yt = TS.spmm(T.tile_graph(ht, **geo), torch.from_numpy(x).bfloat16())
+    yt = TS.spmm(T.tile_graph(ht, **geo, device=CPU), torch.from_numpy(x).bfloat16())
     _close(yt, yj)
 
 
@@ -99,7 +100,7 @@ def test_spmm_dense_matches_jax(supergroup):
     hj, ht, meta = _hosts()
     kw = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=64,
               values_dtype=np.int8, supergroup=supergroup)
-    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw)
+    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw, device=CPU)
     rs, cs = TG.separable_weight_scales(ht)
     x = _x(hj.n_node, 40)
     dj = JDn.spmm_dense(yj_.dense, jnp.asarray(x), interpret=True,
@@ -119,7 +120,7 @@ def test_spmm_hybrid_matches_jax(weighted):
     kw = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=64,
               sparse_block_rows=256, sparse_block_cols=128,
               values_dtype=np.int8, supergroup=16, unit_weight=not weighted)
-    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw)
+    yj_, yt_ = JG.hybrid_graph(hj, **kw), TG.hybrid_graph(ht, **kw, device=CPU)
     if weighted:
         rs, cs = TG.separable_weight_scales(ht)
         yj_ = dataclasses.replace(yj_, row_scale=jnp.asarray(rs),
@@ -128,12 +129,12 @@ def test_spmm_hybrid_matches_jax(weighted):
                                   col_scale=torch.from_numpy(cs))
     x = _x(hj.n_node, 32)
     yj = JDn.spmm_hybrid(yj_, hj.to_device(), jnp.asarray(x), interpret=True)
-    yt = TDn.spmm_hybrid(yt_, ht.to_device(), torch.from_numpy(x))
+    yt = TDn.spmm_hybrid(yt_, ht.to_device(CPU), torch.from_numpy(x))
     _close(yt, yj)
     # and the full-graph segment formulation agrees with both
-    _close(TDn._spmm_ref_g(ht.to_device(), torch.from_numpy(x), weighted),
+    _close(TDn._spmm_ref_g(ht.to_device(CPU), torch.from_numpy(x), weighted),
            JDn._spmm_ref_g(hj.to_device(), jnp.asarray(x), weighted))
-    _close(yt, TDn._spmm_ref_g(ht.to_device(), torch.from_numpy(x),
+    _close(yt, TDn._spmm_ref_g(ht.to_device(CPU), torch.from_numpy(x),
                                weighted).numpy())
 
 

@@ -36,6 +36,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import sche
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import checkpoint as TC  # noqa: E402
 
+CPU = "cpu"     # the port's entry points default to the CUDA card
 # the JAX trainer test's hybrid geometry for the 200-node tiny graph
 TINY_TILE = TS.TileConfig(32, 32, 64, TS.PATH_HYBRID)
 # the slice's geometry shrunk to a 600-node graph (test_torch_slice.py)
@@ -68,17 +69,17 @@ def test_adamw_steps_match_optax(network):
     ds = J.load_dataset("tiny")
     kw = dict(hidden=16, n_layers=2, heads=2)
     jm = J.build_model(network, ds.x.shape[1], ds.n_class, **kw)
-    tm = T.build_model(network, ds.x.shape[1], ds.n_class, **kw)
+    tm = T.build_model(network, ds.x.shape[1], ds.n_class, **kw, device=CPU)
     pj = jm.init(jax.random.key(0))
     tm.load_params(T.params_from_numpy({k: np.asarray(v)
-                                        for k, v in pj.items()}))
+                                        for k, v in pj.items()}, CPU))
     tx = optax.adamw(1e-2, weight_decay=5e-4)
     jstep = jax.jit(JT.make_train_step(jm.make_apply(), tx))
     js = JT.TrainState(pj, tx.init(pj), jnp.zeros((), jnp.int32))
     ts = TT.TrainState(tm.params, TT.adamw(tm.params, 1e-2, 5e-4))
     tstep = TT.make_train_step(tm.make_apply())
     gj, gt = ds.host_graph.to_device(), \
-        T.load_dataset("tiny").host_graph.to_device()
+        T.load_dataset("tiny").host_graph.to_device(CPU)
     args_j = (jnp.asarray(ds.x), jnp.asarray(ds.y), jnp.asarray(ds.train_mask))
     args_t = (torch.tensor(ds.x), torch.tensor(ds.y).long(),
               torch.tensor(ds.train_mask))
@@ -98,7 +99,7 @@ def test_train_tiny_through_hybrid_kernel_backward(network):
     trainer's own test does (test_train.py, 30 epochs)."""
     ds = T.load_dataset("tiny")
     model = T.build_model(network, ds.x.shape[1], ds.n_class, hidden=16,
-                          n_layers=2, heads=2,
+                          n_layers=2, heads=2, device=CPU,
                           generator=torch.Generator().manual_seed(0))
     sched = _schedules(model, network)
     want = "spmm_hybrid" if network == "GCN" else "gat_hybrid"
@@ -107,7 +108,7 @@ def test_train_tiny_through_hybrid_kernel_backward(network):
                for g, s in zip(model.layers, sched))
     state, res = TT.train_node_classifier(
         ds, network, hidden=16, heads=2, epochs=30, model=model,
-        schedules=sched, build_transpose=True)
+        schedules=sched, build_transpose=True, device=CPU)
     assert res.train_acc > 0.6, res
     assert state.step == 30
     assert res.epoch_time_s is None       # no device clock on the CPU
@@ -117,13 +118,14 @@ def test_checkpoint_round_trip(tmp_path):
     """Save after three steps, restore into a fresh state, and the next
     step of both is the same."""
     ds = T.load_dataset("tiny")
-    g = ds.host_graph.to_device()
+    g = ds.host_graph.to_device(CPU)
     args = (torch.tensor(ds.x), torch.tensor(ds.y).long(),
             torch.tensor(ds.train_mask))
 
     def fresh(seed):
         m = T.build_model("GCN", ds.x.shape[1], ds.n_class, hidden=16,
-                          generator=torch.Generator().manual_seed(seed))
+                          generator=torch.Generator().manual_seed(seed),
+                          device=CPU)
         return m, TT.TrainState(m.params, TT.adamw(m.params, 1e-2))
 
     m, st = fresh(0)
@@ -151,7 +153,7 @@ def test_cli_train_schedule_prints_jax_keys(tmp_path, capsys):
         {"blocks": [list(b) for b in s.blocks],
          "tiles": [list(t.key()) for t in s.tiles]}
         for s in _schedules(T.build_model("GCN", 32, 4, hidden=16,
-                                          reorder=True), "GCN")]}
+                                          reorder=True, device=CPU), "GCN")]}
     path = tmp_path / "sched.json"
     path.write_text(json.dumps(spec))
     rc = TCLI.main(["train", "--dataset", "tiny", "--network", "GCN",
@@ -169,23 +171,26 @@ def test_cli_train_schedule_prints_jax_keys(tmp_path, capsys):
 
 
 def test_non_hybrid_kernel_blocks_refuse_a_gradient():
-    """The non-hybrid spmm kind has no backward in the port yet: asking
-    for one raises instead of returning a silent zero gradient."""
+    """The non-hybrid gat kind has no backward in the port yet (its
+    ``_gat_vjp`` is Queue 1 item 5): asking for one raises instead of
+    returning a silent zero gradient.  (The spmm kinds now have one:
+    ``test_torch_grouped.py``.)"""
     ds = T.load_dataset("tiny")
-    m = T.build_model("GCN", ds.x.shape[1], ds.n_class, hidden=16,
-                      n_layers=1, reorder=True)    # aggregates x @ W
-    part = TS.aggregation_partition(m.layers[0])
+    m = T.build_model("GAT", ds.x.shape[1], ds.n_class, hidden=16,
+                      n_layers=1, heads=1, device=CPU)
+    part = TS.pattern_partition(m.layers[0])
     tc = TS.TileConfig(32, 32, 64, TS.PATH_ONEHOT)
     sched = TS.Schedule(blocks=part, tiles=tuple(
-        tc if TF.classify_block(m.layers[0], b, tc)[0] == "spmm"
+        tc if TF.classify_block(m.layers[0], b, tc)[0] == "gat"
         else TS.TileConfig(path=TS.PATH_XLA) for b in part))
-    fwd = m.make_apply(schedules=sched, host_graph=ds.host_graph)
+    assert any(t.kernel for t in sched.tiles)
+    fwd = m.make_apply(schedules=sched, host_graph=ds.host_graph, device=CPU)
     x = torch.tensor(ds.x)
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        fwd(dict(m.params), ds.host_graph.to_device(), x)
+        fwd(dict(m.params), ds.host_graph.to_device(CPU), x)
     with torch.no_grad():
-        assert fwd(dict(m.params), ds.host_graph.to_device(), x).shape == (
-            ds.x.shape[0], ds.n_class)
+        assert fwd(dict(m.params), ds.host_graph.to_device(CPU),
+                   x).shape == (ds.x.shape[0], ds.n_class)
 
 
 @pytest.fixture(scope="module")
@@ -208,10 +213,10 @@ def test_lower_schedule_build_transpose_matches_jax(slice_graphs, net):
     hj, ht = slice_graphs
     kw = dict(hidden=HIDDEN, n_layers=2, reorder=(net == "GCN"), heads=4)
     jm = J.build_model(net, F_IN, N_CLASS, **kw)
-    tm = T.build_model(net, F_IN, N_CLASS, **kw)
+    tm = T.build_model(net, F_IN, N_CLASS, **kw, device=CPU)
     pj = jm.init(jax.random.key(0))
     tm.load_params(T.params_from_numpy({k: np.asarray(v)
-                                        for k, v in pj.items()}))
+                                        for k, v in pj.items()}, CPU))
     st = TF.hybrid_schedules(
         tm.layers, spmm_tile=TS.TileConfig(path=TS.PATH_HYBRID, **SPMM_TILE),
         gat_tile=TS.TileConfig(path=TS.PATH_HYBRID, **GAT_TILE))
@@ -232,13 +237,14 @@ def test_lower_schedule_build_transpose_matches_jax(slice_graphs, net):
         return JT.masked_cross_entropy(v, jnp.asarray(y), jnp.asarray(mask))
 
     lj, gj = jax.value_and_grad(j_loss)(pj)
-    fwd = tm.make_apply(schedules=st, host_graph=ht, build_transpose=True)
+    fwd = tm.make_apply(schedules=st, host_graph=ht, build_transpose=True,
+                        device=CPU)
     want = "spmm_hybrid" if net == "GCN" else "gat_hybrid"
     for fn in fwd.layer_fns:
         twins = [(d, tw) for k, _, d, tw in fn.plans if k == want]
         assert len(twins) == 1 and twins[0][1] is not None
         assert twins[0][1].dense is not None
-    lt = TT.masked_cross_entropy(fwd(dict(tm.params), ht.to_device(), torch.tensor(x)),
+    lt = TT.masked_cross_entropy(fwd(dict(tm.params), ht.to_device(CPU), torch.tensor(x)),
               torch.tensor(y), torch.tensor(mask))
     lt.backward()
     _close(lt, lj)
@@ -251,12 +257,13 @@ def test_twin_threshold_is_the_transposed_graphs(slice_graphs):
     """The twin's dense threshold is computed over the transposed graph, as
     the JAX package computes it, so both build the same twin split."""
     hj, ht = slice_graphs
-    tm = T.build_model("GAT", F_IN, N_CLASS, hidden=HIDDEN, heads=4)
+    tm = T.build_model("GAT", F_IN, N_CLASS, hidden=HIDDEN, heads=4,
+                       device=CPU)
     st = TF.hybrid_schedules(
         tm.layers, gat_tile=TS.TileConfig(path=TS.PATH_HYBRID, **GAT_TILE))
     cache = {}
     fn = TF.lower_schedule(tm.layers[0], st[0], ht, build_transpose=True,
-                           tile_cache=cache)
+                           tile_cache=cache, device=CPU)
     (_, _, hyb, twin), = [p for p in fn.plans if p[0] == "gat_hybrid"]
     hj_t, _ = JG.transpose_host_graph(hj)
     thr = JD.hybrid_threshold(hj_t, "gat", heads=4, head_dim=HIDDEN // 4,
