@@ -36,13 +36,27 @@ Reddit's node count, and checks every hand-written kernel on the way:
      GCN-2l lowered on PATH_GROUPED 512²/ET128 with the transposed twin:
      one bf16 and one float32 request against the per-op path, float32
      gradients against per-op autograd (K9 launched in the backward), and 1
-     warm-up and 2 timed bf16 AdamW steps.
+     warm-up and 2 timed bf16 AdamW steps;
+  7. SDDMM and pair aggregation: (a) K11-K13 against their plain versions
+     on the fixture cases; (b) DGN-2l and PNA-2l (602/128/41) with their
+     pair chains on K13 (``pair_agg_partition``, 1024²/ET512 ``onehot``):
+     K13 checked and timed at each layer's shape, 3 bf16 and 1 float32
+     requests per model on the smoke's graph, and on a reduced graph of
+     the same generator (a tenth of the edges, where the per-op path fits)
+     answers, float32 losses and gradients against the per-op path; (c)
+     GAT-2l with its logit blocks on the ``sddmm`` kind (K11 at the ADD
+     shapes), one bf16 and one float32 request against the per-op path;
+     (d) the hybrid SDDMM (dense-block logits plus K12 on phase 6's SpMM
+     recipe split, and K11 on the same split with a per-tile tail; F =
+     128, bf16), K11 and K12 also at 4 heads on the GAT recipe's tails,
+     grouped and per-tile logits compared in edge order.
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
 calls its time, the plain version's, its bound on the card from
 ``utils/roofline`` and the time of the library call that computes the same
-function, ``torch.sparse.mm`` for K1, K2 and K9, else null), the card's
+function, ``torch.sparse.mm`` for K1, K2 and K9, ``torch.sparse.
+sampled_addmm`` at one head for K11 and K12, else null), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script then exits non-zero without that line.  Needs
 one CUDA device.
@@ -90,6 +104,12 @@ KERNELS = {
                          replaces=f"{JAX_PKG}/ops/spmm.py:45"),
     "gat_grouped": dict(source=f"{PKG}/csrc/gat_grouped.cu",
                         replaces=f"{JAX_PKG}/ops/gat.py:323"),
+    "sddmm_tiles": dict(source=f"{PKG}/csrc/sddmm_tiles.cu",
+                        replaces=f"{JAX_PKG}/ops/sddmm.py:84"),
+    "sddmm_grouped": dict(source=f"{PKG}/csrc/sddmm_grouped.cu",
+                          replaces=f"{JAX_PKG}/ops/sddmm.py:192"),
+    "pair_agg": dict(source=f"{PKG}/csrc/pair_agg.cu",
+                     replaces=f"{JAX_PKG}/ops/pairagg.py:59"),
 }
 # kernel path vs per-op path: the per-op path rounds only the matmul
 # operands to bf16, the kernels also their gathered rows and products
@@ -103,10 +123,29 @@ E2E_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_TOL = {"loss": 1e-4, "grad": 1e-3}
 LR = 1e-2
 TRAIN_STEPS = 4    # timed bf16 steps per model, after one warm-up step
+# phase 7: the tiling of the pair-agg and sddmm blocks, (block rows, block
+# cols, slots per tile) on the ``onehot`` path
+PAIR_TILE = (1024, 1024, 512)
+# phase 7b's reduced graph, where the per-op path holds DGN and PNA: a
+# tenth of the smoke's edges from the same generator
+REDUCED_EDGES = 1_146_158
+LOGIT_SCALE = 10.0  # phase 7b's float32 gradients: max |logit| of the input
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _timed(fn, *args):
+    """(``fn(*args)``, its device time in ms by CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 class Checks:
@@ -142,6 +181,35 @@ class Checks:
             a = self.csr[key]
         return lambda: torch.sparse.mm(a, x)
 
+    def sampled_addmm(self, graph, x_src, x_dst):
+        """The library call that computes K11's and K12's function at one
+        head: ``torch.sparse.sampled_addmm`` of x_dst @ x_srcᵀ sampled at a
+        CSR matrix of ``graph``'s live edges (receiver rows, sender
+        columns; duplicate edges merged), beta 0.  Built outside the
+        timing; a build without the dtype's kernel runs it in float32 and
+        says so."""
+        import torch
+
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline
+        n = x_src.shape[0]
+        for dt in (x_src.dtype, torch.float32):
+            key = (id(graph), dt)
+            if key not in self.csr:
+                self.csr[key] = roofline.csr_of(graph, dt, n)
+            a, xd, xs_t = self.csr[key], x_dst.to(dt), x_src.to(dt).t().contiguous()
+            try:
+                torch.sparse.sampled_addmm(a, xd, xs_t, beta=0.0)
+            except (RuntimeError, NotImplementedError) as e:
+                if dt == torch.float32:
+                    raise
+                say(f"  torch.sparse.sampled_addmm in {dt}: "
+                    f"{str(e).splitlines()[0]}; timed in float32")
+                continue
+            call = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+                a, xd, xs_t, beta=0.0)
+            call.label = f"torch.sparse.sampled_addmm ({dt})"
+            return call
+
     def compare(self, c, slice_shape: bool = False) -> None:
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
         err, share = fixtures.check_kernel(c)
@@ -160,22 +228,33 @@ class Checks:
         as that call of a request or step, beside the call's bound
         (``work()``, a ``roofline.Work``) and the library call's time
         (``library``, where one PyTorch call computes the same function)."""
-        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase
         self.compare(KernelCase(kernel, case, dtype_name, kern(), plain(),
                                 split, terms, scale), slice_shape=True)
         if timed_as is not None:
-            ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS)
-            ms_p = median_ms(plain, device=dev, warmup=1, repeats=REPEATS)
-            ms_l = (median_ms(library, device=dev, warmup=1, repeats=REPEATS)
-                    if library is not None else None)
-            w = work()
+            self.time_call(kernel, timed_as, kern, plain, dev, work, library)
+
+    def time_call(self, kernel, timed_as, kern, plain, dev, work,
+                  library=None, in_row=True) -> None:
+        """Time ``kern()`` and ``plain()`` (CUDA events, median of
+        REPEATS) and the library call (named by its ``label``, else
+        ``torch.sparse.mm``), beside the bound ``work()``; with ``in_row``
+        the call counts in the kernel's line of the JSON result, else it
+        is only printed."""
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
+        ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS)
+        ms_p = median_ms(plain, device=dev, warmup=1, repeats=REPEATS)
+        ms_l = (median_ms(library, device=dev, warmup=1, repeats=REPEATS)
+                if library is not None else None)
+        w = work()
+        if in_row:
             self.times.setdefault(kernel, {})[timed_as] = (ms_k, ms_p, w,
                                                            ms_l)
-            lib = "" if ms_l is None else f"   torch.sparse.mm {ms_l:.4f} ms"
-            say(f"  {kernel:18s} {timed_as:11s} kernel {ms_k:.4f} ms   "
-                f"plain {ms_p:.4f} ms   bound {w.bound_ms:.4f} ms "
-                f"({w.bound_by}){lib}")
+        lib = "" if ms_l is None else (
+            f"   {getattr(library, 'label', 'torch.sparse.mm')} {ms_l:.4f} ms")
+        say(f"  {kernel:18s} {timed_as:11s} kernel {ms_k:.4f} ms   "
+            f"plain {ms_p:.4f} ms   bound {w.bound_ms:.4f} ms "
+            f"({w.bound_by}){lib}{'' if in_row else '   (not in the row)'}")
 
 
 def edge_case_checks(checks: Checks, dev) -> None:
@@ -442,15 +521,10 @@ def training_phase(checks: Checks, models, fwd, hg, g, dev):
         losses, times = [], []
         torch.cuda.reset_peak_memory_stats(dev)
         for i in range(n_steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            state, loss = step(state, g, x, y, mask)
-            end.record()
-            end.synchronize()
+            (state, loss), ms = _timed(step, state, g, x, y, mask)
             losses.append(float(loss))
             if i > 0:
-                times.append(start.elapsed_time(end))
+                times.append(ms)
         step_ms[(mname, path)] = times
         say(f"  {mname} {path}: losses {['%.5f' % v for v in losses]}, "
             f"step ms {['%.2f' % t for t in times]} (median "
@@ -483,6 +557,15 @@ def training_phase(checks: Checks, models, fwd, hg, g, dev):
 
 def _rel_err(y, ref) -> float:
     return float((y - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def _row_rel(y, ref):
+    """Each row's max |y - ref| over its own max |ref| (raised to 1e-6 of
+    the largest row's, so an all-zero row must come out near zero)."""
+    y, ref = y.double(), ref.double()
+    scale = ref.abs().amax(dim=1)
+    scale = scale.clamp(min=1e-6 * max(1.0, float(scale.max())))
+    return (y - ref).abs().amax(dim=1) / scale
 
 
 def bench_recipes(checks: Checks, hg, dev) -> dict:
@@ -579,7 +662,7 @@ def bench_recipes(checks: Checks, hg, dev) -> dict:
             if not rel <= E2E_TOL["bfloat16"]:
                 raise AssertionError(f"{name} recipe: grouped tail differs "
                                      f"from per-tile by {rel}")
-    return launches
+    return launches, recipes
 
 
 def grouped_gcn(checks: Checks, model, hg, g, dev) -> int:
@@ -713,15 +796,10 @@ def grouped_gcn(checks: Checks, model, hg, g, dev) -> int:
     step = TT.make_train_step(stack(fns["bfloat16"]))
     losses, times = [], []
     for i in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, loss = step(state, g, x, labels, mask)
-        end.record()
-        end.synchronize()
+        (state, loss), ms = _timed(step, state, g, x, labels, mask)
         losses.append(float(loss))
         if i > 0:
-            times.append(start.elapsed_time(end))
+            times.append(ms)
     say(f"  GCN-2l grouped bf16 steps: losses "
         f"{['%.5f' % v for v in losses]}, step ms "
         f"{['%.3f' % t for t in times]}")
@@ -731,15 +809,16 @@ def grouped_gcn(checks: Checks, model, hg, g, dev) -> int:
     return SP.spmm_grouped.launches
 
 
-def grouped_phase(checks: Checks, model, hg, g, dev) -> dict:
-    """Phase 6; returns K9's and K10's launches on its main-path runs."""
+def grouped_phase(checks: Checks, model, hg, g, dev) -> tuple:
+    """Phase 6; returns K9's and K10's launches on its main-path runs and
+    the bench recipes it built."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
     t0 = time.perf_counter()
     say("== 6a grouped kernels K9, K10: edge cases")
     for c in fixtures.grouped_kernel_cases(dev):
         checks.compare(c)
     say("== 6b the root bench's Reddit recipes on the smoke's graph")
-    launches = bench_recipes(checks, hg, dev)
+    launches, recipes = bench_recipes(checks, hg, dev)
     checks.csr.clear()
     say("== 6c GCN-2l on PATH_GROUPED with the transposed twin")
     launches["spmm_grouped"] += grouped_gcn(checks, model, hg, g, dev)
@@ -749,6 +828,424 @@ def grouped_phase(checks: Checks, model, hg, g, dev) -> dict:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched in phase 6")
+    return launches, recipes
+
+
+def _request_x(seed: int, n: int, dev):
+    import torch
+    return torch.tensor(np.random.default_rng(seed).standard_normal(
+        (n, F_IN), dtype=np.float32), device=dev)
+
+
+def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
+    """K13 at each pair-agg layer's shape on the model's tiling, in bf16 and
+    float32, sum, max and count apart (the sum scaled by each cell's sum of
+    |term|, as in the fixture cases), timed in bf16."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for mname, li, plan in plans:
+        D, want_max = plan.width, ir.MAX in plan.gathers
+        kw = dict(sf=plan.sf, slope=plan.slope, want_max=want_max)
+        what = f"{mname} l{li} D={D} {'+'.join(sorted(plan.gathers))}"
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[1]
+            u, v = (torch.randn((n, D), generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+            out = PA.pair_agg(tg, u, v, **kw)
+            ref = PA._pair_agg_reference(tg, u, v, **kw)
+            mag = PA._pair_agg_reference(tg, u, v, magnitude=True, **kw)[0]
+            checks.compare(KernelCase("pair_agg", f"sum {what}", name, out[0],
+                                      ref[0], terms=ref[2][:, 0], scale=mag),
+                           slice_shape=True)
+            if want_max:
+                checks.compare(KernelCase("pair_agg", f"max {what}", name,
+                                          out[1], ref[1]), slice_shape=True)
+            checks.compare(KernelCase("pair_agg", f"count {what}", name,
+                                      out[2], ref[2]), slice_shape=True)
+            del out, ref, mag
+            if dt == torch.bfloat16:
+                checks.time_call(
+                    "pair_agg", f"{mname[:3]} l{li}",
+                    lambda: PA.pair_agg(tg, u, v, **kw),
+                    lambda: PA._pair_agg_reference(tg, u, v, **kw), dev,
+                    lambda: RL.pair_agg(tg, u, want_max))
+
+
+def pair_agg_models(checks: Checks, hg, g, dev) -> int:
+    """Phase 7b: DGN-2l and PNA-2l ('original' PNA) at 602/128/41 with
+    their pair chains on K13 (``pair_agg_partition``, the chain on
+    1024²/ET512 ``onehot``, the rest op by op), lowered once per dtype;
+    each lowering tiles the graph once for its two layers.  K13 checked
+    and timed at each layer's shape on the model's tiling; 3 bf16 and 1
+    float32 requests per model on the smoke's graph (finite, right shape:
+    the per-op path cannot hold these models there); then on a reduced
+    graph of the same generator each served answer against the per-op
+    path (bf16 against bf16; float32 against the per-op path in float64,
+    since the per-op path's own float32 sums over a hub row of ~2e4
+    same-signed terms drift by more than the bound, which is printed),
+    row by row, each row's error over its own max |answer|, since hub rows
+    run orders of magnitude above the rest; and float32 losses and
+    gradients against float64 per-op autograd.  Returns K13's launches
+    during the served requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
+        classify_block, pair_agg_schedules)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+
+    tc = S.TileConfig(*PAIR_TILE, S.PATH_ONEHOT)
+    gen = torch.Generator().manual_seed(4)
+    models = {f"{net}-2l": build_model(net, F_IN, N_CLASS, hidden=HIDDEN,
+                                       n_layers=2, generator=gen, device=dev)
+              for net in ("DGN", "PNA")}
+    scheds = {m: pair_agg_schedules(model.layers, tile=tc)
+              for m, model in models.items()}
+    dtypes = (("bfloat16", torch.bfloat16), ("float32", None))
+    fwd = {}
+    for mname, model in models.items():
+        t0 = time.perf_counter()
+        fwd[mname] = {dtn: model.make_apply(dt, schedules=scheds[mname],
+                                            host_graph=hg, device=dev)
+                      for dtn, dt in dtypes}
+        say(f"  {mname}: schedules {[s.key()[:40] for s in scheds[mname]]}, "
+            f"lowered in {time.perf_counter() - t0:.1f} s")
+        found = [(mname, li, classify_block(model.layers[li], block, tc)[1],
+                  data)
+                 for li, fn in enumerate(fwd[mname]["bfloat16"].layer_fns)
+                 for kind, block, data, _ in fn.plans if kind == "pair_agg"]
+        if len(found) != len(model.layers):
+            raise AssertionError(f"{mname}: expected one pair-agg block per "
+                                 f"layer, found {len(found)}")
+        tg = found[0][3]
+        live, slots = RL.live_slots(tg), tg.src_local.numel()
+        say(f"  {mname} pair-agg tiling {PAIR_TILE}: {tg.n_tiles} tiles, "
+            f"{slots} slots for {live} edges ({slots / live:.2f} slots per "
+            "edge)")
+        for f in found:
+            pair_agg_checks(checks, [f[:3]], f[3], dev, hg.n_node)
+
+    PA.pair_agg.launches = 0
+    lat = {}
+    with torch.inference_mode():
+        for mname, model in models.items():
+            params = dict(model.params)
+            for dtn, seed in [("bfloat16", i) for i in range(REQUESTS)] + [
+                    ("float32", 0)]:
+                y, ms = _timed(fwd[mname][dtn], params, g,
+                               _request_x(seed, hg.n_node, dev))
+                if tuple(y.shape) != (hg.n_node, N_CLASS) or not bool(
+                        torch.isfinite(y).all()):
+                    raise AssertionError(f"{mname} {dtn}: bad output")
+                lat.setdefault((mname, dtn), []).append(ms)
+                say(f"  {mname} {dtn} request seed={seed}: {ms:.2f} ms")
+    launches = PA.pair_agg.launches
+    say(f"  K13 launches during the requests: {launches}")
+    for (mname, dtn), v in sorted(lat.items()):
+        say(f"latency {mname} {dtn} kernel: median "
+            f"{statistics.median(v):.3f} ms over {len(v)} requests "
+            f"{['%.3f' % t for t in v]}")
+    del fwd
+
+    t0 = time.perf_counter()
+    s, r, labels = synthetic_coo(N_NODE, REDUCED_EDGES, seed=1,
+                                 communities=1000, p_in=0.7)
+    hr = G.build_host_graph(s, r, N_NODE, add_self_loops=True,
+                            symmetric_norm=True)
+    hr, _ = G.reorder_nodes(hr, "hubs+labels", labels=labels)
+    gr = hr.to_device(dev)
+    say(f"  reduced graph: N={hr.n_node} E={hr.n_edge}, host build "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(12)
+    wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS), dtype=np.float32),
+                      device=dev)
+    mask = torch.ones(hr.n_node, dtype=torch.bool, device=dev)
+    for mname, model in models.items():
+        fns = {dtn: model.make_apply(dt, schedules=scheds[mname],
+                                     host_graph=hr, device=dev)
+               for dtn, dt in dtypes}
+        x = _request_x(20, hr.n_node, dev)
+        p64 = {k: p.detach().double() for k, p in model.params.items()}
+        with torch.inference_mode():
+            params = dict(model.params)
+            ref64 = model.make_apply(None)(p64, gr, x.double())
+            peak = float(ref64.abs().max())
+            rel = _rel_err(model.make_apply(None)(params, gr, x), ref64)
+            say(f"  {mname} reduced graph: per-op float32 vs per-op float64 "
+                f"relative {rel:.3e}, max |answer| {peak:.4g}")
+            for dtn, dt in dtypes:
+                y = fns[dtn](params, gr, x)
+                ref = ref64 if dt is None else model.make_apply(dt)(
+                    params, gr, x)
+                rows = _row_rel(y, ref)
+                worst, med = float(rows.max()), float(rows.median())
+                say(f"  {mname} reduced graph {dtn}: against the per-op path "
+                    f"in {'float64' if dt is None else dtn}, relative "
+                    f"{_rel_err(y, ref):.3e} of max |answer|; per row of its "
+                    f"own max: worst {worst:.3e}, 99.9% "
+                    f"{float(rows.quantile(0.999)):.3e}, median {med:.3e} "
+                    f"(bound {E2E_TOL[dtn]:.0e} on every row)")
+                if dt is not None:
+                    k64, p64r = (_row_rel(a, ref64) for a in (y, ref))
+                    say(f"  {mname} reduced graph {dtn} against float64 per "
+                        f"row: kernel path worst {float(k64.max()):.3e} "
+                        f"median {float(k64.median()):.3e}; per-op path worst "
+                        f"{float(p64r.max()):.3e} median "
+                        f"{float(p64r.median()):.3e}")
+                    del k64, p64r
+                if not (bool(torch.isfinite(y).all())
+                        and worst <= E2E_TOL[dtn]):
+                    raise AssertionError(f"{mname} reduced {dtn}: a row's "
+                                         f"relative error is {worst}")
+            del y, ref, ref64
+        # The layers are positively homogeneous in x: scaled so the logits
+        # are O(LOGIT_SCALE), the softmax does not saturate, where the f32
+        # rounding of a near-tie would flip a row's gradient by O(1).
+        x = x * (LOGIT_SCALE / peak)
+        labels_r = (x @ wy).argmax(dim=1)
+        model.zero_grad(set_to_none=True)
+        loss = TT.masked_cross_entropy(
+            fns["float32"](dict(model.params), gr, x), labels_r, mask)
+        loss.backward()
+        lk, gk = loss.item(), {k: p.grad.detach().clone()
+                               for k, p in model.params.items()}
+        p64 = {k: v.requires_grad_() for k, v in p64.items()}
+        loss = TT.masked_cross_entropy(
+            model.make_apply(None)(p64, gr, x.double()), labels_r, mask)
+        loss.backward()
+        lr, gref = loss.item(), {k: v.grad.float() for k, v in p64.items()}
+        del loss, p64
+        rel = abs(lk - lr) / max(1.0, abs(lr))
+        say(f"  {mname} reduced graph float32 loss {lk:.6f}, per-op float64 "
+            f"{lr:.6f}, relative {rel:.3e}")
+        if not rel <= GRAD_TOL["loss"]:
+            raise AssertionError(f"{mname} loss {lk} vs per-op {lr}")
+        for k in gref:
+            err = float((gk[k] - gref[k]).abs().max()) / float(
+                gref[k].abs().max())
+            say(f"  {mname} d{k}: relative {err:.3e}")
+            if not (bool(torch.isfinite(gk[k]).all())
+                    and err <= GRAD_TOL["grad"]):
+                raise AssertionError(f"{mname} d{k}: {err}")
+        model.zero_grad(set_to_none=True)
+        del gk, gref, fns
+    return launches
+
+
+def sddmm_gat(checks: Checks, model, hg, g, dev) -> int:
+    """Phase 7c: GAT-2l with each layer's logit block on the ``sddmm``
+    kind (K11 over a 1024²/ET512 ``onehot`` tiling), the rest op by
+    op.  K11 checked at the ADD shapes (heads 4 and 1 of per-head width 2:
+    [a | 1] . [1 | b]), timed in bf16; one bf16 and one float32 request
+    against the per-op path.  Returns K11's launches during the
+    requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import sddmm_schedules
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as SD
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import _slots
+
+    scheds = sddmm_schedules(model.layers,
+                             tile=S.TileConfig(*PAIR_TILE, S.PATH_ONEHOT))
+    dtypes = (("bfloat16", torch.bfloat16), ("float32", None))
+    t0 = time.perf_counter()
+    fns = {dtn: model.make_apply(dt, schedules=scheds, host_graph=hg,
+                                 device=dev)
+           for dtn, dt in dtypes}
+    say(f"  GAT-2l: schedules {[s.key()[:40] for s in scheds]}, lowered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tg, = {id(d): d for fn in fns["bfloat16"].layer_fns
+           for k, _, d, _ in fn.plans if k == "sddmm"}.values()
+    n = hg.n_node
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for li, H in enumerate((HEADS, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[1]
+            a, b = (torch.randn((n, H), generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+            xs = torch.stack([a, torch.ones_like(a)], 2).view(n, 2 * H)
+            xd = torch.stack([torch.ones_like(b), b], 2).view(n, 2 * H)
+            timed = dt == torch.bfloat16
+            kern = lambda: _slots(SD.sddmm_tiles(tg, xs, xd, H))  # noqa: E731
+            plain = lambda: _slots(SD._sddmm_reference(tg, xs, xd, H))  # noqa: E731
+            work = lambda: RL.sddmm_tail(tg, xs, xd, H)  # noqa: E731
+            checks.slice_case(
+                "sddmm_tiles", f"GAT l{li} ADD H={H} P=2", name, kern, plain,
+                dev, scale=_slots(SD._sddmm_reference(tg, xs.abs(),
+                                                      xd.abs(), H)),
+                timed_as=f"GAT l{li} ADD" if timed and H == 1 else None,
+                work=work, library=(checks.sampled_addmm(tg, xs, xd)
+                                    if timed and H == 1 else None))
+            if timed and H > 1:
+                checks.time_call("sddmm_tiles", f"GAT l{li} ADD", kern,
+                                 plain, dev, work, in_row=False)
+    checks.csr.clear()
+
+    reqs = (("bfloat16", 0), ("float32", 0))
+    params = dict(model.params)
+    SD.sddmm_tiles.launches = 0
+    outs = {}
+    with torch.inference_mode():
+        for dtn, seed in reqs:
+            outs[dtn], ms = _timed(fns[dtn], params, g,
+                                   _request_x(seed, n, dev))
+            say(f"  GAT-2l sddmm kind {dtn} request: {ms:.2f} ms")
+    launches = SD.sddmm_tiles.launches
+    say(f"  K11 launches during the requests: {launches}")
+    with torch.inference_mode():
+        for dtn, seed in reqs:
+            ref = model.make_apply(dict(dtypes)[dtn])(
+                params, g, _request_x(seed, n, dev))
+            y = outs.pop(dtn)
+            rel = _rel_err(y, ref)
+            say(f"  GAT-2l sddmm kind {dtn}: relative {rel:.3e} to the "
+                f"per-op path (bound {E2E_TOL[dtn]:.0e})")
+            if not (tuple(y.shape) == (n, N_CLASS)
+                    and bool(torch.isfinite(y).all())
+                    and rel <= E2E_TOL[dtn]):
+                raise AssertionError(f"GAT-2l sddmm kind {dtn}: {rel}")
+            del ref, y
+    return launches
+
+
+def hybrid_sddmm(checks: Checks, recipes, hg, dev) -> dict:
+    """Phase 7d: the hybrid SDDMM of ``scripts/reddit_bench.py:220-242`` on
+    phase 6's SpMM recipe split (dense-block logits by
+    ``sddmm_dense_blocks``, the grouped tail's by K12) and on the same
+    split with a per-tile tail (K11); F = 128, one head, bf16.  K12 and K11
+    checked (bf16 and float32) and timed (bf16) at those tails, then at 4
+    heads on the GAT recipe's tails (as ``scripts/hw_parity.py:285-292``);
+    grouped and per-tile logits compared in edge order at the bf16 bound.
+    Returns K11's and K12's launches during the hybrid requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as SD
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import _slots
+
+    n = hg.n_node
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    kernels = {"grouped": ("sddmm_grouped", SD.sddmm_grouped,
+                           SD._sddmm_grouped_reference),
+               "tiles": ("sddmm_tiles", SD.sddmm_tiles, SD._sddmm_reference)}
+
+    def check(tg, tail, what, xs0, xd0, H, in_row):
+        kernel, kern_fn, plain_fn = kernels[tail]
+        for dt in (torch.bfloat16, torch.float32):
+            xs, xd = xs0.to(dt), xd0.to(dt)
+            kern = lambda: _slots(kern_fn(tg, xs, xd, H))  # noqa: E731
+            plain = lambda: _slots(plain_fn(tg, xs, xd, H))  # noqa: E731
+            work = lambda: RL.sddmm_tail(tg, xs, xd, H)  # noqa: E731
+            timed = dt == torch.bfloat16
+            checks.slice_case(
+                kernel, f"{what} {tail} tail H={H}", str(dt).split(".")[1],
+                kern, plain, dev, scale=_slots(plain_fn(tg, xs.abs(),
+                                                        xd.abs(), H)),
+                timed_as=what if timed and in_row else None, work=work,
+                library=(checks.sampled_addmm(tg, xs, xd)
+                         if timed and in_row else None))
+            if timed and not in_row:
+                checks.time_call(kernel, what, kern, plain, dev, work,
+                                 in_row=False)
+
+    def edge_order(tg, e):
+        return SD.tiles_to_edges(tg, e, int(tg.edge_id.max()) + 1)
+
+    def agree(what, tgs, es):
+        a, b = (edge_order(t, e) for t, e in zip(tgs, es))
+        rel = _rel_err(a, b)
+        say(f"  {what}: grouped vs per-tile logits in edge order, relative "
+            f"{rel:.3e} (bound {E2E_TOL['bfloat16']:.0e})")
+        if not (a.shape == b.shape and rel <= E2E_TOL["bfloat16"]):
+            raise AssertionError(f"{what}: grouped and per-tile logits "
+                                 f"differ by {rel}")
+
+    splits = {t: recipes[("SpMM", t)].split for t in ("grouped", "tiles")}
+    x = recipes[("SpMM", "grouped")].inputs["x"]
+    p = torch.randn((n, x.shape[1]), generator=gen, device=dev).to(x.dtype)
+    for tail, sp in splits.items():
+        check(sp.tiles, tail, "hybrid F=128", x, p, 1, True)
+    checks.csr.clear()
+
+    def hybrid(sp):
+        def run():
+            e_tail = SD.sddmm(sp.tiles, x, p, heads=1)
+            e_blk = (D.sddmm_dense_blocks(sp.dense, x, p)
+                     if sp.dense is not None else None)
+            return e_tail, e_blk
+        return run
+
+    SD.sddmm_tiles.launches = SD.sddmm_grouped.launches = 0
+    outs = {}
+    with torch.inference_mode():
+        for tail, sp in splits.items():
+            ms = median_ms(hybrid(sp), device=dev, warmup=1, repeats=REPEATS)
+            outs[tail] = hybrid(sp)()
+            say(f"  hybrid SDDMM F=128, {tail} tail: {ms:.3f} ms, "
+                f"{hg.n_edge / (ms * 1e-3) / 1e9:.3f} Gedge/s over "
+                f"{hg.n_edge} edges")
+    launches = {"sddmm_tiles": SD.sddmm_tiles.launches,
+                "sddmm_grouped": SD.sddmm_grouped.launches}
+    say(f"  launches during the hybrid SDDMM requests: {launches}")
+    agree("hybrid SDDMM tail", [splits[t].tiles for t in outs],
+          [outs[t][0] for t in outs])
+    if not torch.equal(outs["grouped"][1], outs["tiles"][1]):
+        raise AssertionError("the two splits' dense-block logits differ")
+    del outs
+
+    gat = {t: recipes[("GAT", t)].split.tiles for t in ("grouped", "tiles")}
+    h = recipes[("GAT", "grouped")].inputs["h"]
+    q = torch.randn(h.shape, generator=gen, device=dev).to(h.dtype)
+    for tail, tg in gat.items():
+        check(tg, tail, "GAT tail", h, q, HEADS, False)
+    with torch.inference_mode():
+        agree("GAT recipe tail, 4 heads", list(gat.values()),
+              [SD.sddmm(t, h, q, heads=HEADS) for t in gat.values()])
+    return launches
+
+
+def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
+                     dev) -> dict:
+    """Phase 7; returns K11's, K12's and K13's launches on its main-path
+    runs (7b's and 7c's requests, 7d's hybrid SDDMM requests)."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    say("== 7a SDDMM and pair-aggregate kernels K11-K13: edge cases")
+    for c in (*fixtures.sddmm_kernel_cases(dev),
+              *fixtures.pair_agg_kernel_cases(dev)):
+        checks.compare(c)
+    say("== 7b DGN-2l and PNA-2l on the pair-aggregate kernel")
+    launches = {"pair_agg": pair_agg_models(checks, hg, g, dev)}
+    say("== 7c GAT-2l with its logit blocks on the sddmm kind")
+    launches["sddmm_tiles"] = sddmm_gat(checks, gat_model, hg, g, dev)
+    say("== 7d the hybrid SDDMM on the bench recipes' splits")
+    d = hybrid_sddmm(checks, recipes, hg, dev)
+    launches["sddmm_tiles"] += d["sddmm_tiles"]
+    launches["sddmm_grouped"] = d["sddmm_grouped"]
+    checks.csr.clear()
+    say(f"launches of K11-K13 in phase 7: {launches}; phase 7 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched in phase 7")
     return launches
 
 
@@ -866,19 +1363,11 @@ def main(argv=None) -> int:
         for mname, model in models.items():
             params = dict(model.params)
             for dtn, seed in reqs:
-                x = torch.tensor(np.random.default_rng(seed).standard_normal(
-                    (hg.n_node, F_IN), dtype=np.float32), device=dev)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                y = fwd[mname][dtn](params, g, x)
-                end.record()
-                end.synchronize()
+                y, ms = _timed(fwd[mname][dtn], params, g,
+                               _request_x(seed, hg.n_node, dev))
                 outs[(mname, dtn, seed)] = y
-                lat.setdefault((mname, dtn, "kernel"), []).append(
-                    start.elapsed_time(end))
-                say(f"  {mname} {dtn} request seed={seed}: "
-                    f"{start.elapsed_time(end):.2f} ms")
+                lat.setdefault((mname, dtn, "kernel"), []).append(ms)
+                say(f"  {mname} {dtn} request seed={seed}: {ms:.2f} ms")
     launches = {k: fn.launches for k, fn in counted.items()}
     say(f"launches during the requests: {launches}")
     serving_launches = launches
@@ -894,16 +1383,9 @@ def main(argv=None) -> int:
             ref_fn = {"bfloat16": model.make_apply(torch.bfloat16),
                       "float32": model.make_apply(None)}
             for dtn, seed in reqs:
-                x = torch.tensor(np.random.default_rng(seed).standard_normal(
-                    (hg.n_node, F_IN), dtype=np.float32), device=dev)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                ref = ref_fn[dtn](params, g, x)
-                end.record()
-                end.synchronize()
-                lat.setdefault((mname, dtn, "per-op"), []).append(
-                    start.elapsed_time(end))
+                ref, ms = _timed(ref_fn[dtn], params, g,
+                                 _request_x(seed, hg.n_node, dev))
+                lat.setdefault((mname, dtn, "per-op"), []).append(ms)
                 y = outs[(mname, dtn, seed)]
                 if tuple(y.shape) != (hg.n_node, N_CLASS):
                     raise AssertionError(f"{mname}: output {tuple(y.shape)}")
@@ -914,7 +1396,7 @@ def main(argv=None) -> int:
                 rel = err / scale
                 say(f"  {mname} {dtn} seed={seed}: max|kernel-per-op| "
                     f"{err:.3e}, relative {rel:.3e} (bound "
-                    f"{E2E_TOL[dtn]:.0e}); per-op {start.elapsed_time(end):.2f} ms")
+                    f"{E2E_TOL[dtn]:.0e}); per-op {ms:.2f} ms")
                 if not rel <= E2E_TOL[dtn]:
                     raise AssertionError(f"{mname} {dtn}: relative error "
                                          f"{rel} > {E2E_TOL[dtn]}")
@@ -926,7 +1408,12 @@ def main(argv=None) -> int:
     launches = training_phase(checks, models, fwd, hg, g, dev)
     checks.csr.clear()
     del fwd
-    launches.update(grouped_phase(checks, models["GCN-2l"], hg, g, dev))
+    grouped_launches, recipes = grouped_phase(checks, models["GCN-2l"], hg,
+                                              g, dev)
+    launches.update(grouped_launches)
+    launches.update(sddmm_pair_phase(checks, models["GAT-2l"], recipes, hg,
+                                     g, dev))
+    del recipes
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []
@@ -934,7 +1421,9 @@ def main(argv=None) -> int:
         # summed over the kernel's timed calls: K1-K8 per bf16 training
         # step (both layers' shapes; K1 and K2 also GCN's backward over the
         # twins); K9 one bench SpMM request plus one PATH_GROUPED GCN-2l
-        # step (forward and twin at both layers); K10 one bench GAT request
+        # step (forward and twin at both layers); K10 one bench GAT request;
+        # K11 GAT-2l's one-head logit block plus the hybrid SDDMM's per-tile
+        # tail, K12 its grouped tail; K13 one DGN-2l and one PNA-2l request
         calls = list(checks.times[k].values())
         bound_ms, bound_by = bound_of(c[2] for c in calls)
         libs = [c[3] for c in calls]

@@ -4,9 +4,11 @@ op by op.
 Counterpart of the JAX package's ``compiler/fusion.py``.  Classification
 (:func:`classify_block`) is the JAX package's, so both packages agree on
 what each (block, TileConfig) lowers to.  The port lowers the kinds
-``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat`` and
-``gat_hybrid``; every other kind raises ``NotImplementedError`` naming its
-ROADMAP.md item instead of running silently on the per-op path.
+``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat``,
+``gat_hybrid``, ``sddmm`` (the attention-logit block on K11) and
+``pair_agg`` (the DGN / PNA aggregation on K13); every other kind raises
+``NotImplementedError`` naming its ROADMAP.md item instead of running
+silently on the per-op path.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from ..graph import (GraphTensor, HostGraph, hybrid_graph, resolve_device,
                      transpose_host_graph)
 from ..ops import dense as dense_mod
 from ..ops import gat as gat_mod
+from ..ops import pairagg as pair_mod
+from ..ops import primitives as P
+from ..ops import sddmm as sddmm_mod
 from ..ops import spmm as spmm_mod
 from . import schedule as S
 from .lower import _eval_op
@@ -108,110 +113,6 @@ def match_spmm(graph: ir.OpGraph,
                      mean=ga.compute == ir.MEAN)
 
 
-# --- pair-sum aggregation matcher (pure IR, from the JAX ops/pairagg.py) ---
-
-
-@dataclasses.dataclass
-class PairAggPlan:
-    """u = sum of terms_c (node_ref [@ W]), v = sum of terms_r; per edge
-    z = sf(u[src] + v[dst]); ``gathers`` maps reduce -> gather op id."""
-    cterms: list
-    rterms: list
-    sf: Optional[str]
-    slope: float
-    gathers: Dict[str, int]
-    ops: frozenset
-    width: int
-
-
-def _collect_terms(graph: ir.OpGraph, oid: int, allow: set):
-    """(cterms, rterms, ops) of the linear pair expression rooted at
-    ``oid``, or None."""
-    if oid not in allow:
-        return None
-    op = graph.by_id[oid]
-    if (op.kind == ir.SCATTER and op.compute == ir.NONE
-            and len(op.inputs) == 1):
-        term = [(op.inputs[0], None)]
-        return (term, [], {oid}) if op.order == "C" else ([], term, {oid})
-    if op.kind == ir.APPLY_EDGE and op.compute == ir.ADD \
-            and len(op.inputs) == 2:
-        a = _collect_terms(graph, op.inputs[0], allow)
-        b = _collect_terms(graph, op.inputs[1], allow)
-        if a is None or b is None:
-            return None
-        return a[0] + b[0], a[1] + b[1], a[2] | b[2] | {oid}
-    if op.kind == ir.APPLY_EDGE and op.compute == ir.MM \
-            and op.extra.get("weight") and len(op.inputs) == 1:
-        inner = _collect_terms(graph, op.inputs[0], allow)
-        if inner is None:
-            return None
-        wname = op.extra["weight"][0]
-        if any(w is not None for _, w in inner[0] + inner[1]):
-            return None
-        ct = [(r, wname) for r, _ in inner[0]]
-        rt = [(r, wname) for r, _ in inner[1]]
-        return ct, rt, inner[2] | {oid}
-    return None
-
-
-def match_pair_agg(graph: ir.OpGraph,
-                   block: Sequence[int]) -> Optional[PairAggPlan]:
-    """Match a block that is exactly: a linear pair expression, an optional
-    leaky_relu, and 1..3 gathers {ADD, MAX, MEAN} consuming it."""
-    allow = set(block)
-    B = {o: graph.by_id[o] for o in block}
-    gathers = {o: op for o, op in B.items() if op.kind == ir.GATHER}
-    if not gathers:
-        return None
-    roots = {op.inputs[0] for op in gathers.values()}
-    if len(roots) != 1:
-        return None
-    root = next(iter(roots))
-    reduces = {}
-    for o, op in gathers.items():
-        if op.order != "R" or op.compute not in (ir.ADD, ir.MAX, ir.MEAN):
-            return None
-        if op.compute in reduces:
-            return None
-        reduces[op.compute] = o
-    sf = None
-    slope = 0.2
-    covered = set(gathers)
-    expr_root = root
-    rop = B.get(root)
-    if rop is None:
-        return None
-    if rop.kind == ir.APPLY_EDGE and rop.compute == ir.SF:
-        if rop.extra.get("sf") != "leaky_relu":
-            return None
-        sf = "leaky_relu"
-        slope = rop.extra.get("negative_slope", 0.2)
-        covered.add(root)
-        expr_root = rop.inputs[0]
-    got = _collect_terms(graph, expr_root, allow)
-    if got is None:
-        return None
-    ct, rt, expr_ops = got
-    if not ct or not rt:
-        return None
-    covered |= expr_ops
-    if covered != set(block):
-        return None
-    consumers: Dict[int, set] = {o: set() for o in graph.by_id}
-    for op in graph.ops:
-        for i in op.inputs:
-            if i in consumers:
-                consumers[i].add(op.op_id)
-    internal = set(block) - set(gathers)
-    if any(consumers[o] - set(block) for o in internal) \
-            or (internal & set(graph.outputs)):
-        return None
-    return PairAggPlan(cterms=ct, rterms=rt, sf=sf, slope=slope,
-                       gathers=dict(reduces), ops=frozenset(block),
-                       width=graph.by_id[root].out_width)
-
-
 def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
     """Which execution path a (block, TileConfig) pair lowers to:
     ``(kind, plan)``, exactly as the JAX package classifies it."""
@@ -227,7 +128,7 @@ def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
     pair_plan = None
     if (tc.kernel and spmm_plan is None and layer_plan is None
             and gat_plan is None and sddmm_plan is None):
-        pair_plan = match_pair_agg(graph, block)
+        pair_plan = pair_mod.match_pair_agg(graph, block)
     if tc.path == S.PATH_GROUPED:
         return ("spmm_grouped", spmm_plan) if spmm_plan is not None \
             else ("xla", None)
@@ -281,6 +182,54 @@ def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
     return out
 
 
+def _one_kind(graph: ir.OpGraph, part, tc: TileConfig,
+              kind: str) -> Schedule:
+    """``part`` with its one block of ``kind`` on ``tc`` and every other
+    block op by op."""
+    tiles = tuple(tc if classify_block(graph, b, tc)[0] == kind
+                  else TileConfig(path=S.PATH_XLA) for b in part)
+    if sum(t is tc for t in tiles) != 1:
+        raise ValueError(f"{graph.name}: expected one {kind} block")
+    return Schedule(blocks=tuple(tuple(b) for b in part), tiles=tiles)
+
+
+def pair_agg_schedules(layers: Sequence[ir.OpGraph], *,
+                       tile: TileConfig = TileConfig(1024, 1024, 512)
+                       ) -> List[Schedule]:
+    """Per-layer schedules of DGN / PNA on the fused pair aggregate: each
+    layer's ``pair_agg_partition`` with the pair chain on ``tile`` (the
+    ``onehot`` path; the kind ``pair_agg``), every other op alone."""
+    out = []
+    for graph in layers:
+        part = S.pair_agg_partition(graph)
+        if part is None:
+            raise ValueError(f"{graph.name}: no pair-sum aggregation chain")
+        out.append(_one_kind(graph, part, tile, "pair_agg"))
+    return out
+
+
+def sddmm_schedules(layers: Sequence[ir.OpGraph], *,
+                    tile: TileConfig = TileConfig(1024, 1024, 512)
+                    ) -> List[Schedule]:
+    """Per-layer schedules of GAT with its attention-logit block
+    (scatter(C) + scatter(R) + their apply_edge ADD) on ``tile``, where it
+    lowers to the ``sddmm`` kind, and every other op alone."""
+    out = []
+    for graph in layers:
+        add = next((op for op in graph.ops
+                    if op.kind == ir.APPLY_EDGE and op.compute == ir.ADD
+                    and len(op.inputs) == 2
+                    and all(i >= 0 and graph.by_id[i].kind == ir.SCATTER
+                            for i in op.inputs)), None)
+        if add is None:
+            raise ValueError(f"{graph.name}: no logit block")
+        block = sorted(add.inputs + [add.op_id])
+        part = S._order_blocks(graph, [block] + [
+            [o] for o in graph.topo_order() if o not in block])
+        out.append(_one_kind(graph, part, tile, "sddmm"))
+    return out
+
+
 # kinds this slice does not lower yet, with the ROADMAP.md item that ports
 # each of them
 NOT_PORTED = {
@@ -288,8 +237,6 @@ NOT_PORTED = {
     "spmm_stream": "Queue 1 item 9 (chunked stream path)",
     "gat_stream": "Queue 1 item 9 (chunked stream path)",
     "gat_layer": "Queue 2 #15 (whole-layer GAT kernel)",
-    "sddmm": "Queue 1 item 8 (SDDMM)",
-    "pair_agg": "Queue 1 item 8 (pair aggregation)",
 }
 
 
@@ -324,9 +271,11 @@ def lower_schedule(
     ``tile_cache["transpose"]``) for every SpMM and hybrid block, so its
     gradient runs the kernels (dx = Aᵀ ȳ, and the attention backward K5-K8)
     instead of autograd of the plain formulation; it doubles the set-up
-    and the tilings' device memory.  The backward of the non-hybrid ``gat``
-    kind and the sparse-input first layer are not ported yet: taking a
-    gradient through that kind raises."""
+    and the tilings' device memory.  The ``sddmm`` and ``pair_agg`` kinds
+    run forward on their kernels and differentiate through their plain
+    per-edge formulations, as in the JAX package.  The backward of the
+    non-hybrid ``gat`` kind and the sparse-input first layer are not ported
+    yet: taking a gradient through that kind raises."""
     device = resolve_device(device)
     cache = tile_cache if tile_cache is not None else {}
     tiled: Dict[tuple, object] = cache.setdefault("tiled", {})
@@ -414,7 +363,7 @@ def lower_schedule(
             data = get_tiled(tc, not plan.weighted)
             if host_graph_t is not None:
                 twin = get_tiled(tc, not plan.weighted, host_graph_t)
-        elif kind == "gat":
+        elif kind in ("gat", "sddmm", "pair_agg"):
             data = get_tiled(tc, unit_weight=True)
         else:
             data = None
@@ -447,6 +396,17 @@ def lower_schedule(
         def seg_out(plan, y):
             return y * inv_deg if plan.mean else y
 
+        def side(terms):
+            # u or v of a pair aggregation: each term kin(t [@ W]), the
+            # product accumulated in float32, summed in the compute dtype
+            acc = None
+            for rf, wname in terms:
+                t = ref(rf)
+                if wname is not None:
+                    t = P.dense_mm(t, params[wname], compute_dtype)
+                acc = kin(t) if acc is None else acc + kin(t)
+            return acc
+
         def w_asrc_of(plan):
             # canonical GAT wiring (a_src = MM(h)): pass the weight so the
             # tail kernel derives a_s from the rows it gathers
@@ -469,6 +429,20 @@ def lower_schedule(
                 vals[plan.out_op] = seg_out(plan, dense_mod.spmm_hybrid(
                     data, g, kin(ref(plan.in_op)), weighted=plan.weighted,
                     hyb_t=twin))
+            elif kind == "sddmm":
+                vals[plan.out_op] = sddmm_mod.sddmm_edges(
+                    data, g, kin(ref(plan.src_op)), kin(ref(plan.dst_op)),
+                    plan.compute)
+            elif kind == "pair_agg":
+                y_sum, y_max, cnt = pair_mod.pair_aggregate(
+                    data, side(plan.cterms), side(plan.rterms), sf=plan.sf,
+                    slope=plan.slope, want_max=ir.MAX in plan.gathers)
+                if ir.ADD in plan.gathers:
+                    vals[plan.gathers[ir.ADD]] = y_sum
+                if ir.MAX in plan.gathers:
+                    vals[plan.gathers[ir.MAX]] = y_max
+                if ir.MEAN in plan.gathers:
+                    vals[plan.gathers[ir.MEAN]] = y_sum / cnt.clamp(min=1.0)
             elif kind in ("gat", "gat_hybrid"):
                 w_as = w_asrc_of(plan)
                 kw = dict(negative_slope=plan.negative_slope,

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``compiler/schedule.py``: the same
 ``TileConfig`` / ``Schedule`` types and keys, the same path names, and the
-partitions the main path uses (singleton, aggregation, pattern, default).
+partitions the ported paths use (singleton, aggregation, pattern, pair
+aggregation, max fusion, default).
 The partition enumerator, the traffic model and the on-chip buffer rules
 are not ported yet (ROADMAP.md Queue 1 item 10).
 """
@@ -162,6 +163,40 @@ def aggregation_partition(
     rest = [[o] for o in graph.topo_order() if o not in used]
     part = _order_blocks(graph, blocks + rest)
     return tuple(tuple(b) for b in part)
+
+
+def pair_agg_partition(
+        graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]]:
+    """Partition isolating the DGN / PNA pair-sum aggregation chain (z =
+    sf(u[src] + v[dst]) and its gathers) as ONE block for the fused
+    pair-aggregate kernel, everything else singleton; None when there is
+    none.  The chain crosses the scatter-order breakpoint of the fusion
+    rule, which the fused kernel may: it never materialises the edge
+    value."""
+    from ..ops.pairagg import _collect_terms, match_pair_agg
+    all_ids = {op.op_id for op in graph.ops}
+    for g0 in graph.ops:
+        if g0.kind != ir.GATHER or not g0.inputs or g0.inputs[0] < 0:
+            continue
+        root = g0.inputs[0]
+        gathers = [op.op_id for op in graph.ops
+                   if op.kind == ir.GATHER and op.inputs == [root]]
+        rop = graph.by_id[root]
+        block = set(gathers)
+        expr_root = root
+        if rop.kind == ir.APPLY_EDGE and rop.compute == ir.SF:
+            block.add(root)
+            expr_root = rop.inputs[0]
+        got = _collect_terms(graph, expr_root, all_ids)
+        if got is None:
+            continue
+        block |= got[2]
+        if match_pair_agg(graph, sorted(block)) is None:
+            continue
+        rest = [[o] for o in graph.topo_order() if o not in block]
+        part = _order_blocks(graph, [sorted(block)] + rest)
+        return tuple(tuple(b) for b in part)
+    return None
 
 
 def max_fusion_partition(graph: ir.OpGraph) -> Tuple[Tuple[int, ...], ...]:

@@ -1,6 +1,6 @@
-// Slot walks shared by the edge-tile kernels: K1 and K3 walk one tile of a
-// TiledGraph per warp, their grouped counterparts K9 and K10 one sub-tile
-// of a GroupedTiledGraph chunk per warp.  A tile is ET slots of
+// Slot walks shared by the edge-tile kernels: K1, K3 and K11 walk one tile
+// of a TiledGraph per warp, their grouped counterparts K9, K10 and K12 one
+// sub-tile of a GroupedTiledGraph chunk per warp.  A tile is ET slots of
 // (src_local, dst_local[, weight]); slot e holds edge
 // (col0 + src_local[e]) -> (row0 + dst_local[e]), and pad slots carry
 // src == C or dst == R.
@@ -123,6 +123,68 @@ __device__ __forceinline__ void gat_walk(
         if (f < HD) atomicAdd(arow + f, round_to<HT>(pf * hv[k]));
       }
       if (lane < H) atomicAdd(arow + HD + lane, round_to<HT>(p));
+    }
+  }
+}
+
+// Per-head edge dots of each live slot, written once (no atomics):
+//   out[h * plane + base + e] = sum over head h's P = F / heads features f
+//                               of prod(x_src[col0 + s, f], x_dst[row0 + d, f])
+// prod is the float32 product of the two values (exact for bf16 inputs),
+// rounded to XT first when `round_prod` (the grouped TPU kernel's
+// astype(dt) before its head sum).  Pad slots are not written: the caller
+// zero-fills `out`.  P >= 32: each head is a warp reduction of its lanes'
+// partial sums.  P < 32: the warp stages the slot's F products in `prod`
+// (F floats of shared memory) and lane h sums head h's P products.
+template <typename XT>
+__device__ __forceinline__ void sddmm_walk(
+    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
+    int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
+    const XT* __restrict__ x_src, const XT* __restrict__ x_dst, float* __restrict__ out,
+    int64_t plane, int F, int heads, int64_t n_src, int64_t n_dst, bool round_prod,
+    float* prod, bool prefix, int lane) {
+  const int P = F / heads;
+  for (int e0 = 0; e0 < ET; e0 += 32) {
+    const int e = e0 + lane;
+    int s = C, d = R;
+    if (e < ET) {
+      s = src_local[base + e];
+      d = dst_local[base + e];
+    }
+    const bool real = s >= 0 && s < C && d >= 0 && d < R;
+    if (prefix && __ballot_sync(0xffffffffu, real) == 0u) break;
+    const bool live = real && col0 + s < n_src && row0 + d < n_dst;
+    unsigned todo = __ballot_sync(0xffffffffu, live);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const XT* a = x_src + (col0 + __shfl_sync(0xffffffffu, s, j)) * F;
+      const XT* b = x_dst + (row0 + __shfl_sync(0xffffffffu, d, j)) * F;
+      float* o = out + base + e0 + j;
+      if (P >= 32) {
+        for (int hh = 0; hh < heads; ++hh) {
+          float part = 0.f;
+          for (int i = lane; i < P; i += 32) {
+            const int f = hh * P + i;
+            const float p = to_f(a[f]) * to_f(b[f]);
+            part += round_prod ? round_to<XT>(p) : p;
+          }
+          part = warp_sum(part);
+          if (lane == 0) o[hh * plane] = part;
+        }
+      } else {
+        for (int f = lane; f < F; f += 32) {
+          const float p = to_f(a[f]) * to_f(b[f]);
+          prod[f] = round_prod ? round_to<XT>(p) : p;
+        }
+        __syncwarp();
+        for (int hh = lane; hh < heads; hh += 32) {
+          float acc = 0.f;
+          for (int i = 0; i < P; ++i) acc += prod[hh * P + i];
+          o[hh * plane] = acc;
+        }
+        __syncwarp();
+      }
     }
   }
 }

@@ -67,6 +67,12 @@ _SIGNATURES = {
                          I32, I32, I64, I64, VP],
     "gta_gat_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, I32, I32,
                         I32, I32, I32, I32, I32, I64, I64, I64, F32, VP],
+    "gta_sddmm_tiles": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
+                        I32, I32, I64, I64, VP],
+    "gta_sddmm_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
+                          I32, I32, I32, I64, I64, VP],
+    "gta_pair_agg": [VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, I32, I32, I32,
+                     I32, I32, I64, I32, F32, VP],
 }
 
 

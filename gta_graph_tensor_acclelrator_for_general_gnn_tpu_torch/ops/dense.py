@@ -185,6 +185,27 @@ def spmm_dense(bg: DenseBlockGraph, x: torch.Tensor, *,
     return y
 
 
+def sddmm_dense_blocks(bg: DenseBlockGraph, x_src: torch.Tensor,
+                       x_dst: torch.Tensor) -> torch.Tensor:
+    """Dense-block SDDMM: the logit matrix ``E_b = Xd_rb @ Xs_cb^T`` of
+    every block, [B, R, C] in x_src's dtype (float32 sums, rounded once);
+    ``bg.values != 0`` is the edge mask.  'rc' blocks only.  A batched
+    product, which the JAX package leaves to XLA: plain torch here, no
+    kernel of its own.  Operands of two dtypes multiply in float32."""
+    if bg.values_layout != "rc":
+        raise ValueError(f"sddmm_dense_blocks needs 'rc' blocks, got "
+                         f"{bg.values_layout!r}")
+    R, C, F = bg.block_rows, bg.block_cols, x_src.shape[1]
+    xs, xd = x_src, x_dst
+    if xs.dtype != xd.dtype:
+        xs, xd = xs.float(), xd.float()
+    src_p = _pad_rows(xs, bg.n_col_blocks * C).view(
+        bg.n_col_blocks, C, F)[bg.blk_cb.long()]
+    dst_p = _pad_rows(xd, bg.n_row_blocks * R).view(
+        bg.n_row_blocks, R, F)[bg.blk_rb.long()]
+    return torch.bmm(dst_p, src_p.transpose(1, 2)).to(x_src.dtype)
+
+
 # ---------------------------------------------------------------------------
 # dense masked attention partials (K4)
 # ---------------------------------------------------------------------------

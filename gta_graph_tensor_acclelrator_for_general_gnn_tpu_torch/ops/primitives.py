@@ -100,7 +100,8 @@ def binary_op(compute: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def dense_mm(x: torch.Tensor, w: torch.Tensor,
              compute_dtype=None) -> torch.Tensor:
-    """X @ W with float32 accumulation and a float32 result.
+    """X @ W with float32 accumulation and a float32 result (float64 when X
+    is float64, so the per-op path can serve as a float64 yardstick).
 
     ``compute_dtype=torch.bfloat16`` rounds both operands to bf16 first (the
     production policy); their products are exact in float32, so the f32
@@ -109,4 +110,5 @@ def dense_mm(x: torch.Tensor, w: torch.Tensor,
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
-    return x.float() @ w.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return x.to(acc) @ w.to(acc)

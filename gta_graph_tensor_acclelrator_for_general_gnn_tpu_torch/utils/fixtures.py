@@ -168,8 +168,6 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     48; 4 heads of 32) and the unaligned, partial-tile width of a last
     layer (F = 41; 1 head of 41), which take separate code in the
     kernels."""
-    import dataclasses
-
     import torch
 
     from .. import graph as G
@@ -181,11 +179,8 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     hg = G.build_host_graph(s, r, n, symmetric_norm=True,
                             edge_pad_multiple=128)
     hg_u = G.build_host_graph(s, r, n, edge_pad_multiple=128)
-    tg = G.tile_graph(hg, block_rows=128, block_cols=128, tile_edges=128,
-                      device=device)
-    cb = tg.tile_cb.clone()
-    cb[1] = -1
-    tg = dataclasses.replace(tg, tile_cb=cb)
+    tg = _dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
+                                 tile_edges=128, device=device))
     bg = G.hybrid_graph(hg, block_rows=128, block_cols=128, tile_edges=128,
                         min_nnz=64, supergroup=16, values_dtype=np.int8,
                         device=device).dense
@@ -315,6 +310,127 @@ def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                     A._gat_grouped_reference(tg, h, a_d, ms, w_as), HD)
 
 
+SDDMM_KERNELS = ("sddmm_tiles", "sddmm_grouped")
+# (heads, per-head width P): MUL's heads = F (P = 1), the ADD augmentation
+# (P = 2) at 4 heads and 1, heads of a warp's width, one head of 128, and a
+# width past a warp that is no multiple of it; P < 32 and P >= 32 take
+# separate code in the kernels
+SDDMM_SHAPES = ((128, 1), (4, 2), (1, 2), (4, 32), (1, 128), (2, 41))
+
+
+def _slots(e):
+    """[heads, units, slots] -> [all slots, heads]: one check row a slot."""
+    return e.reshape(e.shape[0], -1).t()
+
+
+def _dead_tile(tg, t: int = 1):
+    """``tg`` with tile ``t`` marked dead (cb = -1); its slots look live."""
+    import dataclasses
+    cb = tg.tile_cb.clone()
+    cb[t] = -1
+    return dataclasses.replace(tg, tile_cb=cb)
+
+
+def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K11 and K12 against their plain versions on the edge-case graph, in
+    float32 and bfloat16, at every (heads, P) of ``SDDMM_SHAPES``.  K11:
+    the whole graph at 128-wide blocks, ET 64, with a dead tile whose slots
+    look live (it must read exact zeros); K12: the grouped tilings at
+    32-row blocks in groups of 2 (a chunk of padding, mostly empty
+    sub-tiles) and at 128-row blocks in groups of 4.  Each slot is a check
+    row scaled by its heads' sums of |product|, since a dot may cancel."""
+    import torch
+
+    from .. import graph as G
+    from ..ops import sddmm as SD
+
+    s, r, n, _ = edge_case_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tg = _dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
+                                 tile_edges=64, unit_weight=True,
+                                 device=device))
+    grouped = {
+        "R32 G2": G.tile_graph_grouped(hg, block_rows=32, block_cols=64,
+                                       tile_edges=32, group=2, device=device),
+        "R128 G4": G.tile_graph_grouped(hg, block_rows=128, block_cols=128,
+                                        tile_edges=64, group=4,
+                                        device=device),
+    }
+    runs = [("sddmm_tiles", "dead tile", tg, SD.sddmm_tiles,
+             SD._sddmm_reference)]
+    runs += [("sddmm_grouped", tag, t, SD.sddmm_grouped,
+              SD._sddmm_grouped_reference) for tag, t in grouped.items()]
+    rng = np.random.default_rng(seed)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for H, P in SDDMM_SHAPES:
+            xs, xd = (torch.tensor(rng.standard_normal((n, H * P)), dtype=dt,
+                                   device=device) for _ in range(2))
+            for kernel, tag, t, kern, plain in runs:
+                out = kern(t, xs, xd, H)
+                case = f"{tag} H={H} P={P}"
+                yield KernelCase(kernel, case, name, _slots(out),
+                                 _slots(plain(t, xs, xd, H)),
+                                 scale=_slots(plain(t, xs.abs(), xd.abs(),
+                                                    H)))
+                if kernel == "sddmm_tiles":
+                    yield KernelCase(kernel, f"{case}: dead tile is 0", name,
+                                     out[:, 1], torch.zeros_like(out[:, 1]))
+
+
+PAIR_KERNELS = ("pair_agg",)
+NEG_ROW = 300      # a receiver whose z the pair-agg cases push below 0
+
+
+def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K13 against its plain version on the edge-case graph's 128-wide
+    tiling at ET 64, in float32 and bfloat16: sf none and leaky_relu, with
+    and without the max, at D = 48, 41 (unaligned) and 300 (two passes of
+    the kernel's 256 features).  The graph has empty rows, a hub row whose
+    200 copies of one pair span several tiles (ties in the max), and a dead
+    tile whose slots look live (read from column block 0, as on the TPU);
+    row ``NEG_ROW`` gets only negative z.  Sum, max and count are separate
+    cases: the sum scaled by its row's sum of |term| (terms may cancel),
+    the max and count by themselves."""
+    import torch
+
+    from .. import graph as G
+    from ..ops import pairagg as PA
+
+    s, r, n, _ = edge_case_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tg = _dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
+                                 tile_edges=64, unit_weight=True,
+                                 device=device))
+    rng = np.random.default_rng(seed)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for D, sf, want_max in ((48, None, True), (48, "leaky_relu", True),
+                                (41, "leaky_relu", True), (41, None, False),
+                                (300, "leaky_relu", True)):
+            u, v = (rng.standard_normal((n, D)).astype(np.float32)
+                    for _ in range(2))
+            v[NEG_ROW] = -50.0 - np.abs(v[NEG_ROW])
+            u, v = (torch.tensor(a, dtype=dt, device=device) for a in (u, v))
+            kw = dict(sf=sf, want_max=want_max)
+            out = PA.pair_agg(tg, u, v, **kw)
+            ref = PA._pair_agg_reference(tg, u, v, **kw)
+            mag = PA._pair_agg_reference(tg, u, v, magnitude=True, **kw)[0]
+            if not (float(ref[2][NEG_ROW, 0]) > 0 and (
+                    not want_max or float(ref[1][NEG_ROW].max()) < 0)):
+                raise AssertionError("fixture lost its all-negative row")
+            tag = f"D={D} sf={sf}"
+            yield KernelCase("pair_agg", f"sum {tag}", name, out[0], ref[0],
+                             terms=ref[2][:, 0], scale=mag)
+            if want_max:
+                yield KernelCase("pair_agg", f"max {tag}", name, out[1],
+                                 ref[1])
+            elif out[1] is not None:
+                raise AssertionError("want_max=False returned a max")
+            yield KernelCase("pair_agg", f"count {tag}", name, out[2],
+                             ref[2])
+
+
 BWD_KERNELS = ("gat_bwd_tiles_dad", "gat_bwd_tiles_src", "gat_dense_bwd_dad",
                "gat_dense_bwd_src")
 
@@ -373,8 +489,6 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     gap.  Checked against the plain versions, scaled by each output cell's
     sum of elementary-term magnitudes (the plain versions' ``magnitude``
     mode)."""
-    import dataclasses
-
     import torch
 
     from .. import graph as G
@@ -391,12 +505,7 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
             hy_t.tiles.weight.float().max()) <= 1.0:
         raise AssertionError("fixture lost its merged multi-edge slot")
 
-    def dead(tg):
-        cb = tg.tile_cb.clone()
-        cb[0] = -1
-        return dataclasses.replace(tg, tile_cb=cb)
-
-    tg, tg_t = dead(hy.tiles), dead(hy_t.tiles)
+    tg, tg_t = _dead_tile(hy.tiles, 0), _dead_tile(hy_t.tiles, 0)
     terms = {"gat_bwd_tiles_dad": row_terms(tg),
              "gat_bwd_tiles_src": row_terms(tg_t),
              "gat_dense_bwd_dad": row_terms(hy.dense)[:n],

@@ -9,7 +9,11 @@ bf16 AdamW step per model (``models/train.make_train_step``, full batch)
 and traces the next.  ``--grouped`` instead builds the port bench's two
 Reddit recipes (``bench.spmm_recipe``, ``bench.gat_recipe``: int8 dense
 blocks plus a grouped tail) on the same graph and traces one request of
-each after three warm-up requests.  For each it prints:
+each after three warm-up requests.  ``--pair`` traces one bf16 request of
+DGN-2l and PNA-2l with their pair chains on K13
+(``fusion.pair_agg_schedules``) and of GAT-2l with its logit blocks on
+K11 (``fusion.sddmm_schedules``), the rest op by op.  For each it
+prints:
 
 - the host wall time, synchronised before and after;
 - the device's busy time: the union of the trace's kernel, memcpy and
@@ -20,7 +24,7 @@ each after three warm-up requests.  For each it prints:
 
 Needs one CUDA device::
 
-    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped]
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped | --pair]
 
 Chrome traces go to ``build/profile/`` at the repository root (or
 ``--out``).
@@ -86,6 +90,9 @@ def main(argv=None) -> int:
     ap.add_argument("--grouped", action="store_true",
                     help="trace one request of each of the bench's Reddit "
                          "recipes (grouped tails) instead of the models")
+    ap.add_argument("--pair", action="store_true",
+                    help="trace DGN-2l and PNA-2l on the pair aggregate and "
+                         "GAT-2l on the sddmm kind instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -120,6 +127,25 @@ def main(argv=None) -> int:
                     rc.run()
                 _trace(f"bench {name} recipe bf16 request",
                        args.out / f"trace_bench_{name}.json", rc.run, dev)
+        return 0
+    if args.pair:
+        from ..compiler.fusion import pair_agg_schedules, sddmm_schedules
+        for net, make in (("DGN", pair_agg_schedules),
+                          ("PNA", pair_agg_schedules),
+                          ("GAT", sddmm_schedules)):
+            model = build_model(net, F_IN, N_CLASS, hidden=HIDDEN,
+                                n_layers=2, heads=HEADS, generator=gen,
+                                device=dev)
+            fwd = model.make_apply(torch.bfloat16,
+                                   schedules=make(model.layers),
+                                   host_graph=hg, device=dev)
+            params = dict(model.params)
+            with torch.inference_mode():
+                for _ in range(3):
+                    fwd(params, g, x)
+                _trace(f"{net}-2l bf16 request ({make.__name__})",
+                       args.out / f"trace_{net}_pair.json",
+                       lambda: fwd(params, g, x), dev)
         return 0
     # learnable labels for the training step: a linear probe of x
     wy = torch.tensor(np.random.default_rng(1).standard_normal(

@@ -165,6 +165,31 @@ def gat_dense_bwd(bg, h: torch.Tensor, H: int, src_mode: bool) -> Work:
                 ops_per_s=_rate(h.dtype))
 
 
+def sddmm_tail(tg, x_src: torch.Tensor, x_dst: torch.Tensor,
+               heads: int) -> Work:
+    """K11 / K12: per live slot its two int16 indices and a multiply and an
+    add per feature (2F operations); x_src and x_dst read once; the
+    returned [heads, slots] float32 written once, over every slot of the
+    layout (pad slots hold zeros the function must write too)."""
+    live, F = live_slots(tg), x_src.shape[1]
+    units = tg.tile_rb if hasattr(tg, "tile_rb") else tg.chunk_grp
+    return Work(bytes=live * 4 + 8 * units.numel() + _nbytes(x_src)
+                + _nbytes(x_dst) + 4 * heads * tg.src_local.numel(),
+                ops=2.0 * live * F, ops_per_s=_rate(x_src.dtype))
+
+
+def pair_agg(tg, u: torch.Tensor, want_max: bool) -> Work:
+    """K13: per live slot its two int16 indices and about four operations
+    per feature (add, sf, the sum's add, the max; three without the max);
+    u and v (u's shape and dtype) read once; the [N, D] float32 sum, the max
+    with ``want_max``, and the [N, 1] count written once."""
+    live, (n, D) = live_slots(tg), u.shape
+    return Work(bytes=live * 4 + 8 * tg.n_tiles + 2 * _nbytes(u)
+                + 4 * n * D * (2 if want_max else 1) + 4 * n,
+                ops=float(live * D * (4 if want_max else 3)),
+                ops_per_s=_rate(u.dtype))
+
+
 def csr_of(graph, dtype, n_cols: int) -> torch.Tensor:
     """The same edges as one sparse CSR matrix [rows, n_cols] of ``dtype``
     (values: the slot weights of a tiling, the counts of dense blocks), the

@@ -1,8 +1,10 @@
-"""PyTorch port: the hand-written CUDA kernels K1-K10 against their plain
+"""PyTorch port: the hand-written CUDA kernels K1-K13 against their plain
 PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases`` (the
 forward kernels K1-K4), ``utils/fixtures.bwd_kernel_cases`` (the GAT
-backward kernels K5-K8) and ``utils/fixtures.grouped_kernel_cases`` (the
-grouped-tail kernels K9 and K10).
+backward kernels K5-K8), ``utils/fixtures.grouped_kernel_cases`` (the
+grouped-tail kernels K9 and K10), ``utils/fixtures.sddmm_kernel_cases``
+(the SDDMM kernels K11 and K12) and ``utils/fixtures.pair_agg_kernel_cases``
+(the pair aggregation K13).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed.  On a machine with a CUDA device:
@@ -14,7 +16,8 @@ JAX is not installed.  On a machine with a CUDA device:
 Tolerance: |kernel - plain| <= KERNEL_TOL[dtype] times each row's scale,
 num and den columns apart, widened only for f32 rows that sum more than
 1,759 terms (``utils/fixtures.kernel_error`` says why); the backward
-kernels' scale is each cell's sum of |term|, since their sums cancel."""
+kernels' scale is each cell's sum of |term|, since their sums cancel, and
+so is that of K11-K13's sums (a dot or a pair sum may cancel)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -247,3 +250,42 @@ def test_gat_hybrid_backward_on_cuda_when_one_split_has_no_dense_blocks(
     for a, b in zip(grads["cuda"], grads["cpu"]):
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-4 * float(b.abs().max()), err
+
+
+def _check_new_cases(device):
+    seen = set()
+    for cases in (fixtures.sddmm_kernel_cases, fixtures.pair_agg_kernel_cases):
+        for c in cases(device):
+            assert c.out.device == c.ref.device == device, (c.kernel, c.case)
+            fixtures.check_kernel(c)
+            seen.add((c.kernel, c.dtype_name))
+    assert seen == {(k, d) for k in fixtures.SDDMM_KERNELS
+                    + fixtures.PAIR_KERNELS for d in fixtures.KERNEL_TOL}
+
+
+def test_sddmm_and_pair_agg_cases_run_on_cpu():
+    """The SDDMM and pair-aggregate case lists (a dead tile, grouped
+    tilings with padding, heads narrower and wider than a warp, an
+    all-negative row, a hub of duplicate edges, two feature passes) run on
+    the CPU, where the K11-K13 wrappers take their plain versions; a fault
+    in one slot's dot, or one cell of a max, fails the check."""
+    _check_new_cases(CPU)
+    for kernel, what in (("sddmm_grouped", "H=4 P=32"), ("pair_agg", "max")):
+        c = next(c for c in (*fixtures.sddmm_kernel_cases(CPU),
+                             *fixtures.pair_agg_kernel_cases(CPU))
+                 if c.kernel == kernel and what in c.case)
+        bad = c.out.clone()
+        row = int(c.ref.abs().amax(dim=1).argmax())
+        bad[row, 0] += 0.05 * float(c.ref[row].abs().max())
+        with pytest.raises(AssertionError):
+            fixtures.check_kernel(c._replace(out=bad))
+
+
+@pytest.mark.gpu
+def test_sddmm_and_pair_agg_kernels_match_plain_versions_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K11-K13 have no CPU mode")
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    _check_new_cases(dev)
+    torch.cuda.synchronize(dev)

@@ -165,7 +165,8 @@ def test_partitions_and_classification_match_jax(network):
         gj = J.build_op_graph(network, 16, 8, heads=2, reorder=reorder)
         gt = T.build_op_graph(network, 16, 8, heads=2, reorder=reorder)
         for fn in ("singleton_partition", "aggregation_partition",
-                   "pattern_partition", "max_fusion_partition"):
+                   "pattern_partition", "max_fusion_partition",
+                   "pair_agg_partition"):
             pa, pb = getattr(JS, fn)(gj), getattr(TS, fn)(gt)
             assert pa == pb, fn
         assert JS.default_schedule(gj).key() == TS.default_schedule(gt).key()
