@@ -49,7 +49,28 @@ Reddit's node count, and checks every hand-written kernel on the way:
      (d) the hybrid SDDMM (dense-block logits plus K12 on phase 6's SpMM
      recipe split, and K11 on the same split with a per-tile tail; F =
      128, bf16), K11 and K12 also at 4 heads on the GAT recipe's tails,
-     grouped and per-tile logits compared in edge order.
+     grouped and per-tile logits compared in edge order;
+  8. the whole-layer GAT kind, the gat kind's backward, the exp panels:
+     (a) K14 and K15 against their plain versions on the fixture cases
+     (``fixtures.layer_kernel_cases``: dead tile, empty rows, pad slots, 1
+     and 4 heads, every final activation, a logit row above the clamp and
+     one that underflows, both dtypes); (b) GAT-2l (602/128/41) with every
+     layer on ``layer_partition`` at 512x1024x512 ``onehot`` (the
+     ``gat_layer`` kind): K14 checked stage by stage and timed at both
+     layers' shapes (its projection also beside ``torch.matmul``), the
+     logits' static-shift domain printed, 3 bf16 and 1 float32 requests
+     against the per-op path; (c) GAT-2l with the attention chain as the
+     ``gat`` kind on the same tile, lowered with the transposed twin:
+     K3's rows against a float64 sum (``HUB_TOL``), float32 loss and
+     gradients against per-op autograd, 1 warm-up and 2
+     timed bf16 AdamW steps, K3, K5 and K6 launched; (d) the ``gat_layer``
+     kind's float32 gradients against per-op autograd on phase 7's reduced
+     graph; (e) ``cli tune --stack`` on cora (memo and schedule in a
+     temporary directory), then ``cli run`` and ``cli train`` with that
+     schedule; (f) run right after phase 4, on its lowered GAT-2l
+     forward: ``DENSE_EXP_PANEL`` set, K15 checked and timed at both
+     layers' dense splits beside K4, and one bf16 and one float32 request
+     against the K4 path (the flag restored after).
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -110,6 +131,10 @@ KERNELS = {
                           replaces=f"{JAX_PKG}/ops/sddmm.py:192"),
     "pair_agg": dict(source=f"{PKG}/csrc/pair_agg.cu",
                      replaces=f"{JAX_PKG}/ops/pairagg.py:59"),
+    "gat_layer": dict(source=f"{PKG}/csrc/gat_layer.cu",
+                      replaces=f"{JAX_PKG}/ops/gat.py:1691"),
+    "gat_dense_panel": dict(source=f"{PKG}/csrc/gat_dense_blocks.cu",
+                            replaces=f"{JAX_PKG}/ops/dense.py:317"),
 }
 # kernel path vs per-op path: the per-op path rounds only the matmul
 # operands to bf16, the kernels also their gathered rows and products
@@ -130,6 +155,13 @@ PAIR_TILE = (1024, 1024, 512)
 # tenth of the smoke's edges from the same generator
 REDUCED_EDGES = 1_146_158
 LOGIT_SCALE = 10.0  # phase 7b's float32 gradients: max |logit| of the input
+# phase 8: the one-hot GAT tiling (scripts/reddit_train.py:98's geometry)
+LAYER_TILE = (512, 1024, 512)
+TUNE_TARGET_S = 0.01   # phase 8e: seconds per candidate measurement
+# phase 8c: K3's float32 [num | den] per row against a float64 sum; a hub
+# row's 209,253 terms added one float32 atomic per slot would drift by
+# about sqrt(n) ulps (~1e-4); summed per receiver run they stay near 1e-6
+HUB_TOL = 2e-5
 
 
 def say(msg: str) -> None:
@@ -837,6 +869,23 @@ def _request_x(seed: int, n: int, dev):
         (n, F_IN), dtype=np.float32), device=dev)
 
 
+def reduced_graph(dev):
+    """(host graph, device graph) of phase 7b's and 8d's reduced graph: a
+    tenth of the smoke's edges from the same generator, self loops,
+    symmetric norm and the hubs+labels reorder."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
+    t0 = time.perf_counter()
+    s, r, labels = synthetic_coo(N_NODE, REDUCED_EDGES, seed=1,
+                                 communities=1000, p_in=0.7)
+    hr = G.build_host_graph(s, r, N_NODE, add_self_loops=True,
+                            symmetric_norm=True)
+    hr, _ = G.reorder_nodes(hr, "hubs+labels", labels=labels)
+    say(f"  reduced graph: N={hr.n_node} E={hr.n_edge}, host build "
+        f"{time.perf_counter() - t0:.1f} s")
+    return hr, hr.to_device(dev)
+
+
 def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
     """K13 at each pair-agg layer's shape on the model's tiling, in bf16 and
     float32, sum, max and count apart (the sum scaled by each cell's sum of
@@ -896,11 +945,9 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
     during the served requests."""
     import torch
 
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
         classify_block, pair_agg_schedules)
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
@@ -959,15 +1006,7 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
             f"{['%.3f' % t for t in v]}")
     del fwd
 
-    t0 = time.perf_counter()
-    s, r, labels = synthetic_coo(N_NODE, REDUCED_EDGES, seed=1,
-                                 communities=1000, p_in=0.7)
-    hr = G.build_host_graph(s, r, N_NODE, add_self_loops=True,
-                            symmetric_norm=True)
-    hr, _ = G.reorder_nodes(hr, "hubs+labels", labels=labels)
-    gr = hr.to_device(dev)
-    say(f"  reduced graph: N={hr.n_node} E={hr.n_edge}, host build "
-        f"{time.perf_counter() - t0:.1f} s")
+    hr, gr = reduced_graph(dev)
     rng = np.random.default_rng(12)
     wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS), dtype=np.float32),
                       device=dev)
@@ -1249,6 +1288,455 @@ def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
     return launches
 
 
+def _grads_against_per_op(what: str, model, fn, g, x, labels, mask) -> None:
+    """Float32 loss and every parameter's gradient of ``fn`` against
+    autograd of the per-op path, within GRAD_TOL."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    res = {}
+    for path, f in (("kernel", fn), ("per-op", model.make_apply(None))):
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = TT.masked_cross_entropy(f(dict(model.params), g, x), labels,
+                                       mask)
+        loss.backward()
+        res[path] = (loss.item(), {k: p.grad.detach().clone()
+                                   for k, p in model.params.items()})
+        say(f"  {what} {path}: loss {res[path][0]:.6f}, forward + backward "
+            f"{time.perf_counter() - t0:.2f} s")
+        del loss
+    (lk, gk), (lr, gr) = res["kernel"], res["per-op"]
+    rel = abs(lk - lr) / max(1.0, abs(lr))
+    say(f"  {what} loss: relative {rel:.3e} (bound {GRAD_TOL['loss']:.0e})")
+    if not rel <= GRAD_TOL["loss"]:
+        raise AssertionError(f"{what}: loss {lk} vs per-op {lr}")
+    for k in gr:
+        err = float((gk[k] - gr[k]).abs().max()) / float(gr[k].abs().max())
+        say(f"  {what} d{k}: relative {err:.3e} (bound "
+            f"{GRAD_TOL['grad']:.0e})")
+        if not (bool(torch.isfinite(gk[k]).all())
+                and err <= GRAD_TOL["grad"]):
+            raise AssertionError(f"{what} d{k}: {err}")
+    model.zero_grad(set_to_none=True)
+
+
+def layer_domain(tg, a_s, a_d, slope: float = 0.2) -> tuple:
+    """(min, max) of the logits leaky(a_s[s] + a_d[d]) over the live slots
+    of ``tg``, and the rows in which every live slot's p = exp(min(e,
+    SHIFT + 60) - SHIFT) underflows to 0 in some head: where the whole-layer
+    kernel leaves the exact softmax."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops.spmm import (
+        _live_slots, _unit_steps)
+    n, H = a_d.shape
+    lo, hi = float("inf"), float("-inf")
+    live = torch.zeros((n, H), dtype=torch.int32, device=a_d.device)
+    seen = torch.zeros((n, 1), dtype=torch.int32, device=a_d.device)
+    for t0, t1 in _unit_steps(tg, 8 * H):
+        _, src, dst = _live_slots(tg, t0, t1)
+        e = A._leaky(a_s.index_select(0, src).float()
+                     + a_d.index_select(0, dst), slope)
+        lo, hi = min(lo, float(e.min())), max(hi, float(e.max()))
+        p = torch.exp(torch.clamp(e, max=A.SHIFT + 60.0) - A.SHIFT)
+        live.index_add_(0, dst, (p > 0).int())
+        seen.index_add_(0, dst, torch.ones_like(dst, dtype=torch.int32)[:, None])
+    dead = int(((seen > 0) & (live == 0)).any(dim=1).sum())
+    return lo, hi, dead
+
+
+def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
+    """Phase 8b: GAT-2l with every layer on the ``gat_layer`` kind (K14)
+    over 512x1024x512 ``onehot`` tiles, lowered once per dtype.  K14 held
+    to its plain version stage by stage at both layers' shapes (the
+    model's weights; layer 0 on a request's features, layer 1 on the
+    kernel path's layer-0 output), in bf16 and float32, and timed in bf16
+    (the projection also beside ``torch.matmul`` of the same product); the
+    static-shift domain of both layers' logits; 3 bf16 and 1 float32
+    requests against the per-op path.  Returns K14's launches during the
+    requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
+        classify_block, gat_onehot_schedules)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.schedule import TileConfig
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+
+    scheds = gat_onehot_schedules(model.layers, whole_layer=True,
+                                  tile=TileConfig(*LAYER_TILE))
+    dtypes = (("bfloat16", torch.bfloat16), ("float32", None))
+    t0 = time.perf_counter()
+    fns = {dtn: model.make_apply(dt, schedules=scheds, host_graph=hg,
+                                 device=dev) for dtn, dt in dtypes}
+    say(f"  GAT-2l: schedules {[sc.key()[-30:] for sc in scheds]}, lowered "
+        f"in {time.perf_counter() - t0:.1f} s")
+    tg, = {id(d): d for fn in fns["bfloat16"].layer_fns
+           for k, _, d, _ in fn.plans if k == "gat_layer"}.values()
+    say(f"  tiling {LAYER_TILE}: {tg.n_tiles} tiles, "
+        f"{tg.src_local.numel()} slots for {RL.live_slots(tg)} edges")
+    terms = fixtures.row_terms(tg)
+    params = dict(model.params)
+    plans = [classify_block(layer, sc.blocks[0], sc.tiles[0])[1]
+             for layer, sc in zip(model.layers, scheds)]
+    x = _request_x(0, hg.n_node, dev)
+    for dtn, dt in dtypes:
+        cdt = dt or torch.float32
+        xin = x
+        for li, lp in enumerate(plans):
+            xk = xin.to(cdt).contiguous()
+            w, ws, wd = (params[k].detach().to(cdt).contiguous()
+                         for k in (lp.w_name, lp.was_name, lp.wad_name))
+            HD, H = w.shape[1], ws.shape[1]
+            case = f"layer {li} F={xk.shape[1]} H={H} HD={HD}"
+            with torch.inference_mode():
+                for c in fixtures.gat_layer_checks(
+                        tg, xk, w, ws, wd, dtype_name=dtn, case=case,
+                        negative_slope=lp.negative_slope,
+                        final_sf=lp.final_sf, terms=terms):
+                    checks.compare(c, slice_shape=True)
+                if dtn == "bfloat16":
+                    hq, a_s, a_d = A.gat_layer_projection(xk, w, ws, wd)
+                    lo, hi, dead = layer_domain(tg, a_s, a_d,
+                                                lp.negative_slope)
+                    say(f"  layer {li} static-shift domain: logits in "
+                        f"[{lo:.3f}, {hi:.3f}] (clamp at {A.SHIFT + 60:g}; "
+                        f"p underflows below about {A.SHIFT - 103:g}); "
+                        f"rows whose p all underflow in a head: {dead}")
+                    del hq, a_s, a_d
+                    kw = dict(negative_slope=lp.negative_slope,
+                              final_sf=lp.final_sf)
+                    checks.time_call(
+                        "gat_layer", f"layer {li}",
+                        lambda: A.gat_layer_tiles(tg, xk, w, ws, wd, **kw),
+                        lambda: A._gat_layer_plain(tg, xk, w, ws, wd, **kw),
+                        dev, lambda: RL.gat_layer(tg, xk, HD, H))
+                    mm = lambda: torch.matmul(xk, w)  # noqa: E731
+                    mm.label = "torch.matmul (x W alone)"
+                    checks.time_call(
+                        "gat_layer", f"l{li} projection",
+                        lambda: A.gat_layer_projection(xk, w, ws, wd),
+                        lambda: A._gat_layer_project_plain(xk, w, ws, wd),
+                        dev, lambda: RL.gat_layer_projection(xk, HD, H),
+                        library=mm, in_row=False)
+                xin = fns[dtn].layer_fns[li](params, g, xin)
+
+    A.gat_layer_tiles.launches = 0
+    outs, lat = {}, {}
+    reqs = [("bfloat16", i) for i in range(REQUESTS)] + [("float32", 0)]
+    with torch.inference_mode():
+        for dtn, seed in reqs:
+            outs[(dtn, seed)], ms = _timed(fns[dtn], params, g,
+                                           _request_x(seed, hg.n_node, dev))
+            lat.setdefault(dtn, []).append(ms)
+            say(f"  GAT-2l gat_layer kind {dtn} request seed={seed}: "
+                f"{ms:.2f} ms")
+    launches = A.gat_layer_tiles.launches
+    say(f"  K14 launches during the requests: {launches}")
+    for dtn, v in lat.items():
+        say(f"latency GAT-2l {dtn} gat_layer kind: median "
+            f"{statistics.median(v):.3f} ms over {len(v)} requests "
+            f"{['%.3f' % t for t in v]}")
+    with torch.inference_mode():
+        for dtn, seed in reqs:
+            ref = model.make_apply(dict(dtypes)[dtn])(
+                params, g, _request_x(seed, hg.n_node, dev))
+            y = outs.pop((dtn, seed))
+            rel = _rel_err(y, ref)
+            say(f"  GAT-2l gat_layer kind {dtn} seed={seed}: relative "
+                f"{rel:.3e} to the per-op path (bound {E2E_TOL[dtn]:.0e})")
+            if not (tuple(y.shape) == (hg.n_node, N_CLASS)
+                    and bool(torch.isfinite(y).all())
+                    and rel <= E2E_TOL[dtn]):
+                raise AssertionError(f"GAT-2l gat_layer kind {dtn}: {rel}")
+            del ref, y
+    return launches
+
+
+def hub_rows_check(tg, dev) -> None:
+    """Phase 8c: K3's raw float32 [num | den] on the one-hot tiling (derive
+    mode, random inputs, both layers' widths) against a float64 sum under
+    the same shift bound, row by row: den over its own value, num over
+    the row's sum of |p h| per column, each within HUB_TOL; the worst row
+    printed per in-degree class."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops.spmm import _live_slots
+    n = tg.n_node
+    _, src, dst = _live_slots(tg, 0, tg.n_tiles)
+    deg = torch.bincount(dst, minlength=n)
+    f64 = torch.float64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    for H, HD in ((HEADS, HIDDEN), (1, N_CLASS)):
+        D = HD // H
+        h = torch.randn((n, HD), generator=gen, device=dev)
+        w = torch.randn((HD, H), generator=gen, device=dev) / HD ** 0.5
+        a_d = torch.randn((n, H), generator=gen, device=dev)
+        raw = A._gat_forward(tg, h, None, a_d, w_asrc=w, normalize=False)
+        a_s, ad, h64 = (h @ w).double(), a_d.double(), h.double()
+        bound = A._leaky(a_s.amax(0, keepdim=True) + ad, 0.2)
+        num = torch.zeros((n, HD), dtype=f64, device=dev)
+        mag = torch.zeros((n, HD), dtype=f64, device=dev)
+        den = torch.zeros((n, H), dtype=f64, device=dev)
+        for c0 in range(0, src.numel(), 1 << 21):
+            s_, d_ = src[c0:c0 + (1 << 21)], dst[c0:c0 + (1 << 21)]
+            p = torch.exp(torch.clamp(
+                A._leaky(a_s[s_] + ad[d_], 0.2) - bound[d_], max=60.0))
+            ph = p.repeat_interleave(D, dim=1) * h64[s_]
+            den.index_add_(0, d_, p)
+            num.index_add_(0, d_, ph)
+            mag.index_add_(0, d_, ph.abs())
+        live = deg > 0
+        err = torch.maximum(
+            ((raw[:, :HD].double() - num).abs()
+             / mag.clamp(min=1e-300)).amax(1),
+            ((raw[:, HD:].double() - den).abs()
+             / den.clamp(min=1e-300)).amax(1))[live]
+        dl = deg[live]
+        worst = {f"{lo}-{hi}": float(err[(dl >= lo) & (dl < hi)].max())
+                 for lo, hi in ((1, 100), (100, 10_000), (10_000, n + 1))
+                 if bool(((dl >= lo) & (dl < hi)).any())}
+        say(f"  K3 on the one-hot tiling H={H} HD={HD}, each row against a "
+            f"float64 sum (bound {HUB_TOL:.0e}), worst by in-degree: "
+            + ", ".join(f"{k}: {v:.3e}" for k, v in worst.items()))
+        if not float(err.max()) <= HUB_TOL:
+            raise AssertionError(f"K3 row sums: {worst}")
+
+
+def gat_kind_training(model, hg, g, dev) -> dict:
+    """Phase 8c: GAT-2l with the attention chain as the ``gat`` kind (K3)
+    over 512x1024x512 ``onehot`` tiles and its transposed twin (the JAX
+    one-hot training recipe), lowered per dtype: float32 loss and
+    gradients against per-op autograd, then 1 warm-up and 2 timed bf16
+    AdamW steps.  Returns K3's, K5's and K6's launches during the
+    steps."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import gat_onehot_schedules
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.schedule import TileConfig
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+
+    scheds = gat_onehot_schedules(model.layers, whole_layer=False,
+                                  tile=TileConfig(*LAYER_TILE))
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.standard_normal((hg.n_node, F_IN),
+                                         dtype=np.float32), device=dev)
+    wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS), dtype=np.float32),
+                      device=dev)
+    labels = (x @ wy).argmax(dim=1)
+    mask = torch.ones(hg.n_node, dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    fn = model.make_apply(None, schedules=scheds, host_graph=hg, device=dev,
+                          build_transpose=True)
+    say(f"  float32 lowering (tiling and transposed twin) "
+        f"{time.perf_counter() - t0:.1f} s")
+    twins = [tw for lf in fn.layer_fns for k, _, _, tw in lf.plans
+             if k == "gat"]
+    if len(twins) != 2 or any(tw is None for tw in twins):
+        raise AssertionError("GAT-2l gat kind: expected a twin per layer")
+    hub_rows_check(next(d for lf in fn.layer_fns for k, _, d, _ in lf.plans
+                        if k == "gat"), dev)
+    _grads_against_per_op("GAT-2l gat kind", model, fn, g, x, labels, mask)
+    del fn
+    t0 = time.perf_counter()
+    fn = model.make_apply(torch.bfloat16, schedules=scheds, host_graph=hg,
+                          device=dev, build_transpose=True)
+    say(f"  bfloat16 lowering {time.perf_counter() - t0:.1f} s")
+    counted = {"gat_tiles": A.gat_tiles, "gat_bwd_tiles_dad":
+               A.gat_bwd_tiles_dad, "gat_bwd_tiles_src": A.gat_bwd_tiles_src}
+    for f in counted.values():
+        f.launches = 0
+    state = TT.TrainState(model.params, TT.adamw(model.params, LR))
+    step = TT.make_train_step(fn)
+    losses, times = [], []
+    for i in range(3):
+        (state, loss), ms = _timed(step, state, g, x, labels, mask)
+        losses.append(float(loss))
+        if i > 0:
+            times.append(ms)
+    launches = {k: f.launches for k, f in counted.items()}
+    say(f"  GAT-2l gat kind bf16 steps: losses "
+        f"{['%.5f' % v for v in losses]}, step ms "
+        f"{['%.3f' % t for t in times]}; launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"GAT-2l gat kind steps: losses {losses}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the gat "
+                                 "kind's training steps")
+    model.zero_grad(set_to_none=True)
+    return launches
+
+
+def whole_layer_grads(model, dev) -> None:
+    """Phase 8d: the ``gat_layer`` kind's float32 loss and gradients (its
+    backward is autograd of the exact edge formulation, [E, HD] tensors)
+    against per-op autograd on phase 7's reduced graph."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import gat_onehot_schedules
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.schedule import TileConfig
+
+    hr, gr = reduced_graph(dev)
+    fn = model.make_apply(None, schedules=gat_onehot_schedules(
+        model.layers, whole_layer=True, tile=TileConfig(*LAYER_TILE)),
+        host_graph=hr, device=dev)
+    rng = np.random.default_rng(14)
+    x = _request_x(21, hr.n_node, dev)
+    wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS), dtype=np.float32),
+                      device=dev)
+    labels = (x @ wy).argmax(dim=1)
+    mask = torch.ones(hr.n_node, dtype=torch.bool, device=dev)
+    _grads_against_per_op("GAT-2l gat_layer kind (reduced graph)", model, fn,
+                          gr, x, labels, mask)
+
+
+def tune_cli() -> None:
+    """Phase 8e: ``cli tune --stack`` for GAT on cora on the card (memo and
+    schedule JSON in a temporary directory), then ``cli run`` and ``cli
+    train`` with the schedule it wrote; prints each layer's winner."""
+    import shutil
+    import tempfile
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import cli
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import classify_block
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    tmp = tempfile.mkdtemp(prefix="gta_tune_")
+    try:
+        sched = os.path.join(tmp, "stack.json")
+        base = ["--dataset", "cora", "--network", "GAT", "--json"]
+        t0 = time.perf_counter()
+        rc = cli.main(["tune", *base, "--stack", "--memo",
+                       os.path.join(tmp, "memo.csv"), "--schedule", sched,
+                       "--target-s", str(TUNE_TARGET_S)])
+        with open(os.path.join(tmp, "memo.csv")) as f:
+            n_meas = sum(1 for _ in f)
+        say(f"  cli tune --stack: rc {rc}, {n_meas} measurements in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if rc != 0:
+            raise AssertionError(f"cli tune exited {rc}")
+        schedules = cli.load_schedules(sched, 2)
+        model = build_model("GAT", 1433, 7, device="cpu")
+        for li, (layer, sc) in enumerate(zip(model.layers, schedules)):
+            kinds = [classify_block(layer, b, tc)[0]
+                     for b, tc in zip(sc.blocks, sc.tiles)]
+            say(f"  layer {li} winner: {sc.key()[-60:]}; kinds {kinds}; "
+                f"gat_layer: {'gat_layer' in kinds}")
+        for cmd in (["run", *base, "--schedule", sched],
+                    ["train", *base, "--schedule", sched, "--epochs", "3"]):
+            rc = cli.main(cmd)
+            say(f"  cli {cmd[0]} --schedule: rc {rc}")
+            if rc != 0:
+                raise AssertionError(f"cli {cmd[0]} exited {rc}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def exp_panel_phase(checks: Checks, gat_fwd, gat_hybs, model, hg, g,
+                    dev) -> int:
+    """Phase 8f on phase 4's lowered GAT-2l forward (``gat_fwd`` per
+    dtype) with ``DENSE_EXP_PANEL`` set: K15 held to its plain version (bf16
+    and float32) and timed (bf16) at both layers' dense splits, with K4
+    timed beside it on the same inputs; one bf16 and one float32 request
+    against the same forward with the flag off (the K4 path).  The flag is
+    restored after.  Returns K15's launches during the requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
+
+    n = hg.n_node
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    for li, (H, HD) in enumerate(((HEADS, HIDDEN), (1, N_CLASS))):
+        bga = gat_hybs[li].dense
+        terms = row_terms(bga)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[1]
+            timed = dt == torch.bfloat16
+            h = torch.randn((n, HD), generator=gen, device=dev).to(dt)
+            w = (torch.randn((HD, H), generator=gen, device=dev)
+                 / HD ** 0.5).to(dt)
+            a_d = torch.randn((n, H), generator=gen, device=dev).to(dt).float()
+            a_s = h.float() @ w.float()
+            ms = a_s.amax(0, keepdim=True)
+            ps, pd = D.exp_panels(a_s, a_d, ms,
+                                  bga.n_col_blocks * bga.block_cols,
+                                  bga.n_row_blocks * bga.block_rows)
+            checks.slice_case(
+                "gat_dense_panel", f"layer {li} H={H} HD={HD}", name,
+                lambda: D.gat_dense_panel_blocks(bga, h, bga.values, a_s, ps,
+                                                 pd),
+                lambda: D._gat_dense_panel_reference(bga, h, bga.values, a_s,
+                                                     ps, pd), dev,
+                split=HD, terms=terms,
+                timed_as=f"layer {li}" if timed else None,
+                work=lambda: RL.gat_dense_panel(bga, h, H))
+            if timed:
+                checks.time_call(
+                    "gat_dense_blocks", f"l{li} beside K15",
+                    lambda: D.gat_dense_blocks(bga, h, bga.values, a_s, a_d,
+                                               ms),
+                    lambda: D._gat_dense_reference(bga, h, bga.values, a_s,
+                                                   a_d, ms), dev,
+                    lambda: RL.gat_dense(bga, h, H), in_row=False)
+    params = dict(model.params)
+    reqs = (("bfloat16", 0), ("float32", 0))
+    outs = {}
+    D.gat_dense_panel_blocks.launches = 0
+    D.DENSE_EXP_PANEL = True
+    try:
+        with torch.inference_mode():
+            for dtn, seed in reqs:
+                outs[dtn], ms = _timed(gat_fwd[dtn], params, g,
+                                       _request_x(seed, n, dev))
+                say(f"  GAT-2l hybrid {dtn} request, exp panels: {ms:.2f} ms")
+    finally:
+        D.DENSE_EXP_PANEL = False
+    launches = D.gat_dense_panel_blocks.launches
+    say(f"  K15 launches during the requests: {launches}")
+    tol = {"float32": 1e-5, "bfloat16": E2E_TOL["bfloat16"]}
+    with torch.inference_mode():
+        for dtn, seed in reqs:
+            ref, ms = _timed(gat_fwd[dtn], params, g, _request_x(seed, n, dev))
+            rel = _rel_err(outs[dtn], ref)
+            say(f"  GAT-2l hybrid {dtn}: K4 path {ms:.2f} ms; exp panels "
+                f"against it: relative {rel:.3e} (bound {tol[dtn]:.0e})")
+            if not (bool(torch.isfinite(outs[dtn]).all())
+                    and rel <= tol[dtn]):
+                raise AssertionError(f"exp-panel path {dtn}: {rel}")
+    return launches
+
+
+def layer_phase(checks: Checks, gat_model, hg, g, dev) -> dict:
+    """Phase 8a-8e; returns K14's launches on 8b's requests."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    t0 = time.perf_counter()
+    say("== 8a whole-layer and exp-panel kernels K14, K15: edge cases")
+    for c in fixtures.layer_kernel_cases(dev):
+        checks.compare(c)
+    say("== 8b GAT-2l on the whole-layer kind")
+    launches = {"gat_layer": whole_layer_gat(checks, gat_model, hg, g, dev)}
+    say("== 8c GAT-2l training on the gat kind with its transposed twin")
+    gat_kind_training(gat_model, hg, g, dev)
+    say("== 8d whole-layer kind gradients on the reduced graph")
+    whole_layer_grads(gat_model, dev)
+    say("== 8e cli tune --stack, run and train --schedule")
+    tune_cli()
+    say(f"launches of K14 in phase 8: {launches}; phase 8a-8e took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if launches["gat_layer"] <= 0:
+        raise AssertionError("kernel gat_layer was not launched in phase 8b")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--edges", type=int, default=11_461_589,
@@ -1405,7 +1893,12 @@ def main(argv=None) -> int:
         say(f"latency {mname} {dtn} {path}: median {statistics.median(v):.3f}"
             f" ms over {len(v)} requests {['%.3f' % t for t in v]}")
 
+    # 8f before phase 5, which drops the float32 forwards it differentiates
+    say("== 8f exp panels on phase 4's lowered GAT-2l forward")
+    panel_launches = exp_panel_phase(
+        checks, fwd["GAT-2l"], hybs["GAT-2l"], models["GAT-2l"], hg, g, dev)
     launches = training_phase(checks, models, fwd, hg, g, dev)
+    launches["gat_dense_panel"] = panel_launches
     checks.csr.clear()
     del fwd
     grouped_launches, recipes = grouped_phase(checks, models["GCN-2l"], hg,
@@ -1414,6 +1907,10 @@ def main(argv=None) -> int:
     launches.update(sddmm_pair_phase(checks, models["GAT-2l"], recipes, hg,
                                      g, dev))
     del recipes
+    launches.update(layer_phase(checks, models["GAT-2l"], hg, g, dev))
+    if launches["gat_dense_panel"] <= 0:
+        raise AssertionError("kernel gat_dense_panel was not launched in "
+                             "phase 8f")
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []
@@ -1423,7 +1920,9 @@ def main(argv=None) -> int:
         # twins); K9 one bench SpMM request plus one PATH_GROUPED GCN-2l
         # step (forward and twin at both layers); K10 one bench GAT request;
         # K11 GAT-2l's one-head logit block plus the hybrid SDDMM's per-tile
-        # tail, K12 its grouped tail; K13 one DGN-2l and one PNA-2l request
+        # tail, K12 its grouped tail; K13 one DGN-2l and one PNA-2l request;
+        # K14 one GAT-2l request on the gat_layer kind (both layers); K15
+        # both layers' dense splits of one GAT-2l hybrid request
         calls = list(checks.times[k].values())
         bound_ms, bound_by = bound_of(c[2] for c in calls)
         libs = [c[3] for c in calls]

@@ -3,8 +3,13 @@
 ``run`` serves one forward pass of a model over a dataset and reports its
 output and, on a CUDA device, its latency from CUDA events; ``train``
 trains it full-batch and reports the JAX CLI's keys (loss, accuracies and,
-on a CUDA device, the epoch time from CUDA events):
+on a CUDA device, the epoch time from CUDA events); ``tune`` measures the
+candidate schedules of a layer (``tune/search.autotune``) and with
+``--stack`` tunes each layer of the model and writes the per-layer
+schedule JSON that ``run`` and ``train`` read:
 
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli tune \\
+        --dataset cora --network GAT --stack --schedule sched.json
     python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli run \\
         --dataset cora --network GAT --schedule sched.json --device cuda
     python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli train \\
@@ -13,7 +18,8 @@ on a CUDA device, the epoch time from CUDA events):
 ``--schedule`` reads the schedule JSON of the JAX package's CLI (one
 schedule, or ``{"layers": [...]}`` per layer).  With a schedule, ``train``
 also splits the transposed graph so that gradients run on the kernels; the
-JAX CLI does that only with ``--compiled``.  ``--compiled``, ``tune`` and
+JAX CLI does that only with ``--compiled``.  ``tune``'s memo and default
+output go under ``build/tune/``.  ``--compiled``, ``tune --ga`` and
 ``bench`` are not ported yet and exit with status 2.
 """
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 
@@ -87,6 +94,84 @@ def _train(args, ds, model, sched, dtype, device) -> int:
     return 0 if math.isfinite(res.train_loss) else 1
 
 
+def _tune(args, ds, dtype, device) -> int:
+    """``tune``: the JAX CLI's tune over ``tune/search.autotune``; with
+    ``--stack`` per layer of the model, writing the schedule JSON."""
+    import torch
+
+    from .compiler.lower import init_params
+    from .hwconfig import load_hw_config
+    from .models.builders import build_op_graph
+    from .models.zoo import build_model
+    from .tune.search import autotune, default_memo_path
+
+    hg = ds.host_graph
+    g = hg.to_device(device)
+    memo = args.memo or default_memo_path(args.network, args.dataset)
+    dtype_bytes = 2 if dtype is not None else 4
+
+    def tune_one(graph, in_w):
+        params = init_params(graph, torch.Generator().manual_seed(args.seed),
+                             device=device)
+        x = torch.randn((hg.n_node, in_w),
+                        generator=torch.Generator().manual_seed(1)).to(device)
+        palette = (load_hw_config().derived_palette(in_w, dtype_bytes)
+                   if args.derive_palette else None)
+        return autotune(graph, hg, params, g, x, compute_dtype=dtype,
+                        memo_path=memo, iters=args.iters,
+                        target_s=args.target_s or None, tile_palette=palette,
+                        verbose=not args.json, device=device)
+
+    out = dict(dataset=args.dataset, network=args.network,
+               synthetic_data=ds.synthetic,
+               dtype="bfloat16" if args.bf16 else "float32",
+               device=str(device), memo=memo)
+    if device.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(device)
+    if args.stack:
+        model = build_model(args.network, ds.x.shape[1], ds.n_class,
+                            hidden=args.hidden, n_layers=args.layers,
+                            heads=args.heads, reorder=args.reorder,
+                            generator=torch.Generator().manual_seed(args.seed),
+                            device=device)
+        specs, total = [], 0.0
+        w = ds.x.shape[1]
+        for li, graph in enumerate(model.layers):
+            res = tune_one(graph, w)
+            total += res.latency_s
+            specs.append(dict(blocks=[list(b) for b in res.best.blocks],
+                              tiles=[list(t.key()) for t in res.best.tiles],
+                              latency_us=res.latency_s * 1e6))
+            w = max(op.out_width for op in graph.ops
+                    if op.op_id in graph.outputs)
+            if not args.json:
+                print(f"layer {li}: {res.latency_s*1e6:.1f}us "
+                      f"{res.best.key()}", flush=True)
+        path = args.schedule or os.path.join(
+            os.path.dirname(memo),
+            f"best_{args.network}_{args.dataset}_stack.json")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"layers": specs}, f)
+        out.update(stack_latency_us=total * 1e6, schedule_path=path,
+                   schedules=[sp["tiles"] for sp in specs])
+    else:
+        graph = build_op_graph(args.network, args.hidden, args.hidden,
+                               heads=args.heads, reorder=args.reorder,
+                               layer_tag="tune")
+        res = tune_one(graph, args.hidden)
+        out.update(best_latency_us=res.latency_s * 1e6,
+                   best_schedule=res.best.key(), n_trials=len(res.trials),
+                   pareto=[dict(latency_us=m.latency_s * 1e6,
+                                traffic_bytes=m.traffic,
+                                schedule=m.schedule.key())
+                           for m in res.pareto])
+        if not args.json:
+            print(res.report())
+    _print(out, args.json)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="gta-torch",
@@ -119,13 +204,35 @@ def main(argv=None) -> int:
                    help="checkpoint dir: train saves its final state here")
     p.add_argument("--compiled", action="store_true",
                    help="schedule picked by the latency model (not ported)")
+    p.add_argument("--ga", action="store_true",
+                   help="tune: genetic search (not ported)")
+    p.add_argument("--stack", action="store_true",
+                   help="tune each layer of the model stack and write the "
+                        "per-layer schedule JSON (--schedule path) that "
+                        "run and train --schedule read")
+    p.add_argument("--memo", default=None,
+                   help="tune: memo CSV (default build/tune/memo_*.csv)")
+    p.add_argument("--hw-config", default=None,
+                   help="hardware config JSON (shared-memory budget, tile "
+                        "palette); also via $GTA_HW_CONFIG")
+    p.add_argument("--derive-palette", action="store_true",
+                   help="tune over the palette derived from the maximal "
+                        "feasible tile at the layer's input width")
+    p.add_argument("--target-s", type=float, default=0.2,
+                   help="tune: size each measurement's loop to about this "
+                        "many seconds (0: --iters applications)")
     args = p.parse_args(argv)
 
-    if args.command not in ("run", "train") or args.compiled:
-        what = "--compiled" if args.compiled else args.command
+    if args.command == "bench" or args.compiled or args.ga:
+        what = ("--compiled" if args.compiled else "tune --ga" if args.ga
+                else args.command)
+        item = ("item 10 (compiler/latency.py)" if args.compiled
+                else "item 10 (tune/genetic.py)" if args.ga else "item 6")
         print(f"gta-torch {what}: not yet ported (ROADMAP.md Queue 1 "
-              f"{'item 10' if args.compiled else 'item 6'})", file=sys.stderr)
+              f"{item})", file=sys.stderr)
         return 2
+    if args.hw_config:
+        os.environ["GTA_HW_CONFIG"] = args.hw_config
 
     import numpy as np
     import torch
@@ -147,6 +254,8 @@ def main(argv=None) -> int:
             train_mask=ds.train_mask[perm], val_mask=ds.val_mask[perm],
             test_mask=ds.test_mask[perm])
     hg, x_np = ds.host_graph, ds.x
+    if args.command == "tune":
+        return _tune(args, ds, dtype, device)
     model = build_model(args.network, x_np.shape[1], ds.n_class,
                         hidden=args.hidden, n_layers=args.layers,
                         heads=args.heads, reorder=args.reorder,

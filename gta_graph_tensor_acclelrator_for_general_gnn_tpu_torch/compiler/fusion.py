@@ -5,10 +5,10 @@ Counterpart of the JAX package's ``compiler/fusion.py``.  Classification
 (:func:`classify_block`) is the JAX package's, so both packages agree on
 what each (block, TileConfig) lowers to.  The port lowers the kinds
 ``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat``,
-``gat_hybrid``, ``sddmm`` (the attention-logit block on K11) and
-``pair_agg`` (the DGN / PNA aggregation on K13); every other kind raises
-``NotImplementedError`` naming its ROADMAP.md item instead of running
-silently on the per-op path.
+``gat_hybrid``, ``gat_layer`` (the whole layer on K14), ``sddmm`` (the
+attention-logit block on K11) and ``pair_agg`` (the DGN / PNA aggregation
+on K13); every other kind raises ``NotImplementedError`` naming its
+ROADMAP.md item instead of running silently on the per-op path.
 """
 from __future__ import annotations
 
@@ -31,6 +31,10 @@ from ..ops import spmm as spmm_mod
 from . import schedule as S
 from .lower import _eval_op
 from .schedule import Schedule, TileConfig
+
+# the port's own kernel version: it keys the tuner's memo
+# (tune/search.py), so a measurement of older kernels never resurfaces
+KERNEL_VERSION = 1
 
 
 @dataclasses.dataclass
@@ -208,6 +212,26 @@ def pair_agg_schedules(layers: Sequence[ir.OpGraph], *,
     return out
 
 
+def gat_onehot_schedules(layers: Sequence[ir.OpGraph], *, whole_layer: bool,
+                         tile: TileConfig = TileConfig(512, 1024, 512)
+                         ) -> List[Schedule]:
+    """Per-layer schedules of GAT on the ``onehot`` path at ``tile`` (the
+    geometry of the JAX package's one-hot recipe,
+    ``scripts/reddit_train.py``): with ``whole_layer`` each layer's
+    ``layer_partition`` as the one ``gat_layer`` block (K14), else its
+    ``pattern_partition`` with the attention chain as the ``gat`` kind (K3;
+    its backward K5 and K6 with ``build_transpose``)."""
+    part_of, kind = ((S.layer_partition, "gat_layer") if whole_layer
+                     else (S.pattern_partition, "gat"))
+    out = []
+    for graph in layers:
+        part = part_of(graph)
+        if part is None:
+            raise ValueError(f"{graph.name}: no {kind} block")
+        out.append(_one_kind(graph, part, tile, kind))
+    return out
+
+
 def sddmm_schedules(layers: Sequence[ir.OpGraph], *,
                     tile: TileConfig = TileConfig(1024, 1024, 512)
                     ) -> List[Schedule]:
@@ -236,19 +260,7 @@ NOT_PORTED = {
     "spmm_densefull": "Queue 1 item 9 (PATH_DENSEFULL)",
     "spmm_stream": "Queue 1 item 9 (chunked stream path)",
     "gat_stream": "Queue 1 item 9 (chunked stream path)",
-    "gat_layer": "Queue 2 #15 (whole-layer GAT kernel)",
 }
-
-
-def _gat_needs_grad(plan, ref, w_asrc_of) -> bool:
-    """True when autograd would need the gradient of a non-hybrid ``gat``
-    block: its backward (``_gat_vjp``) is not in the port yet."""
-    if not torch.is_grad_enabled():
-        return False
-    w = w_asrc_of(plan)
-    ins = [ref(plan.h_op), ref(plan.adst_op),
-           w if w is not None else ref(plan.asrc_op)]
-    return any(t.requires_grad for t in ins)
 
 
 def lower_schedule(
@@ -268,14 +280,13 @@ def lower_schedule(
     blocks need, on ``device`` (default the CUDA card).  ``tile_cache``
     shares them across the layers of a model.  ``build_transpose`` also
     tiles or splits the TRANSPOSED graph (kept in
-    ``tile_cache["transpose"]``) for every SpMM and hybrid block, so its
-    gradient runs the kernels (dx = Aᵀ ȳ, and the attention backward K5-K8)
-    instead of autograd of the plain formulation; it doubles the set-up
-    and the tilings' device memory.  The ``sddmm`` and ``pair_agg`` kinds
-    run forward on their kernels and differentiate through their plain
-    per-edge formulations, as in the JAX package.  The backward of the
-    non-hybrid ``gat`` kind and the sparse-input first layer are not ported
-    yet: taking a gradient through that kind raises."""
+    ``tile_cache["transpose"]``) for every SpMM, attention and hybrid
+    block, so its gradient runs the kernels (dx = Aᵀ ȳ, and the attention
+    backward K5-K8) instead of autograd of the plain formulation; it doubles
+    the set-up and the tilings' device memory.  The ``gat_layer``,
+    ``sddmm`` and ``pair_agg`` kinds run forward on their kernels and
+    differentiate through their plain per-edge formulations, as in the JAX
+    package."""
     device = resolve_device(device)
     cache = tile_cache if tile_cache is not None else {}
     tiled: Dict[tuple, object] = cache.setdefault("tiled", {})
@@ -285,6 +296,14 @@ def lower_schedule(
         if "transpose" not in cache:
             cache["transpose"] = transpose_host_graph(host_graph)
         host_graph_t = cache["transpose"][0]
+
+    def get_perm_t():
+        """The transposed graph's edge permutation on ``device`` (the
+        ``gat`` kind's ``ev_perm_t``)."""
+        key = ("perm_t", str(device))
+        if key not in cache:
+            cache[key] = torch.as_tensor(cache["transpose"][1], device=device)
+        return cache[key]
 
     def get_tiled(tc: TileConfig, unit_weight: bool,
                   hg: Optional[HostGraph] = None):
@@ -363,7 +382,11 @@ def lower_schedule(
             data = get_tiled(tc, not plan.weighted)
             if host_graph_t is not None:
                 twin = get_tiled(tc, not plan.weighted, host_graph_t)
-        elif kind in ("gat", "sddmm", "pair_agg"):
+        elif kind == "gat":
+            data = get_tiled(tc, unit_weight=True)
+            if host_graph_t is not None:
+                twin = (get_tiled(tc, True, host_graph_t), get_perm_t())
+        elif kind in ("gat_layer", "sddmm", "pair_agg"):
             data = get_tiled(tc, unit_weight=True)
         else:
             data = None
@@ -417,11 +440,6 @@ def lower_schedule(
             return None
 
         for kind, block, tc, plan, data, twin in plans:
-            if kind == "gat" and _gat_needs_grad(plan, ref, w_asrc_of):
-                raise NotImplementedError(
-                    f"block {block} lowers to 'gat', whose backward the "
-                    "port does not run yet (ROADMAP.md Queue 1 item 5): "
-                    "use the hybrid path to train")
             if kind in ("spmm", "spmm_grouped"):
                 vals[plan.out_op] = seg_out(plan, spmm_mod.spmm(
                     data, kin(ref(plan.in_op)), tg_t=twin))
@@ -443,15 +461,24 @@ def lower_schedule(
                     vals[plan.gathers[ir.MAX]] = y_max
                 if ir.MEAN in plan.gathers:
                     vals[plan.gathers[ir.MEAN]] = y_sum / cnt.clamp(min=1.0)
+            elif kind == "gat_layer":
+                vals[plan.out_op] = gat_mod.gat_layer(
+                    data, kin(ref(plan.x_op)), kin(params[plan.w_name]),
+                    kin(params[plan.was_name]), kin(params[plan.wad_name]),
+                    negative_slope=plan.negative_slope,
+                    final_sf=plan.final_sf)
             elif kind in ("gat", "gat_hybrid"):
                 w_as = w_asrc_of(plan)
                 kw = dict(negative_slope=plan.negative_slope,
                           w_asrc=None if w_as is None else kin(w_as))
                 a_src = None if w_as is not None else kin(ref(plan.asrc_op))
                 if kind == "gat":
+                    tg_t, perm = twin if twin is not None else (None, None)
                     vals[plan.out_op] = gat_mod.gat_attention(
                         data, kin(ref(plan.h_op)), a_src,
-                        kin(ref(plan.adst_op)), heads=plan.heads, **kw)
+                        kin(ref(plan.adst_op)), heads=plan.heads,
+                        g=g if twin is not None else None, tg_t=tg_t,
+                        ev_perm_t=perm, **kw)
                 else:
                     vals[plan.out_op] = dense_mod.gat_hybrid(
                         data, g, kin(ref(plan.h_op)), a_src,
@@ -465,6 +492,6 @@ def lower_schedule(
         return {o: vals[o] for o in outputs}
 
     # (kind, block, graph data, transposed twin) per block, for inspection
-    # and kernel checks
+    # and kernel checks; a ``gat`` block's twin is (tiling, perm)
     apply.plans = [(p[0], p[1], p[4], p[5]) for p in plans]
     return apply

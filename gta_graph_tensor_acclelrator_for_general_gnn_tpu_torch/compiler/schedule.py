@@ -1,15 +1,17 @@
 """Schedules: a fusion partition of the op graph plus a tile config per block.
 
 Counterpart of the JAX package's ``compiler/schedule.py``: the same
-``TileConfig`` / ``Schedule`` types and keys, the same path names, and the
-partitions the ported paths use (singleton, aggregation, pattern, pair
-aggregation, max fusion, default).
-The partition enumerator, the traffic model and the on-chip buffer rules
-are not ported yet (ROADMAP.md Queue 1 item 10).
+``TileConfig`` / ``Schedule`` types and keys, the same path names, the
+partitions (singleton, aggregation, pattern, whole layer, pair
+aggregation, max fusion, the enumerator, default), legality with the
+kernel-pattern exemption and the analytic traffic model.  The TPU's VMEM
+rules (``vmem_bytes`` / ``tile_is_feasible``) become a Hopper
+shared-memory rule: :func:`smem_bytes` and :func:`tile_is_feasible`.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from .. import ir
@@ -116,6 +118,37 @@ def _order_blocks(graph: ir.OpGraph,
             if indeg[b] == 0:
                 ready.append(b)
         ready.sort(key=lambda i: blocks[i])
+    return out
+
+
+def enumerate_partitions(
+    graph: ir.OpGraph,
+    max_edges: int = 20,
+    limit: Optional[int] = None,
+) -> List[Tuple[Tuple[int, ...], ...]]:
+    """All legal fusion partitions of the op DAG: one bit per DAG edge,
+    breakpoint edges forced to 0, candidates with an illegal block
+    (internal breakpoint or quotient cycle) rejected; deduplicated, in the
+    JAX package's order."""
+    ids = [op.op_id for op in graph.ops]
+    free = [(u, v) for (u, v) in graph.edges()
+            if not ir.is_breakpoint(graph.by_id[u], graph.by_id[v])]
+    if len(free) > max_edges:
+        raise ValueError(
+            f"{len(free)} free fusion edges > {max_edges}; use the GA search")
+    seen = set()
+    out: List[Tuple[Tuple[int, ...], ...]] = []
+    for bits in itertools.product((0, 1), repeat=len(free)):
+        blocks = _components(ids, [e for e, b in zip(free, bits) if b])
+        key = tuple(tuple(b) for b in sorted(blocks))
+        if key in seen:
+            continue
+        seen.add(key)
+        if not ir.partition_is_legal(graph, blocks):
+            continue
+        out.append(tuple(tuple(b) for b in _order_blocks(graph, blocks)))
+        if limit and len(out) >= limit:
+            break
     return out
 
 
@@ -228,6 +261,204 @@ def pattern_partition(
     rest = [o for o in graph.topo_order() if o not in plan.ops]
     blocks = [[o] for o in rest] + [sorted(plan.ops)]
     return tuple(tuple(b) for b in _order_blocks(graph, blocks))
+
+
+def layer_partition(
+        graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]]:
+    """The complete GAT layer (projection MMs, attention chain, activation)
+    as ONE block for the whole-layer kernel (``ops/gat.gat_layer``): the
+    whole graph when it is one layer, else the chain with its MMs and SF ops
+    and everything else singleton; None when no layer matches."""
+    from ..ops.gat import find_gat_chain, match_gat_layer
+    all_ops = [op.op_id for op in graph.ops]
+    if match_gat_layer(graph, all_ops) is not None:
+        return (tuple(sorted(all_ops)),)
+    if pattern_partition(graph) is None:
+        return None
+    cand = set(find_gat_chain(graph).ops) | {
+        op.op_id for op in graph.ops
+        if op.kind == ir.APPLY_NODE and op.compute in (ir.MM, ir.SF)}
+    plan = match_gat_layer(graph, sorted(cand))
+    if plan is None:
+        return None
+    rest = [o for o in graph.topo_order() if o not in plan.ops]
+    blocks = [[o] for o in rest] + [sorted(plan.ops)]
+    return tuple(tuple(b) for b in _order_blocks(graph, blocks))
+
+
+def partition_is_legal_with_patterns(
+        graph: ir.OpGraph, blocks: Sequence[Sequence[int]]) -> bool:
+    """Partition legality with the kernel-pattern exemption: a block that
+    exactly matches a fused-kernel pattern (attention chain, whole layer,
+    pair aggregation) may contain breakpoint edges; the quotient must still
+    be a DAG and every other block breakpoint-free."""
+    from ..ops.gat import match_gat_block, match_gat_layer
+    from ..ops.pairagg import match_pair_agg
+    if ir.partition_is_legal(graph, blocks):
+        return True
+    exempt = {i for i, b in enumerate(blocks)
+              if match_gat_block(graph, b) is not None
+              or match_gat_layer(graph, b) is not None
+              or match_pair_agg(graph, b) is not None}
+    if not exempt:
+        return False
+    block_of: Dict[int, int] = {}
+    for i, b in enumerate(blocks):
+        for o in b:
+            if o in block_of:
+                return False
+            block_of[o] = i
+    if set(block_of) != set(graph.by_id):
+        return False
+    for u, v in graph.edges():
+        if (block_of[u] == block_of[v] and block_of[u] not in exempt
+                and ir.is_breakpoint(graph.by_id[u], graph.by_id[v])):
+            return False
+    indeg = {i: 0 for i in range(len(blocks))}
+    succ: Dict[int, List[int]] = {i: [] for i in range(len(blocks))}
+    for a, b in {(block_of[u], block_of[v]) for u, v in graph.edges()
+                 if block_of[u] != block_of[v]}:
+        indeg[b] += 1
+        succ[a].append(b)
+    ready = [i for i, d in indeg.items() if d == 0]
+    seen = 0
+    while ready:
+        a = ready.pop()
+        seen += 1
+        for b in succ[a]:
+            indeg[b] -= 1
+            if indeg[b] == 0:
+                ready.append(b)
+    return seen == len(blocks)
+
+
+# ---------------------------------------------------------------------------
+# analytic cost model (the reference's cal_size / rw)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphStats:
+    """Static per-graph quantities the cost model needs (host side)."""
+    n_node: int
+    n_edge: int
+    e_pad: int
+
+
+def traffic_bytes(graph: ir.OpGraph, blocks: Sequence[Sequence[int]],
+                  stats: GraphStats, dtype_bytes: int = 4) -> int:
+    """Device-memory bytes of one forward under the partition, the JAX
+    package's model: every cross-block value is written by its producer and
+    read by each consuming block, intra-block values stay on chip; edge
+    values have e_pad rows, node values n_node; weights count once per MM
+    and graph inputs once per reading op."""
+    block_of = {o: i for i, b in enumerate(blocks) for o in b}
+    total = 0
+    for op in graph.ops:
+        w = op.extra.get("weight")
+        if w is not None:
+            total += w[1] * w[2] * dtype_bytes
+        for i in op.inputs:
+            if i == ir.X_INPUT:
+                total += stats.n_node * graph.in_width * dtype_bytes
+            elif i == ir.EDGE_WEIGHT:
+                total += stats.e_pad * dtype_bytes
+    consumers: Dict[int, set] = {}
+    for u, v in graph.edges():
+        if block_of[u] != block_of[v]:
+            consumers.setdefault(u, set()).add(block_of[v])
+    for op in graph.ops:
+        rows = stats.n_node if op.out_domain == ir.NODE else stats.e_pad
+        nbytes = rows * max(op.out_width, 1) * dtype_bytes
+        outside = consumers.get(op.op_id, set())
+        if outside or op.op_id in graph.outputs:
+            total += nbytes                       # producer writes once
+        total += nbytes * len(outside)            # each consumer block reads
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Hopper shared-memory rule (in place of the TPU's VMEM rules)
+# ---------------------------------------------------------------------------
+
+SMEM_BLOCK_BYTES = 232_448   # dynamic shared memory one H100 block may use
+LOCAL_INDEX_MAX = 32_000     # tilings keep int16 block-local offsets below
+
+# the kernel kinds each path lowers to (classify_block)
+PATH_KINDS = {
+    PATH_XLA: (),
+    PATH_ONEHOT: ("spmm", "gat", "gat_layer", "sddmm", "pair_agg"),
+    PATH_HYBRID: ("spmm_hybrid", "gat_hybrid"),
+    PATH_GROUPED: ("spmm_grouped",),
+}
+
+
+def _dense_attention_smem(HD: int, H: int, dtype_bytes: int,
+                          panel: bool) -> int:
+    """K4 / K15, csrc/gat_dense_blocks.cu smem_bytes (column chunk and
+    tensor-core choice as its launch_h picks them)."""
+    BM, PAD = 64, 8
+    cc = 32
+    while cc > 4 and H * BM * cc * 4 > 32 * 1024:
+        cc //= 2
+    f = BM * (HD + H) + cc * H + 2 * BM * H + BM * cc + (
+        cc * 2 * H + BM * H if panel else 0)
+    if dtype_bytes == 2 and cc % 16 == 0:
+        return f * 4 + (HD + H * BM) * (cc + PAD) * 2
+    return (f + cc * HD + H * BM * cc) * 4
+
+
+def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
+    """The largest dynamic shared memory, in bytes, that a kernel of
+    ``kind`` (forward and backward) requests at width HD and H heads, by
+    the formula beside its launch."""
+    gat_tail = (HD * H + H) * 4                     # K3, K10: gat_tiles.cu
+    if kind == "gat":
+        return gat_tail                             # K5, K6 request none
+    if kind == "gat_hybrid":
+        dense_bwd = 4 * (64 * HD + 64 * 4 * H + 64 * 65 + 64 * (H + HD))
+        return max(gat_tail,                        # K7 / K8: gat_bwd.cuh
+                   _dense_attention_smem(HD, H, dtype_bytes, False),
+                   _dense_attention_smem(HD, H, dtype_bytes, True),
+                   dense_bwd)
+    if kind == "gat_layer":                         # K14: gat_layer.cu
+        hp = (HD + 15) // 16 * 16
+        stage = ((64 + hp) * 40 * 2 if dtype_bytes == 2
+                 else (64 * 32 + 32 * hp) * 4)
+        return (64 * hp + 2 * HD * H) * 4 + stage
+    if kind == "sddmm":                             # K11, K12: 8 warps
+        return 8 * HD * 4 if HD // H < 32 else 0
+    return 0                                        # K1, K2, K9, K13: none
+
+
+def smem_bytes(tile: TileConfig, feat_width: int, heads: int = 1,
+               dtype_bytes: int = 4, kind: Optional[str] = None) -> int:
+    """Dynamic shared memory one block of the port's kernels requests for
+    ``tile``'s path at feature width ``feat_width`` (HD for attention) and
+    ``heads``: the largest over the kinds the path lowers to, or of
+    ``kind`` alone.  The port's kernels stage per-feature rows, never a
+    tile-sized buffer, so the tile's geometry does not enter."""
+    kinds = (kind,) if kind is not None else PATH_KINDS.get(tile.path, ())
+    return max([_kind_smem(k, feat_width, heads, dtype_bytes)
+                for k in kinds] + [0])
+
+
+def tile_is_feasible(tile: TileConfig, feat_width: int,
+                     smem_budget: Optional[int] = None, heads: int = 1,
+                     dtype_bytes: int = 4, kind: Optional[str] = None
+                     ) -> bool:
+    """Whether the port's kernels run ``tile`` at ``feat_width``: a path
+    the port lowers, block-local offsets that fit the int16 tile arrays,
+    and the shared memory of :func:`smem_bytes` within ``smem_budget``
+    (default the hardware config's, 232,448 bytes on an H100)."""
+    from ..hwconfig import load_hw_config
+    if tile.path not in PATH_KINDS:
+        return False
+    if max(tile.block_rows, tile.block_cols) >= LOCAL_INDEX_MAX:
+        return False
+    budget = (smem_budget if smem_budget is not None
+              else load_hw_config().smem_budget_bytes)
+    return smem_bytes(tile, feat_width, heads, dtype_bytes, kind) <= budget
 
 
 def default_schedule(graph: ir.OpGraph) -> Schedule:

@@ -1,5 +1,6 @@
 // K4 gat_dense_blocks: [num | den] attention partials over the dense blocks
-// of the density split, under the same global shift bound as K3.
+// of the density split, under the same global shift bound as K3; and K15
+// gat_dense_panel, the same walk with per-node exp panels.
 //
 // Replaces the TPU kernels ops/dense.py:_gat_dense_kernel_t ('cr' blocks,
 // transposed dataflow) and _gat_dense_kernel ('rc' blocks) of the JAX
@@ -31,6 +32,17 @@
 // the zeroed output with f32 atomics (a row block's segments meet there;
 // the order varies by run, f32 rounding only).  Stripes no dense block
 // visits read 0.
+//
+// K15 (PANEL, entry point gta_gat_dense_panel) replaces the TPU kernel
+// ops/dense.py:_gat_dense_kernel_t2, the exp-panel factorisation of K4 (the
+// JAX package runs it when DENSE_EXP_PANEL is set).  On each branch of the
+// leaky relu, exp(e - bound) factors into a column term and a row term, so
+// with per-node panels built in PyTorch (pan_s [n_cols, 2H] = [E1s | E2s],
+// pan_d [n_rows, 3H] = [E1d | E2d | raw a_d], pad entries 0)
+//   p[r,c] = count[r,c] * (a_s[c] + a_d[r] >= 0 ? E1s[c] E1d[r] : E2s[c] E2d[r])
+// with no per-cell exponential; num and den as K4.  On this card the exp
+// is not what bounds K4 (the per-cell work and the product are), so K15 is
+// expected to run at K4's speed, not faster.
 #include <type_traits>
 
 #include "common.cuh"
@@ -43,31 +55,38 @@ using gta::to_f;
 
 constexpr int BM = 64, THREADS = 256, PAD = 8;
 
-// shared-memory floats of one CUDA block (bf16 arrays count as half floats)
-inline size_t smem_bytes(int HD, int H, int CC, bool mma) {
+// shared-memory floats of one CUDA block (bf16 arrays count as half floats);
+// the panel mode adds the column chunk's [E1s | E2s] and the rows' E2d
+inline size_t smem_bytes(int HD, int H, int CC, bool mma, bool panel) {
   size_t f = static_cast<size_t>(BM) * (HD + H) + static_cast<size_t>(CC) * H +
-             2 * BM * H + static_cast<size_t>(BM) * CC;
+             2 * BM * H + static_cast<size_t>(BM) * CC +
+             (panel ? static_cast<size_t>(CC) * 2 * H + BM * H : 0);
   if (mma)  // HsT [HD][CC+PAD] and Pb [H][BM][CC+PAD], bf16
     return f * 4 + (static_cast<size_t>(HD) + static_cast<size_t>(H) * BM) * (CC + PAD) * 2;
   return (f + static_cast<size_t>(CC) * HD + static_cast<size_t>(H) * BM * CC) * 4;
 }
 
-template <typename VT, typename HT, bool MMA>
+// PANEL: a_dst and msrc are not read; pan_s [n_ps, 2H] and pan_d [n_pd, 3H]
+// are (K4 passes null panels)
+template <typename VT, typename HT, bool MMA, bool PANEL>
 __global__ void __launch_bounds__(THREADS)
 gat_dense_kernel(const int* __restrict__ segments, const int* __restrict__ row_blocks,
                  const int* __restrict__ blk_cb, const VT* __restrict__ values,
                  int layout_cr, const HT* __restrict__ h,
                  const float* __restrict__ a_src, const float* __restrict__ a_dst,
-                 const float* __restrict__ msrc, float* __restrict__ out, int R, int C,
-                 int HD, int H, int CC, int64_t n_h, int64_t n_a, int64_t n_out,
-                 float slope) {
+                 const float* __restrict__ msrc, const float* __restrict__ pan_s,
+                 const float* __restrict__ pan_d, float* __restrict__ out, int R, int C,
+                 int HD, int H, int CC, int64_t n_h, int64_t n_a, int64_t n_ps,
+                 int64_t n_pd, int64_t n_out, float slope) {
   extern __shared__ __align__(16) float smem[];
   const int W = HD + H, D = HD / H, CP = CC + PAD;
   float* acc = smem;              // [BM, W]
   float* as = acc + BM * W;       // [CC, H]
   float* ad = as + CC * H;        // [BM, H]
-  float* bnd = ad + BM * H;       // [BM, H]
-  float* mk = bnd + BM * H;       // [BM, CC] counts
+  float* bnd = ad + BM * H;       // [BM, H]; PANEL: E1d of the rows
+  float* es = bnd + BM * H;       // PANEL: [CC, 2H] E1s | E2s of the chunk
+  float* e2d = es + (PANEL ? CC * 2 * H : 0);   // PANEL: [BM, H]
+  float* mk = e2d + (PANEL ? BM * H : 0);       // [BM, CC] counts
   float* hs = mk + BM * CC;       // FMA: [CC, HD]
   float* p = hs + CC * HD;        // FMA: [H, BM, CC]
   __nv_bfloat16* hsT = reinterpret_cast<__nv_bfloat16*>(mk + BM * CC);  // MMA: [HD, CP]
@@ -82,9 +101,17 @@ gat_dense_kernel(const int* __restrict__ segments, const int* __restrict__ row_b
   for (int i = tid; i < BM * H; i += THREADS) {
     const int r = i / H, hh = i % H;
     const int64_t row = row0 + r;
-    const float a = (r0 + r < R && row < n_a) ? a_dst[row * H + hh] : 0.f;
-    ad[i] = a;
-    bnd[i] = leaky(msrc[hh] + a, slope);
+    if constexpr (PANEL) {
+      const bool ok = r0 + r < R && row < n_pd;
+      const float* pr = pan_d + row * 3 * H;
+      ad[i] = ok ? pr[2 * H + hh] : 0.f;
+      bnd[i] = ok ? pr[hh] : 0.f;
+      e2d[i] = ok ? pr[H + hh] : 0.f;
+    } else {
+      const float a = (r0 + r < R && row < n_a) ? a_dst[row * H + hh] : 0.f;
+      ad[i] = a;
+      bnd[i] = leaky(msrc[hh] + a, slope);
+    }
   }
   __syncthreads();
 
@@ -106,6 +133,11 @@ gat_dense_kernel(const int* __restrict__ segments, const int* __restrict__ row_b
         const int c = i / H, hh = i % H;
         const int64_t col = col0 + c0 + c;
         as[i] = (c0 + c < C && col < n_a) ? a_src[col * H + hh] : 0.f;
+        if constexpr (PANEL) {
+          const bool ok = c0 + c < C && col < n_ps;
+          es[c * 2 * H + hh] = ok ? pan_s[col * 2 * H + hh] : 0.f;
+          es[c * 2 * H + H + hh] = ok ? pan_s[col * 2 * H + H + hh] : 0.f;
+        }
       }
       // counts: walk the layout's contiguous axis fastest
       for (int i = tid; i < BM * CC; i += THREADS) {
@@ -126,8 +158,14 @@ gat_dense_kernel(const int* __restrict__ segments, const int* __restrict__ row_b
         const float cnt = mk[r * CC + c];
         float v = 0.f;
         if (cnt != 0.f) {
-          const float z = leaky(as[c * H + hh] + ad[r * H + hh], slope) - bnd[r * H + hh];
-          v = cnt * expf(fminf(z, 60.f));
+          if constexpr (PANEL) {
+            const bool pos = as[c * H + hh] + ad[r * H + hh] >= 0.f;
+            v = cnt * (pos ? es[c * 2 * H + hh] * bnd[r * H + hh]
+                           : es[c * 2 * H + H + hh] * e2d[r * H + hh]);
+          } else {
+            const float z = leaky(as[c * H + hh] + ad[r * H + hh], slope) - bnd[r * H + hh];
+            v = cnt * expf(fminf(z, 60.f));
+          }
         }
         if constexpr (MMA)
           pb[(hh * BM + r) * CP + c] = __float2bfloat16_rn(v);
@@ -183,38 +221,60 @@ gat_dense_kernel(const int* __restrict__ segments, const int* __restrict__ row_b
   }
 }
 
-template <typename VT, typename HT, bool MMA>
-cudaError_t launch(const int* sg, const int* rbk, const int* cb, const void* v,
-                   int layout_cr, const void* h, const float* as, const float* ad,
-                   const float* ms, float* out, int n_seg, int R, int C, int HD, int H,
-                   int64_t n_h, int64_t n_a, int64_t n_out, float slope, int CC,
-                   cudaStream_t st) {
-  const size_t smem = smem_bytes(HD, H, CC, MMA);
-  auto k = gat_dense_kernel<VT, HT, MMA>;
+// the arguments of one launch, K4's or K15's
+struct Args {
+  const int *sg, *rbk, *cb;
+  const void *v, *h;
+  int layout_cr;
+  const float *as, *ad, *ms, *ps, *pd;
+  float* out;
+  int n_seg, R, C, HD, H;
+  int64_t n_h, n_a, n_ps, n_pd, n_out;
+  float slope;
+  cudaStream_t st;
+};
+
+template <typename VT, typename HT, bool MMA, bool PANEL>
+cudaError_t launch(const Args& a, int CC) {
+  const size_t smem = smem_bytes(a.HD, a.H, CC, MMA, PANEL);
+  auto k = gat_dense_kernel<VT, HT, MMA, PANEL>;
   cudaError_t err = gta::set_smem(k, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(n_seg, (R + BM - 1) / BM);
-  k<<<grid, THREADS, smem, st>>>(sg, rbk, cb, static_cast<const VT*>(v), layout_cr,
-                                 static_cast<const HT*>(h), as, ad, ms, out, R, C,
-                                 HD, H, CC, n_h, n_a, n_out, slope);
+  dim3 grid(a.n_seg, (a.R + BM - 1) / BM);
+  k<<<grid, THREADS, smem, a.st>>>(a.sg, a.rbk, a.cb, static_cast<const VT*>(a.v),
+                                   a.layout_cr, static_cast<const HT*>(a.h), a.as, a.ad,
+                                   a.ms, a.ps, a.pd, a.out, a.R, a.C, a.HD, a.H, CC, a.n_h,
+                                   a.n_a, a.n_ps, a.n_pd, a.n_out, a.slope);
   return cudaGetLastError();
 }
 
-template <typename VT, typename HT>
-cudaError_t launch_h(const int* sg, const int* rbk, const int* cb, const void* v,
-                     int layout_cr, const void* h, const float* as, const float* ad,
-                     const float* ms, float* out, int n_seg, int R, int C, int HD,
-                     int H, int64_t n_h, int64_t n_a, int64_t n_out, float slope,
-                     cudaStream_t st) {
-  if (n_seg == 0) return cudaSuccess;
+template <typename VT, typename HT, bool PANEL>
+cudaError_t launch_h(const Args& a) {
+  if (a.n_seg == 0) return cudaSuccess;
   // column chunk: the p panel [H, 64, CC] at or under 32 KB of f32
   int CC = 32;
-  while (CC > 4 && static_cast<size_t>(H) * BM * CC * 4 > 32 * 1024) CC /= 2;
+  while (CC > 4 && static_cast<size_t>(a.H) * BM * CC * 4 > 32 * 1024) CC /= 2;
   if constexpr (std::is_same_v<HT, __nv_bfloat16>) {
-    if (CC % 16 == 0)
-      return launch<VT, HT, true>(sg, rbk, cb, v, layout_cr, h, as, ad, ms, out, n_seg, R, C, HD, H, n_h, n_a, n_out, slope, CC, st);
+    if (CC % 16 == 0) return launch<VT, HT, true, PANEL>(a, CC);
   }
-  return launch<VT, HT, false>(sg, rbk, cb, v, layout_cr, h, as, ad, ms, out, n_seg, R, C, HD, H, n_h, n_a, n_out, slope, CC, st);
+  return launch<VT, HT, false, PANEL>(a, CC);
+}
+
+// values are int8 counts or of h's dtype (the wrappers check)
+template <bool PANEL>
+int dispatch(const Args& a, int v_dtype, int h_dtype) {
+  if (v_dtype != gta::I8 && v_dtype != h_dtype) return static_cast<int>(cudaErrorInvalidValue);
+  const bool hb = h_dtype == gta::BF16;
+  cudaError_t err;
+  if (v_dtype == gta::I8 && hb)
+    err = launch_h<int8_t, __nv_bfloat16, PANEL>(a);
+  else if (v_dtype == gta::I8)
+    err = launch_h<int8_t, float, PANEL>(a);
+  else if (hb)
+    err = launch_h<__nv_bfloat16, __nv_bfloat16, PANEL>(a);
+  else
+    err = launch_h<float, float, PANEL>(a);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -226,25 +286,27 @@ extern "C" int gta_gat_dense_blocks(const void* segments, const void* row_blocks
                                     const void* msrc, void* out, int n_seg, int R,
                                     int C, int HD, int H, int64_t n_h, int64_t n_a,
                                     int64_t n_out, float slope, void* stream) {
-  auto rp = static_cast<const int*>(segments);
-  auto rbk = static_cast<const int*>(row_blocks);
-  auto cb = static_cast<const int*>(blk_cb);
-  auto as = static_cast<const float*>(a_src);
-  auto ad = static_cast<const float*>(a_dst);
-  auto ms = static_cast<const float*>(msrc);
-  auto o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  // values are int8 counts or of h's dtype (the wrapper checks)
-  if (v_dtype != gta::I8 && v_dtype != h_dtype) return static_cast<int>(cudaErrorInvalidValue);
-  const bool hb = h_dtype == gta::BF16;
-  cudaError_t err;
-  if (v_dtype == gta::I8 && hb)
-    err = launch_h<int8_t, __nv_bfloat16>(rp, rbk, cb, values, layout_cr, h, as, ad, ms, o, n_seg, R, C, HD, H, n_h, n_a, n_out, slope, st);
-  else if (v_dtype == gta::I8)
-    err = launch_h<int8_t, float>(rp, rbk, cb, values, layout_cr, h, as, ad, ms, o, n_seg, R, C, HD, H, n_h, n_a, n_out, slope, st);
-  else if (hb)
-    err = launch_h<__nv_bfloat16, __nv_bfloat16>(rp, rbk, cb, values, layout_cr, h, as, ad, ms, o, n_seg, R, C, HD, H, n_h, n_a, n_out, slope, st);
-  else
-    err = launch_h<float, float>(rp, rbk, cb, values, layout_cr, h, as, ad, ms, o, n_seg, R, C, HD, H, n_h, n_a, n_out, slope, st);
-  return static_cast<int>(err);
+  const Args a{static_cast<const int*>(segments), static_cast<const int*>(row_blocks),
+               static_cast<const int*>(blk_cb), values, h, layout_cr,
+               static_cast<const float*>(a_src), static_cast<const float*>(a_dst),
+               static_cast<const float*>(msrc), nullptr, nullptr, static_cast<float*>(out),
+               n_seg, R, C, HD, H, n_h, n_a, 0, 0, n_out, slope,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(a, v_dtype, h_dtype);
+}
+
+extern "C" int gta_gat_dense_panel(const void* segments, const void* row_blocks,
+                                   const void* blk_cb, const void* values, int v_dtype,
+                                   int layout_cr, const void* h, int h_dtype,
+                                   const void* a_src, const void* pan_s, const void* pan_d,
+                                   void* out, int n_seg, int R, int C, int HD, int H,
+                                   int64_t n_h, int64_t n_a, int64_t n_ps, int64_t n_pd,
+                                   int64_t n_out, void* stream) {
+  const Args a{static_cast<const int*>(segments), static_cast<const int*>(row_blocks),
+               static_cast<const int*>(blk_cb), values, h, layout_cr,
+               static_cast<const float*>(a_src), nullptr, nullptr,
+               static_cast<const float*>(pan_s), static_cast<const float*>(pan_d),
+               static_cast<float*>(out), n_seg, R, C, HD, H, n_h, n_a, n_ps, n_pd, n_out,
+               0.f, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(a, v_dtype, h_dtype);
 }

@@ -24,8 +24,9 @@
 // per (chunk, sub-tile), G*NC warps in blocks of 8, each block staging
 // w_asrc and msrc in shared memory once.  The walk runs in prefix mode: an
 // empty sub-tile costs one read of its first 32 index pairs and pad slots
-// are never addressed.  [num | den] adds into a zeroed f32 buffer with
-// global atomics (run-to-run f32 rounding only); rows without edges read 0.
+// are never addressed.  [num | den] adds into a zeroed f32 buffer, one
+// global atomic per run of slots with one receiver (run-to-run f32
+// rounding only); rows without edges read 0.
 #include "tile_walk.cuh"
 
 namespace {

@@ -26,9 +26,10 @@
 // nothing and are never addressed); per live edge each lane gathers HD/32
 // features, a_s is a warp reduction per head (derive mode) with w_asrc
 // staged in shared memory, lane h computes head h's p, and the lanes fetch
-// their head's p by shuffle.  [num | den] adds into a zeroed f32 buffer
-// with global atomics, whose order varies from run to run (f32 rounding
-// only).  When normalizing, a second launch of this library divides num by
+// their head's p by shuffle.  Each run of slots with one receiver is
+// summed in registers and added into a zeroed f32 [num | den] buffer with
+// global atomics, whose order varies from run to run (f32 rounding only).
+// When normalizing, a second launch of this library divides num by
 // max(den, 1e-20) per head; rows without edges read 0 either way.
 #include "tile_walk.cuh"
 

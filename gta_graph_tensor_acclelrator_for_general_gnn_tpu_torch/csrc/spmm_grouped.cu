@@ -18,9 +18,10 @@
 // warp walks its sub-tile's slots by gta::spmm_walk (tile_walk.cuh) in
 // prefix mode, so an empty sub-tile costs one read of its first 32 index
 // pairs, a partly filled one stops after its last edge, and pad slots are
-// never addressed; live edges add w*x into y with f32 global atomics (the
-// sub-tiles of one stripe group share rows, so sums reorder from run to
-// run: f32 rounding only).  A null weight pointer (tg.weight_all_unit, no
+// never addressed; live edges add w*x into a register sum of the
+// receiver's run of slots, which goes into y by f32 global atomics (the
+// sub-tiles of one stripe group share rows, so the run sums reorder from
+// run to run: f32 rounding only).  A null weight pointer (tg.weight_all_unit, no
 // runtime edge values) drops the weight stream: w = 1, and w*x rounds to x
 // itself.  y is zeroed by the wrapper, so rows without edges read 0.
 #include "tile_walk.cuh"
@@ -29,7 +30,7 @@ namespace {
 
 constexpr int WARPS = 8;
 
-template <typename XT>
+template <typename XT, int KF>
 __global__ void __launch_bounds__(WARPS * 32)
 spmm_grouped_kernel(const int* __restrict__ chunk_grp, const int* __restrict__ chunk_cb,
                     const int16_t* __restrict__ src_local,
@@ -42,21 +43,33 @@ spmm_grouped_kernel(const int* __restrict__ chunk_grp, const int* __restrict__ c
   const int64_t c = u / G;
   const int j = static_cast<int>(u % G);
   const int64_t row0 = (static_cast<int64_t>(chunk_grp[c]) * G + j) * R;
-  gta::spmm_walk<XT, float>(src_local, dst_local, weight, u * ET, ET, R, C, row0,
-                            static_cast<int64_t>(chunk_cb[c]) * C, x, y, F, n_x,
-                            n_out, /*prefix=*/true, threadIdx.x & 31);
+  gta::spmm_walk<XT, float, KF>(src_local, dst_local, weight, u * ET, ET, R, C, row0,
+                                static_cast<int64_t>(chunk_cb[c]) * C, x, y, F, n_x,
+                                n_out, /*prefix=*/true, threadIdx.x & 31);
+}
+
+template <typename XT, int KF>
+cudaError_t launch_kf(const int* grp, const int* cb, const int16_t* s, const int16_t* d,
+                      const float* w, const void* x, float* y, int NC, int G, int R,
+                      int C, int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
+  const int64_t n_sub = static_cast<int64_t>(NC) * G;
+  const int64_t blocks = (n_sub + WARPS - 1) / WARPS;
+  spmm_grouped_kernel<XT, KF><<<static_cast<unsigned>(blocks), WARPS * 32, 0, st>>>(
+      grp, cb, s, d, w, static_cast<const XT*>(x), y, n_sub, G, R, C, ET, F, n_x,
+      n_out);
+  return cudaGetLastError();
 }
 
 template <typename XT>
 cudaError_t launch(const int* grp, const int* cb, const int16_t* s, const int16_t* d,
                    const float* w, const void* x, float* y, int NC, int G, int R,
                    int C, int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
-  const int64_t n_sub = static_cast<int64_t>(NC) * G;
-  const int64_t blocks = (n_sub + WARPS - 1) / WARPS;
-  spmm_grouped_kernel<XT><<<static_cast<unsigned>(blocks), WARPS * 32, 0, st>>>(
-      grp, cb, s, d, w, static_cast<const XT*>(x), y, n_sub, G, R, C, ET, F, n_x,
-      n_out);
-  return cudaGetLastError();
+  switch (gta::spmm_lane_features(F)) {
+    case 1: return launch_kf<XT, 1>(grp, cb, s, d, w, x, y, NC, G, R, C, ET, F, n_x, n_out, st);
+    case 2: return launch_kf<XT, 2>(grp, cb, s, d, w, x, y, NC, G, R, C, ET, F, n_x, n_out, st);
+    case 4: return launch_kf<XT, 4>(grp, cb, s, d, w, x, y, NC, G, R, C, ET, F, n_x, n_out, st);
+    default: return launch_kf<XT, 8>(grp, cb, s, d, w, x, y, NC, G, R, C, ET, F, n_x, n_out, st);
+  }
 }
 
 }  // namespace

@@ -16,19 +16,21 @@
 // whatever the row-block skew.  The warp walks the tile's slots by
 // gta::spmm_walk (tile_walk.cuh): live slots by ballot, pad slots never
 // addressed; dead tiles (cb < 0) are skipped whole.  For each live edge its
-// lanes gather the x row and add w*x into y with f32 global atomics
-// (coalesced, one row per edge).  y is zeroed by the wrapper, so row
+// lanes gather the x row and add w*x into a register sum of the current
+// receiver's run of slots, which goes into y by f32 global atomics
+// (coalesced, one row per run; the walk is templated on the features each
+// lane holds, KF = 1, 2, 4 or 8).  y is zeroed by the wrapper, so row
 // stripes without edges read 0.  The atomics make the f32 summation order
-// vary from run to run: results differ from a fixed-order sum by f32
-// rounding only.  As on the TPU, w*x rounds to the input dtype before the
-// f32 sum.
+// of the run sums vary from run to run: results differ from the exact sum
+// by f32 rounding only.  As on the TPU, w*x rounds to the input dtype
+// before the f32 sum.
 #include "tile_walk.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 
-template <typename XT, typename WT>
+template <typename XT, typename WT, int KF>
 __global__ void __launch_bounds__(WARPS * 32)
 spmm_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_cb,
                   const int16_t* __restrict__ src_local,
@@ -40,21 +42,33 @@ spmm_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_
   if (t >= T) return;
   const int cb = tile_cb[t];
   if (cb < 0) return;  // dead tile
-  gta::spmm_walk<XT, WT>(src_local, dst_local, weight, static_cast<int64_t>(t) * ET,
-                         ET, R, C, static_cast<int64_t>(tile_rb[t]) * R,
-                         static_cast<int64_t>(cb) * C, x, y, F, n_x, n_out,
-                         /*prefix=*/false, threadIdx.x & 31);
+  gta::spmm_walk<XT, WT, KF>(src_local, dst_local, weight, static_cast<int64_t>(t) * ET,
+                             ET, R, C, static_cast<int64_t>(tile_rb[t]) * R,
+                             static_cast<int64_t>(cb) * C, x, y, F, n_x, n_out,
+                             /*prefix=*/false, threadIdx.x & 31);
+}
+
+template <typename XT, typename WT, int KF>
+cudaError_t launch_kf(const int* rb, const int* cb, const int16_t* s, const int16_t* d,
+                      const void* w, const void* x, float* y, int T, int R, int C,
+                      int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
+  const int blocks = (T + WARPS - 1) / WARPS;
+  spmm_tiles_kernel<XT, WT, KF><<<blocks, WARPS * 32, 0, st>>>(
+      rb, cb, s, d, static_cast<const WT*>(w), static_cast<const XT*>(x), y, T, R,
+      C, ET, F, n_x, n_out);
+  return cudaGetLastError();
 }
 
 template <typename XT, typename WT>
 cudaError_t launch(const int* rb, const int* cb, const int16_t* s, const int16_t* d,
                    const void* w, const void* x, float* y, int T, int R, int C,
                    int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
-  const int blocks = (T + WARPS - 1) / WARPS;
-  spmm_tiles_kernel<XT, WT><<<blocks, WARPS * 32, 0, st>>>(
-      rb, cb, s, d, static_cast<const WT*>(w), static_cast<const XT*>(x), y, T, R,
-      C, ET, F, n_x, n_out);
-  return cudaGetLastError();
+  switch (gta::spmm_lane_features(F)) {
+    case 1: return launch_kf<XT, WT, 1>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
+    case 2: return launch_kf<XT, WT, 2>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
+    case 4: return launch_kf<XT, WT, 4>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
+    default: return launch_kf<XT, WT, 8>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
+  }
 }
 
 }  // namespace

@@ -10,7 +10,9 @@ Kernels: K2 ``csrc/spmm_dense_blocks.cu`` (replaces the TPU
 ``_spmm_dense_kernel`` / ``_spmm_dense_super_kernel``) behind
 :func:`spmm_dense_blocks`; K4 ``csrc/gat_dense_blocks.cu`` (replaces
 ``_gat_dense_kernel_t`` / ``_gat_dense_kernel``) behind
-:func:`gat_dense_blocks`; K7 ``csrc/gat_dense_bwd_dad.cu`` (replaces
+:func:`gat_dense_blocks`; K15, the exp-panel mode of the same source
+(replaces ``_gat_dense_kernel_t2``), behind :func:`gat_dense_panel_blocks`
+when ``DENSE_EXP_PANEL`` is set; K7 ``csrc/gat_dense_bwd_dad.cu`` (replaces
 ``_gat_dense_bwd_dad_kernel``) behind :func:`gat_dense_bwd_dad`; K8
 ``csrc/gat_dense_bwd_src.cu`` (replaces ``_gat_dense_bwd_src_kernel``)
 behind :func:`gat_dense_bwd_src`.  Each wrapper takes its plain PyTorch
@@ -299,16 +301,142 @@ def gat_dense_blocks(bg: DenseBlockGraph, h: torch.Tensor,
 gat_dense_blocks.launches = 0
 
 
+# The JAX package's exp-panel variant of the 'cr' dense partial (its
+# _gat_dense_kernel_t2, off by default there: measured slower on the TPU).
+# When set, gat_dense_partial of 'cr' blocks runs K15 on per-node exp
+# panels instead of K4's per-cell exp; read at call time, like JAX's flag.
+DENSE_EXP_PANEL = False
+
+
+def exp_panels(a_src: torch.Tensor, a_dst: torch.Tensor, msrc: torch.Tensor,
+               n_cols: int, n_rows: int, negative_slope: float = 0.2):
+    """The per-node panels of K15, float32, as the JAX package builds them:
+    ``pan_s`` [n_cols, 2H] = [exp(a_s - msrc) | exp(slope (a_s - msrc))]
+    and ``pan_d`` [n_rows, 3H] = [exp(msrc + a_d - bound) | exp(slope (msrc
+    + a_d) - bound) | a_d] with bound = leaky(msrc + a_d).  Every exponent
+    is <= 0 on real nodes; the pad entries are 0, not exp(-msrc), which
+    for msrc < 0 could overflow and make inf * 0 = nan under the mask."""
+    sl = float(negative_slope)
+    a_s32, a_d32 = a_src.float(), a_dst.float()
+    ms = msrc.float().reshape(1, -1)
+    t = ms + a_d32
+    bound = torch.where(t >= 0, t, sl * t)
+    pans = torch.cat([torch.exp(a_s32 - ms), torch.exp(sl * (a_s32 - ms))],
+                     dim=1)
+    pand = torch.cat([torch.exp(t - bound), torch.exp(sl * t - bound),
+                      a_d32], dim=1)
+    return (_pad_rows(pans, max(n_cols, pans.shape[0])).contiguous(),
+            _pad_rows(pand, max(n_rows, pand.shape[0])).contiguous())
+
+
+def _gat_dense_panel_reference(bg: DenseBlockGraph, h: torch.Tensor,
+                               values: torch.Tensor, a_src: torch.Tensor,
+                               pan_s: torch.Tensor,
+                               pan_d: torch.Tensor) -> torch.Tensor:
+    """Plain version of K15: [n_rows, HD + H] float32 [num | den] partials
+    with p = count * (a_s[c] + a_d[r] >= 0 ? E1s[c] E1d[r] : E2s[c] E2d[r]);
+    p rounds to h's dtype before the num product, den sums unrounded p."""
+    R, C = bg.block_rows, bg.block_cols
+    H = a_src.shape[1]
+    HD = h.shape[1]
+    D = HD // H
+    CB, RB = bg.n_col_blocks, bg.n_row_blocks
+    hp = _pad_rows(h, CB * C).view(CB, C, HD)
+    asp = _pad_rows(a_src.float(), CB * C).view(CB, C, H)
+    psp = _pad_rows(pan_s.float()[: CB * C], CB * C).view(CB, C, 2 * H)
+    pdp = _pad_rows(pan_d.float()[: RB * R], RB * R).view(RB, R, 3 * H)
+    acc = torch.zeros((RB, R, HD + H), dtype=torch.float32, device=h.device)
+    step = max(1, _PLAIN_CHUNK // (R * C * max(H, 1)))
+    for b0 in range(0, bg.n_blocks, step):
+        cb = bg.blk_cb[b0:b0 + step].long()
+        rb = bg.blk_rb[b0:b0 + step].long()
+        cnt = values[b0:b0 + step].float()
+        if bg.values_layout == "cr":
+            cnt = cnt.transpose(1, 2)                          # [b, R, C]
+        ps, pd = psp[cb][:, None], pdp[rb][:, :, None]        # [b, 1|R, C|1, .]
+        pos = asp[cb][:, None] + pd[..., 2 * H:] >= 0         # [b, R, C, H]
+        p = cnt[..., None] * torch.where(pos, ps[..., :H] * pd[..., :H],
+                                         ps[..., H:] * pd[..., H:2 * H])
+        den = p.sum(dim=2)                                     # [b, R, H]
+        pr = p.to(h.dtype).float() if h.dtype != torch.float32 else p
+        hb = hp[cb].float().view(-1, C, H, D)
+        num = torch.einsum("brch,bchd->brhd", pr, hb).reshape(-1, R, HD)
+        acc.index_add_(0, rb, torch.cat([num, den], dim=2))
+    return acc.view(RB * R, HD + H)
+
+
+def gat_dense_panel_blocks(bg: DenseBlockGraph, h: torch.Tensor,
+                           values: torch.Tensor, a_src: torch.Tensor,
+                           pan_s: torch.Tensor,
+                           pan_d: torch.Tensor) -> torch.Tensor:
+    """K15 wrapper: K4's [num | den] partials [n_rows, HD + H] float32 from
+    the exp panels of :func:`exp_panels` (``pan_s`` [n_cols, 2H], ``pan_d``
+    [n_rows, 3H], float32); ``a_src`` [N, H] float32 still gives each cell's
+    branch.  ``values`` holds int8 counts or is of h's dtype.  CPU tensors
+    take the plain version; CUDA tensors launch or raise."""
+    if h.device.type == "cpu":
+        return _gat_dense_panel_reference(bg, h, values, a_src, pan_s, pan_d)
+    dev = h.device
+    H = a_src.shape[1]
+    HD = h.shape[1]
+    _ext.require(h, "h", dev, (torch.float32, torch.bfloat16), 2)
+    _ext.require(values, "values", dev, (torch.int8, h.dtype), 3)
+    for name, t in (("a_src", a_src), ("pan_s", pan_s), ("pan_d", pan_d)):
+        _ext.require(t, name, dev, (torch.float32,), 2)
+    _require_blocks(bg, dev)
+    R, C = bg.block_rows, bg.block_cols
+    shape = (bg.n_blocks, C, R) if bg.values_layout == "cr" else (
+        bg.n_blocks, R, C)
+    if tuple(values.shape) != shape:
+        raise ValueError(f"values shape {tuple(values.shape)} != {shape}")
+    if HD % H or pan_s.shape[1] != 2 * H or pan_d.shape[1] != 3 * H:
+        raise ValueError(f"inconsistent heads: h {tuple(h.shape)}, a_src "
+                         f"{tuple(a_src.shape)}, pan_s {tuple(pan_s.shape)}, "
+                         f"pan_d {tuple(pan_d.shape)}")
+    n_rows = bg.n_row_blocks * R
+    # segments add their partials atomically: unvisited rows stay 0
+    out = torch.zeros((n_rows, HD + H), dtype=torch.float32, device=dev)
+    n_seg = int(bg.segments.shape[0])
+    if n_seg == 0:
+        return out
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        rc = lib.gta_gat_dense_panel(
+            bg.segments.data_ptr(), bg.row_blocks.data_ptr(),
+            bg.blk_cb.data_ptr(), values.data_ptr(),
+            _ext.DTYPE_CODE[values.dtype], int(bg.values_layout == "cr"),
+            h.data_ptr(), _ext.DTYPE_CODE[h.dtype], a_src.data_ptr(),
+            pan_s.data_ptr(), pan_d.data_ptr(), out.data_ptr(), n_seg, R, C,
+            HD, H, h.shape[0], a_src.shape[0], pan_s.shape[0],
+            pan_d.shape[0], n_rows, _ext.stream(h))
+    _ext.check(rc, "gat_dense_panel")
+    gat_dense_panel_blocks.launches += 1
+    return out
+
+
+gat_dense_panel_blocks.launches = 0
+
+
 def gat_dense_partial(bg: DenseBlockGraph, h_src: torch.Tensor,
                       a_src: torch.Tensor, a_dst: torch.Tensor,
                       msrc: torch.Tensor, *,
                       negative_slope: float = 0.2) -> torch.Tensor:
     """[num | den] partial sums over the dense blocks, [n_rows, HD + H]
     float32.  ``msrc`` [1, H] must be the shift bound the edge-tile kernel
-    uses so the partials add exactly.  Float blocks round to h's dtype."""
+    uses so the partials add exactly.  Float blocks round to h's dtype.
+    'cr' blocks run K15 on exp panels when ``DENSE_EXP_PANEL`` is set (the
+    JAX package's ``gat_dense_partial_t`` branch), else K4."""
     H = a_dst.shape[1]
     vals = (bg.values if _is_int(bg.values)
             else bg.values.to(h_src.dtype)).contiguous()
+    if DENSE_EXP_PANEL and bg.values_layout == "cr":
+        pan_s, pan_d = exp_panels(a_src, a_dst, msrc,
+                                  bg.n_col_blocks * bg.block_cols,
+                                  bg.n_row_blocks * bg.block_rows,
+                                  negative_slope)
+        return gat_dense_panel_blocks(bg, h_src.contiguous(), vals,
+                                      a_src.float().contiguous(), pan_s,
+                                      pan_d)
     return gat_dense_blocks(bg, h_src.contiguous(), vals,
                             a_src.float().contiguous(),
                             a_dst.float().contiguous(),

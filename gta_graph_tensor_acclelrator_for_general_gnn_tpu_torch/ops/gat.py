@@ -1,6 +1,9 @@
-"""Fused GAT attention over edge tiles, and its tile-domain backward.
+"""Fused GAT attention over edge tiles, its tile-domain backward, and the
+whole GAT layer.
 
-Counterpart of the JAX package's ``ops/gat.py``.  The backward kernels
+Counterpart of the JAX package's ``ops/gat.py``.  K14 ``csrc/gat_layer.cu``
+(replacing ``_gat_layer_kernel``) runs a whole layer behind
+:func:`gat_layer_tiles` / :func:`gat_layer`.  The backward kernels
 are K5 ``csrc/gat_bwd_tiles_dad.cu`` and K6 ``csrc/gat_bwd_tiles_src.cu``
 (replacing ``_gat_bwd_dad_kernel(_tt)`` and ``_gat_bwd_dsrc_kernel(_tt)``)
 behind :func:`_gat_bwd_fused`.  K10 ``csrc/gat_grouped.cu`` (replacing
@@ -452,41 +455,30 @@ def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h: torch.Tensor,
 
 
 def _gat_reference(tg: TiledGraph, h_src, a_src, a_dst, negative_slope):
-    """Segment formulation over the tile edge lists with the EXACT per-row
-    max (the JAX package's differentiable twin): it ignores multiplicity
-    and has no shift-bound domain, so it equals the kernels only on
-    unit-weight tilings inside that domain."""
+    """Segment formulation over the tiling's live slots with the EXACT
+    per-row max (the JAX package's differentiable twin, which masks every
+    slot of the tiling where this selects the live ones: [E, HD] edge
+    tensors, not [slots, HD]).  It ignores multiplicity and has no
+    shift-bound domain, so it equals the kernels only on unit-weight
+    tilings inside that domain."""
     n = tg.n_node
     H = a_src.shape[1]
     HD = h_src.shape[1]
     D = HD // H
-    R, C, ET = tg.block_rows, tg.block_cols, tg.tile_edges
-    sl = tg.src_local.reshape(-1).long()
-    dl = tg.dst_local.reshape(-1).long()
-    src = sl + tg.tile_cb.long().repeat_interleave(ET) * C
-    dst = dl + tg.tile_rb.long().repeat_interleave(ET) * R
-    valid = (dl < R) & (sl < C)
-    src = torch.where(valid, src, n)
-    dst = torch.where(valid, dst, n)
-    dev = h_src.device
+    _, src, dst = _live_slots(tg, 0, tg.n_tiles)
     f32 = torch.float32
-    hs = torch.cat([h_src.float(), torch.zeros(1, HD, dtype=f32, device=dev)]
-                   )[src]
-    asr = torch.cat([a_src.float(), torch.zeros(1, H, dtype=f32, device=dev)]
-                    )[src]
-    ads = torch.cat([a_dst.float(), torch.zeros(1, H, dtype=f32, device=dev)]
-                    )[dst]
-    e = tF.leaky_relu(asr + ads, negative_slope)
-    e = torch.where(valid[:, None], e, torch.full_like(e, NEG))
-    m = torch.full((n + 1, H), float("-inf"), dtype=f32, device=dev)
+    dev = h_src.device
+    hs = h_src.float().index_select(0, src)
+    e = tF.leaky_relu(a_src.float().index_select(0, src)
+                      + a_dst.float().index_select(0, dst), negative_slope)
+    m = torch.full((n, H), float("-inf"), dtype=f32, device=dev)
     m = m.scatter_reduce_(0, dst[:, None].expand_as(e), e, "amax")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.where(valid[:, None], torch.exp(e - m[dst]), torch.zeros_like(e))
-    den = torch.zeros((n + 1, H), dtype=f32, device=dev).index_add_(0, dst, p)
-    num = torch.zeros((n + 1, HD), dtype=f32, device=dev).index_add_(
+    p = torch.exp(e - m.index_select(0, dst))
+    den = torch.zeros((n, H), dtype=f32, device=dev).index_add_(0, dst, p)
+    num = torch.zeros((n, HD), dtype=f32, device=dev).index_add_(
         0, dst, p.repeat_interleave(D, dim=1) * hs)
-    out = num / torch.clamp(den, min=1e-20).repeat_interleave(D, dim=1)
-    return out[:n]
+    return num / torch.clamp(den, min=1e-20).repeat_interleave(D, dim=1)
 
 
 # rows whose incident a_src all sit further than this below the global
@@ -515,6 +507,58 @@ def gat_shift_gap(g: GraphTensor, a_src: torch.Tensor) -> torch.Tensor:
     return gap.max()
 
 
+class _GatAttention(torch.autograd.Function):
+    """The JAX package's ``_gat_vjp``.  Forward on K3.  With a per-tile
+    twin (``fused``) the forward keeps K3's raw denominator and the backward
+    runs :func:`_gat_bwd_fused` (K5 over ``tg``, K6 over the twin); in
+    derive mode the chain rule through a_s = h w follows in float32.
+    Without one, autograd of :func:`_gat_reference`, which holds [E, HD]
+    edge tensors.  JAX keeps two a_s twins in derive mode (its msrc bound at
+    DEFAULT precision, its logits at HIGHEST); here both are the same float32
+    product of h's dtype operands (TF32 off), so one a_s serves both."""
+
+    @staticmethod
+    def forward(ctx, h, sw, d, tg, tg_t, slope, wmode, fused):
+        w, s = (sw, None) if wmode else (None, sw)
+        ctx.tg, ctx.tg_t, ctx.slope = tg, tg_t, slope
+        ctx.wmode, ctx.fused = wmode, fused
+        if not fused:
+            ctx.save_for_backward(h, sw, d)
+            return _gat_forward(tg, h, s, d, w_asrc=w, negative_slope=slope)
+        HD, H = h.shape[1], d.shape[1]
+        raw = _gat_forward(tg, h, s, d, w_asrc=w, negative_slope=slope,
+                           normalize=False)
+        den = raw[:, HD:]
+        y = raw[:, :HD] / torch.clamp(den, min=1e-20).repeat_interleave(
+            HD // H, dim=1)
+        ctx.save_for_backward(h, sw, d, y, den)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        none = (None,) * 5
+        if not ctx.fused:
+            h, sw, d = ctx.saved_tensors
+            with torch.enable_grad():
+                hv, sv, dv = (t.detach().requires_grad_(True)
+                              for t in (h, sw, d))
+                a_s = hv.float() @ sv.float() if ctx.wmode else sv
+                y = _gat_reference(ctx.tg, hv, a_s, dv, ctx.slope)
+                return torch.autograd.grad(y, (hv, sv, dv), gy.float()) + none
+        h, sw, d, y, den = ctx.saved_tensors
+        if not ctx.wmode:
+            dh, das, dad = _gat_bwd_fused(ctx.tg, ctx.tg_t, h, sw, d, den, y,
+                                          gy, ctx.slope)
+            return (dh, das.to(sw.dtype), dad.to(d.dtype)) + none
+        a_s = h.float() @ sw.to(h.dtype).float()
+        dh, das, dad = _gat_bwd_fused(ctx.tg, ctx.tg_t, h, a_s, d, den, y, gy,
+                                      ctx.slope)
+        das32 = das.float()
+        dh = (dh.float() + das32 @ sw.float().T).to(h.dtype)
+        dw = (h.float().T @ das32).to(sw.dtype)
+        return (dh, dw, dad.to(d.dtype)) + none
+
+
 def gat_attention(
     tg: TiledGraph,
     h_src: torch.Tensor,
@@ -523,14 +567,248 @@ def gat_attention(
     heads: int = 1,
     negative_slope: float = 0.2,
     w_asrc: Optional[torch.Tensor] = None,
+    g: Optional[GraphTensor] = None,
+    tg_t: Optional[TiledGraph] = None,
+    ev_perm_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused multi-head GAT edge-softmax + aggregation, [N, HD] float32
-    (forward only: its backward ``_gat_vjp`` is ROADMAP.md Queue 1 item
-    5; the hybrid path's backward runs :func:`_gat_bwd_fused`).  Pass
-    ``w_asrc`` [HD, H] instead of ``a_src`` when a_src is a linear map of
-    h."""
-    return _gat_forward(tg, h_src, None if w_asrc is not None else a_src,
-                        a_dst, w_asrc=w_asrc, negative_slope=negative_slope)
+    """Fused multi-head GAT edge-softmax + aggregation, [N, HD] float32,
+    differentiable in h, a_src (or ``w_asrc``) and a_dst.  Pass ``w_asrc``
+    [HD, H] instead of ``a_src`` when a_src is a linear map of h.
+
+    Backward, as in the JAX package: with ``g``, ``tg_t`` (the unit-weight
+    tiling of the transposed graph) and ``ev_perm_t`` (its
+    ``transpose_host_graph`` permutation), and both tilings per-tile, the
+    tile-domain kernels K5 and K6; otherwise autograd of the edge
+    formulation over ``tg`` (exact, but [E, HD] edge tensors).  Where JAX
+    would take its superseded ``_gat_bwd_scalable`` (those three given, a
+    tiling not per-tile) the port takes that reference route: the same
+    gradient by another route."""
+    scalable = g is not None and tg_t is not None and ev_perm_t is not None
+    fused = (scalable and type(tg) is TiledGraph
+             and type(tg_t) is TiledGraph)
+    wmode = w_asrc is not None
+    return _GatAttention.apply(h_src, w_asrc if wmode else a_src, a_dst, tg,
+                               tg_t if fused else None, float(negative_slope),
+                               wmode, fused)
+
+
+# ---------------------------------------------------------------------------
+# the whole GAT layer (K14)
+# ---------------------------------------------------------------------------
+
+SHIFT = 12.0   # the whole-layer kernel's static softmax shift
+# final activations of the whole-layer kernel, codes of csrc/gat_layer.cu
+SF_CODE = {"identity": 0, "relu": 1, "elu": 2, "leaky_relu": 3}
+
+
+def _sf_apply(v: torch.Tensor, sf: str, slope: float) -> torch.Tensor:
+    """The layer's final activation; ELU is exp(min(v, 0)) - 1, as the JAX
+    package computes it (no expm1)."""
+    if sf == "identity":
+        return v
+    if sf == "relu":
+        return torch.clamp(v, min=0.0)
+    if sf == "elu":
+        return torch.where(v > 0, v, torch.exp(torch.clamp(v, max=0.0)) - 1.0)
+    if sf == "leaky_relu":
+        return torch.where(v >= 0, v, slope * v)
+    raise ValueError(f"whole-layer kernel: unsupported sf {sf!r}")
+
+
+def _gat_layer_reference(tg: TiledGraph, x, w, wa_src, wa_dst,
+                         negative_slope: float, final_sf: str) -> torch.Tensor:
+    """The layer in float32 with the EXACT per-row max (no static shift):
+    what the JAX package differentiates for the layer's gradient."""
+    h = x.float() @ w.float()
+    a_s = h @ wa_src.float()
+    a_d = h @ wa_dst.float()
+    out = _gat_reference(tg, h, a_s, a_d, negative_slope)
+    return _sf_apply(out, final_sf, negative_slope)
+
+
+def _gat_layer_project_plain(x, w, wa_src, wa_dst):
+    """Plain version of K14's projection: (hq, a_s, a_d).  hq = x w summed
+    in float32 and rounded to x's dtype; a_s | a_d = hq [wa_s | wa_d]
+    summed in float32 and rounded to x's dtype (a_d returned as float32)."""
+    dt = x.dtype
+    H = wa_src.shape[1]
+    hq = (x.float() @ w.to(dt).float()).to(dt)
+    wv = torch.cat([wa_src, wa_dst], dim=1).to(dt).float()
+    sd = (hq.float() @ wv).to(dt)
+    return hq, sd[:, :H].contiguous(), sd[:, H:].float()
+
+
+def _gat_layer_walk_plain(tg: TiledGraph, hq, a_s, a_d, *,
+                          negative_slope: float = 0.2,
+                          final_sf: str = "identity") -> torch.Tensor:
+    """Plain version of K14's walk and epilogue from a projection (hq, a_s
+    in the compute dtype, a_d float32): p = exp(min(leaky(a_s + a_d),
+    SHIFT + 60) - SHIFT) over the live slots (tile weights not read), p and
+    p hq rounded to hq's dtype before the sums, then sf(num / max(den,
+    1e-30)), [n_node, HD] float32.  num and den are summed in float64 and
+    rounded once to float32, so a check against this version measures the
+    kernel's own sum-order error, not a float32 drift of its own on hub
+    rows that repeat one edge hundreds of times."""
+    dt = hq.dtype
+    H, HD = a_s.shape[1], hq.shape[1]
+    D = HD // H
+    acc = torch.zeros((_geometry(tg)[1], HD + H), dtype=torch.float64,
+                      device=hq.device)
+    for t0, t1 in _unit_steps(tg, HD + H):
+        _, src, dst = _live_slots(tg, t0, t1)
+        hs = hq.index_select(0, src).float()
+        e = torch.clamp(_leaky(a_s.index_select(0, src).float()
+                               + a_d.index_select(0, dst), negative_slope),
+                        max=SHIFT + 60.0)
+        p = torch.exp(e - SHIFT)
+        v = torch.cat([p.repeat_interleave(D, dim=1) * hs, p], dim=1)
+        if dt != torch.float32:
+            v = v.to(dt).float()
+        acc.index_add_(0, dst, v.double())
+    acc = acc[: tg.n_node].float()
+    den = torch.clamp(acc[:, HD:], min=1e-30).repeat_interleave(D, dim=1)
+    return _sf_apply(acc[:, :HD] / den, final_sf, negative_slope)
+
+
+def _gat_layer_plain(tg: TiledGraph, x, w, wa_src, wa_dst, *,
+                     negative_slope: float = 0.2,
+                     final_sf: str = "identity") -> torch.Tensor:
+    """Plain version of K14, [n_node, HD] float32, with the kernel's static
+    shift, clamp and roundings: :func:`_gat_layer_project_plain` then
+    :func:`_gat_layer_walk_plain`."""
+    return _gat_layer_walk_plain(
+        tg, *_gat_layer_project_plain(x, w, wa_src, wa_dst),
+        negative_slope=negative_slope, final_sf=final_sf)
+
+
+def _require_layer(tg, x, w, wa_src, wa_dst):
+    dev = x.device
+    _ext.require(x, "x", dev, (torch.float32, torch.bfloat16), 2)
+    for name, t in (("w", w), ("wa_src", wa_src), ("wa_dst", wa_dst)):
+        _ext.require(t, name, dev, (x.dtype,), 2)
+    F, HD, H = x.shape[1], w.shape[1], wa_src.shape[1]
+    if (w.shape[0] != F or tuple(wa_src.shape) != (HD, H)
+            or tuple(wa_dst.shape) != (HD, H)):
+        raise ValueError(f"inconsistent shapes: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, wa_src {tuple(wa_src.shape)}, "
+                         f"wa_dst {tuple(wa_dst.shape)}")
+    if HD % H or HD > 256 or H > 32:
+        raise ValueError(f"K14 takes HD % H == 0, HD <= 256, H <= 32; got "
+                         f"HD={HD}, H={H}")
+    if tg is not None:
+        for name in ("src_local", "dst_local"):
+            _ext.require(getattr(tg, name), name, dev, (torch.int16,), 2)
+        for name in ("tile_rb", "tile_cb"):
+            _ext.require(getattr(tg, name), name, dev, (torch.int32,), 1)
+        if x.shape[0] != tg.n_node:
+            raise ValueError(f"x has {x.shape[0]} rows, the tiling "
+                             f"{tg.n_node} nodes")
+
+
+def _gat_layer_launch(tg, x, w, wa_src, wa_dst, slope, final_sf, stages):
+    """Launch the stages of K14 (bits: 1 projection, 2 walk, 4 epilogue)
+    into fresh buffers; returns (out, hq, a_s, a_d)."""
+    dev = x.device
+    n, F = x.shape
+    HD, H = w.shape[1], wa_src.shape[1]
+    f32 = torch.float32
+    hq = torch.empty((n, HD), dtype=x.dtype, device=dev)
+    a_s = torch.empty((n, H), dtype=x.dtype, device=dev)
+    a_d = torch.empty((n, H), dtype=f32, device=dev)
+    # the walk adds into [num | den] with atomics: zeroed
+    acc = (torch.zeros((n, HD + H), dtype=f32, device=dev) if stages & 2
+           else None)
+    out = torch.empty((n, HD), dtype=f32, device=dev) if stages & 4 else None
+    T = tg.n_tiles if tg is not None else 0
+    geo = ((tg.block_rows, tg.block_cols, tg.tile_edges) if tg is not None
+           else (0, 0, 0))
+    lib = _ext.library()
+    with torch.cuda.device(dev):
+        rc = lib.gta_gat_layer(
+            *(getattr(tg, k).data_ptr() if tg is not None else None
+              for k in ("tile_rb", "tile_cb", "src_local", "dst_local")),
+            x.data_ptr(), w.data_ptr(), wa_src.data_ptr(), wa_dst.data_ptr(),
+            _ext.DTYPE_CODE[x.dtype], hq.data_ptr(), a_s.data_ptr(),
+            a_d.data_ptr(), None if acc is None else acc.data_ptr(),
+            None if out is None else out.data_ptr(), T, *geo, n, F, HD, H,
+            SF_CODE[final_sf], float(slope), stages, _ext.stream(x))
+    _ext.check(rc, "gat_layer")
+    return out, hq, a_s, a_d
+
+
+def gat_layer_tiles(tg: TiledGraph, x: torch.Tensor, w: torch.Tensor,
+                    wa_src: torch.Tensor, wa_dst: torch.Tensor, *,
+                    negative_slope: float = 0.2,
+                    final_sf: str = "identity") -> torch.Tensor:
+    """K14 wrapper: the whole GAT layer, [n_node, HD] float32.  ``x`` [n_node,
+    F] float32 or bfloat16; ``w`` [F, HD], ``wa_src`` / ``wa_dst`` [HD, H]
+    in x's dtype.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (three stages) or raise."""
+    if final_sf not in SF_CODE:
+        raise ValueError(f"whole-layer kernel: unsupported sf {final_sf!r}")
+    if x.device.type == "cpu":
+        return _gat_layer_plain(tg, x, w, wa_src, wa_dst,
+                                negative_slope=negative_slope,
+                                final_sf=final_sf)
+    _require_layer(tg, x, w, wa_src, wa_dst)
+    out = _gat_layer_launch(tg, x, w, wa_src, wa_dst, negative_slope,
+                            final_sf, 7)[0]
+    gat_layer_tiles.launches += 1
+    return out
+
+
+gat_layer_tiles.launches = 0
+
+
+def gat_layer_projection(x: torch.Tensor, w: torch.Tensor,
+                         wa_src: torch.Tensor, wa_dst: torch.Tensor):
+    """K14's projection stage alone on CUDA tensors, (hq, a_s, a_d) as
+    :func:`_gat_layer_project_plain` returns them: for timing the stage
+    beside ``torch.matmul`` of the same product; not a launch of the layer
+    (the count stays)."""
+    _require_layer(None, x, w, wa_src, wa_dst)
+    return _gat_layer_launch(None, x, w, wa_src, wa_dst, 0.2, "identity",
+                             1)[1:]
+
+
+class _GatLayer(torch.autograd.Function):
+    """Forward on K14; backward by autograd of :func:`_gat_layer_reference`
+    (exact per-row max, [E, HD] edge tensors), as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, w, wa_src, wa_dst, tg, slope, final_sf):
+        ctx.tg, ctx.slope, ctx.final_sf = tg, slope, final_sf
+        ctx.save_for_backward(x, w, wa_src, wa_dst)
+        dt = x.dtype
+        return gat_layer_tiles(tg, x.contiguous(), w.to(dt).contiguous(),
+                               wa_src.to(dt).contiguous(),
+                               wa_dst.to(dt).contiguous(),
+                               negative_slope=slope, final_sf=final_sf)
+
+    @staticmethod
+    def backward(ctx, gy):
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(nd)
+                   for t, nd in zip(ctx.saved_tensors, need)]
+            y = _gat_layer_reference(ctx.tg, *ins, ctx.slope, ctx.final_sf)
+            got = iter(torch.autograd.grad(
+                y, [t for t, nd in zip(ins, need) if nd], gy.float()))
+        return tuple(next(got) if nd else None for nd in need) + (None,) * 3
+
+
+def gat_layer(tg: TiledGraph, x: torch.Tensor, w: torch.Tensor,
+              wa_src: torch.Tensor, wa_dst: torch.Tensor, *,
+              negative_slope: float = 0.2,
+              final_sf: str = "identity") -> torch.Tensor:
+    """The complete GAT layer (projection, attention logits, softmax,
+    aggregation, activation) on K14, [n_node, HD] float32, differentiable
+    in x, w, wa_src and wa_dst through the exact edge formulation (as the
+    JAX package's ``gat_layer``).  The kernel's static shift equals the
+    exact softmax while every row's logits stay in its domain: none above
+    SHIFT + 60 and, in each row, some within ~100 below SHIFT."""
+    return _GatLayer.apply(x, w, wa_src, wa_dst, tg, float(negative_slope),
+                           final_sf)
 
 
 # ---------------------------------------------------------------------------

@@ -80,18 +80,22 @@ def _spmm_reference(tg: Tiling, x: torch.Tensor,
     It computes what the TPU kernels compute: dead tiles (cb < 0) and pad
     slots add nothing, and each w*x[s] rounds to x's dtype before the f32
     sum.  (The JAX package's XLA twin skips neither rounding nor dead tiles
-    with nonzero weights; on builder output the two agree in float32.)"""
+    with nonzero weights; on builder output the two agree in float32.)
+    The rounded terms are summed in float64 and the sum rounded once to
+    float32, so a check against this version measures the kernel's own
+    sum-order error: a multigraph row that repeats one term hundreds of
+    times drifts by ~n/4 ulps in a float32 sum of any order."""
     w = _tile_weight(tg, edge_vals) if weight is None else weight
     F = x.shape[1]
-    y = torch.zeros((_geometry(tg)[1], F), dtype=torch.float32,
+    y = torch.zeros((_geometry(tg)[1], F), dtype=torch.float64,
                     device=x.device)
     for u0, u1 in _unit_steps(tg, F):
         mask, src, dst = _live_slots(tg, u0, u1)
         msg = x.index_select(0, src).float() * w[u0:u1].float()[mask][:, None]
         if x.dtype != torch.float32:
             msg = msg.to(x.dtype).float()
-        y.index_add_(0, dst, msg)
-    return y[: tg.n_node]
+        y.index_add_(0, dst, msg.double())
+    return y[: tg.n_node].float()
 
 
 # K9's plain version: the same formulation over the grouped arrays

@@ -27,10 +27,15 @@ GAP_SOURCES = (597, 598)   # the only senders into GAP_ROW
 # sqrt(n) u of its size (u = 2^-24, the probabilistic bound of Higham), so
 # a row that sums n terms is allowed SUM_ORDER sqrt(n) u where that exceeds
 # the dtype's tolerance, i.e. rows of more than 1,759 terms: the hubs.
-# (2) In bfloat16, flips of one rounded product or p by one bf16 ulp where
-# an f32 input differs in its last bit (derive mode sums a_s in another
-# order).  A flip moves one term by at most 2^-7 (7.8e-3) of itself, and no
-# term exceeds its row's scale: the bf16 tolerance covers one flip per row.
+# That estimate needs rounding errors of random sign; a row that repeats
+# one term (a multigraph's copies of one edge) makes the same rounding at
+# every add, up to ~n/4 ulps: K1 and K9 sum each receiver's run of slots
+# in registers (the drift then spans a run, not the row), and their plain
+# version sums in float64.  (2) In bfloat16, flips of
+# one rounded product or p by one bf16 ulp where an f32 input differs in
+# its last bit (derive mode sums a_s in another order).  A flip moves one
+# term by at most 2^-7 (7.8e-3) of itself, and no term exceeds its row's
+# scale: the bf16 tolerance covers one flip per row.
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SUM_ORDER = 4.0
 # rows whose scale is below this share of their group's largest take it
@@ -530,3 +535,132 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                     if k.startswith("gat_bwd_tiles") == tail:
                         yield KernelCase(k, f"H={H} HD={HD}", name, kern(),
                                          plain(), split, terms[k], mag())
+
+
+LAYER_KERNELS = ("gat_layer", "gat_dense_panel")
+SFS = ("identity", "relu", "elu", "leaky_relu")
+CLAMP_ROW = HOT_PAIR[1]    # K14 cases: its logits pushed above the clamp
+KNOB = 100.0               # a_d of head 0 moved per unit of the knob feature
+
+
+def layer_inputs(rng: np.random.Generator, n: int, F: int, HD: int, H: int,
+                 knobs: Optional[Dict[int, float]] = None):
+    """(x [n, F], w [F, HD], wa_src, wa_dst [HD, H]) float32 numpy inputs of
+    K14 with logits of order 1.  The last feature is a knob: w's last row
+    is KNOB wa_d[:, 0] / |wa_d[:, 0]|², so a node whose knob value is t
+    (``knobs``, else 0) has its a_d of head 0 moved by about KNOB t."""
+    x = rng.standard_normal((n, F)).astype(np.float32)
+    w = (rng.standard_normal((F, HD)) / np.sqrt(F)).astype(np.float32)
+    wa_s, wa_d = ((rng.standard_normal((HD, H)) / np.sqrt(HD)).astype(
+        np.float32) for _ in range(2))
+    x[:, -1] = 0.0
+    for node, t in (knobs or {}).items():
+        x[node, -1] = t
+    u = wa_d[:, 0]
+    w[-1] = KNOB * u / float(u @ u)
+    return x, w, wa_s, wa_d
+
+
+def gat_layer_checks(tg, x, w, wa_src, wa_dst, *, dtype_name: str, case: str,
+                     negative_slope: float = 0.2, final_sf: str = "identity",
+                     terms=None) -> Iterator[KernelCase]:
+    """K14 against its plain version, stage by stage, on CUDA tensors (on
+    the CPU both sides are the plain version):
+
+    - the projection's hq, and its a_s | a_d from the kernel's own hq,
+      each scaled by its sum of |term| (a dot may cancel);
+    - the walk and epilogue against the plain walk from the kernel's
+      projection, row by row;
+    - in float32 also the whole layer against the whole plain version.
+
+    The last two are scaled by twice each cell's sum of |term| (the walk
+    over |hq|, no activation): a row averages values of both signs, so its
+    sum cancels, and on a hub row of 2e5 terms the float32 sum-order error
+    of the average runs above 1e-5 of |out|.  The output is a quotient of
+    two sums, num and den, and each carries its own sum-order error e:
+    |d(num / den)| <= e sum(alpha |hq|) + e |out| <= 2 e sum(alpha |hq|).
+    Every activation has slope at most 1, so it shrinks an error.
+
+    In bfloat16 the whole layer is held stage by stage because a_s and a_d
+    round to bf16 before the exp: a last-bit difference in a sum's order
+    can flip one of them by a bf16 ulp, which moves the logit of every edge
+    that reads it by 2^-8 of |a|, more than a bf16 rounding of one term."""
+    import torch
+
+    from ..ops import gat as A
+    dt, H = x.dtype, wa_src.shape[1]
+    cuda = x.device.type == "cuda"
+    hq, a_s, a_d = (A.gat_layer_projection if cuda
+                    else A._gat_layer_project_plain)(x, w, wa_src, wa_dst)
+    yield KernelCase("gat_layer", f"projection hq {case}", dtype_name, hq,
+                     A._gat_layer_project_plain(x, w, wa_src, wa_dst)[0],
+                     scale=x.float().abs() @ w.float().abs())
+    wv = torch.cat([wa_src, wa_dst], dim=1).to(dt).float()
+    yield KernelCase("gat_layer", f"projection a_s|a_d {case}", dtype_name,
+                     torch.cat([a_s.float(), a_d], dim=1),
+                     (hq.float() @ wv).to(dt).float(), split=H,
+                     scale=hq.float().abs() @ wv.abs())
+    kw = dict(negative_slope=negative_slope, final_sf=final_sf)
+    out = A.gat_layer_tiles(tg, x, w, wa_src, wa_dst, **kw)
+    mag = 2.0 * A._gat_layer_walk_plain(tg, hq.abs(), a_s, a_d,
+                                        negative_slope=negative_slope)
+    yield KernelCase("gat_layer", f"walk+epilogue {case}", dtype_name, out,
+                     A._gat_layer_walk_plain(tg, hq, a_s, a_d, **kw),
+                     terms=terms, scale=mag)
+    if dt == torch.float32:
+        yield KernelCase("gat_layer", f"whole layer {case}", dtype_name, out,
+                         A._gat_layer_plain(tg, x, w, wa_src, wa_dst, **kw),
+                         terms=terms, scale=mag)
+
+
+def layer_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K14 and K15 against their plain versions on the edge-case graph, in
+    float32 and bfloat16.  K14 (:func:`gat_layer_checks`): the whole graph
+    at 128-wide blocks, ET 128 (pad slots, the hot pair's 200 slots, empty
+    rows 512-598, a dead tile whose slots look live), every final
+    activation, 4 heads of 32 (F = 43) and 1 head of 41 (F = 64); row
+    CLAMP_ROW's logits pushed above the clamp SHIFT + 60 and the gap row's
+    below the exp's underflow (knob feature).  K15: the 'cr' int8 split
+    with an unvisited row block, 4 heads of 32 and 1 of 41, the gap row's
+    sources past the shift-bound gap, from :func:`~..ops.dense.exp_panels`."""
+    import torch
+
+    from .. import graph as G
+    from ..ops import dense as D
+
+    s, r, n, _ = edge_case_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tg = _dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
+                                 tile_edges=128, unit_weight=True,
+                                 device=device))
+    terms = row_terms(tg)
+    hy = G.hybrid_graph(hg, block_rows=128, block_cols=128, tile_edges=128,
+                        min_nnz=64, unit_weight=True, values_dtype=np.int8,
+                        block_layout="cr", device=device)
+    bd = hy.dense
+    rng = np.random.default_rng(seed)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for H, HD, F in ((4, 128, 43), (1, 41, 64)):
+            arrays = layer_inputs(rng, n, F, HD, H,
+                                  knobs={CLAMP_ROW: 2.0, GAP_ROW: -6.0})
+            x, w, wa_s, wa_d = (torch.tensor(a, device=device).to(dt)
+                                for a in arrays)
+            for sf in SFS:
+                yield from gat_layer_checks(
+                    tg, x, w, wa_s, wa_d, dtype_name=name, terms=terms,
+                    case=f"H={H} HD={HD} F={F} sf={sf}", final_sf=sf)
+            h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
+                             device=device)
+            a_s = torch.tensor(gap_a_src(rng, n, H), device=device)
+            a_d = torch.tensor(rng.standard_normal((n, H)), dtype=dt,
+                               device=device).float()
+            pan_s, pan_d = D.exp_panels(
+                a_s, a_d, a_s.amax(0, keepdim=True),
+                bd.n_col_blocks * bd.block_cols,
+                bd.n_row_blocks * bd.block_rows)
+            yield KernelCase(
+                "gat_dense_panel", f"int8 cr H={H} HD={HD}", name,
+                D.gat_dense_panel_blocks(bd, h, bd.values, a_s, pan_s, pan_d),
+                D._gat_dense_panel_reference(bd, h, bd.values, a_s, pan_s,
+                                             pan_d), HD)

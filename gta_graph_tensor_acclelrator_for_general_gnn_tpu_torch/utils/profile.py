@@ -12,8 +12,10 @@ blocks plus a grouped tail) on the same graph and traces one request of
 each after three warm-up requests.  ``--pair`` traces one bf16 request of
 DGN-2l and PNA-2l with their pair chains on K13
 (``fusion.pair_agg_schedules``) and of GAT-2l with its logit blocks on
-K11 (``fusion.sddmm_schedules``), the rest op by op.  For each it
-prints:
+K11 (``fusion.sddmm_schedules``), the rest op by op.  ``--layer`` traces
+one bf16 request of GAT-2l with every layer on the ``gat_layer`` kind (the
+whole layer on K14, 512x1024x512 ``onehot`` tiles,
+``fusion.gat_onehot_schedules``).  For each it prints:
 
 - the host wall time, synchronised before and after;
 - the device's busy time: the union of the trace's kernel, memcpy and
@@ -24,7 +26,7 @@ prints:
 
 Needs one CUDA device::
 
-    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped | --pair]
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped | --pair | --layer]
 
 Chrome traces go to ``build/profile/`` at the repository root (or
 ``--out``).
@@ -93,6 +95,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pair", action="store_true",
                     help="trace DGN-2l and PNA-2l on the pair aggregate and "
                          "GAT-2l on the sddmm kind instead")
+    ap.add_argument("--layer", action="store_true",
+                    help="trace GAT-2l on the whole-layer kind instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -127,6 +131,21 @@ def main(argv=None) -> int:
                     rc.run()
                 _trace(f"bench {name} recipe bf16 request",
                        args.out / f"trace_bench_{name}.json", rc.run, dev)
+        return 0
+    if args.layer:
+        from ..compiler.fusion import gat_onehot_schedules
+        model = build_model("GAT", F_IN, N_CLASS, hidden=HIDDEN, n_layers=2,
+                            heads=HEADS, generator=gen, device=dev)
+        fwd = model.make_apply(
+            torch.bfloat16, schedules=gat_onehot_schedules(
+                model.layers, whole_layer=True), host_graph=hg, device=dev)
+        params = dict(model.params)
+        with torch.inference_mode():
+            for _ in range(3):
+                fwd(params, g, x)
+            _trace("GAT-2l bf16 request (gat_layer kind)",
+                   args.out / "trace_GAT_layer.json",
+                   lambda: fwd(params, g, x), dev)
         return 0
     if args.pair:
         from ..compiler.fusion import pair_agg_schedules, sddmm_schedules

@@ -129,6 +129,50 @@ def gat_dense(bg, h: torch.Tensor, H: int) -> Work:
                 ops_per_s=_rate(h.dtype))
 
 
+def gat_dense_panel(bg, h: torch.Tensor, H: int) -> Work:
+    """K15: K4's bytes with the exp panels ([n_cols, 2H] and [n_rows, 3H]
+    float32) in place of a_dst; per nonzero cell and head a compare, an
+    add, a select and two multiplies instead of the exp chain, then num and
+    den as K4."""
+    n, HD = h.shape
+    rows = bg.n_row_blocks * bg.block_rows
+    cols = bg.n_col_blocks * bg.block_cols
+    return Work(bytes=_nbytes(bg.values) + 8 * bg.n_blocks + _nbytes(h)
+                + 4 * n * H + 4 * (2 * cols + 3 * rows) * H
+                + 4 * rows * (HD + H),
+                ops=float(nonzero_cells(bg) * (5 * H + 2 * HD + H)),
+                ops_per_s=_rate(h.dtype))
+
+
+def gat_layer(tg, x: torch.Tensor, HD: int, H: int) -> Work:
+    """K14, the whole layer: x, W [F, HD], wa_s and wa_d read once, per
+    live slot its two int16 indices, the [n, HD] float32 output written
+    once (hq, a_s, a_d and [num | den] are the kernel's own scratch).
+    Operations: the projection x W (2 n F HD) and a_s | a_d (4 n HD H);
+    per live slot the static-shift logit and exp (~7 per head) and the num
+    and den adds (2 HD + H); the epilogue's divide and activation (2 n
+    HD)."""
+    n, F = x.shape
+    live, es = live_slots(tg), x.element_size()
+    return Work(bytes=_nbytes(x) + es * (F * HD + 2 * HD * H)
+                + live * 4 + 8 * tg.n_tiles + 4 * n * HD,
+                ops=2.0 * n * F * HD + 4.0 * n * HD * H
+                + live * (7 * H + 2 * HD + H) + 2.0 * n * HD,
+                ops_per_s=_rate(x.dtype))
+
+
+def gat_layer_projection(x: torch.Tensor, HD: int, H: int) -> Work:
+    """K14's projection stage alone: x and the three weights read once,
+    hq [n, HD] and a_s | a_d [n, 2H] written once; 2 n F HD + 4 n HD H
+    operations."""
+    n, F = x.shape
+    es = x.element_size()
+    return Work(bytes=_nbytes(x) + es * (F * HD + 2 * HD * H)
+                + es * n * (HD + H) + 4 * n * H,
+                ops=2.0 * n * F * HD + 4.0 * n * HD * H,
+                ops_per_s=_rate(x.dtype))
+
+
 def _bwd_edge_ops(HD: int, H: int, src_mode: bool) -> int:
     """Per edge of the backward: te (a multiply-add per feature), alpha and
     dz (~10 per head), the dad add; with ``src_mode`` also das and dh

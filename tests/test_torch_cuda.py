@@ -1,10 +1,12 @@
-"""PyTorch port: the hand-written CUDA kernels K1-K13 against their plain
+"""PyTorch port: the hand-written CUDA kernels K1-K15 against their plain
 PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases`` (the
 forward kernels K1-K4), ``utils/fixtures.bwd_kernel_cases`` (the GAT
 backward kernels K5-K8), ``utils/fixtures.grouped_kernel_cases`` (the
 grouped-tail kernels K9 and K10), ``utils/fixtures.sddmm_kernel_cases``
-(the SDDMM kernels K11 and K12) and ``utils/fixtures.pair_agg_kernel_cases``
-(the pair aggregation K13).
+(the SDDMM kernels K11 and K12), ``utils/fixtures.pair_agg_kernel_cases``
+(the pair aggregation K13) and ``utils/fixtures.layer_kernel_cases`` (the
+whole GAT layer K14, stage by stage, and the exp-panel dense partial
+K15).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed.  On a machine with a CUDA device:
@@ -289,3 +291,45 @@ def test_sddmm_and_pair_agg_kernels_match_plain_versions_on_cuda():
     _ext.library()
     _check_new_cases(dev)
     torch.cuda.synchronize(dev)
+
+
+def _check_layer_cases(device):
+    seen = set()
+    for c in fixtures.layer_kernel_cases(device):
+        assert c.out.device == c.ref.device == device, (c.kernel, c.case)
+        fixtures.check_kernel(c)
+        seen.add((c.kernel, c.dtype_name))
+    assert seen == {(k, d) for k in fixtures.LAYER_KERNELS
+                    for d in fixtures.KERNEL_TOL}
+
+
+def test_layer_cases_run_on_cpu():
+    """The K14 / K15 case list runs on the CPU, where the wrappers take
+    their plain versions; a fault in one cell of K15's num fails it."""
+    _check_layer_cases(CPU)
+    c = next(c for c in fixtures.layer_kernel_cases(CPU)
+             if c.kernel == "gat_dense_panel")
+    bad = c.out.clone()
+    row = int(c.ref[:, 0].abs().argmax())
+    bad[row, 0] *= 1.05
+    with pytest.raises(AssertionError):
+        fixtures.check_kernel(c._replace(out=bad))
+
+
+@pytest.mark.gpu
+def test_layer_kernels_match_plain_versions_on_cuda():
+    """K14 and K15 on the card: the launch counts rise (the projection
+    stage alone does not count), and every case holds its bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K14 and K15 have no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    A.gat_layer_tiles.launches = D.gat_dense_panel_blocks.launches = 0
+    _check_layer_cases(dev)
+    torch.cuda.synchronize(dev)
+    assert A.gat_layer_tiles.launches > 0
+    assert D.gat_dense_panel_blocks.launches > 0

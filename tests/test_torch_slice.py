@@ -219,4 +219,4 @@ def test_cli_run_on_cpu(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["finite"] and out["out_shape"] == [200, 4]
     assert "latency_ms_median" not in out    # no device time from a CPU run
-    assert TCLI.main(["tune"]) == 2
+    assert TCLI.main(["bench"]) == 2

@@ -171,10 +171,11 @@ def test_cli_train_schedule_prints_jax_keys(tmp_path, capsys):
 
 
 def test_non_hybrid_kernel_blocks_refuse_a_gradient():
-    """The non-hybrid gat kind has no backward in the port yet (its
-    ``_gat_vjp`` is Queue 1 item 5): asking for one raises instead of
-    returning a silent zero gradient.  (The spmm kinds now have one:
-    ``test_torch_grouped.py``.)"""
+    """The non-hybrid gat kind used to refuse a gradient, having no
+    backward; it now has ``_gat_vjp``'s (without a twin, autograd of the
+    edge formulation), and its gradient equals autograd of the per-op
+    path.  (The spmm kinds: ``test_torch_grouped.py``; the gat kind against
+    ``jax.grad``: ``test_torch_gat_layer.py``.)"""
     ds = T.load_dataset("tiny")
     m = T.build_model("GAT", ds.x.shape[1], ds.n_class, hidden=16,
                       n_layers=1, heads=1, device=CPU)
@@ -184,13 +185,17 @@ def test_non_hybrid_kernel_blocks_refuse_a_gradient():
         tc if TF.classify_block(m.layers[0], b, tc)[0] == "gat"
         else TS.TileConfig(path=TS.PATH_XLA) for b in part))
     assert any(t.kernel for t in sched.tiles)
-    fwd = m.make_apply(schedules=sched, host_graph=ds.host_graph, device=CPU)
+    g = ds.host_graph.to_device(CPU)
     x = torch.tensor(ds.x)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        fwd(dict(m.params), ds.host_graph.to_device(CPU), x)
-    with torch.no_grad():
-        assert fwd(dict(m.params), ds.host_graph.to_device(CPU),
-                   x).shape == (ds.x.shape[0], ds.n_class)
+    grads = []
+    for fwd in (m.make_apply(schedules=sched, host_graph=ds.host_graph,
+                             device=CPU), m.make_apply()):
+        m.zero_grad(set_to_none=True)
+        (fwd(dict(m.params), g, x) ** 2).sum().backward()
+        grads.append({k: p.grad.clone() for k, p in m.params.items()})
+    for k, ref in grads[1].items():
+        err = float((grads[0][k] - ref).abs().max())
+        assert err <= 1e-5 * max(1.0, float(ref.abs().max())), (k, err)
 
 
 @pytest.fixture(scope="module")
