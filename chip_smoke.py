@@ -31,8 +31,10 @@ Reddit's node count, and checks every hand-written kernel on the way:
      fixture's grouped tilings; (b) the root bench's two Reddit recipes
      (``bench.spmm_recipe``, ``bench.gat_recipe``: int8 dense blocks plus a
      512²/ET128/G16 grouped tail, F = 128 and H = 4 x 32, bf16) on the same
-     graph, K9 and K10 checked and timed at their shapes, each recipe served
-     and compared with the same split built with a per-tile tail; (c)
+     graph, K9 and K10 checked and timed at their shapes, K2 on the SpMM
+     recipe's dense blocks and K1 on its per-tile tail checked and timed
+     (printed, not in the kernels' rows), each recipe served and compared
+     with the same split built with a per-tile tail; (c)
      GCN-2l lowered on PATH_GROUPED 512²/ET128 with the transposed twin:
      one bf16 and one float32 request against the per-op path, float32
      gradients against per-op autograd (K9 launched in the backward), and 1
@@ -61,8 +63,11 @@ Reddit's node count, and checks every hand-written kernel on the way:
      logits' static-shift domain printed, 3 bf16 and 1 float32 requests
      against the per-op path; (c) GAT-2l with the attention chain as the
      ``gat`` kind on the same tile, lowered with the transposed twin:
-     K3's rows against a float64 sum (``HUB_TOL``), float32 loss and
-     gradients against per-op autograd, 1 warm-up and 2
+     K3's rows, K5's dad and K6's [das | dh] (over the twin) against a
+     float64 sum of the same terms (``HUB_TOL``), float32 loss and
+     gradients against per-op autograd at the parameters phase 5 left
+     (each leaf also within SPREAD_X times the per-op path's own spread)
+     and at the seeded initial ones (as 5c; 8d both too), 1 warm-up and 2
      timed bf16 AdamW steps, K3, K5 and K6 launched; (d) the ``gat_layer``
      kind's float32 gradients against per-op autograd on phase 7's reduced
      graph; (e) ``cli tune --stack`` on cora (memo and schedule in a
@@ -77,8 +82,9 @@ path, its worst error at the slice's shapes, and summed over its timed
 calls its time, the plain version's, its bound on the card from
 ``utils/roofline`` and the time of the library call that computes the same
 function, ``torch.sparse.mm`` for K1, K2 and K9, ``torch.sparse.
-sampled_addmm`` at one head for K11 and K12, else null), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
+sampled_addmm`` at one head for K11 and K12, else null; each timed K2
+call also prints the rate at which it streamed its count blocks), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script then exits non-zero without that line.  Needs
 one CUDA device.
 
@@ -103,6 +109,11 @@ N_NODE = 232_965
 F_IN, HIDDEN, N_CLASS, HEADS = 602, 128, 41, 4
 REQUESTS = 3       # bf16 requests per model (plus one float32 request)
 REPEATS = 5        # timing windows per kernel and shape
+# calls in a row per timing window of a kernel or its library call (not
+# of the plain versions): one call alone would also count the host's time
+# to enqueue it, during which the card idles, tens of microseconds beside
+# kernels that take a fraction of a millisecond
+CALLS = 10
 
 KERNELS = {
     "spmm_tiles": dict(source=f"{PKG}/csrc/spmm_tiles.cu",
@@ -146,6 +157,13 @@ E2E_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # of the same terms, and dad's softmax sums cancel, which magnifies their
 # rounding relative to the result: a tenfold margin on the forward bound.
 GRAD_TOL = {"loss": 1e-4, "grad": 1e-3}
+# 8c and 8d at the parameters the earlier phases' AdamW steps left: both
+# paths' gradients SPREAD_EVALS times; a leaf is held within the larger of
+# GRAD_TOL and SPREAD_X times the per-op path's own spread (two float32
+# results that reorder the same sums differ by about that spread; the
+# factor covers the maximum over two pairs and the kernel's other order)
+SPREAD_EVALS = 3
+SPREAD_X = 4
 LR = 1e-2
 TRAIN_STEPS = 4    # timed bf16 steps per model, after one warm-up step
 # phase 7: the tiling of the pair-agg and sddmm blocks, (block rows, block
@@ -158,9 +176,10 @@ LOGIT_SCALE = 10.0  # phase 7b's float32 gradients: max |logit| of the input
 # phase 8: the one-hot GAT tiling (scripts/reddit_train.py:98's geometry)
 LAYER_TILE = (512, 1024, 512)
 TUNE_TARGET_S = 0.01   # phase 8e: seconds per candidate measurement
-# phase 8c: K3's float32 [num | den] per row against a float64 sum; a hub
-# row's 209,253 terms added one float32 atomic per slot would drift by
-# about sqrt(n) ulps (~1e-4); summed per receiver run they stay near 1e-6
+# phase 8c: K3's float32 [num | den], K5's dad and K6's [das | dh] per row
+# against a float64 sum; a hub row's 209,253 terms added one float32
+# atomic per slot would drift by about sqrt(n) ulps (~1e-4); summed per
+# receiver run they stay near 1e-6
 HUB_TOL = 2e-5
 
 
@@ -254,7 +273,7 @@ class Checks:
 
     def slice_case(self, kernel, case, dtype_name, kern, plain, dev, *,
                    split=None, terms=None, scale=None, timed_as=None,
-                   work=None, library=None):
+                   work=None, library=None, stream_bytes=None):
         """Compare ``kern()`` with ``plain()`` at a shape of the slice;
         with ``timed_as``, also time both (CUDA events, median of REPEATS)
         as that call of a request or step, beside the call's bound
@@ -264,29 +283,47 @@ class Checks:
         self.compare(KernelCase(kernel, case, dtype_name, kern(), plain(),
                                 split, terms, scale), slice_shape=True)
         if timed_as is not None:
-            self.time_call(kernel, timed_as, kern, plain, dev, work, library)
+            self.time_call(kernel, timed_as, kern, plain, dev, work, library,
+                           stream_bytes=stream_bytes)
 
     def time_call(self, kernel, timed_as, kern, plain, dev, work,
-                  library=None, in_row=True) -> None:
+                  library=None, in_row=True, stream_bytes=None) -> None:
         """Time ``kern()`` and ``plain()`` (CUDA events, median of
-        REPEATS) and the library call (named by its ``label``, else
+        REPEATS; the kernel and library calls per call over CALLS in a
+        row) and the library call (named by its ``label``, else
         ``torch.sparse.mm``), beside the bound ``work()``; with ``in_row``
         the call counts in the kernel's line of the JSON result, else it
-        is only printed."""
+        is only printed.  ``stream_bytes`` (K2's count or value blocks)
+        prints the rate at which the kernel streamed them beside the
+        card's memory rate."""
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
-        ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS)
+        ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS,
+                         calls=CALLS)
         ms_p = median_ms(plain, device=dev, warmup=1, repeats=REPEATS)
-        ms_l = (median_ms(library, device=dev, warmup=1, repeats=REPEATS)
-                if library is not None else None)
+        ms_l = (median_ms(library, device=dev, warmup=1, repeats=REPEATS,
+                          calls=CALLS) if library is not None else None)
         w = work()
         if in_row:
             self.times.setdefault(kernel, {})[timed_as] = (ms_k, ms_p, w,
                                                            ms_l)
         lib = "" if ms_l is None else (
             f"   {getattr(library, 'label', 'torch.sparse.mm')} {ms_l:.4f} ms")
+        rate = "" if stream_bytes is None else (
+            f"   blocks streamed at {stream_bytes / ms_k / 1e6:.1f} GB/s "
+            f"(memory {RL.HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
         say(f"  {kernel:18s} {timed_as:11s} kernel {ms_k:.4f} ms   "
             f"plain {ms_p:.4f} ms   bound {w.bound_ms:.4f} ms "
-            f"({w.bound_by}){lib}{'' if in_row else '   (not in the row)'}")
+            f"({w.bound_by}){lib}{rate}"
+            f"{'' if in_row else '   (not in the row)'}")
+
+
+def _stream_bytes(kernel: str, graph):
+    """K2's block values in bytes (the stream whose rate bounds it), else
+    None."""
+    if kernel != "spmm_dense_blocks":
+        return None
+    return graph.values.numel() * graph.values.element_size()
 
 
 def edge_case_checks(checks: Checks, dev) -> None:
@@ -362,7 +399,8 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
                                   name, kern, plain, dev, split=split,
                                   terms=terms[kname],
                                   timed_as=f"layer {li}" if timed else None,
-                                  work=work, library=lib)
+                                  work=work, library=lib,
+                                  stream_bytes=_stream_bytes(kname, bg))
 
 
 def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
@@ -399,7 +437,8 @@ def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
                 lambda: D._spmm_dense_reference(bg, xs, bg.values), dev,
                 terms=row_terms(bg), timed_as=timed,
                 work=lambda: RL.spmm_dense(bg, xs),
-                library=checks.sparse_mm(bg, xs) if timed else None)
+                library=checks.sparse_mm(bg, xs) if timed else None,
+                stream_bytes=_stream_bytes("spmm_dense_blocks", bg))
 
 
 def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
@@ -614,6 +653,7 @@ def bench_recipes(checks: Checks, hg, dev) -> dict:
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import row_terms
@@ -638,6 +678,32 @@ def bench_recipes(checks: Checks, hg, dev) -> dict:
             terms=row_terms(tg), timed_as="bench" if timed else None,
             work=lambda: RL.spmm_tail(tg, xd, 0 if w is None else 4),
             library=checks.sparse_mm(tg, xd) if timed else None)
+    # K2 on the recipe's dense blocks and K1 on its per-tile tail (the
+    # bench's shapes; printed with times, not in the kernels' rows)
+    rt = recipes[("SpMM", "tiles")].split
+    bg, tgt = rs.split.dense, rt.tiles
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        xs = (xd if rs.split.col_scale is None
+              else xd * rs.split.col_scale[:, None].to(dt)).contiguous()
+        timed = dt == torch.bfloat16
+        dn = str(dt).split(".")[1]
+        for kname, kern, plain, terms, work, lib in (
+                ("spmm_dense_blocks",
+                 lambda: D.spmm_dense_blocks(bg, xs, bg.values),
+                 lambda: D._spmm_dense_reference(bg, xs, bg.values),
+                 row_terms(bg), lambda: RL.spmm_dense(bg, xs), (bg, xs)),
+                ("spmm_tiles", lambda: SP.spmm_tiles(tgt, xd, tgt.weight),
+                 lambda: SP._spmm_reference(tgt, xd), row_terms(tgt),
+                 lambda: RL.spmm_tail(tgt, xd, tgt.weight.element_size()),
+                 (tgt, xd))):
+            checks.compare(fixtures.KernelCase(
+                kname, "bench SpMM recipe F=128", dn, kern(), plain(), None,
+                terms))
+            if timed:
+                checks.time_call(kname, "bench", kern, plain, dev, work,
+                                 checks.sparse_mm(*lib), in_row=False,
+                                 stream_bytes=_stream_bytes(kname, lib[0]))
     rg = recipes[("GAT", "grouped")]
     tga = rg.split.tiles
     terms = row_terms(tga)
@@ -1288,37 +1354,73 @@ def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
     return launches
 
 
-def _grads_against_per_op(what: str, model, fn, g, x, labels, mask) -> None:
+def _loss_and_grads(model, f, g, x, labels, mask) -> tuple:
+    """Float32 loss and every parameter's gradient of ``f`` at the model's
+    parameters, and the seconds the forward and backward took."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    model.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    loss = TT.masked_cross_entropy(f(dict(model.params), g, x), labels, mask)
+    loss.backward()
+    out = (loss.item(), {k: p.grad.detach().clone()
+                         for k, p in model.params.items()})
+    model.zero_grad(set_to_none=True)
+    return out + (time.perf_counter() - t0,)
+
+
+def _grads_against_per_op(what: str, model, fn, g, x, labels, mask,
+                          spread: bool = False) -> None:
     """Float32 loss and every parameter's gradient of ``fn`` against
-    autograd of the per-op path, within GRAD_TOL."""
+    autograd of the per-op path, within GRAD_TOL.  With ``spread`` (the
+    trained parameters), both paths run SPREAD_EVALS times and a leaf's
+    bound is the larger of GRAD_TOL and SPREAD_X times the per-op path's
+    own spread in this run (its float32 atomics reorder from one
+    evaluation to the next): at trained parameters a leaf whose terms
+    cancel can be small beside its rounding noise."""
     import torch
 
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    n = SPREAD_EVALS if spread else 1
     res = {}
     for path, f in (("kernel", fn), ("per-op", model.make_apply(None))):
-        model.zero_grad(set_to_none=True)
-        t0 = time.perf_counter()
-        loss = TT.masked_cross_entropy(f(dict(model.params), g, x), labels,
-                                       mask)
-        loss.backward()
-        res[path] = (loss.item(), {k: p.grad.detach().clone()
-                                   for k, p in model.params.items()})
-        say(f"  {what} {path}: loss {res[path][0]:.6f}, forward + backward "
-            f"{time.perf_counter() - t0:.2f} s")
-        del loss
-    (lk, gk), (lr, gr) = res["kernel"], res["per-op"]
+        res[path] = [_loss_and_grads(model, f, g, x, labels, mask)
+                     for _ in range(n)]
+        say(f"  {what} {path}: loss {res[path][0][0]:.6f}, forward + "
+            f"backward {res[path][0][2]:.2f} s")
+    (lk, gk, _), (lr, gr, _) = res["kernel"][0], res["per-op"][0]
     rel = abs(lk - lr) / max(1.0, abs(lr))
     say(f"  {what} loss: relative {rel:.3e} (bound {GRAD_TOL['loss']:.0e})")
     if not rel <= GRAD_TOL["loss"]:
         raise AssertionError(f"{what}: loss {lk} vs per-op {lr}")
+
+    def dev_from(ref, evals):   # the largest of max |grad - ref| / max |ref|
+        return max([0.0] + [float((e[1][k] - ref).abs().max())
+                            / float(ref.abs().max()) for e in evals])
     for k in gr:
-        err = float((gk[k] - gr[k]).abs().max()) / float(gr[k].abs().max())
-        say(f"  {what} d{k}: relative {err:.3e} (bound "
-            f"{GRAD_TOL['grad']:.0e})")
-        if not (bool(torch.isfinite(gk[k]).all())
-                and err <= GRAD_TOL["grad"]):
+        err = dev_from(gr[k], res["kernel"][:1])
+        bound, extra = GRAD_TOL["grad"], ""
+        if spread:
+            own = dev_from(gr[k], res["per-op"][1:])
+            k_own = dev_from(gk[k], res["kernel"][1:])
+            bound = max(bound, SPREAD_X * own)
+            extra = (f"; per-op's own spread {own:.3e}, the kernel path's "
+                     f"{k_own:.3e}")
+        say(f"  {what} d{k}: relative {err:.3e} (bound {bound:.3e}){extra}")
+        if not (bool(torch.isfinite(gk[k]).all()) and err <= bound):
             raise AssertionError(f"{what} d{k}: {err}")
-    model.zero_grad(set_to_none=True)
+
+
+def _grads_at_both_states(what: str, model, fn, init_params, g, x, labels,
+                          mask) -> None:
+    """:func:`_grads_against_per_op` at the parameters the model holds (the
+    trained state the earlier phases left), with the per-op spread, and at
+    its seeded initial parameters (``init_params``), with GRAD_TOL alone, as
+    5c; the trained parameters are put back after."""
+    trained = {k: p.detach().clone() for k, p in model.params.items()}
+    _grads_against_per_op(f"{what}, trained", model, fn, g, x, labels, mask,
+                          spread=True)
+    _restore(model, init_params)
+    _grads_against_per_op(f"{what}, initial", model, fn, g, x, labels, mask)
+    _restore(model, trained)
 
 
 def layer_domain(tg, a_s, a_d, slope: float = 0.2) -> tuple:
@@ -1491,29 +1593,97 @@ def hub_rows_check(tg, dev) -> None:
             den.index_add_(0, d_, p)
             num.index_add_(0, d_, ph)
             mag.index_add_(0, d_, ph.abs())
-        live = deg > 0
         err = torch.maximum(
             ((raw[:, :HD].double() - num).abs()
              / mag.clamp(min=1e-300)).amax(1),
             ((raw[:, HD:].double() - den).abs()
-             / den.clamp(min=1e-300)).amax(1))[live]
-        dl = deg[live]
-        worst = {f"{lo}-{hi}": float(err[(dl >= lo) & (dl < hi)].max())
-                 for lo, hi in ((1, 100), (100, 10_000), (10_000, n + 1))
-                 if bool(((dl >= lo) & (dl < hi)).any())}
+             / den.clamp(min=1e-300)).amax(1))
+        worst = _degree_classes(err, deg)
         say(f"  K3 on the one-hot tiling H={H} HD={HD}, each row against a "
             f"float64 sum (bound {HUB_TOL:.0e}), worst by in-degree: "
             + ", ".join(f"{k}: {v:.3e}" for k, v in worst.items()))
-        if not float(err.max()) <= HUB_TOL:
+        if not float(err[deg > 0].max()) <= HUB_TOL:
             raise AssertionError(f"K3 row sums: {worst}")
 
 
-def gat_kind_training(model, hg, g, dev) -> dict:
+def _degree_classes(err, deg) -> dict:
+    """The worst of ``err`` (one value per row) by the rows' term counts."""
+    live = deg > 0
+    e, dl = err[live], deg[live]
+    return {f"{lo}-{hi}": float(e[(dl >= lo) & (dl < hi)].max())
+            for lo, hi in ((1, 100), (100, 10_000), (10_000, 1 << 40))
+            if bool(((dl >= lo) & (dl < hi)).any())}
+
+
+def bwd_hub_rows_check(tg, tg_t, dev) -> None:
+    """Phase 8c: K5's float32 dad over the one-hot tiling and K6's [das |
+    dh] over its twin (random inputs, both layers' widths) against a
+    float64 sum of the same terms, row by row: each row's error over its
+    sum of elementary-term magnitudes (the plain versions' ``magnitude``
+    scale), within HUB_TOL; the worst row printed per in-degree class."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops.spmm import _live_slots, _unit_steps
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    n, slope = tg.n_node, 0.2
+    rng = np.random.default_rng(10)
+    for H, HD in ((HEADS, HIDDEN), (1, N_CLASS)):
+        D = HD // H
+        a_s = rng.standard_normal((n, H)).astype(np.float32)
+        msrc = torch.tensor(a_s.max(0, keepdims=True), device=dev)
+        h = torch.tensor(rng.standard_normal((n, HD), dtype=np.float32),
+                         device=dev)
+        gbar = torch.tensor(rng.standard_normal((n, HD), dtype=np.float32),
+                            device=dev)
+        side = fixtures.bwd_side(rng, n, H, torch.float32, dev, a_s=a_s)
+        sd64, h64, g64 = side.double(), h.double(), gbar.double()
+        ms = msrc.double()
+        for name, kern, tgx, src_mode in (
+                ("K5 dad", A.gat_bwd_tiles_dad, tg, False),
+                ("K6 [das | dh]", A.gat_bwd_tiles_src, tg_t, True)):
+            out = kern(tgx, h, gbar, side, msrc).double()
+            W = out.shape[1]
+            want = torch.zeros((n, W), dtype=torch.float64, device=dev)
+            mag = torch.zeros((n, W), dtype=torch.float64, device=dev)
+            deg = torch.zeros(n, dtype=torch.int64, device=dev)
+            for t0, t1 in _unit_steps(tgx, 4 * HD + 8 * H):
+                valid, col, row = _live_slots(tgx, t0, t1)
+                s_, d_ = (row, col) if src_mode else (col, row)
+                m = tgx.weight[t0:t1].double()[valid][:, None]
+                hg_ = (h64[s_] * g64[d_]).view(-1, H, D)
+                te, te_mag = hg_.sum(-1), hg_.abs().sum(-1)
+                ad = sd64[d_, H:2 * H]
+                lraw = sd64[s_, :H] + ad
+                p = torch.exp(torch.clamp(A._leaky(lraw, slope)
+                                          - A._leaky(ms + ad, slope),
+                                          max=60.0))
+                alpha = p * m * sd64[d_, 2 * H:3 * H]
+                lk = torch.where(lraw >= 0, 1.0, slope)
+                s2 = sd64[d_, 3 * H:]
+                v, vm = alpha * (te - s2) * lk, alpha * (te_mag + s2.abs()) * lk
+                if src_mode:
+                    ag = alpha.repeat_interleave(D, dim=1) * g64[d_]
+                    v, vm = torch.cat([v, ag], 1), torch.cat([vm, ag.abs()], 1)
+                want.index_add_(0, row, v)
+                mag.index_add_(0, row, vm)
+                deg += torch.bincount(row, minlength=n)
+            err = ((out - want).abs() / mag.clamp(min=1e-300)).amax(1)
+            worst = _degree_classes(err, deg)
+            say(f"  {name} on the {'twin' if src_mode else 'one-hot'} "
+                f"tiling H={H} HD={HD}, each row against a float64 sum "
+                f"(bound {HUB_TOL:.0e}), worst by in-degree: "
+                + ", ".join(f"{k}: {v:.3e}" for k, v in worst.items()))
+            if not float(err[deg > 0].max()) <= HUB_TOL:
+                raise AssertionError(f"{name} row sums: {worst}")
+
+
+def gat_kind_training(model, init_params, hg, g, dev) -> dict:
     """Phase 8c: GAT-2l with the attention chain as the ``gat`` kind (K3)
     over 512x1024x512 ``onehot`` tiles and its transposed twin (the JAX
     one-hot training recipe), lowered per dtype: float32 loss and
-    gradients against per-op autograd, then 1 warm-up and 2 timed bf16
-    AdamW steps.  Returns K3's, K5's and K6's launches during the
+    gradients against per-op autograd at the trained and the initial
+    parameters, then 1 warm-up and 2 timed bf16 AdamW steps.  Returns K3's, K5's and K6's launches during the
     steps."""
     import torch
 
@@ -1540,9 +1710,12 @@ def gat_kind_training(model, hg, g, dev) -> dict:
              if k == "gat"]
     if len(twins) != 2 or any(tw is None for tw in twins):
         raise AssertionError("GAT-2l gat kind: expected a twin per layer")
-    hub_rows_check(next(d for lf in fn.layer_fns for k, _, d, _ in lf.plans
-                        if k == "gat"), dev)
-    _grads_against_per_op("GAT-2l gat kind", model, fn, g, x, labels, mask)
+    tiling = next(d for lf in fn.layer_fns for k, _, d, _ in lf.plans
+                  if k == "gat")
+    hub_rows_check(tiling, dev)
+    bwd_hub_rows_check(tiling, twins[0][0], dev)
+    _grads_at_both_states("GAT-2l gat kind", model, fn, init_params, g, x,
+                          labels, mask)
     del fn
     t0 = time.perf_counter()
     fn = model.make_apply(torch.bfloat16, schedules=scheds, host_graph=hg,
@@ -1574,10 +1747,11 @@ def gat_kind_training(model, hg, g, dev) -> dict:
     return launches
 
 
-def whole_layer_grads(model, dev) -> None:
+def whole_layer_grads(model, init_params, dev) -> None:
     """Phase 8d: the ``gat_layer`` kind's float32 loss and gradients (its
     backward is autograd of the exact edge formulation, [E, HD] tensors)
-    against per-op autograd on phase 7's reduced graph."""
+    against per-op autograd on phase 7's reduced graph, at the trained and
+    the initial parameters."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import gat_onehot_schedules
@@ -1593,8 +1767,8 @@ def whole_layer_grads(model, dev) -> None:
                       device=dev)
     labels = (x @ wy).argmax(dim=1)
     mask = torch.ones(hr.n_node, dtype=torch.bool, device=dev)
-    _grads_against_per_op("GAT-2l gat_layer kind (reduced graph)", model, fn,
-                          gr, x, labels, mask)
+    _grads_at_both_states("GAT-2l gat_layer kind (reduced graph)", model,
+                          fn, init_params, gr, x, labels, mask)
 
 
 def tune_cli() -> None:
@@ -1715,8 +1889,22 @@ def exp_panel_phase(checks: Checks, gat_fwd, gat_hybs, model, hg, g,
     return launches
 
 
-def layer_phase(checks: Checks, gat_model, hg, g, dev) -> dict:
-    """Phase 8a-8e; returns K14's launches on 8b's requests."""
+def _restore(model, params) -> None:
+    """Put ``params`` (tensors keyed like ``model.params``) back into the
+    model's parameters, in place."""
+    import torch
+    with torch.no_grad():
+        for k, p in model.params.items():
+            p.copy_(params[k])
+
+
+def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev) -> dict:
+    """Phase 8a-8e; returns K14's launches on 8b's requests.  8c and 8d
+    compare gradients at the parameters the earlier phases left and at the
+    model's seeded initial parameters (``init_params``, as 5c does): the
+    trained state depends on the order of earlier float32 atomics (Adam
+    turns the rounding noise of a near-zero gradient into full steps), so
+    there each leaf is held within the per-op path's own spread too."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
     t0 = time.perf_counter()
     say("== 8a whole-layer and exp-panel kernels K14, K15: edge cases")
@@ -1725,9 +1913,9 @@ def layer_phase(checks: Checks, gat_model, hg, g, dev) -> dict:
     say("== 8b GAT-2l on the whole-layer kind")
     launches = {"gat_layer": whole_layer_gat(checks, gat_model, hg, g, dev)}
     say("== 8c GAT-2l training on the gat kind with its transposed twin")
-    gat_kind_training(gat_model, hg, g, dev)
+    gat_kind_training(gat_model, init_params, hg, g, dev)
     say("== 8d whole-layer kind gradients on the reduced graph")
-    whole_layer_grads(gat_model, dev)
+    whole_layer_grads(gat_model, init_params, dev)
     say("== 8e cli tune --stack, run and train --schedule")
     tune_cli()
     say(f"launches of K14 in phase 8: {launches}; phase 8a-8e took "
@@ -1807,6 +1995,9 @@ def main(argv=None) -> int:
                               n_layers=2, heads=HEADS, generator=gen,
                               device=dev),
     }
+    init_params = {mname: {k: p.detach().clone()
+                           for k, p in model.params.items()}
+                   for mname, model in models.items()}
     fwd = {}         # per model and dtype: the kernel path, with twins
     hybs = {}
     for mname, model in models.items():
@@ -1907,7 +2098,8 @@ def main(argv=None) -> int:
     launches.update(sddmm_pair_phase(checks, models["GAT-2l"], recipes, hg,
                                      g, dev))
     del recipes
-    launches.update(layer_phase(checks, models["GAT-2l"], hg, g, dev))
+    launches.update(layer_phase(checks, models["GAT-2l"],
+                                init_params["GAT-2l"], hg, g, dev))
     if launches["gat_dense_panel"] <= 0:
         raise AssertionError("kernel gat_dense_panel was not launched in "
                              "phase 8f")

@@ -408,6 +408,21 @@ def _dense_attention_smem(HD: int, H: int, dtype_bytes: int,
     return (f + cc * HD + H * BM * cc) * 4
 
 
+def _spmm_dense_smem(F: int, dtype_bytes: int,
+                     values_bytes: Optional[int] = None) -> int:
+    """K2, csrc/spmm_dense_blocks.cu, as its wrapper passes it to the
+    launch: 3 ring stages of a 256-row count tile (int8 counts,
+    ``values_bytes`` 1: 128 columns in 144-byte rows; bf16 values, 2: 64 in
+    160; None: the larger) and an x tile at feature tile N, plus 1 KB of
+    alignment; the float32 path requests none."""
+    if dtype_bytes != 2:
+        return 0
+    n = 64 if F <= 64 else 128
+    stage = {1: 256 * 144 + 128 * n * 2, 2: 256 * 160 + 64 * n * 2}
+    return 3 * (max(stage.values()) if values_bytes is None
+                else stage[values_bytes]) + 1024
+
+
 def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
     """The largest dynamic shared memory, in bytes, that a kernel of
     ``kind`` (forward and backward) requests at width HD and H heads, by
@@ -428,7 +443,9 @@ def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
         return (64 * hp + 2 * HD * H) * 4 + stage
     if kind == "sddmm":                             # K11, K12: 8 warps
         return 8 * HD * 4 if HD // H < 32 else 0
-    return 0                                        # K1, K2, K9, K13: none
+    if kind == "spmm_hybrid":                       # K2 (K1: none)
+        return _spmm_dense_smem(HD, dtype_bytes)
+    return 0                                        # K1, K9, K13: none
 
 
 def smem_bytes(tile: TileConfig, feat_width: int, heads: int = 1,
@@ -436,8 +453,9 @@ def smem_bytes(tile: TileConfig, feat_width: int, heads: int = 1,
     """Dynamic shared memory one block of the port's kernels requests for
     ``tile``'s path at feature width ``feat_width`` (HD for attention) and
     ``heads``: the largest over the kinds the path lowers to, or of
-    ``kind`` alone.  The port's kernels stage per-feature rows, never a
-    tile-sized buffer, so the tile's geometry does not enter."""
+    ``kind`` alone.  The port's kernels stage per-feature rows or a ring of
+    fixed-size chunks, never a tile-sized buffer, so the tile's geometry
+    does not enter."""
     kinds = (kind,) if kind is not None else PATH_KINDS.get(tile.path, ())
     return max([_kind_smem(k, feat_width, heads, dtype_bytes)
                 for k in kinds] + [0])

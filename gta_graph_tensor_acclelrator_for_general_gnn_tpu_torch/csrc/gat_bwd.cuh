@@ -81,11 +81,30 @@ inline bool bwd_shape_ok(int HD, int H) {
 // nothing and are never addressed); per live edge the lanes gather h[s] and
 // gbar[d] lane-strided, te is a warp reduction per head, lane h runs head
 // h's chain, and every lane calls
-//   Acc::add<HT>(out, s, d, alpha, dz, gbar[d] lane-strided, hk, lane, H, HD)
-// (alpha and dz are those of the lane's head for lanes < H, else 0).  The
-// output is zeroed float32 and takes global atomics (order varies by run:
-// float32 rounding only).
+//   Acc::add<HT>(run, alpha, dz, gbar[d] lane-strided, hk, lane, H)
+// (alpha and dz are those of the lane's head for lanes < H, else 0), which
+// adds the edge's rounded terms into the register sums of the current run
+// of slots with one walked row (the builders sort a tile's slots by
+// receiver, the walked row of either split).  When the walked row changes,
+// and after the walk,
+//   Acc::flush(out, row, run, hk, lane, H, HD)
+// adds the run's sums into the zeroed float32 output with one global
+// atomic per value (order varies by run: float32 rounding only).  A hub
+// row of 2e5 slots thus takes a few hundred atomics of run sums, and a row
+// that repeats one edge drifts only over a run, as in gta::gat_walk.
 // ---------------------------------------------------------------------------
+
+// The register sums of one run: lane h < H holds head h's, and for the
+// source kernel every lane its features' (lane-strided, as the rows).
+struct BwdRun {
+  float head;
+  float feat[BWD_MAXF];
+  __device__ __forceinline__ void zero() {
+    head = 0.f;
+#pragma unroll
+    for (int k = 0; k < BWD_MAXF; ++k) feat[k] = 0.f;
+  }
+};
 
 constexpr int TILE_WARPS = 8;
 
@@ -110,6 +129,9 @@ gat_bwd_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ ti
   const int64_t col0 = static_cast<int64_t>(cb) * C;
   const int64_t base = static_cast<int64_t>(t) * ET;
   const int S = 4 * H;
+  BwdRun run;
+  run.zero();
+  int64_t cur = -1;  // the current run's walked row (the same in every lane)
   for (int e0 = 0; e0 < ET; e0 += 32) {
     const int e = e0 + lane;
     int c = C, r = R;
@@ -129,6 +151,11 @@ gat_bwd_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ ti
       const int64_t src = Acc::SRC ? row : col;
       const int64_t dst = Acc::SRC ? col : row;
       const float mj = __shfl_sync(0xffffffffu, m, j);
+      if (row != cur) {
+        if (cur >= 0) Acc::flush(out, cur, run, hk, lane, H, HD);
+        cur = row;
+        run.zero();
+      }
       float hv[BWD_MAXF], gv[BWD_MAXF];
       load_row(h + src * HD, HD, lane, hv);
       load_row(gbar + dst * HD, HD, lane, gv);
@@ -139,9 +166,10 @@ gat_bwd_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ ti
         edge_grad(side[src * S + lane], sd[H + lane], sd[2 * H + lane], sd[3 * H + lane],
                   ms, mj, te, slope, alpha, dz);
       }
-      Acc::template add<HT>(out, src, dst, alpha, dz, gv, hk, lane, H, HD);
+      Acc::template add<HT>(run, alpha, dz, gv, hk, lane, H);
     }
   }
+  if (cur >= 0) Acc::flush(out, cur, run, hk, lane, H, HD);
 }
 
 template <typename Acc, typename HT, typename MT>

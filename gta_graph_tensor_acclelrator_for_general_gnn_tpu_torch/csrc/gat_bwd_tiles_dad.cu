@@ -14,8 +14,9 @@
 // multiply-adds and H exps, and adds H values.
 //
 // Design: the tail walk of gat_bwd.cuh (K3's: a warp per tile, live slots
-// by ballot); lane h adds head h's dz into the zeroed [N, H] float32 output
-// with one global atomic.
+// by ballot); lane h sums head h's rounded dz over each run of slots with
+// one receiver in a register and adds the run's sum into the zeroed [N, H]
+// float32 output with one global atomic.
 #include "gat_bwd.cuh"
 
 namespace {
@@ -24,9 +25,14 @@ struct DadAcc {
   static constexpr bool SRC = false;
 
   template <typename HT>
-  __device__ static void add(float* dad, int64_t, int64_t dst, float, float dz,
-                             const float*, const int*, int lane, int H, int) {
-    if (lane < H) atomicAdd(dad + dst * H + lane, gta::round_to<HT>(dz));
+  __device__ static void add(gta::BwdRun& run, float, float dz, const float*, const int*,
+                             int lane, int H) {
+    if (lane < H) run.head += gta::round_to<HT>(dz);
+  }
+
+  __device__ static void flush(float* dad, int64_t dst, const gta::BwdRun& run, const int*,
+                               int lane, int H, int) {
+    if (lane < H) atomicAdd(dad + dst * H + lane, run.head);
   }
 };
 

@@ -13,14 +13,16 @@
 // float32, and dz and alpha * gbar round to the compute dtype before the
 // float32 sum.
 //
-// Bound on the card: memory and atomics.  Each live edge gathers two rows
-// and adds H + HD values, K3's own atomic pattern.
+// Bound on the card: memory and latency.  Each live edge gathers two rows
+// and adds H + HD values into its run's sums, K3's own pattern.
 //
 // Design: the tail walk of gat_bwd.cuh (a warp per tile: a row block's
 // 512 x (H + HD) float32 stripe, 270 KB at H + HD = 132, would not fit a
-// block's 227 KB of shared memory); lane h adds head h's dz, and every lane
-// fetches its features' head's alpha by shuffle and adds alpha * gbar, all
-// with global atomics into the zeroed output.
+// block's 227 KB of shared memory); lane h sums head h's rounded dz, and
+// every lane fetches its features' head's alpha by shuffle and sums the
+// rounded alpha * gbar, in registers over each run of slots with one
+// original sender; each run's sums go into the zeroed output with one
+// global atomic per value.
 #include "gat_bwd.cuh"
 
 namespace {
@@ -29,15 +31,23 @@ struct SrcAcc {
   static constexpr bool SRC = true;
 
   template <typename HT>
-  __device__ static void add(float* out, int64_t src, int64_t, float alpha, float dz,
-                             const float* gv, const int* hk, int lane, int H, int HD) {
-    float* orow = out + src * (H + HD);
-    if (lane < H) atomicAdd(orow + lane, gta::round_to<HT>(dz));
+  __device__ static void add(gta::BwdRun& run, float alpha, float dz, const float* gv,
+                             const int* hk, int lane, int H) {
+    if (lane < H) run.head += gta::round_to<HT>(dz);
 #pragma unroll
     for (int k = 0; k < gta::BWD_MAXF; ++k) {
       const float a = __shfl_sync(0xffffffffu, alpha, hk[k] >= 0 ? hk[k] : 0);
-      if (hk[k] >= 0) atomicAdd(orow + H + lane + 32 * k, gta::round_to<HT>(a * gv[k]));
+      if (hk[k] >= 0) run.feat[k] += gta::round_to<HT>(a * gv[k]);
     }
+  }
+
+  __device__ static void flush(float* out, int64_t src, const gta::BwdRun& run,
+                               const int* hk, int lane, int H, int HD) {
+    float* orow = out + src * (H + HD);
+    if (lane < H) atomicAdd(orow + lane, run.head);
+#pragma unroll
+    for (int k = 0; k < gta::BWD_MAXF; ++k)
+      if (hk[k] >= 0) atomicAdd(orow + H + lane + 32 * k, run.feat[k]);
   }
 };
 

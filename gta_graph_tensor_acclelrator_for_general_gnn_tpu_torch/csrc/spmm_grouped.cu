@@ -15,8 +15,8 @@
 // community graph holds ~12 slots per edge, most sub-tiles empty.
 //
 // Design: one warp per (chunk, sub-tile), G*NC warps in blocks of 8: the
-// warp walks its sub-tile's slots by gta::spmm_walk (tile_walk.cuh) in
-// prefix mode, so an empty sub-tile costs one read of its first 32 index
+// warp walks its sub-tile's slots by gta::spmm_walk (tile_walk.cuh),
+// which stops after the sub-tile's edges, so an empty sub-tile costs one read of its first 32 index
 // pairs, a partly filled one stops after its last edge, and pad slots are
 // never addressed; live edges add w*x into a register sum of the
 // receiver's run of slots, which goes into y by f32 global atomics (the
@@ -45,7 +45,7 @@ spmm_grouped_kernel(const int* __restrict__ chunk_grp, const int* __restrict__ c
   const int64_t row0 = (static_cast<int64_t>(chunk_grp[c]) * G + j) * R;
   gta::spmm_walk<XT, float, KF>(src_local, dst_local, weight, u * ET, ET, R, C, row0,
                                 static_cast<int64_t>(chunk_cb[c]) * C, x, y, F, n_x,
-                                n_out, /*prefix=*/true, threadIdx.x & 31);
+                                n_out, threadIdx.x & 31);
 }
 
 template <typename XT, int KF>

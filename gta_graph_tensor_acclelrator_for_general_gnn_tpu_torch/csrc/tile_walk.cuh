@@ -1,26 +1,27 @@
-// Slot walks shared by the edge-tile kernels: K1, K3 and K11 walk one tile
-// of a TiledGraph per warp, their grouped counterparts K9, K10 and K12 one
-// sub-tile of a GroupedTiledGraph chunk per warp.  A tile is ET slots of
+// Slot walks shared by the edge-tile kernels: K3 and K11 walk one tile of
+// a TiledGraph per warp, the grouped kernels K9, K10 and K12 one sub-tile
+// of a GroupedTiledGraph chunk per warp (K1 has its own, row-owned walk
+// in spmm_tiles.cu).  A tile is ET slots of
 // (src_local, dst_local[, weight]); slot e holds edge
 // (col0 + src_local[e]) -> (row0 + dst_local[e]), and pad slots carry
 // src == C or dst == R.
 //
 // The warp reads 32 slots at a time and keeps the live ones by ballot, so a
-// pad slot is never addressed (the pad row x[col0 + C] is never read) and
-// its weight is never loaded.  With `prefix`, the caller asserts that the
-// tile's edges fill a prefix of its slots, as the host builders place them
-// (slot = offset of the edge in its block, mod ET): the walk stops at the
-// first 32 slots without an edge, so an empty sub-tile costs one read of its
-// first 32 index pairs.  Sums go to y / acc by float32 global atomics, whose
-// order varies from run to run (f32 rounding only).  Both walks that sum
+// pad slot is never addressed (the pad row x[col0 + C] is never read) and its
+// weight is never loaded.  spmm_walk, and the other walks with `prefix`, rely
+// on the tile's edges filling a prefix of its slots, as the host builders
+// place them (slot = offset of the edge in its block, mod ET): the walk stops
+// at the first 32 slots without an edge, so an empty sub-tile costs one read
+// of its first 32 index pairs.  Sums go to y / acc by float32 global atomics,
+// whose order varies from run to run (f32 rounding only).  Both walks that sum
 // first sum each run of slots with one receiver in registers (the builders
-// sort a tile's slots by receiver) and add it once per run.  A hub row of
-// 2e5 edges then takes a few hundred atomic adds of run sums instead of 2e5
-// of single terms, and a multigraph row that repeats one edge hundreds of
-// times (the smoke's graph sends ~600 copies of i -> hub into some rows),
-// whose float32 sum rounds the same way at every add and so drifts by ~n/4
-// ulps rather than sqrt(n), drifts only over a run (at most ET slots) and
-// over the few run sums.
+// sort a tile's slots by receiver) and add it once per run.  A hub row of 2e5
+// edges then takes a few hundred atomic adds of run sums instead of 2e5 of
+// single terms, and a multigraph row that repeats one edge hundreds of times
+// (the smoke's graph sends ~600 copies of i -> hub into some rows), whose
+// float32 sum rounds the same way at every add and so drifts by ~n/4 ulps
+// rather than sqrt(n), drifts only over a run (at most ET slots) and over the
+// few run sums.
 #pragma once
 #include "common.cuh"
 
@@ -55,7 +56,7 @@ __device__ __forceinline__ void spmm_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
     const WT* __restrict__ weight, int64_t base, int ET, int R, int C, int64_t row0,
     int64_t col0, const XT* __restrict__ x, float* __restrict__ y, int F, int64_t n_x,
-    int64_t n_out, bool prefix, int lane) {
+    int64_t n_out, int lane) {
   for (int f0 = 0; f0 < F; f0 += 32 * KF) {
     float sum[KF] = {};
     int64_t cur = -1;  // the current run's receiver (the same in every lane)
@@ -67,7 +68,7 @@ __device__ __forceinline__ void spmm_walk(
         d = dst_local[base + e];
       }
       const bool real = s >= 0 && s < C && d >= 0 && d < R;
-      if (prefix && __ballot_sync(0xffffffffu, real) == 0u) break;
+      if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
       const bool live = real && col0 + s < n_x && row0 + d < n_out;
       const float w = live && weight != nullptr ? to_f(weight[base + e]) : 1.f;
       unsigned todo = __ballot_sync(0xffffffffu, live);

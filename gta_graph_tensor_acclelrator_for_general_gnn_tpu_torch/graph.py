@@ -148,6 +148,31 @@ def build_host_graph(
                      edge_weight=edge_weight, n_node=n_node, n_edge=n_edge)
 
 
+# dense blocks per unit of dense-kernel work (see DenseBlockGraph.segments)
+DENSE_SEGMENT = 8
+# dense blocks per unit of K2's bf16 work (see DenseBlockGraph.wide_segments)
+DENSE_WIDE_SEGMENT = 16
+
+
+def _block_segments(rb_sorted: torch.Tensor, n_row_blocks: int,
+                    seg_len: int) -> torch.Tensor:
+    """int32[S, 3] (row block, first, end): each row block's run of
+    ``rb_sorted`` (row blocks, ascending) cut into pieces of at most
+    ``seg_len``; row blocks without an entry get none."""
+    dev = rb_sorted.device
+    bounds = torch.arange(n_row_blocks + 1, device=dev)
+    ptr = torch.searchsorted(rb_sorted.contiguous(), bounds)
+    count = ptr[1:] - ptr[:-1]
+    n_seg = (count + seg_len - 1) // seg_len
+    seg_rb = torch.repeat_interleave(torch.arange(n_row_blocks, device=dev),
+                                     n_seg)
+    first_seg = torch.cumsum(n_seg, 0) - n_seg
+    j = torch.arange(int(n_seg.sum()), device=dev) - first_seg[seg_rb]
+    k0 = ptr[seg_rb] + seg_len * j
+    k1 = torch.minimum(k0 + seg_len, ptr[seg_rb + 1])
+    return torch.stack([seg_rb, k0, k1], 1).to(torch.int32).contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class TiledGraph:
     """Block-sparse edge tiling (see the JAX ``graph.TiledGraph``).
@@ -447,10 +472,6 @@ def tile_graph_grouped(
         weight_all_unit=bool(ne == 0 or np.all(w == 1.0)))
 
 
-# dense blocks per unit of dense-kernel work (see DenseBlockGraph.segments)
-DENSE_SEGMENT = 8
-
-
 @dataclasses.dataclass(frozen=True)
 class DenseBlockGraph:
     """Dense adjacency blocks of the density split (see the JAX
@@ -467,6 +488,10 @@ class DenseBlockGraph:
         each row block's blocks cut into runs of at most ``DENSE_SEGMENT``,
         one CUDA block's work, so hub row blocks with hundreds of dense
         blocks spread over the card.
+      wide_segments: the same cut into runs of at most
+        ``DENSE_WIDE_SEGMENT``: the work of K2's bf16 path, whose CUDA
+        block owns a whole 256-row stripe and adds it into the output once
+        per run.
     """
 
     blk_rb: torch.Tensor
@@ -482,24 +507,16 @@ class DenseBlockGraph:
     values_layout: str = "rc"
     row_blocks: torch.Tensor = dataclasses.field(init=False, repr=False)
     segments: torch.Tensor = dataclasses.field(init=False, repr=False)
+    wide_segments: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         rb = self.blk_rb.to(torch.int64)
-        dev = rb.device
         order = torch.argsort(rb, stable=True)
-        bounds = torch.arange(self.n_row_blocks + 1, device=dev)
-        ptr = torch.searchsorted(rb[order].contiguous(), bounds)
-        count = ptr[1:] - ptr[:-1]
-        n_seg = (count + DENSE_SEGMENT - 1) // DENSE_SEGMENT
-        seg_rb = torch.repeat_interleave(
-            torch.arange(self.n_row_blocks, device=dev), n_seg)
-        first_seg = torch.cumsum(n_seg, 0) - n_seg
-        j = torch.arange(int(n_seg.sum()), device=dev) - first_seg[seg_rb]
-        k0 = ptr[seg_rb] + DENSE_SEGMENT * j
-        k1 = torch.minimum(k0 + DENSE_SEGMENT, ptr[seg_rb + 1])
         object.__setattr__(self, "row_blocks", order.to(torch.int32))
-        object.__setattr__(self, "segments", torch.stack(
-            [seg_rb, k0, k1], 1).to(torch.int32).contiguous())
+        for name, seg_len in (("segments", DENSE_SEGMENT),
+                              ("wide_segments", DENSE_WIDE_SEGMENT)):
+            object.__setattr__(self, name, _block_segments(
+                rb[order], self.n_row_blocks, seg_len))
 
     @property
     def n_blocks(self) -> int:

@@ -46,7 +46,8 @@ _SIGNATURES = {
     "gta_spmm_tiles": [VP, VP, VP, VP, VP, I32, VP, I32, VP,
                        I32, I32, I32, I32, I32, I64, I64, VP],
     "gta_spmm_dense_blocks": [VP, VP, VP, VP, I32, VP, I32, VP,
-                              I32, I32, I32, I32, I64, I64, VP],
+                              I32, I32, I32, I32, I32, I32, I64, I64, I64,
+                              VP],
     "gta_gat_tiles": [VP, VP, VP, VP, VP, I32, VP, I32, VP, VP, VP, VP, VP,
                       VP, I32, I32, I32, I32, I32, I32, I64, I64, I64, F32,
                       VP],

@@ -30,8 +30,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..graph import (DenseBlockGraph, GraphTensor, HybridGraph, TiledGraph,
-                     block_nnz)
+from ..compiler.schedule import _spmm_dense_smem
+from ..graph import (DENSE_SEGMENT, DENSE_WIDE_SEGMENT, DenseBlockGraph,
+                     GraphTensor, HybridGraph, TiledGraph, block_nnz)
 from . import _ext
 from .gat import _edge_grad, _gat_forward, _leaky
 from .spmm import _PLAIN_CHUNK, spmm
@@ -112,6 +113,17 @@ def _require_blocks(bg: DenseBlockGraph, dev: torch.device) -> None:
     _ext.require(bg.segments, "segments", dev, (torch.int32,), 2)
 
 
+def _aligned_rows(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it padded with zero features to a multiple of 8:
+    the bf16 path of K2 copies 16-byte pieces of x rows."""
+    F = x.shape[1]
+    if F % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    xp = x.new_zeros((x.shape[0], -(-F // 8) * 8))
+    xp[:, :F] = x
+    return xp
+
+
 def _spmm_dense_reference(bg: DenseBlockGraph, x: torch.Tensor,
                           values: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: [n_rows, F] float32, zero on unvisited rows."""
@@ -145,21 +157,32 @@ def spmm_dense_blocks(bg: DenseBlockGraph, x: torch.Tensor,
     if tuple(values.shape) != (bg.n_blocks, R, C):
         raise ValueError(f"values shape {tuple(values.shape)} != "
                          f"{(bg.n_blocks, R, C)}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and C % (16 // values.element_size()):
+        raise ValueError(f"K2's bf16 path copies 16-byte pieces of count "
+                         f"rows: block_cols {C} must be a multiple of "
+                         f"{16 // values.element_size()}")
     F = x.shape[1]
     n_rows = bg.n_row_blocks * R
     # segments add their partial stripes atomically: unvisited rows stay 0
     y = torch.zeros((n_rows, F), dtype=torch.float32, device=dev)
-    n_seg = int(bg.segments.shape[0])
+    segs, seg_cap = ((bg.wide_segments, DENSE_WIDE_SEGMENT) if bf16
+                     else (bg.segments, DENSE_SEGMENT))
+    _ext.require(segs, "segments", dev, (torch.int32,), 2)
+    n_seg = int(segs.shape[0])
     if F == 0 or n_seg == 0:
         return y
+    xk = _aligned_rows(x) if bf16 else x
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_spmm_dense_blocks(
-            bg.segments.data_ptr(), bg.row_blocks.data_ptr(),
+            segs.data_ptr(), bg.row_blocks.data_ptr(),
             bg.blk_cb.data_ptr(), values.data_ptr(),
-            _ext.DTYPE_CODE[values.dtype], x.data_ptr(),
-            _ext.DTYPE_CODE[x.dtype], y.data_ptr(), n_seg, R, C, F,
-            x.shape[0], n_rows, _ext.stream(x))
+            _ext.DTYPE_CODE[values.dtype], xk.data_ptr(),
+            _ext.DTYPE_CODE[x.dtype], y.data_ptr(), n_seg, seg_cap, R, C, F,
+            xk.shape[1], x.shape[0], n_rows,
+            _spmm_dense_smem(F, x.element_size(), values.element_size()),
+            _ext.stream(x))
     _ext.check(rc, "spmm_dense_blocks")
     spmm_dense_blocks.launches += 1
     return y

@@ -1,8 +1,9 @@
 """Device timing with CUDA events.
 
-PyTorch returns before the card finishes, so a call is bracketed by two
-CUDA events on the current stream, after warm-up calls, and the median over
-repeats is reported (:func:`cuda_time_ms`).  A device time comes only from
+PyTorch returns before the card finishes, so a call (or a run of calls in
+a row, divided by their count) is bracketed by two CUDA events on the
+current stream, after warm-up calls, and the median over repeats is
+reported (:func:`cuda_time_ms`).  A device time comes only from
 a CUDA device: :func:`cuda_time_ms` raises on any other.
 :func:`time_layer_device` is the tuner's fitness.
 """
@@ -17,9 +18,11 @@ import torch
 
 
 def cuda_time_ms(fn: Callable[[], object], *, device="cuda", warmup: int = 2,
-                 repeats: int = 10) -> List[float]:
-    """Milliseconds of each of ``repeats`` calls of ``fn()``, measured
-    between CUDA events."""
+                 repeats: int = 10, calls: int = 1) -> List[float]:
+    """Milliseconds of a call of ``fn()``, ``repeats`` times, measured
+    between CUDA events around ``calls`` calls in a row and divided by
+    ``calls``: with more than one, the host's time to enqueue a call hides
+    behind the card's work on the one before, as it does on a real path."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise RuntimeError(f"device timing needs a CUDA device, got {dev}")
@@ -32,10 +35,11 @@ def cuda_time_ms(fn: Callable[[], object], *, device="cuda", warmup: int = 2,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / calls)
     return times
 
 

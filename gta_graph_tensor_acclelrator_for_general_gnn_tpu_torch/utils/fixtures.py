@@ -160,6 +160,71 @@ def gap_a_src(rng: np.random.Generator, n_node: int, heads: int,
     return a
 
 
+# K1 and K2 widths: tiny, the 41 logits (odd, unaligned), aligned, a full
+# 128-feature tile, and several feature tiles with a ragged last one
+SPMM_WIDTHS = (8, 41, 48, 128, 300)
+HUB_NODE = 0
+HUB_COPIES = 300           # copies of one pair into the hub: runs > ET
+# dense blocks in row blocks 0-3 of seg_block_graph: both sides of the cuts
+# of DenseBlockGraph.segments (8 a run) and .wide_segments (16 a run)
+SEG_COUNTS = (8, 9, 16, 17)
+
+
+def hub_graph(seed: int = 0, n_node: int = 2048, n_edge: int = 4000,
+              hub_edges: int = 6000) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(senders, receivers, n_node) as int32 COO arrays: random edges plus
+    ``hub_edges`` from the first 128 columns into the first 128 rows, half
+    of them into ``HUB_NODE``, and ``HUB_COPIES`` copies of one pair into
+    it.  At 128-wide blocks and 32-slot tiles, row block 0 then owns some
+    200 full tiles, and one receiver's run of slots fills whole tiles."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n_node, n_edge)
+    r = rng.integers(0, n_node, n_edge)
+    hs = rng.integers(0, 128, hub_edges)
+    hr = np.where(rng.random(hub_edges) < 0.5, HUB_NODE,
+                  rng.integers(0, 128, hub_edges))
+    s = np.concatenate([s, hs, np.full(HUB_COPIES, 5)])
+    r = np.concatenate([r, hr, np.full(HUB_COPIES, HUB_NODE)])
+    return s.astype(np.int32), r.astype(np.int32), n_node
+
+
+def hub_tiling(device, seed: int = 0):
+    """The symmetric-norm tiling of :func:`hub_graph` at 128-wide blocks and
+    32-slot tiles."""
+    from .. import graph as G
+    s, r, n = hub_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, symmetric_norm=True,
+                            edge_pad_multiple=128)
+    return G.tile_graph(hg, block_rows=128, block_cols=128, tile_edges=32,
+                        device=device)
+
+
+def seg_block_graph(device, seed: int = 0):
+    """A :class:`DenseBlockGraph` of 64-wide blocks whose row blocks 0-3
+    own ``SEG_COUNTS`` dense blocks (random int8 counts 0-3, in shuffled
+    order) and whose last row block owns none."""
+    import torch
+
+    from .. import graph as G
+    block = 64
+    rng = np.random.default_rng(seed)
+    n_blk = max(SEG_COUNTS) + 1
+    rb = np.repeat(np.arange(len(SEG_COUNTS)), SEG_COUNTS)
+    cb = np.concatenate([rng.permutation(n_blk)[:c] for c in SEG_COUNTS])
+    perm = rng.permutation(len(rb))
+    vals = rng.integers(0, 4, (len(rb), block, block)).astype(np.int8)
+
+    def dev(v):
+        return torch.as_tensor(v, device=device)
+
+    return G.DenseBlockGraph(
+        blk_rb=dev(rb[perm].astype(np.int32)),
+        blk_cb=dev(cb[perm].astype(np.int32)), values=dev(vals),
+        row_mask=dev(np.arange(n_blk) < len(SEG_COUNTS)), block_rows=block,
+        block_cols=block, n_node=n_blk * block, n_row_blocks=n_blk,
+        n_col_blocks=n_blk)
+
+
 def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K1-K4 on the edge-case graph, in float32 and bfloat16: yields
     :class:`KernelCase` items (no row here sums enough terms for
@@ -172,7 +237,10 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     and normalized output.  Each at two widths: 16-byte-aligned rows (F =
     48; 4 heads of 32) and the unaligned, partial-tile width of a last
     layer (F = 41; 1 head of 41), which take separate code in the
-    kernels."""
+    kernels.  K1 and K2 also at every ``SPMM_WIDTHS``; K2 with float
+    values (of x's dtype) and on :func:`seg_block_graph` (row blocks of 8,
+    9, 16 and 17 dense blocks); K1 on :func:`hub_tiling` (full tiles, runs
+    longer than a tile)."""
     import torch
 
     from .. import graph as G
@@ -196,11 +264,14 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
            for layout in ("cr", "rc")}
     if float(hys["cr"].tiles.weight.float().max()) <= 1.0:
         raise AssertionError("fixture lost its merged multi-edge slot")
+    bg_v = G.hybrid_graph(hg, block_rows=128, block_cols=128,
+                          tile_edges=128, min_nnz=64, device=device).dense
+    hub, seg = hub_tiling(device, seed), seg_block_graph(device, seed)
     rng = np.random.default_rng(seed)
     K = KernelCase
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
-        for F in (48, 41):
+        for F in SPMM_WIDTHS:
             x = torch.tensor(rng.standard_normal((n, F)), dtype=dt,
                              device=device)
             yield K("spmm_tiles", f"dead tile F={F}", name,
@@ -212,6 +283,24 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
             stripe = y[meta["empty_row_block_start"]:]
             yield K("spmm_dense_blocks", f"unvisited stripe is 0 F={F}",
                     name, stripe, torch.zeros_like(stripe))
+        for F in (41, 48):
+            x = torch.tensor(rng.standard_normal((n, F)), dtype=dt,
+                             device=device)
+            v = bg_v.values.to(dt)
+            yield K("spmm_dense_blocks", f"{name} values F={F}", name,
+                    D.spmm_dense_blocks(bg_v, x, v),
+                    D._spmm_dense_reference(bg_v, x, v))
+            xh = torch.tensor(rng.standard_normal((hub.n_node, F)),
+                              dtype=dt, device=device)
+            yield K("spmm_tiles", f"hub, full tiles F={F}", name,
+                    SP.spmm_tiles(hub, xh, hub.weight),
+                    SP._spmm_reference(hub, xh))
+            xg = torch.tensor(rng.standard_normal((seg.n_node, F)),
+                              dtype=dt, device=device)
+            yield K("spmm_dense_blocks", f"blocks per row block "
+                    f"{SEG_COUNTS} F={F}", name,
+                    D.spmm_dense_blocks(seg, xg, seg.values),
+                    D._spmm_dense_reference(seg, xg, seg.values))
         for H, HD in ((4, 128), (1, 41)):
             h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
                              device=device)

@@ -192,7 +192,13 @@ def test_hw_config_file_and_smem_rule(tmp_path, monkeypatch):
     assert TS.tile_is_feasible(onehot, 128, heads=4, kind="gat_layer")
     assert not TS.tile_is_feasible(onehot, 128, 16 * 1024, heads=4,
                                    kind="gat_layer")
+    # K1 requests none; K2's bf16 ring holds 3 stages of a 256 x 144 B
+    # count tile and a 128-row x tile of 128 bf16 features, plus 1 KB of
+    # alignment; its float32 path none
     assert TS.smem_bytes(onehot, 128, 4, kind="spmm") == 0
+    assert TS.smem_bytes(hyb, 128, dtype_bytes=2, kind="spmm_hybrid") == (
+        3 * (256 * 144 + 128 * 128 * 2) + 1024)
+    assert TS.smem_bytes(hyb, 41, dtype_bytes=4, kind="spmm_hybrid") == 0
     assert not TS.tile_is_feasible(TS.TileConfig(32768, 128, 512), 16)
     assert not TS.tile_is_feasible(TS.TileConfig(path=TS.PATH_DENSEFULL), 16)
     monkeypatch.setenv("GTA_HW_CONFIG", str(p))
