@@ -65,9 +65,11 @@ Reddit's node count, and checks every hand-written kernel on the way:
      ``gat`` kind on the same tile, lowered with the transposed twin:
      K3's rows, K5's dad and K6's [das | dh] (over the twin) against a
      float64 sum of the same terms (``HUB_TOL``), float32 loss and
-     gradients against per-op autograd at the parameters phase 5 left
-     (each leaf also within SPREAD_X times the per-op path's own spread)
-     and at the seeded initial ones (as 5c; 8d both too), 1 warm-up and 2
+     gradients against per-op autograd at the kernel path's layer inputs
+     (so that both take the same side of leaky relu's kink) at the
+     parameters phase 5 left (each leaf also within SPREAD_X times that
+     reference's own spread) and at the seeded initial ones (as 5c; 8d
+     both too), 1 warm-up and 2
      timed bf16 AdamW steps, K3, K5 and K6 launched; (d) the ``gat_layer``
      kind's float32 gradients against per-op autograd on phase 7's reduced
      graph; (e) ``cli tune --stack`` on cora (memo and schedule in a
@@ -83,7 +85,9 @@ calls its time, the plain version's, its bound on the card from
 ``utils/roofline`` and the time of the library call that computes the same
 function, ``torch.sparse.mm`` for K1, K2 and K9, ``torch.sparse.
 sampled_addmm`` at one head for K11 and K12, else null; each timed K2
-call also prints the rate at which it streamed its count blocks), the
+and K4 call also prints the rate at which it streamed its count blocks,
+each K4 call its cell-heads per second beside the dense-cell floor, each
+K9 call the sub-tiles its work list holds and its edges per second), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script then exits non-zero without that line.  Needs
 one CUDA device.
@@ -159,7 +163,7 @@ E2E_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_TOL = {"loss": 1e-4, "grad": 1e-3}
 # 8c and 8d at the parameters the earlier phases' AdamW steps left: both
 # paths' gradients SPREAD_EVALS times; a leaf is held within the larger of
-# GRAD_TOL and SPREAD_X times the per-op path's own spread (two float32
+# GRAD_TOL and SPREAD_X times the per-op reference's own spread (two float32
 # results that reorder the same sums differ by about that spread; the
 # factor covers the maximum over two pairs and the kernel's other order)
 SPREAD_EVALS = 3
@@ -273,7 +277,7 @@ class Checks:
 
     def slice_case(self, kernel, case, dtype_name, kern, plain, dev, *,
                    split=None, terms=None, scale=None, timed_as=None,
-                   work=None, library=None, stream_bytes=None):
+                   work=None, library=None, stream_bytes=None, note=None):
         """Compare ``kern()`` with ``plain()`` at a shape of the slice;
         with ``timed_as``, also time both (CUDA events, median of REPEATS)
         as that call of a request or step, beside the call's bound
@@ -284,18 +288,20 @@ class Checks:
                                 split, terms, scale), slice_shape=True)
         if timed_as is not None:
             self.time_call(kernel, timed_as, kern, plain, dev, work, library,
-                           stream_bytes=stream_bytes)
+                           stream_bytes=stream_bytes, note=note)
 
     def time_call(self, kernel, timed_as, kern, plain, dev, work,
-                  library=None, in_row=True, stream_bytes=None) -> None:
+                  library=None, in_row=True, stream_bytes=None,
+                  note=None) -> None:
         """Time ``kern()`` and ``plain()`` (CUDA events, median of
         REPEATS; the kernel and library calls per call over CALLS in a
         row) and the library call (named by its ``label``, else
         ``torch.sparse.mm``), beside the bound ``work()``; with ``in_row``
         the call counts in the kernel's line of the JSON result, else it
-        is only printed.  ``stream_bytes`` (K2's count or value blocks)
-        prints the rate at which the kernel streamed them beside the
-        card's memory rate."""
+        is only printed.  ``stream_bytes`` (K2's and K4's count or value
+        blocks) prints the rate at which the kernel streamed them beside
+        the card's memory rate; ``note(ms)`` adds the call's own rates (K4:
+        cell-heads per second; K9: its work list and edges per second)."""
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
         from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
         ms_k = median_ms(kern, device=dev, warmup=1, repeats=REPEATS,
@@ -314,16 +320,37 @@ class Checks:
             f"(memory {RL.HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
         say(f"  {kernel:18s} {timed_as:11s} kernel {ms_k:.4f} ms   "
             f"plain {ms_p:.4f} ms   bound {w.bound_ms:.4f} ms "
-            f"({w.bound_by}){lib}{rate}"
+            f"({w.bound_by}){lib}{rate}{'' if note is None else note(ms_k)}"
             f"{'' if in_row else '   (not in the row)'}")
 
 
 def _stream_bytes(kernel: str, graph):
-    """K2's block values in bytes (the stream whose rate bounds it), else
-    None."""
-    if kernel != "spmm_dense_blocks":
+    """K2's and K4's block values in bytes (the stream whose rate bounds
+    K2, and K4's bytes bound), else None."""
+    if kernel not in ("spmm_dense_blocks", "gat_dense_blocks"):
         return None
     return graph.values.numel() * graph.values.element_size()
+
+
+def _cell_note(graph, heads: int):
+    """K4's per-call rate: the cell-heads it forms p for (every cell of
+    every dense block, per head) per second, and its floor on this card,
+    the larger of one exp per cell-head at 16 per clock per SM and ~10
+    float32 operations per cell-head at the card's f32 rate."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    cells = graph.n_blocks * graph.block_rows * graph.block_cols * heads
+    floor_ms = RL.dense_cell_floor_ms(cells)
+    return lambda ms: (f"   {cells / ms / 1e6:.1f} G cell-heads/s over "
+                       f"{cells} (dense-cell floor {floor_ms:.4f} ms)")
+
+
+def _walk_note(tg):
+    """K9's per-call rate: the sub-tiles its work list holds against all
+    the tiling's sub-tiles, and the live edges it aggregated per second."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    edges, listed = RL.live_slots(tg), int(tg.live_sub.shape[0])
+    return lambda ms: (f"   {listed} of {tg.n_tiles} sub-tiles listed, "
+                       f"{edges / ms / 1e6:.3f} Gedge/s over {edges} edges")
 
 
 def edge_case_checks(checks: Checks, dev) -> None:
@@ -395,12 +422,16 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
                     lambda: RL.gat_dense(bga, h, H), None),
             }
             for kname, (kern, plain, split, work, lib) in runs.items():
+                dense = bga if kname == "gat_dense_blocks" else bg
                 checks.slice_case(kname, f"layer {li} F={F} H={H} HD={HD}",
                                   name, kern, plain, dev, split=split,
                                   terms=terms[kname],
                                   timed_as=f"layer {li}" if timed else None,
                                   work=work, library=lib,
-                                  stream_bytes=_stream_bytes(kname, bg))
+                                  stream_bytes=_stream_bytes(kname, dense),
+                                  note=(_cell_note(bga, H)
+                                        if kname == "gat_dense_blocks"
+                                        else None))
 
 
 def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
@@ -677,7 +708,8 @@ def bench_recipes(checks: Checks, hg, dev) -> dict:
             lambda: SP._spmm_grouped_reference(tg, xd), dev,
             terms=row_terms(tg), timed_as="bench" if timed else None,
             work=lambda: RL.spmm_tail(tg, xd, 0 if w is None else 4),
-            library=checks.sparse_mm(tg, xd) if timed else None)
+            library=checks.sparse_mm(tg, xd) if timed else None,
+            note=_walk_note(tg))
     # K2 on the recipe's dense blocks and K1 on its per-tile tail (the
     # bench's shapes; printed with times, not in the kernels' rows)
     rt = recipes[("SpMM", "tiles")].split
@@ -834,7 +866,8 @@ def grouped_gcn(checks: Checks, model, hg, g, dev) -> int:
                         t, x.abs(), weight=t.weight.abs()),
                     timed_as=f"l{li}{what}" if timed else None,
                     work=lambda: RL.spmm_tail(t, x, 4),
-                    library=checks.sparse_mm(t, x) if timed else None)
+                    library=checks.sparse_mm(t, x) if timed else None,
+                    note=_walk_note(t))
 
     rng = np.random.default_rng(11)
     x = torch.tensor(rng.standard_normal((hg.n_node, F_IN),
@@ -1368,25 +1401,94 @@ def _loss_and_grads(model, f, g, x, labels, mask) -> tuple:
     return out + (time.perf_counter() - t0,)
 
 
+def _recording(fn):
+    """``fn`` layer by layer, keeping the input it gave each layer
+    (detached) in ``.inputs`` after every call."""
+    def apply(params, g, x):
+        apply.inputs = []
+        h = x
+        for lf in fn.layer_fns:
+            apply.inputs.append(h.detach())
+            h = lf(params, g, h)
+        return h
+
+    return apply
+
+
+def _per_op_at_layer_inputs(model, inputs):
+    """The per-op path with every layer after the first evaluated at
+    ``inputs`` (what one evaluation of the kernel path gave each layer,
+    :func:`_recording`): the value is the kernel path's, the gradient flows
+    into the per-op path's own previous layer.  GAT's leaky relu has a kink
+    at logit 0; a layer-1 logit within the two forwards' rounding of 0 (or
+    within the rounding of the kernel path's float32 atomics from one
+    evaluation to the next) takes the other branch in each, which moves
+    every upstream gradient by far more than rounding, while each gradient
+    is right for its own forward.  At the same layer inputs both paths
+    take the same branches, so the comparison measures the backward alone;
+    the forward is held by the loss and by the served answers' checks."""
+    import torch
+
+    class AtValue(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, own, value):
+            if own.shape != value.shape or own.dtype != value.dtype:
+                raise AssertionError(f"layer input {tuple(own.shape)} "
+                                     f"{own.dtype} vs the kernel path's "
+                                     f"{tuple(value.shape)} {value.dtype}")
+            return value.clone()
+
+        @staticmethod
+        def backward(ctx, gy):
+            return gy, None
+
+    ref = model.make_apply(None)
+    if len(ref.layer_fns) != len(inputs):
+        raise AssertionError("the kernel path and the per-op path have "
+                             "different layer counts")
+
+    def apply(params, g, x):
+        h = x
+        for i, lf in enumerate(ref.layer_fns):
+            if i:
+                h = AtValue.apply(h, inputs[i])
+            h = lf(params, g, h)
+        return h
+
+    return apply
+
+
 def _grads_against_per_op(what: str, model, fn, g, x, labels, mask,
                           spread: bool = False) -> None:
-    """Float32 loss and every parameter's gradient of ``fn`` against
-    autograd of the per-op path, within GRAD_TOL.  With ``spread`` (the
-    trained parameters), both paths run SPREAD_EVALS times and a leaf's
-    bound is the larger of GRAD_TOL and SPREAD_X times the per-op path's
-    own spread in this run (its float32 atomics reorder from one
-    evaluation to the next): at trained parameters a leaf whose terms
-    cancel can be small beside its rounding noise."""
+    """Float32 loss of ``fn`` against the per-op path, within GRAD_TOL, and
+    every parameter's gradient against autograd of the per-op path at the
+    layer inputs of the same evaluation of ``fn``
+    (:func:`_per_op_at_layer_inputs`), within GRAD_TOL; the gradients of
+    the per-op path's own forward are printed beside them.  With
+    ``spread`` (the trained parameters), the kernel path and the reference
+    run SPREAD_EVALS times and a leaf's bound is the larger of GRAD_TOL and
+    SPREAD_X times the reference's own spread in this run (its float32
+    atomics reorder from one evaluation to the next): at trained parameters
+    a leaf whose terms cancel can be small beside its rounding noise."""
     import torch
 
     n = SPREAD_EVALS if spread else 1
-    res = {}
-    for path, f in (("kernel", fn), ("per-op", model.make_apply(None))):
+    at = "per-op at the kernel path's layer inputs"
+    kfn = _recording(fn)
+    res = {"kernel": [_loss_and_grads(model, kfn, g, x, labels, mask)]}
+    inputs = kfn.inputs
+    res["kernel"] += [_loss_and_grads(model, kfn, g, x, labels, mask)
+                      for _ in range(n - 1)]
+    for path, f, evals in (("per-op", model.make_apply(None), 1),
+                           (at, _per_op_at_layer_inputs(model, inputs), n)):
         res[path] = [_loss_and_grads(model, f, g, x, labels, mask)
-                     for _ in range(n)]
-        say(f"  {what} {path}: loss {res[path][0][0]:.6f}, forward + "
-            f"backward {res[path][0][2]:.2f} s")
-    (lk, gk, _), (lr, gr, _) = res["kernel"][0], res["per-op"][0]
+                     for _ in range(evals)]
+    del inputs
+    for path, r in res.items():
+        say(f"  {what} {path}: loss {r[0][0]:.6f}, forward + backward "
+            f"{r[0][2]:.2f} s")
+    (lk, gk, _), (lr, gown, _) = res["kernel"][0], res["per-op"][0]
+    gr = res[at][0][1]
     rel = abs(lk - lr) / max(1.0, abs(lr))
     say(f"  {what} loss: relative {rel:.3e} (bound {GRAD_TOL['loss']:.0e})")
     if not rel <= GRAD_TOL["loss"]:
@@ -1399,12 +1501,15 @@ def _grads_against_per_op(what: str, model, fn, g, x, labels, mask,
         err = dev_from(gr[k], res["kernel"][:1])
         bound, extra = GRAD_TOL["grad"], ""
         if spread:
-            own = dev_from(gr[k], res["per-op"][1:])
+            own = dev_from(gr[k], res[at][1:])
             k_own = dev_from(gk[k], res["kernel"][1:])
             bound = max(bound, SPREAD_X * own)
-            extra = (f"; per-op's own spread {own:.3e}, the kernel path's "
-                     f"{k_own:.3e}")
-        say(f"  {what} d{k}: relative {err:.3e} (bound {bound:.3e}){extra}")
+            extra = (f"; the reference's own spread {own:.3e}, the kernel "
+                     f"path's {k_own:.3e}")
+        unaligned = float((gk[k] - gown[k]).abs().max()) / float(
+            gown[k].abs().max())
+        say(f"  {what} d{k}: relative {err:.3e} (bound {bound:.3e}){extra}; "
+            f"to the per-op path's own forward {unaligned:.3e}")
         if not (bool(torch.isfinite(gk[k]).all()) and err <= bound):
             raise AssertionError(f"{what} d{k}: {err}")
 
@@ -1682,8 +1787,9 @@ def gat_kind_training(model, init_params, hg, g, dev) -> dict:
     """Phase 8c: GAT-2l with the attention chain as the ``gat`` kind (K3)
     over 512x1024x512 ``onehot`` tiles and its transposed twin (the JAX
     one-hot training recipe), lowered per dtype: float32 loss and
-    gradients against per-op autograd at the trained and the initial
-    parameters, then 1 warm-up and 2 timed bf16 AdamW steps.  Returns K3's, K5's and K6's launches during the
+    gradients against per-op autograd (at the kernel path's layer inputs)
+    at the trained and the initial parameters, then 1 warm-up and 2 timed
+    bf16 AdamW steps.  Returns K3's, K5's and K6's launches during the
     steps."""
     import torch
 
@@ -1750,8 +1856,8 @@ def gat_kind_training(model, init_params, hg, g, dev) -> dict:
 def whole_layer_grads(model, init_params, dev) -> None:
     """Phase 8d: the ``gat_layer`` kind's float32 loss and gradients (its
     backward is autograd of the exact edge formulation, [E, HD] tensors)
-    against per-op autograd on phase 7's reduced graph, at the trained and
-    the initial parameters."""
+    against per-op autograd (at the kernel path's layer inputs) on phase
+    7's reduced graph, at the trained and the initial parameters."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import gat_onehot_schedules
@@ -1904,7 +2010,8 @@ def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev) -> dict:
     model's seeded initial parameters (``init_params``, as 5c does): the
     trained state depends on the order of earlier float32 atomics (Adam
     turns the rounding noise of a near-zero gradient into full steps), so
-    there each leaf is held within the per-op path's own spread too."""
+    there each leaf is held within the per-op reference's own spread
+    too."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
     t0 = time.perf_counter()
     say("== 8a whole-layer and exp-panel kernels K14, K15: edge cases")

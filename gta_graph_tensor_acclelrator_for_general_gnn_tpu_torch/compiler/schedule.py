@@ -393,10 +393,35 @@ PATH_KINDS = {
 }
 
 
-def _dense_attention_smem(HD: int, H: int, dtype_bytes: int,
-                          panel: bool) -> int:
-    """K4 / K15, csrc/gat_dense_blocks.cu smem_bytes (column chunk and
-    tensor-core choice as its launch_h picks them)."""
+def _gat_wgmma_width(H: int, D: int) -> int:
+    """N, the padded head width of K4's bf16 wgmma path
+    (csrc/gat_dense_blocks.cu wgmma_width): the next of 8, 32, 48, 64, 128
+    at or above D, for 1, 2, 4 or 8 heads with H N <= 128; else 0 (the
+    shape runs on the mma.sync kernel)."""
+    if H not in (1, 2, 4, 8):
+        return 0
+    n = next((w for w in (8, 32, 48, 64, 128) if w >= D), 0)
+    return n if H * n <= 128 else 0
+
+
+def _dense_attention_smem(HD: int, H: int, dtype_bytes: int, panel: bool,
+                          values_bytes: Optional[int] = None) -> int:
+    """K4 / K15, csrc/gat_dense_blocks.cu, as the K4 wrapper passes it to
+    the launch.  bf16 h on K4's wgmma path: 3 ring stages of the h panel
+    (H N rows of 128 bytes), a count tile of 64 columns by 256 rows (int8
+    counts, ``values_bytes`` 1, or bf16 values, 2, in the larger of its two
+    layouts; None: the larger) and a_s of the chunk, each stage rounded up
+    to 1 KB, plus 1 KB of alignment and the rows' a_d and bound; else the
+    mma.sync / FMA kernel's smem_bytes (column chunk and tensor-core choice
+    as its launch_h picks them)."""
+    n = _gat_wgmma_width(H, HD // H) if dtype_bytes == 2 and not panel else 0
+    if n:
+        def ring(vb):
+            tile = max(64 * (256 * vb + 16), 256 * (64 * vb + 16))
+            stage = -(-(H * n * 128 + tile + 64 * H * 4) // 1024) * 1024
+            return 3 * stage + 1024 + 2 * 256 * H * 4
+        return (max(ring(1), ring(2)) if values_bytes is None
+                else ring(values_bytes))
     BM, PAD = 64, 8
     cc = 32
     while cc > 4 and H * BM * cc * 4 > 32 * 1024:

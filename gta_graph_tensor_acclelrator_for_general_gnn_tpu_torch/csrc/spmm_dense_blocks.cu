@@ -41,10 +41,16 @@
 // float32 x stays on the CUDA cores (f32 FMAs over 64 x 64 tiles, 8 dense
 // blocks per CUDA block), so float32 stays float32.  The separable
 // row/column scales stay outside, in plain torch, as on the TPU.
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+using gta::cp_async16;
+using gta::cp_async_commit;
+using gta::cp_async_wait;
+using gta::fence_reg;
+using gta::pack_bf16;
+using gta::smem_desc;
 using gta::to_f;
 
 constexpr int BM = 64, BN = 64, BK = 32, THREADS = 256;
@@ -137,44 +143,6 @@ __host__ __device__ constexpr int stage_bytes() {
   return WG_ROWS * ATile<VT>::STRIDE + ATile<VT>::KC * N * 2;
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-// the copies this thread saw land, made visible to the tensor cores' reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across wgmma
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
-// shared-memory matrix descriptor of an MN-major B in the 128-byte swizzle
-// layout: start address, leading byte offset (between 64-feature atoms
-// along n) and stride byte offset (between 8-row groups along k), in
-// 16-byte units; layout type 1 (B128) in bits 62-63
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
 // byte offset of the 16-byte piece (logical k row L, feature unit j of 8)
 // in an x tile of N features: 1 KB atoms of 8 k rows x 64 features, atom
 // (L / 8, j / 8) at ((L / 8) (N / 64) + j / 8) KB, row L % 8 at 128 B,
@@ -186,62 +154,6 @@ __device__ __forceinline__ int x_offset(int L, int j) {
   return ((L >> 3) * (N / 64) + (j >> 3)) * 1024 + 128 * kr + 16 * ((j & 7) ^ kr);
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N]: A in registers (the mma.m16n8k16 A
-// fragment of each warp's 16 rows), B by descriptor, MN-major (imm-trans-b)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b);
-
-template <> __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                                      uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <> __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                                      uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 __device__ __forceinline__ float byte_f(uint32_t w, int i) {
   return static_cast<float>(static_cast<int8_t>((w >> (8 * i)) & 0xffu));
 }
@@ -350,7 +262,7 @@ spmm_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict_
   }
   for (int it = 0; it < iters; ++it) {
     cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
+    gta::fence_proxy_async();
     __syncthreads();  // chunk `it` landed for all; stage (it - 1) is free
     if (active) {     // issue this chunk's products, then the next copies
       const char* sa = smem + (it % STAGES) * SB;
@@ -363,16 +275,16 @@ spmm_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict_
       }
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) fence_reg(acc[i]);
-      wgmma_fence();
+      gta::wgmma_fence();
 #pragma unroll
       for (int s = 0; s < KSTEPS; ++s)
-        wgmma_rs<N>(acc, a[s], smem_desc(sx + 2 * s * SBO, LBO, SBO));
-      wgmma_commit();
+        gta::wgmma_rs<N, 1>(acc, a[s], smem_desc(sx + 2 * s * SBO, LBO, SBO));
+      gta::wgmma_commit();
     }
     if (it + STAGES - 1 < iters) load_stage(it + STAGES - 1, (it + STAGES - 1) % STAGES);
     cp_async_commit();
     if (active) {
-      wgmma_wait_all();
+      gta::wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) fence_reg(acc[i]);
     }

@@ -20,7 +20,7 @@
 //
 // Design: one warp per tile, so the work spreads evenly over the card
 // whatever the row-block skew; dead tiles (cb < 0) are skipped whole.  The
-// warp reads the tile's slots 32 at a time, keeps the live ones by ballot
+// walk is gta::spmm_walk (tile_walk.cuh), which K9 shares.  The warp reads the tile's slots 32 at a time, keeps the live ones by ballot
 // (pad slots are never addressed), and stops at the first 32 without an
 // edge: the builders fill a prefix of each tile's slots, so a tile ~10%
 // full costs one read past its edges instead of its ~90% padding.  It takes
@@ -45,52 +45,13 @@
 // (__fmul_rn: never contracted into an FMA).  The atomics make the f32
 // summation order of the run sums vary from run to run: results differ
 // from the exact sum by f32 rounding only.
-#include "common.cuh"
+#include "tile_walk.cuh"
 
 namespace {
 
-using gta::round_to;
-using gta::to_f;
-
 constexpr int WARPS = 8;   // warps (tiles) per CUDA block
-constexpr int PF = 4;      // row gathers in flight per warp
 
-// VEC values of x in one aligned load, kept packed until they are summed
-// (value i of a packed bf16 load is half i % 2 of its word i / 2; an
-// unpacking through memory would put the loads in local memory)
-template <typename T, int VEC> struct VecLoad;
-template <> struct VecLoad<__nv_bfloat16, 4> { using type = uint2; };
-template <> struct VecLoad<float, 4> { using type = float4; };
-template <typename T> struct VecLoad<T, 1> { using type = T; };
-
-__device__ __forceinline__ float bf16_half(uint32_t w, int h) {
-  return __uint_as_float(h ? w & 0xffff0000u : w << 16);
-}
-__device__ __forceinline__ float unpack(const uint2& v, int i) {
-  return bf16_half(i >> 1 ? v.y : v.x, i & 1);
-}
-__device__ __forceinline__ float unpack(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float unpack(float v, int) { return v; }
-__device__ __forceinline__ float unpack(__nv_bfloat16 v, int) { return __bfloat162float(v); }
-
-template <typename V> __device__ __forceinline__ V zero_of() { return V{}; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
-  return __ushort_as_bfloat16(0);
-}
-
-template <int VEC>
-__device__ __forceinline__ void add_vec(float* p, const float* v) {
-  if (VEC == 4)
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  else
-    atomicAdd(p, v[0]);
-}
-
-// E edges per load (1 or 2): the warp splits into E groups of LG = 32 / E
-// lanes, each taking its own live slots; lane k of a group holds features
-// f0 + (k + LG i) VEC + [0, VEC), i < NV, of a pass
+// the walk itself is gta::spmm_walk (tile_walk.cuh), shared with K9
 template <typename XT, typename WT, int VEC, int NV, int E>
 __global__ void __launch_bounds__(WARPS * 32)
 spmm_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_cb,
@@ -98,120 +59,44 @@ spmm_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_
                   const int16_t* __restrict__ dst_local, const WT* __restrict__ weight,
                   const XT* __restrict__ x, float* __restrict__ y, int T, int R, int C,
                   int ET, int F, int64_t n_x, int64_t n_out) {
-  static_assert(E == 1 || E == 2, "one or two lane groups");
-  using V = typename VecLoad<XT, VEC>::type;
-  constexpr int LG = 32 / E;          // lanes a group
-  constexpr int W = LG * VEC * NV;    // features a pass
-  const int lane = threadIdx.x & 31, grp = lane / LG, k = lane % LG;
   const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (t >= T) return;
   const int cb = tile_cb[t];
   if (cb < 0) return;  // dead tile
-  const int64_t row0 = static_cast<int64_t>(tile_rb[t]) * R;
-  const int64_t col0 = static_cast<int64_t>(cb) * C, base = static_cast<int64_t>(t) * ET;
-  for (int f0 = 0; f0 < F; f0 += W) {
-    float sum[NV][VEC] = {};
-    int64_t cur = -1;  // the group's current run's receiver
-    auto flush = [&]() {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int f = f0 + (k + LG * i) * VEC;
-        if (f < F) add_vec<VEC>(y + cur * F + f, sum[i]);
-      }
-    };
-    for (int e0 = 0; e0 < ET; e0 += 32) {
-      const int e = e0 + lane;
-      int s = C, d = R;
-      if (e < ET) {
-        s = src_local[base + e];
-        d = dst_local[base + e];
-      }
-      const bool real = s >= 0 && s < C && d >= 0 && d < R;
-      if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
-      const bool live = real && col0 + s < n_x && row0 + d < n_out;
-      const float w = live ? to_f(weight[base + e]) : 0.f;
-      const unsigned all = __ballot_sync(0xffffffffu, live);
-      // group g takes the g-th half of the live slots, in slot order
-      unsigned todo = all;
-      if (E > 1) {
-        const int n = __popc(all), rank = __popc(all & ((1u << lane) - 1u));
-        const unsigned first = __ballot_sync(0xffffffffu, live && rank < (n + 1) / 2);
-        todo = grp == 0 ? first : all & ~first;
-      }
-      while (__any_sync(0xffffffffu, todo != 0u)) {
-        int dq[PF];
-        float wq[PF];
-        V xv[PF][NV];
-#pragma unroll
-        for (int q = 0; q < PF; ++q) {
-          const int j = todo ? __ffs(todo) - 1 : -1;  // -1: past the group's last
-          todo &= todo - 1;
-          const int src = j >= 0 ? j : 0;
-          // every lane shuffles: the groups' j differ, and one may be done
-          const int sj = __shfl_sync(0xffffffffu, s, src);
-          const int dj = __shfl_sync(0xffffffffu, d, src);
-          dq[q] = j >= 0 ? dj : -1;
-          wq[q] = __shfl_sync(0xffffffffu, w, src);
-          const XT* xr = x + (col0 + sj) * F;
-#pragma unroll
-          for (int i = 0; i < NV; ++i) {
-            const int f = f0 + (k + LG * i) * VEC;
-            xv[q][i] = j >= 0 && f < F ? *reinterpret_cast<const V*>(xr + f) : zero_of<V>();
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < PF; ++q) {
-          if (dq[q] < 0) break;
-          if (row0 + dq[q] != cur) {
-            if (cur >= 0) flush();
-            cur = row0 + dq[q];
-#pragma unroll
-            for (int i = 0; i < NV; ++i)
-#pragma unroll
-              for (int v = 0; v < VEC; ++v) sum[i][v] = 0.f;
-          }
-#pragma unroll
-          for (int i = 0; i < NV; ++i)
-#pragma unroll
-            for (int v = 0; v < VEC; ++v)
-              sum[i][v] += round_to<XT>(__fmul_rn(wq[q], unpack(xv[q][i], v)));
-        }
-      }
-    }
-    if (cur >= 0) flush();
+  gta::spmm_walk<XT, WT, VEC, NV, E>(src_local, dst_local, weight,
+                                     static_cast<int64_t>(t) * ET, ET, R, C,
+                                     static_cast<int64_t>(tile_rb[t]) * R,
+                                     static_cast<int64_t>(cb) * C, x, y, F, n_x, n_out,
+                                     threadIdx.x & 31);
+}
+
+template <typename XT, typename WT>
+struct Launch {
+  const int *rb, *cb;
+  const int16_t *s, *d;
+  const void *w, *x;
+  float* y;
+  int T, R, C, ET, F;
+  int64_t n_x, n_out;
+  cudaStream_t st;
+  template <int VEC, int NV, int E>
+  cudaError_t run() const {
+    spmm_tiles_kernel<XT, WT, VEC, NV, E><<<(T + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(
+        rb, cb, s, d, static_cast<const WT*>(w), static_cast<const XT*>(x), y, T, R, C,
+        ET, F, n_x, n_out);
+    return cudaGetLastError();
   }
-}
+};
 
-template <typename XT, typename WT, int VEC, int NV, int E>
-cudaError_t launch_cfg(const int* rb, const int* cb, const int16_t* s,
-                       const int16_t* d, const void* w, const void* x, float* y, int T, int R,
-                       int C, int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
-  spmm_tiles_kernel<XT, WT, VEC, NV, E><<<(T + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(
-      rb, cb, s, d, static_cast<const WT*>(w), static_cast<const XT*>(x), y, T, R, C,
-      ET, F, n_x, n_out);
-  return cudaGetLastError();
-}
-
-// Where x's rows allow aligned 4-feature loads: bf16 rows by half-warps,
-// two edges a load, each lane 4 + 4 features 64 apart (8-byte loads; a
-// half-warp's load and float4 atomic cover 64 contiguous features, one
-// pass per 128), float32 rows by the whole warp, 4 features a lane (16-byte
-// loads, one pass per 128); else 1 feature a lane, two a lane a pass
 template <typename XT, typename WT>
 cudaError_t launch(const int* rb, const int* cb, const int16_t* s,
                    const int16_t* d, const void* w, const void* x, float* y, int T, int R,
                    int C, int ET, int F, int64_t n_x, int64_t n_out, cudaStream_t st) {
-  if (F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(XT)) == 0) {
-    if constexpr (sizeof(XT) == 2)
-      return launch_cfg<XT, WT, 4, 2, 2>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
-    else
-      return launch_cfg<XT, WT, 4, 1, 1>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
-  }
-  return launch_cfg<XT, WT, 1, 2, 1>(rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st);
+  return gta::spmm_walk_config<XT>(
+      x, F, Launch<XT, WT>{rb, cb, s, d, w, x, y, T, R, C, ET, F, n_x, n_out, st});
 }
 
 }  // namespace
-
 extern "C" const char* gta_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,7 +1,7 @@
-// Slot walks shared by the edge-tile kernels: K3 and K11 walk one tile of
-// a TiledGraph per warp, the grouped kernels K9, K10 and K12 one sub-tile
-// of a GroupedTiledGraph chunk per warp (K1 has its own, row-owned walk
-// in spmm_tiles.cu).  A tile is ET slots of
+// Slot walks shared by the edge-tile kernels: K1, K3 and K11 walk one tile
+// of a TiledGraph per warp, the grouped kernels K9, K10 and K12 one
+// sub-tile of a GroupedTiledGraph chunk per warp (K1 and K9 by the one
+// SpMM walk, spmm_walk).  A tile is ET slots of
 // (src_local, dst_local[, weight]); slot e holds edge
 // (col0 + src_local[e]) -> (row0 + dst_local[e]), and pad slots carry
 // src == C or dst == R.
@@ -27,39 +27,83 @@
 
 namespace gta {
 
-// Features each lane holds per pass of spmm_walk at width F: the next power
-// of two >= F / 32, at most 8 (one pass per 256 features beyond that).
-inline int spmm_lane_features(int F) {
-  int k = 1;
-  while (k < 8 && 32 * k < F) k *= 2;
-  return k;
+// ---- the SpMM walk of K1 and K9 -------------------------------------------
+
+// VEC values of x in one aligned load, kept packed until they are summed
+// (value i of a packed bf16 load is half i % 2 of its word i / 2; an
+// unpacking through memory would put the loads in local memory)
+template <typename T, int VEC> struct VecLoad;
+template <> struct VecLoad<__nv_bfloat16, 4> { using type = uint2; };
+template <> struct VecLoad<float, 4> { using type = float4; };
+template <typename T> struct VecLoad<T, 1> { using type = T; };
+
+__device__ __forceinline__ float bf16_half(uint32_t w, int h) {
+  return __uint_as_float(h ? w & 0xffff0000u : w << 16);
+}
+__device__ __forceinline__ float unpack(const uint2& v, int i) {
+  return bf16_half(i >> 1 ? v.y : v.x, i & 1);
+}
+__device__ __forceinline__ float unpack(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float unpack(float v, int) { return v; }
+__device__ __forceinline__ float unpack(__nv_bfloat16 v, int) { return __bfloat162float(v); }
+
+template <typename V> __device__ __forceinline__ V zero_of() { return V{}; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
 }
 
-template <int KF>
-__device__ __forceinline__ void spmm_flush_run(float* __restrict__ yr, int f0, int F,
-                                               const float* sum, int lane) {
-#pragma unroll
-  for (int k = 0; k < KF; ++k) {
-    const int f = f0 + lane + 32 * k;
-    if (f < F) atomicAdd(yr + f, sum[k]);
-  }
+template <int VEC>
+__device__ __forceinline__ void add_vec(float* p, const float* v) {
+  if (VEC == 4)
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else
+    atomicAdd(p, v[0]);
 }
 
-// y[row0 + d] += round_to<XT>(w * x[col0 + s]) for each live slot; a null
-// `weight` means every edge weighs 1 (the weight stream is not read).  One
-// pass per 32 KF features: lane l holds features f0 + l, f0 + l + 32, ...
-// of the current run's sum and adds it into y when the receiver changes
-// and after the walk.  w * x is rounded before the sum (__fmul_rn: never
-// contracted into an FMA), as the plain version computes it.
-template <typename XT, typename WT, int KF>
+constexpr int SPMM_PF = 4;  // row gathers in flight per lane group
+
+// y[row0 + d] += round_to<XT>(w * x[col0 + s]) for each live slot of one
+// tile (K1) or sub-tile (K9); a null `weight` means every edge weighs 1
+// (the weight stream is not read).  The warp reads the slots 32 at a time,
+// keeps the live ones by ballot and stops at the first 32 without an edge.
+// E edges per load (1 or 2): the warp splits into E groups of LG = 32 / E
+// lanes, each taking its own half of a window's live slots in slot order;
+// lane k of a group holds features f0 + (k + LG i) VEC + [0, VEC), i < NV,
+// of a pass.  A group takes its live slots SPMM_PF at a time: their
+// senders, receivers and weights by shuffle, then the loads of all PF rows
+// are issued before the first is used, so each group keeps PF rows in
+// flight.  It sums its terms in slot order into register sums of its
+// current receiver's run of slots and adds a run's sums into y with one
+// float32 atomic per value (float4 atomics where VEC = 4) when the
+// receiver changes and after the walk.  w * x is rounded before the sum
+// (__fmul_rn: never contracted into an FMA), as the plain version computes
+// it.  The launchers pick VEC 4 where F % 4 == 0 and x is aligned for it
+// (bf16 rows by half-warps, E = 2, NV = 2: each 8-byte load and float4
+// atomic of a half-warp covers 64 contiguous features; float32 rows by
+// the whole warp, 16-byte loads), else 1 feature a lane, two a pass.
+template <typename XT, typename WT, int VEC, int NV, int E>
 __device__ __forceinline__ void spmm_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
     const WT* __restrict__ weight, int64_t base, int ET, int R, int C, int64_t row0,
     int64_t col0, const XT* __restrict__ x, float* __restrict__ y, int F, int64_t n_x,
     int64_t n_out, int lane) {
-  for (int f0 = 0; f0 < F; f0 += 32 * KF) {
-    float sum[KF] = {};
-    int64_t cur = -1;  // the current run's receiver (the same in every lane)
+  static_assert(E == 1 || E == 2, "one or two lane groups");
+  using V = typename VecLoad<XT, VEC>::type;
+  constexpr int LG = 32 / E;          // lanes a group
+  constexpr int W = LG * VEC * NV;    // features a pass
+  const int grp = lane / LG, k = lane % LG;
+  for (int f0 = 0; f0 < F; f0 += W) {
+    float sum[NV][VEC] = {};
+    int64_t cur = -1;  // the group's current run's receiver
+    auto flush = [&]() {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int f = f0 + (k + LG * i) * VEC;
+        if (f < F) add_vec<VEC>(y + cur * F + f, sum[i]);
+      }
+    };
     for (int e0 = 0; e0 < ET; e0 += 32) {
       const int e = e0 + lane;
       int s = C, d = R;
@@ -70,30 +114,70 @@ __device__ __forceinline__ void spmm_walk(
       const bool real = s >= 0 && s < C && d >= 0 && d < R;
       if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
       const bool live = real && col0 + s < n_x && row0 + d < n_out;
-      const float w = live && weight != nullptr ? to_f(weight[base + e]) : 1.f;
-      unsigned todo = __ballot_sync(0xffffffffu, live);
-      while (todo) {
-        const int j = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int sj = __shfl_sync(0xffffffffu, s, j);
-        const int64_t r = row0 + __shfl_sync(0xffffffffu, d, j);
-        const float wj = __shfl_sync(0xffffffffu, w, j);
-        if (r != cur) {
-          if (cur >= 0) spmm_flush_run<KF>(y + cur * F, f0, F, sum, lane);
-          cur = r;
+      const float w = !live ? 0.f : weight != nullptr ? to_f(weight[base + e]) : 1.f;
+      const unsigned all = __ballot_sync(0xffffffffu, live);
+      // group g takes the g-th half of the live slots, in slot order
+      unsigned todo = all;
+      if (E > 1) {
+        const int n = __popc(all), rank = __popc(all & ((1u << lane) - 1u));
+        const unsigned first = __ballot_sync(0xffffffffu, live && rank < (n + 1) / 2);
+        todo = grp == 0 ? first : all & ~first;
+      }
+      while (__any_sync(0xffffffffu, todo != 0u)) {
+        int dq[SPMM_PF];
+        float wq[SPMM_PF];
+        V xv[SPMM_PF][NV];
 #pragma unroll
-          for (int k = 0; k < KF; ++k) sum[k] = 0.f;
+        for (int q = 0; q < SPMM_PF; ++q) {
+          const int j = todo ? __ffs(todo) - 1 : -1;  // -1: past the group's last
+          todo &= todo - 1;
+          const int src = j >= 0 ? j : 0;
+          // every lane shuffles: the groups' j differ, and one may be done
+          const int sj = __shfl_sync(0xffffffffu, s, src);
+          const int dj = __shfl_sync(0xffffffffu, d, src);
+          dq[q] = j >= 0 ? dj : -1;
+          wq[q] = __shfl_sync(0xffffffffu, w, src);
+          const XT* xr = x + (col0 + sj) * F;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int f = f0 + (k + LG * i) * VEC;
+            xv[q][i] = j >= 0 && f < F ? *reinterpret_cast<const V*>(xr + f) : zero_of<V>();
+          }
         }
-        const XT* xr = x + (col0 + sj) * F;
 #pragma unroll
-        for (int k = 0; k < KF; ++k) {
-          const int f = f0 + lane + 32 * k;
-          if (f < F) sum[k] += round_to<XT>(__fmul_rn(wj, to_f(xr[f])));
+        for (int q = 0; q < SPMM_PF; ++q) {
+          if (dq[q] < 0) break;
+          if (row0 + dq[q] != cur) {
+            if (cur >= 0) flush();
+            cur = row0 + dq[q];
+#pragma unroll
+            for (int i = 0; i < NV; ++i)
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) sum[i][v] = 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < NV; ++i)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              sum[i][v] += round_to<XT>(__fmul_rn(wq[q], unpack(xv[q][i], v)));
         }
       }
     }
-    if (cur >= 0) spmm_flush_run<KF>(y + cur * F, f0, F, sum, lane);
+    if (cur >= 0) flush();
   }
+}
+
+// Runs launch.template run<VEC, NV, E>() with the walk's configuration for
+// x's dtype, width and alignment (see spmm_walk)
+template <typename XT, typename Launch>
+cudaError_t spmm_walk_config(const void* x, int F, const Launch& launch) {
+  if (F % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(XT)) == 0) {
+    if constexpr (sizeof(XT) == 2)
+      return launch.template run<4, 2, 2>();
+    else
+      return launch.template run<4, 1, 1>();
+  }
+  return launch.template run<1, 2, 1>();
 }
 
 constexpr int GAT_MAXF = 8;  // features per lane: HD <= 256

@@ -346,6 +346,10 @@ class GroupedTiledGraph:
       weight_all_unit: every REAL edge weighs exactly 1.0 (taken from the
         edges, not the slots, whose padding is 0), so kernels may skip the
         weight stream.
+      live_sub: int32[n_live] flat indices ``c * G + j`` of the sub-tiles
+        that hold an edge, ascending, derived once at construction from
+        each sub-tile's slot 0 (its live slots are a prefix): K9's work
+        list, so no warp is spent on an empty sub-tile.
     """
 
     chunk_grp: torch.Tensor
@@ -363,6 +367,15 @@ class GroupedTiledGraph:
     n_col_blocks: int
     grp_first_chunk: Tuple[int, ...]
     weight_all_unit: bool = False
+    live_sub: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        s0 = self.src_local[:, :, 0]
+        d0 = self.dst_local[:, :, 0]
+        real = ((s0 >= 0) & (s0 < self.block_cols) & (d0 >= 0)
+                & (d0 < self.block_rows))
+        object.__setattr__(self, "live_sub", torch.nonzero(
+            real.reshape(-1)).reshape(-1).to(torch.int32))
 
     @property
     def n_chunks(self) -> int:

@@ -30,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..compiler.schedule import _spmm_dense_smem
+from ..compiler.schedule import (_dense_attention_smem, _gat_wgmma_width,
+                                 _spmm_dense_smem)
 from ..graph import (DENSE_SEGMENT, DENSE_WIDE_SEGMENT, DenseBlockGraph,
                      GraphTensor, HybridGraph, TiledGraph, block_nnz)
 from . import _ext
@@ -303,18 +304,35 @@ def gat_dense_blocks(bg: DenseBlockGraph, h: torch.Tensor,
     n_rows = bg.n_row_blocks * R
     # segments add their partials atomically: unvisited rows stay 0
     out = torch.zeros((n_rows, HD + H), dtype=torch.float32, device=dev)
-    n_seg = int(bg.segments.shape[0])
+    N = _gat_wgmma_width(H, HD // H) if h.dtype == torch.bfloat16 else 0
+    if N and (R % 16 or C % 16):
+        raise ValueError(f"K4's bf16 path copies 16-byte pieces of count "
+                         f"rows: block_rows {R} and block_cols {C} must be "
+                         "multiples of 16")
+    segs, seg_cap = ((bg.wide_segments, DENSE_WIDE_SEGMENT) if N
+                     else (bg.segments, DENSE_SEGMENT))
+    _ext.require(segs, "segments", dev, (torch.int32,), 2)
+    n_seg = int(segs.shape[0])
     if n_seg == 0:
         return out
+    # the wgmma path's B operand: h transposed, each head's D features on
+    # N rows, every column block's columns (the kernel fills it)
+    ld = -(-max(bg.n_col_blocks * C, h.shape[0]) // 8) * 8
+    panel = (torch.empty((H * N, ld), dtype=h.dtype, device=dev) if N
+             else None)
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_gat_dense_blocks(
-            bg.segments.data_ptr(), bg.row_blocks.data_ptr(),
+            segs.data_ptr(), bg.row_blocks.data_ptr(),
             bg.blk_cb.data_ptr(), values.data_ptr(),
             _ext.DTYPE_CODE[values.dtype], int(bg.values_layout == "cr"),
-            h.data_ptr(), _ext.DTYPE_CODE[h.dtype], a_src.data_ptr(),
-            a_dst.data_ptr(), msrc.data_ptr(), out.data_ptr(),
-            n_seg, R, C, HD, H, h.shape[0], a_dst.shape[0], n_rows,
+            h.data_ptr(), _ext.DTYPE_CODE[h.dtype],
+            None if panel is None else panel.data_ptr(), ld,
+            a_src.data_ptr(), a_dst.data_ptr(), msrc.data_ptr(),
+            out.data_ptr(), n_seg, seg_cap, R, C, HD, H, h.shape[0],
+            a_dst.shape[0], n_rows,
+            _dense_attention_smem(HD, H, h.element_size(), False,
+                                  values.element_size()),
             float(negative_slope), _ext.stream(h))
     _ext.check(rc, "gat_dense_blocks")
     gat_dense_blocks.launches += 1

@@ -30,7 +30,6 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as tF
 
 from .. import ir
 from ..graph import GraphTensor, GroupedTiledGraph, TiledGraph
@@ -41,6 +40,7 @@ NEG = -1e30
 
 
 def _leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
+    # jax.nn.leaky_relu: its gradient at 0 is 1, not the slope
     return torch.where(v >= 0, v, slope * v)
 
 
@@ -52,13 +52,16 @@ def _gat_tiles_reference(tg: Tiling, h: torch.Tensor, mult: torch.Tensor,
                          normalize: bool = True) -> torch.Tensor:
     """Plain version of K3 (and, over a grouped tiling, of K10) over the
     same tile arrays and at the TPU kernel's rounding points: p*hs and p
-    round to h's dtype before the f32 sums.  Derive mode (``w_asrc`` [HD,
+    round to h's dtype before the sums.  Derive mode (``w_asrc`` [HD,
     H] in h's dtype) forms a_s = hs @ w_asrc in f32; values mode reads
-    ``a_src`` [N, H] in h's dtype."""
+    ``a_src`` [N, H] in h's dtype.  The rounded terms are summed in float64
+    and rounded once to float32 (as K1's and K9's plain version): a
+    multigraph row that repeats one term hundreds of times drifts by ~n/4
+    ulps in a float32 sum of any order."""
     H = a_dst.shape[1]
     HD = h.shape[1]
     D = HD // H
-    acc = torch.zeros((_geometry(tg)[1], HD + H), dtype=torch.float32,
+    acc = torch.zeros((_geometry(tg)[1], HD + H), dtype=torch.float64,
                       device=h.device)
     ms = msrc.float().reshape(1, H)
     ad_all = a_dst.float()
@@ -75,8 +78,8 @@ def _gat_tiles_reference(tg: Tiling, h: torch.Tensor, mult: torch.Tensor,
         v = torch.cat([p.repeat_interleave(D, dim=1) * hs, p], dim=1)
         if h.dtype != torch.float32:
             v = v.to(h.dtype).float()
-        acc.index_add_(0, dst, v)
-    acc = acc[: tg.n_node]
+        acc.index_add_(0, dst, v.double())
+    acc = acc[: tg.n_node].float()
     if normalize:
         den = torch.clamp(acc[:, HD:], min=1e-20).repeat_interleave(D, dim=1)
         return acc[:, :HD] / den
@@ -469,8 +472,8 @@ def _gat_reference(tg: TiledGraph, h_src, a_src, a_dst, negative_slope):
     f32 = torch.float32
     dev = h_src.device
     hs = h_src.float().index_select(0, src)
-    e = tF.leaky_relu(a_src.float().index_select(0, src)
-                      + a_dst.float().index_select(0, dst), negative_slope)
+    e = _leaky(a_src.float().index_select(0, src)
+               + a_dst.float().index_select(0, dst), negative_slope)
     m = torch.full((n, H), float("-inf"), dtype=f32, device=dev)
     m = m.scatter_reduce_(0, dst[:, None].expand_as(e), e, "amax")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))

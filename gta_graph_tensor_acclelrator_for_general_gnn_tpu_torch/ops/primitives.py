@@ -64,7 +64,9 @@ _SF_FNS: Dict[str, Callable] = {
 def special_function(x: torch.Tensor, name: str,
                      negative_slope: float = 0.2) -> torch.Tensor:
     if name == "leaky_relu":
-        return tF.leaky_relu(x, negative_slope)
+        # where(x >= 0): jax.nn.leaky_relu, whose gradient at 0 is 1 (as
+        # the backward kernels take it); tF.leaky_relu's is the slope
+        return torch.where(x >= 0, x, negative_slope * x)
     fn = _SF_FNS.get(name)
     if fn is None:
         raise ValueError(f"unknown SF {name}")

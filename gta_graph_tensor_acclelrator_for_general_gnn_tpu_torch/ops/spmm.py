@@ -160,7 +160,7 @@ def spmm_grouped(tg: GroupedTiledGraph, x: torch.Tensor,
                                else weight)
     dev = x.device
     _ext.require(x, "x", dev, (torch.float32, torch.bfloat16), 2)
-    _require_slots(tg, dev, ("chunk_grp", "chunk_cb"))
+    _require_slots(tg, dev, ("chunk_grp", "chunk_cb", "live_sub"))
     if weight is not None:
         _ext.require(weight, "weight", dev, (torch.float32,), 3)
         if weight.shape != tg.src_local.shape:
@@ -169,16 +169,18 @@ def spmm_grouped(tg: GroupedTiledGraph, x: torch.Tensor,
     F = x.shape[1]
     # the kernel adds into y with atomics: rows without edges stay 0
     y = torch.zeros((tg.n_node, F), dtype=torch.float32, device=dev)
-    if F == 0 or tg.n_chunks == 0:
+    n_live = int(tg.live_sub.shape[0])
+    if F == 0 or n_live == 0:
         return y
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_spmm_grouped(
-            tg.chunk_grp.data_ptr(), tg.chunk_cb.data_ptr(),
+            tg.live_sub.data_ptr(), tg.chunk_grp.data_ptr(),
+            tg.chunk_cb.data_ptr(),
             tg.src_local.data_ptr(), tg.dst_local.data_ptr(),
             None if weight is None else weight.data_ptr(),
             x.data_ptr(), _ext.DTYPE_CODE[x.dtype], y.data_ptr(),
-            tg.n_chunks, tg.group, tg.block_rows, tg.block_cols,
+            n_live, tg.group, tg.block_rows, tg.block_cols,
             tg.tile_edges, F, x.shape[0], tg.n_node, _ext.stream(x))
     _ext.check(rc, "spmm_grouped")
     spmm_grouped.launches += 1

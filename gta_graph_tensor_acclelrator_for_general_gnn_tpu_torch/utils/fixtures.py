@@ -243,6 +243,8 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     longer than a tile)."""
     import torch
 
+    import dataclasses
+
     from .. import graph as G
     from ..ops import dense as D
     from ..ops import gat as A
@@ -266,7 +268,11 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
         raise AssertionError("fixture lost its merged multi-edge slot")
     bg_v = G.hybrid_graph(hg, block_rows=128, block_cols=128,
                           tile_edges=128, min_nnz=64, device=device).dense
+    bg_vcr = G.hybrid_graph(hg, block_rows=128, block_cols=128,
+                            tile_edges=128, min_nnz=64, block_layout="cr",
+                            device=device).dense
     hub, seg = hub_tiling(device, seed), seg_block_graph(device, seed)
+    seg_cr = dataclasses.replace(seg, values_layout="cr")
     rng = np.random.default_rng(seed)
     K = KernelCase
     for dt in (torch.float32, torch.bfloat16):
@@ -331,28 +337,65 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                         D.gat_dense_blocks(bd, h, bd.values, a_s, a_d, ms),
                         D._gat_dense_reference(bd, h, bd.values, a_s, a_d,
                                                ms), HD)
+        # K4 alone: more head shapes (2 heads of 32; 8 heads of 8), values
+        # of h's dtype in 'cr' blocks, and row blocks of 8, 9, 16 and 17
+        # dense blocks (both sides of the 8- and 16-block run cuts), in
+        # both layouts
+        for H, HD, tag, bd in (
+                (2, 64, "int8 cr", hys["cr"].dense),
+                (2, 64, "int8 rc", hys["rc"].dense),
+                (8, 64, "int8 cr", hys["cr"].dense),
+                (8, 64, "int8 rc", hys["rc"].dense),
+                (4, 128, f"{name} values cr", bg_vcr),
+                (1, 41, f"{name} values cr", bg_vcr),
+                (4, 128, f"blocks per row block {SEG_COUNTS} rc", seg),
+                (4, 128, f"blocks per row block {SEG_COUNTS} cr", seg_cr),
+                (1, 41, f"blocks per row block {SEG_COUNTS} cr", seg_cr)):
+            nb = bd.n_col_blocks * bd.block_cols
+            h = torch.tensor(rng.standard_normal((nb, HD)), dtype=dt,
+                             device=device)
+            a_s = torch.tensor(gap_a_src(rng, nb, H), device=device)
+            a_d = torch.tensor(rng.standard_normal((nb, H)), dtype=dt,
+                               device=device).float()
+            ms = a_s.amax(0, keepdim=True)
+            v = bd.values if bd.values.dtype == torch.int8 else \
+                bd.values.to(dt)
+            yield K("gat_dense_blocks", f"{tag} H={H} HD={HD}", name,
+                    D.gat_dense_blocks(bd, h, v, a_s, a_d, ms),
+                    D._gat_dense_reference(bd, h, v, a_s, a_d, ms), HD)
 
 
 GROUPED_KERNELS = ("spmm_grouped", "gat_grouped")
+# K9 widths: tiny, the 41 logits, aligned, a full 128-feature pass, and
+# several passes with a ragged last one
+GROUPED_WIDTHS = (8, 41, 48, 128, 300)
 
 
-def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
-    """K9 and K10 on grouped tilings of the edge-case graph, in float32 and
-    bfloat16, against their plain versions.  Tilings: the whole graph with
-    symmetric-norm weights at 32-row blocks in groups of 2 (a stripe group
-    without edges gets a chunk of padding; most sub-tiles are empty); the
-    whole graph with unit weights at 128-row blocks in groups of 4 (no
-    weight stream); and the grouped tails of the bench's two hybrid
-    recipes at 128-wide blocks, the 'rc' int8 supergroup-16 split with
-    weighted tail slots and the 'cr' int8 unit split, whose tail holds the
-    merged slot of more than 127 copies (its weight, the copy count, scales
-    p).  K9 at F = 48 and the unaligned F = 41; K10 at 4 heads of 32, 1
-    head of 41 and 16 heads of 1, derive mode."""
-    import torch
-
+def hub_grouped(device, seed: int = 0):
+    """The unit-weight grouped tiling of :func:`hub_graph` at 128-wide
+    blocks, 32-slot sub-tiles in groups of 4: the hub row's block spills
+    into dozens of levels, each a chunk whose other sub-tiles are mostly
+    empty."""
     from .. import graph as G
-    from ..ops import gat as A
-    from ..ops import spmm as SP
+    s, r, n = hub_graph(seed=seed)
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    return G.tile_graph_grouped(hg, block_rows=128, block_cols=128,
+                                tile_edges=32, group=4, unit_weight=True,
+                                device=device)
+
+
+def grouped_tilings(device, seed: int = 0) -> Dict[str, Any]:
+    """name -> GroupedTiledGraph, the tilings K9 and K10 are checked on:
+    the whole edge-case graph with symmetric-norm weights at 32-row blocks
+    in groups of 2 (a stripe group without edges gets a chunk of padding;
+    most sub-tiles are empty); the whole graph with unit weights at 128-row
+    blocks in groups of 4 (no weight stream); the grouped tails of the
+    bench's two hybrid recipes at 128-wide blocks, the 'rc' int8
+    supergroup-16 split with weighted tail slots and the 'cr' int8 unit
+    split, whose tail holds the merged slot of more than 127 copies (its
+    weight, the copy count, scales p); and :func:`hub_grouped` (deep spill
+    levels)."""
+    from .. import graph as G
 
     s, r, n, _ = edge_case_graph(seed=seed)
     hg = G.build_host_graph(s, r, n, symmetric_norm=True,
@@ -372,6 +415,7 @@ def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                                             **split).tiles,
         "cr int8 unit tail": G.hybrid_graph(hg_u, unit_weight=True,
                                             block_layout="cr", **split).tiles,
+        "hub R128 G4 ET32": hub_grouped(device, seed),
     }
     t32 = tilings["weighted R32 G2"]
     has_edges = (t32.dst_local < t32.block_rows).flatten(1).any(1)
@@ -379,11 +423,26 @@ def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     if not empty or float(tilings["cr int8 unit tail"].weight.max()) <= 1.0:
         raise AssertionError("fixture lost its padding chunk or its merged "
                              "multi-edge slot")
+    return tilings
+
+
+def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K9 and K10 on :func:`grouped_tilings`, in float32 and bfloat16,
+    against their plain versions: K9 at every ``GROUPED_WIDTHS`` (weighted
+    tilings with the weight stream, unit ones without); K10 at 4 heads of
+    32, 1 head of 41 and 16 heads of 1, derive mode."""
+    import torch
+
+    from ..ops import gat as A
+    from ..ops import spmm as SP
+
+    tilings = grouped_tilings(device, seed)
     rng = np.random.default_rng(seed)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         for tag, tg in tilings.items():
-            for F in (48, 41):
+            n = tg.n_node
+            for F in GROUPED_WIDTHS:
                 x = torch.tensor(rng.standard_normal((n, F)), dtype=dt,
                                  device=device)
                 w = None if tg.weight_all_unit else tg.weight

@@ -129,6 +129,25 @@ def gat_dense(bg, h: torch.Tensor, H: int) -> Work:
                 ops_per_s=_rate(h.dtype))
 
 
+# the per-cell floor of a dense-cell design (K4's kernels form p for every
+# cell of a dense block, zero or not): 132 SMs at the H100 SXM's 1.98 GHz
+# boost clock, 16 exponentials per clock per SM (the special-function
+# units), and ~10 float32 operations per cell-head at the non-FMA half of
+# the 67 TFLOP/s float32 rate
+SMS, SM_CLOCK_HZ, EXP_PER_CLOCK_SM, CELL_OPS = 132, 1.98e9, 16, 10
+
+
+def dense_cell_floor_ms(cell_heads: int) -> float:
+    """The least time a kernel that forms p for every one of
+    ``cell_heads`` (cells times heads) could take on the card: the exps at
+    the special-function units' rate plus the rest of the chain at the
+    float32 rate.  ``gat_dense`` counts nonzero cells only; this is the
+    floor of a design that walks every cell."""
+    exp_s = cell_heads / (SMS * SM_CLOCK_HZ * EXP_PER_CLOCK_SM)
+    ops_s = CELL_OPS * cell_heads / (PEAK_OPS_PER_S[torch.float32] / 2)
+    return (exp_s + ops_s) * 1e3
+
+
 def gat_dense_panel(bg, h: torch.Tensor, H: int) -> Work:
     """K15: K4's bytes with the exp panels ([n_cols, 2H] and [n_rows, 3H]
     float32) in place of a_dst; per nonzero cell and head a compare, an

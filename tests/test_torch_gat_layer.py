@@ -32,7 +32,9 @@ import gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch as T  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import fusion as TF  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as TS  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.lower import lower as t_lower  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.lower import params_from_numpy  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as TP  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
@@ -307,3 +309,49 @@ def test_gat_kind_gradients_match_jax(rng, mode, twin):
 def test_gat_layer_kind_is_lowered_not_refused():
     assert "gat_layer" not in TF.NOT_PORTED
     assert TF.KERNEL_VERSION >= 1
+
+
+def test_leaky_relu_gradient_at_zero_is_jaxs():
+    """``jax.nn.leaky_relu`` is where(v >= 0, v, slope v): its gradient at
+    0 and at -0 is 1.  The port's per-op SF takes the same branch there, as
+    its backward kernels do (``lraw >= 0``)."""
+    v = np.array([-1.5, -0.0, 0.0, 2.0], np.float32)
+    gj = jax.grad(lambda a: jnp.sum(jax.nn.leaky_relu(a, 0.2)))(
+        jnp.asarray(v))
+    vt = torch.from_numpy(v).requires_grad_(True)
+    TP.special_function(vt, "leaky_relu", 0.2).sum().backward()
+    np.testing.assert_array_equal(vt.grad.numpy(), np.asarray(gj))
+    np.testing.assert_array_equal(vt.grad.numpy(),
+                                  np.float32([0.2, 1.0, 1.0, 1.0]))
+
+
+@pytest.mark.parametrize("path", ["per-op", "gat_layer kind"])
+def test_gat_gradients_match_jax_at_zero_logits(rng, path):
+    """With att_dst = -att_src every self loop's logit a_s[v] + a_d[v] is
+    exactly 0, where leaky relu has its kink: the per-op path and the
+    ``gat_layer`` kind's backward (autograd of the edge formulation) take
+    JAX's gradient there, leaky'(0) = 1, not the slope."""
+    hj, ht = _graphs(rng, 40, 200)
+    gj, gt, pj, pt = _models(8, 8, heads=2)
+    (src,) = [k for k in pj if k.endswith("_asrc")]
+    dst = src[:-4] + "adst"
+    pj = dict(pj, **{dst: -pj[src]})
+    pt = dict(pt, **{dst: -pt[src]})
+    x = rng.normal(size=(hj.n_node, 8)).astype(np.float32)
+    (wname,) = [k for k in pt if k.endswith("_w")]
+    h = torch.from_numpy(x) @ pt[wname]
+    assert bool(((h @ pt[src]) + (h @ pt[dst]) == 0).all())
+    if path == "per-op":
+        fj, ft = j_lower(gj), t_lower(gt)
+    else:
+        part = TS.layer_partition(gt)
+        fj = JF.lower_schedule(gj, JS.Schedule(blocks=part, tiles=(
+            JS.TileConfig(32, 32, 128),)), hj, interpret=True)
+        ft = TF.lower_schedule(gt, TS.Schedule(blocks=part, tiles=(
+            TS.TileConfig(32, 32, 128),)), ht, device=CPU)
+    gdj = jax.grad(lambda p: jnp.sum(fj(p, hj.to_device(),
+                                        jnp.asarray(x)) ** 2))(pj)
+    pv = {k: v.clone().requires_grad_(True) for k, v in pt.items()}
+    (ft(pv, ht.to_device(CPU), torch.from_numpy(x)) ** 2).sum().backward()
+    for k in gdj:
+        _close(pv[k].grad, gdj[k], TOL["float32"])

@@ -1,6 +1,14 @@
-"""PyTorch port: the schedule arrays that the Hopper SpMM kernels K1 and K2
-read, and their plain versions on the graphs made to reach the kernels'
-work splits.
+"""PyTorch port: the schedule arrays that the Hopper SpMM kernels K1, K2
+and K9 read, and their plain versions on the graphs made to reach the
+kernels' work splits.
+
+K9 (``csrc/spmm_grouped.cu``) launches a warp per entry of
+``GroupedTiledGraph.live_sub``, which reads only each sub-tile's slot 0:
+it must list exactly the sub-tiles that hold an edge, on every grouped
+tiling of the fixture cases (a stripe group without edges, the hub's deep
+spill levels) and on a graph without edges.  K9's plain version is held
+to the TPU kernel on the hub's grouped tiling at F = 8, 128 and 300, with
+and without edge weights.
 
 K1 (``csrc/spmm_tiles.cu``) walks each tile's slots up to the first 32
 without an edge, which relies on the builders putting a tile's edges in a
@@ -29,6 +37,7 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 import gta_graph_tensor_acclelrator_for_general_gnn_tpu as J  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu import graph as JG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops import spmm as JS  # noqa: E402
 
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
@@ -204,3 +213,62 @@ def test_kind_smem_follows_the_launchers():
             TSc._spmm_dense_smem(F, 2))
         assert TSc.tile_is_feasible(gcn, F, dtype_bytes=2,
                                     kind="spmm_hybrid")
+
+
+def _grouped_tilings():
+    """name -> GroupedTiledGraph: every tiling of the K9 fixture cases (a
+    stripe group without edges, unit and weighted streams, the hub's deep
+    spill levels), and a tiling of a graph without edges."""
+    tilings = fixtures.grouped_tilings(CPU)
+    empty = TG.build_host_graph(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                                300)
+    tilings["no edges"] = TG.tile_graph_grouped(
+        empty, block_rows=32, block_cols=64, tile_edges=32, group=2,
+        device=CPU)
+    return tilings
+
+
+GROUPED_TILINGS = list(_grouped_tilings())
+
+
+@pytest.mark.parametrize("name", GROUPED_TILINGS)
+def test_k9_work_list_is_every_sub_tile_with_an_edge(name):
+    """K9 launches one warp per entry of ``live_sub``: it must list, in
+    ascending order, exactly the sub-tiles (flat index chunk * G + j) that
+    hold a live slot anywhere, though it reads only each slot 0."""
+    tg = _grouped_tilings()[name]
+    real = ((tg.src_local >= 0) & (tg.src_local < tg.block_cols)
+            & (tg.dst_local >= 0) & (tg.dst_local < tg.block_rows))
+    want = torch.nonzero(real.any(2).reshape(-1)).reshape(-1)
+    assert tg.live_sub.dtype == torch.int32
+    assert torch.equal(tg.live_sub.long(), want)
+    if name == "no edges":
+        assert tg.n_chunks > 0 and tg.live_sub.numel() == 0
+    if name == "weighted R32 G2":      # a stripe group of padding only
+        listed = set(tg.chunk_grp[tg.live_sub.long() // tg.group].tolist())
+        assert listed != set(range(tg.n_groups))
+    if name.startswith("hub"):         # deep spill levels, mostly empty
+        levels = torch.bincount(tg.chunk_grp.long() * tg.n_col_blocks
+                                + tg.chunk_cb.long()).max()
+        assert int(levels) > 16 and tg.live_sub.numel() < tg.n_tiles / 2
+
+
+@pytest.mark.parametrize("unit", [True, False])
+@pytest.mark.parametrize("F", [8, 128, 300])
+def test_spmm_grouped_plain_matches_jax_on_deep_spills(F, unit):
+    """K9's plain version on the hub graph's grouped tiling (a block that
+    spills into dozens of levels, a run of 300 copies of one pair), with
+    and without edge weights, at the new fixture widths, against the TPU
+    kernel over the same tiling."""
+    s, r, n = fixtures.hub_graph()
+    kw = dict(symmetric_norm=not unit, edge_pad_multiple=128)
+    geo = dict(block_rows=128, block_cols=128, tile_edges=32, group=4,
+               unit_weight=unit)
+    tj = JG.tile_graph_grouped(J.build_host_graph(s, r, n, **kw), **geo)
+    tt = TG.tile_graph_grouped(TG.build_host_graph(s, r, n, **kw),
+                               device=CPU, **geo)
+    assert tt.weight_all_unit == unit
+    x = np.random.default_rng(F).standard_normal((n, F)).astype(np.float32)
+    yj = JS._spmm_grouped_raw(tj, jnp.asarray(x), None, interpret=True)
+    _close(TS.spmm_grouped(tt, torch.from_numpy(x),
+                           None if unit else tt.weight), yj)
