@@ -15,18 +15,26 @@ Reddit's node count, and checks every hand-written kernel on the way:
      (``make_apply(build_transpose=True)``), checks K1-K4 again at
      every shape the slice gives them, both layers' (error and time beside
      the plain version; each row's error within its bound, see
-     ``fixtures.kernel_error``), then
+     ``fixtures.kernel_error``; K3 in both forms of a_s: the float32
+     per-node array the hybrid path hands it, in the kernels' row, and
+     derive mode with its per-node pass, printed apart), then
      serves 3 bf16 requests and 1 float32 request per model through that
-     forward under ``torch.inference_mode()``; checks that every kernel's
+     forward under ``torch.inference_mode()`` and traces one more GAT-2l
+     request as ``utils/profile.py`` does (wall and busy time, idle share,
+     device time per kernel); checks that every kernel's
      launch count rose, and compares each answer with the per-op path
      (``make_apply(schedules=None)``) on the card;
   5. training: on the same lowered forward, checks the GAT backward
      kernels K5-K8 against their plain versions on the fixture cases and at
-     both layers' shapes (and times them in bf16), compares one float32
-     loss and every parameter's gradient with autograd through the per-op
-     path, then takes 1 warm-up and 4 timed bf16 AdamW steps per model
-     through ``models/train.make_train_step``: each loss finite, the last
-     below the first, and every one of K1-K8 launched during the steps;
+     both layers' shapes (and times them in bf16; K8's bf16 calls run its
+     tensor-core path and print their cell-heads per second beside its
+     dense-cell floor, its float32 calls the per-cell walk), compares one
+     float32 loss and every parameter's gradient with autograd through the
+     per-op path, then takes 1 warm-up and 4 timed bf16 AdamW steps per
+     model through ``models/train.make_train_step`` (and one more GAT-2l
+     step traced as ``utils/profile.py --train`` does): each loss finite,
+     the last below the first, and every one of K1-K8 launched during the
+     steps;
   6. grouped tail: (a) K9 and K10 against their plain versions on the
      fixture's grouped tilings; (b) the root bench's two Reddit recipes
      (``bench.spmm_recipe``, ``bench.gat_recipe``: int8 dense blocks plus a
@@ -86,8 +94,9 @@ calls its time, the plain version's, its bound on the card from
 function, ``torch.sparse.mm`` for K1, K2 and K9, ``torch.sparse.
 sampled_addmm`` at one head for K11 and K12, else null; each timed K2
 and K4 call also prints the rate at which it streamed its count blocks,
-each K4 call its cell-heads per second beside the dense-cell floor, each
-K9 call the sub-tiles its work list holds and its edges per second), the
+each K4 and K8 call its cell-heads per second beside its dense-cell
+floor, each K3 call its edges per second, each K9 call the sub-tiles its
+work list holds and its edges per second), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script then exits non-zero without that line.  Needs
 one CUDA device.
@@ -189,6 +198,37 @@ HUB_TOL = 2e-5
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def say_ptxas(log: str) -> None:
+    """One line per compiled kernel from the build's ``ptxas -v`` report:
+    its mangled name from the kernel's own name on (the template
+    arguments follow it), registers, spill stores and loads."""
+    import re
+    entry, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = entry = m.group(1)
+            # the kernel's own name: a mangled identifier ending in
+            # "kernel", after its length in digits
+            for k in re.finditer(r"\d+", name):
+                digits = k.group(0)
+                for i in range(len(digits)):
+                    ident = name[k.end():k.end() + int(digits[i:])]
+                    if ident.endswith("kernel") and ident.isidentifier():
+                        entry = name[k.end():]
+                        break
+                if entry is not name:
+                    break
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill {m.group(1)} / {m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            say(f"  ptxas: {entry[:72]}: {m.group(1)} registers, {spill}")
+            entry, spill = None, ""
 
 
 def _timed(fn, *args):
@@ -344,6 +384,32 @@ def _cell_note(graph, heads: int):
                        f"{cells} (dense-cell floor {floor_ms:.4f} ms)")
 
 
+def _profile(what: str, name: str, fn, dev) -> None:
+    """Trace one call of ``fn`` as ``utils/profile.py`` does and print its
+    wall and busy time, idle share and device time per kernel."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import profile
+    profile.OUT_DIR.mkdir(parents=True, exist_ok=True)
+    profile.trace(what, profile.OUT_DIR / f"trace_{name}.json", fn, dev)
+
+
+def _edge_note(tg):
+    """K3's per-call rate: the live edges of its tiling per second."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    edges = RL.live_slots(tg)
+    return lambda ms: f"   {edges / ms / 1e6:.3f} Gedge/s over {edges} edges"
+
+
+def _bwd_cell_note(graph, heads: int):
+    """K8's per-call rate: the cell-heads its bf16 path runs the chain for
+    (every cell of every dense block, per head) per second, beside its
+    dense-cell floor (``roofline.dense_bwd_cell_floor_ms``)."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    cells = graph.n_blocks * graph.block_rows * graph.block_cols * heads
+    floor_ms = RL.dense_bwd_cell_floor_ms(cells)
+    return lambda ms: (f"   {cells / ms / 1e6:.1f} G cell-heads/s over "
+                       f"{cells} (dense-cell floor {floor_ms:.4f} ms)")
+
+
 def _walk_note(tg):
     """K9's per-call rate: the sub-tiles its work list holds against all
     the tiling's sub-tiles, and the live edges it aggregated per second."""
@@ -365,7 +431,9 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
     """K1-K4 at every shape the slice gives them, layer by layer (layer 0:
     F = 128, 4 heads of 32; layer 1: the 41 logits, 1 head of 41), on that
     layer's split: error beside the plain version in the serving dtype
-    (bf16) and in float32, and time in bf16."""
+    (bf16) and in float32, and time in bf16.  K3 reads the hybrid path's
+    float32 per-node a_s there; its derive form (``w_asrc``, the per-node
+    pass first) is checked and timed apart, outside the kernels' row."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
@@ -392,6 +460,8 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
             w = (torch.randn((HD, H), generator=gen, device=dev)
                  / HD ** 0.5).to(dt)
             a_d = torch.randn((n, H), generator=gen, device=dev).to(dt).float()
+            # the hybrid path's per-node a_s (ops/dense._a_s_kernel), which
+            # K3 reads as it is on the main path
             a_s = h.float() @ w.float()
             ms = a_s.amax(0, keepdim=True)
             # kernel, plain version, column split, bound, library call
@@ -407,12 +477,13 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
                     lambda: RL.spmm_dense(bg, xs),
                     checks.sparse_mm(bg, xs) if timed else None),
                 "gat_tiles": (
-                    lambda: A.gat_tiles(tga, h, tga.weight, a_d, ms, w_asrc=w,
-                                        normalize=False),
+                    lambda: A.gat_tiles(tga, h, tga.weight, a_d, ms,
+                                        a_src=a_s, normalize=False),
                     lambda: A._gat_tiles_reference(tga, h, tga.weight, a_d,
-                                                   ms, w_asrc=w,
+                                                   ms, a_src=a_s,
                                                    normalize=False), HD,
-                    lambda: RL.gat_tail(tga, h, H, tga.weight.element_size()),
+                    lambda: RL.gat_tail(tga, h, H, tga.weight.element_size(),
+                                        derive=False),
                     None),
                 "gat_dense_blocks": (
                     lambda: D.gat_dense_blocks(bga, h, bga.values, a_s, a_d,
@@ -431,7 +502,23 @@ def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
                                   stream_bytes=_stream_bytes(kname, dense),
                                   note=(_cell_note(bga, H)
                                         if kname == "gat_dense_blocks"
-                                        else None))
+                                        else _edge_note(tga)
+                                        if kname == "gat_tiles" else None))
+            # K3's derive form (the gat kind's; its per-node a_s pass runs
+            # first), checked and timed apart from the main path's calls
+            kern = lambda: A.gat_tiles(tga, h, tga.weight, a_d, ms,  # noqa: E731
+                                       w_asrc=w, normalize=False)
+            plain = lambda: A._gat_tiles_reference(  # noqa: E731
+                tga, h, tga.weight, a_d, ms, w_asrc=w, normalize=False)
+            checks.slice_case("gat_tiles",
+                              f"layer {li} derive F={F} H={H} HD={HD}", name,
+                              kern, plain, dev, split=HD,
+                              terms=terms["gat_tiles"])
+            if timed:
+                checks.time_call(
+                    "gat_tiles", f"l{li} derive", kern, plain, dev,
+                    lambda: RL.gat_tail(tga, h, H, tga.weight.element_size()),
+                    in_row=False, note=_edge_note(tga))
 
 
 def twin_spmm_checks(checks: Checks, twins, dev, n: int) -> None:
@@ -522,7 +609,9 @@ def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
                         k, f"layer {li} H={H} HD={HD}", name, kern, plain,
                         dev, split=split, terms=terms[k], scale=mag(),
                         timed_as=(f"layer {li}" if dt == torch.bfloat16
-                                  else None), work=works[k])
+                                  else None), work=works[k],
+                        note=(_bwd_cell_note(twin.dense, H)
+                              if k == "gat_dense_bwd_src" else None))
 
 
 def training_phase(checks: Checks, models, fwd, hg, g, dev):
@@ -637,14 +726,21 @@ def training_phase(checks: Checks, models, fwd, hg, g, dev):
         if path == "kernel" and not losses[-1] < losses[0]:
             raise AssertionError(f"{mname}: loss did not fall {losses}")
         model.zero_grad(set_to_none=True)
+        return lambda: step(state, g, x, y, mask)
 
     for fn in counted.values():
         fn.launches = 0
+    more = {}
     for mname, model in models.items():
-        steps(mname, model, "kernel", fwd[mname]["bfloat16"],
-              1 + TRAIN_STEPS)
+        more[mname] = steps(mname, model, "kernel", fwd[mname]["bfloat16"],
+                            1 + TRAIN_STEPS)
     launches = {k: f.launches for k, f in counted.items()}
     say(f"launches during the kernel-path steps: {launches}")
+    # one more GAT step under the profiler, after the counts are read:
+    # utils/profile.py --train's breakdown of the step
+    _profile("GAT-2l bf16 training step", "GAT_train", more.pop("GAT-2l"),
+             dev)
+    del more
     for mname, model in models.items():
         steps(mname, model, "per-op", model.make_apply(torch.bfloat16), 3)
     for k, v in launches.items():
@@ -2070,9 +2166,7 @@ def main(argv=None) -> int:
     _ext.library()
     say(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_ext.build_seconds if _ext.build_seconds is not None else 0:.1f} s)")
-    for line in _ext.build_log.splitlines():
-        if "registers" in line or "spill stores" in line:
-            say(f"  ptxas: {line.strip()}")
+    say_ptxas(_ext.build_log)
 
     checks = Checks()
     say("== 3 kernels: edge cases")
@@ -2154,8 +2248,15 @@ def main(argv=None) -> int:
                 outs[(mname, dtn, seed)] = y
                 lat.setdefault((mname, dtn, "kernel"), []).append(ms)
                 say(f"  {mname} {dtn} request seed={seed}: {ms:.2f} ms")
-    launches = {k: fn.launches for k, fn in counted.items()}
-    say(f"launches during the requests: {launches}")
+        launches = {k: fn.launches for k, fn in counted.items()}
+        say(f"launches during the requests: {launches}")
+        # one more GAT-2l request under the profiler, after the counts are
+        # read: utils/profile.py's breakdown of the request
+        params = dict(models["GAT-2l"].params)
+        xr = _request_x(0, hg.n_node, dev)
+        _profile("GAT-2l bf16 request", "GAT",
+                 lambda: fwd["GAT-2l"]["bfloat16"](params, g, xr), dev)
+        del xr
     serving_launches = launches
     for k, v in launches.items():
         if v <= 0:

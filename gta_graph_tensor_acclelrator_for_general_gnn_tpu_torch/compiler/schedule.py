@@ -395,7 +395,7 @@ PATH_KINDS = {
 
 def _gat_wgmma_width(H: int, D: int) -> int:
     """N, the padded head width of K4's bf16 wgmma path
-    (csrc/gat_dense_blocks.cu wgmma_width): the next of 8, 32, 48, 64, 128
+    (csrc/wgmma.cuh wgmma_width): the next of 8, 32, 48, 64, 128
     at or above D, for 1, 2, 4 or 8 heads with H N <= 128; else 0 (the
     shape runs on the mma.sync kernel)."""
     if H not in (1, 2, 4, 8):
@@ -433,6 +433,33 @@ def _dense_attention_smem(HD: int, H: int, dtype_bytes: int, panel: bool,
     return (f + cc * HD + H * BM * cc) * 4
 
 
+def _dense_bwd_smem(HD: int, H: int, dtype_bytes: int, src_mode: bool,
+                    values_bytes: Optional[int] = None) -> int:
+    """K7 (``src_mode`` False) / K8, csrc/gat_bwd.cuh and
+    csrc/gat_dense_bwd_src.cu, as the K8 wrapper passes it to the launch.
+    bf16 h on K8's wgmma path (``_gat_wgmma_width`` > 0): 3 ring stages of
+    the gbar panel rows (H KT rows of 128 bytes, KT = N padded to 16), a
+    count tile of 64 columns by 128 rows (int8 counts, ``values_bytes`` 1,
+    or bf16 values, 2, each column padded by 16 bytes; None: the larger)
+    and the columns' four terms per head (64 f32 each), each stage rounded
+    up to 1 KB, then the 256 threads' te A fragments (16 bytes a head and
+    k-step each) and 1 KB of alignment; else the dense walk's 64-row
+    sub-tile: the rows' vectors and side values, a 64 x 65 count chunk and
+    the rows' accumulators (H wide for K7, H + HD for K8), float32."""
+    n = (_gat_wgmma_width(H, HD // H)
+         if src_mode and dtype_bytes == 2 else 0)
+    if n:
+        kt = -(-n // 16) * 16
+
+        def ring(vb):
+            stage = H * kt * 128 + 64 * (128 * vb + 16) + 4 * H * 64 * 4
+            return 3 * (-(-stage // 1024) * 1024) + 256 * H * kt + 1024
+        return (max(ring(1), ring(2)) if values_bytes is None
+                else ring(values_bytes))
+    width = H + (HD if src_mode else 0)
+    return 4 * (64 * HD + 64 * 4 * H + 64 * 65 + 64 * width)
+
+
 def _spmm_dense_smem(F: int, dtype_bytes: int,
                      values_bytes: Optional[int] = None) -> int:
     """K2, csrc/spmm_dense_blocks.cu, as its wrapper passes it to the
@@ -452,15 +479,15 @@ def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
     """The largest dynamic shared memory, in bytes, that a kernel of
     ``kind`` (forward and backward) requests at width HD and H heads, by
     the formula beside its launch."""
-    gat_tail = (HD * H + H) * 4                     # K3, K10: gat_tiles.cu
+    gat_tail = HD * H * 4                           # K3's a_s pass: gat_tiles.cu
     if kind == "gat":
         return gat_tail                             # K5, K6 request none
     if kind == "gat_hybrid":
-        dense_bwd = 4 * (64 * HD + 64 * 4 * H + 64 * 65 + 64 * (H + HD))
-        return max(gat_tail,                        # K7 / K8: gat_bwd.cuh
+        return max((HD * H + H) * 4,                # K10: gat_grouped.cu
                    _dense_attention_smem(HD, H, dtype_bytes, False),
                    _dense_attention_smem(HD, H, dtype_bytes, True),
-                   dense_bwd)
+                   _dense_bwd_smem(HD, H, dtype_bytes, False),
+                   _dense_bwd_smem(HD, H, dtype_bytes, True))
     if kind == "gat_layer":                         # K14: gat_layer.cu
         hp = (HD + 15) // 16 * 16
         stage = ((64 + hp) * 40 * 2 if dtype_bytes == 2

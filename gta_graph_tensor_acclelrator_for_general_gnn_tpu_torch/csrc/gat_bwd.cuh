@@ -18,7 +18,7 @@
 // the forward split (rows = receivers d; K5, K7 sum dad there), true for
 // the transposed split (rows = original senders s; K6, K8 sum [das | dh]).
 #pragma once
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace gta {
 
@@ -375,6 +375,116 @@ int dense_entry(const void* sg, const void* rbk, const void* cb, const void* v,
   else
     err = launch_dense<Acc, float, float>(sg, rbk, cb, v, h, g, side, ms, out, n_seg, R, C, HD, H, n, slope, st);
   return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// The dense tensor-core stage: K8's bf16 path (gat_dense_bwd_src.cu), written
+// for K7 to share.  A warpgroup owns 64 rows of a stripe.  Per 64-column
+// k-chunk of a dense block and per head, on wgmma m64n64k16 (bf16 operands,
+// float32 sums, the TPU kernel's precision):
+//   te[row, col] = <rowvec[row], colvec[col]>   over the head's D features,
+// A = the rows' k16 fragments, held in registers for a whole run
+// (dense_bwd_row_frags), B = the chunk's columns from the transposed head
+// panel of the column vectors (head_panel.cuh, KT rows a head: D padded to
+// a multiple of 16), MN-major: 64 columns are one 128-byte swizzle row, and
+// each k-step of 16 panel rows is two 1 KB atoms.  The accumulator
+// te[4j + 2v + u] holds te[16 w + g + 8v][8j + 2t + u] (warp w of the
+// warpgroup, g = lane / 4, t = lane % 4): rows ra, ra + 8 of the thread and
+// columns 8j + 2t + u, which are the cells of the thread's k16 A fragments
+// of a product over the chunk's columns (rows g, g + 8; columns 2t, 2t + 1,
+// 2t + 8, 2t + 9 of each 16-column step).  So the chain runs on te in
+// registers, and its alpha, rounded to bf16, is packed straight into the A
+// fragments of the next product (as FlashAttention-3 turns S into P):
+// alpha and dz never touch shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int TC_KC = 64;  // columns a k-chunk: one 128-byte panel row
+// the k16 A fragments of head hh of this thread's two rows (row_a = ra,
+// row_b = ra + 8; a row that is not ok reads zeros, as do features past D):
+// frag[s] covers the head's features 16 s .. 16 s + 15
+template <int KT>
+__device__ __forceinline__ void dense_bwd_row_frags(const __nv_bfloat16* __restrict__ x,
+                                                    int64_t row_a, bool ok_a, int64_t row_b,
+                                                    bool ok_b, int HD, int D, int hh, int t,
+                                                    uint32_t (*frag)[4]) {
+  auto at = [&](int64_t row, bool ok, int d) {
+    return ok && d < D ? __bfloat162float(x[row * HD + hh * D + d]) : 0.f;
+  };
+#pragma unroll
+  for (int s = 0; s < KT / 16; ++s) {
+    const int d0 = 16 * s + 2 * t;
+    frag[s][0] = pack_bf16(at(row_a, ok_a, d0), at(row_a, ok_a, d0 + 1));
+    frag[s][1] = pack_bf16(at(row_b, ok_b, d0), at(row_b, ok_b, d0 + 1));
+    frag[s][2] = pack_bf16(at(row_a, ok_a, d0 + 8), at(row_a, ok_a, d0 + 9));
+    frag[s][3] = pack_bf16(at(row_b, ok_b, d0 + 8), at(row_b, ok_b, d0 + 9));
+  }
+}
+
+// issues te of one head over one k-chunk (te zeroed, then KT / 16 k-steps
+// from the head's KT panel rows at shared address `panel`) and commits it;
+// the caller waits (wgmma_wait) before reading te
+template <int KT>
+__device__ __forceinline__ void dense_bwd_te(float* te, const uint32_t (*frag)[4],
+                                             uint32_t panel) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) te[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < KT / 16; ++s)
+    wgmma_rs<64, 1>(te, frag[s], smem_desc(panel + 2048 * s, 1024, 1024));
+  wgmma_commit();
+}
+
+// alpha and dz of one cell and head: edge_grad's chain with the receiver's
+// bound leaky(msrc + a_d) precomputed and exp as ex2 of the clamped
+// exponent scaled by log2(e); leaky' is read from the unscaled sum, so its
+// side of the kink is the plain version's
+__device__ __forceinline__ void dense_bwd_cell(float as, float ad, float bnd, float rden,
+                                               float s2, float cnt, float te, float slope,
+                                               float& alpha, float& dz) {
+  const float lraw = as + ad;
+  const float p = cnt * ex2(fminf(leaky(lraw, slope) - bnd, 60.f) * LOG2E);
+  alpha = p * rden;
+  dz = alpha * (te - s2) * (lraw >= 0.f ? 1.f : slope);
+}
+
+// The chain on one head's te of a k-chunk with the rows the senders (K8):
+// per cell the row's a_s (as_a, as_b for rows ra, ra + 8), the column's
+// a_d, bound, 1/den and s2 (float32 [64] each for the chunk's columns) and
+// the cell's count (`cnt`: the chunk's 'cr' count tile, `cs` bytes per
+// column); adds dz into das_a / das_b and packs bf(alpha) into the four k16
+// A fragments `af` of the dh product.  Cells with count 0 give alpha = dz =
+// 0 exactly, so the dense form equals the per-cell one.
+template <typename VT>
+__device__ __forceinline__ void dense_bwd_chain_src(
+    const float* te, const char* cnt, int cs, int ra, int t, const float* ad,
+    const float* bnd, const float* rden, const float* s2, float as_a, float as_b,
+    float slope, float& das_a, float& das_b, uint32_t (*af)[4]) {
+  constexpr int SZ = static_cast<int>(sizeof(VT));
+#pragma unroll
+  for (int j = 0; j < TC_KC / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 ad2 = *reinterpret_cast<const float2*>(ad + c);
+    const float2 bd2 = *reinterpret_cast<const float2*>(bnd + c);
+    const float2 rd2 = *reinterpret_cast<const float2*>(rden + c);
+    const float2 s22 = *reinterpret_cast<const float2*>(s2 + c);
+    float al[2][2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float k = count_f(cnt + (c + u) * cs + (ra + 8 * v) * SZ, VT());
+        float alpha, dz;
+        dense_bwd_cell(v ? as_b : as_a, u ? ad2.y : ad2.x, u ? bd2.y : bd2.x,
+                       u ? rd2.y : rd2.x, u ? s22.y : s22.x, k, te[4 * j + 2 * v + u],
+                       slope, alpha, dz);
+        (v ? das_b : das_a) += dz;
+        al[v][u] = alpha;
+      }
+    // j = 2s: a0 (row g), a1 (row g + 8); j = 2s + 1: a2, a3
+    af[j >> 1][(j & 1) * 2] = pack_bf16(al[0][0], al[0][1]);
+    af[j >> 1][(j & 1) * 2 + 1] = pack_bf16(al[1][0], al[1][1]);
+  }
 }
 
 }  // namespace gta

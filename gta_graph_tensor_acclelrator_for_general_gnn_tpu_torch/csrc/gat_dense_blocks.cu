@@ -75,11 +75,15 @@
 // gat_dense_kernel in every dtype (its panel mode).
 #include <type_traits>
 
+#include "head_panel.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
+using gta::count_f;
+using gta::ex2;
 using gta::leaky;
+using gta::LOG2E;
 using gta::round_to;
 using gta::to_f;
 
@@ -258,7 +262,6 @@ constexpr int WG_THREADS = 512;  // four warpgroups, 64 rows each
 constexpr int STAGES = 3;        // ring depth: two chunks in flight
 constexpr int KC = 64;           // columns per k-chunk: one 128-byte h row
 constexpr int MAX_SEG = 16;      // graph.DENSE_WIDE_SEGMENT: ids kept in shared memory
-constexpr float LOG2E = 1.4426950408889634f;
 
 // a stage's count tile (bytes): 'cr' [KC cols][256 rows], 'rc' [256 rows][KC
 // cols], the row strides padded by 16 bytes so a fragment's loads hit
@@ -284,26 +287,6 @@ __host__ __device__ constexpr int stage_bytes() {
 template <typename VT, int H, int N>
 __host__ __device__ constexpr int wgmma_smem() {
   return STAGES * stage_bytes<VT, H, N>() + 1024 + 2 * WG_ROWS * H * 4;
-}
-
-// byte offset of 16-byte unit j (columns 8j..8j+7) of panel row n in the
-// K-major 128-byte swizzle layout: 1 KB atoms of 8 rows, units XOR-permuted
-// by the row
-__device__ __forceinline__ int panel_offset(int n, int j) {
-  return (n >> 3) * 1024 + (n & 7) * 128 + ((j ^ (n & 7)) << 4);
-}
-
-__device__ __forceinline__ float count_at(const char* p, int8_t) {
-  return static_cast<float>(*reinterpret_cast<const int8_t*>(p));
-}
-__device__ __forceinline__ float count_at(const char* p, __nv_bfloat16) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
-}
-
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
 }
 
 template <typename VT, int H, int N>
@@ -362,7 +345,7 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
       const int n = c >> 3, j = c & 7;
       const bool ok = c0 + 8 * j < C;
       const __nv_bfloat16* src = ok ? hT + n * ld_h + col0 + c0 + 8 * j : hT;
-      gta::cp_async16(sp + panel_offset(n, j), src, ok ? 16 : 0);
+      gta::cp_async16(sp + gta::panel_offset(n, j), src, ok ? 16 : 0);
     }
     constexpr int EPC = 16 / SZ;                     // values per copy
     if (layout_cr) {  // [C][R]: KC count rows of 256 values
@@ -442,7 +425,7 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
             const float z = leaky(fmaf(a_s, LOG2E, ad[v]), slope) - bd[v];
-            p[v][q] = count_at(ts + off[v][q], VT()) * ex2(fminf(z, clamp));
+            p[v][q] = count_f(ts + off[v][q], VT()) * ex2(fminf(z, clamp));
             den[v][hh] += p[v][q];
           }
         }
@@ -497,44 +480,6 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
   }
 }
 
-// The wgmma path's B operand, written before the main kernel: h [n_h, HD]
-// (row-major, as the wrapper holds it) -> panel [H N, ld], row hh N + d,
-// column c holding h[c, hh D + d] for d < D and c < n_h, else 0.  A block
-// transposes TP_COLS nodes through shared memory (rows padded by one word:
-// conflict-free column reads), reading them contiguously and writing 128
-// contiguous bytes of each panel row; pad rows and columns are written as
-// zeros, so the panel needs no fill of its own.
-constexpr int TP_COLS = 64, TP_THREADS = 256;
-
-__global__ void __launch_bounds__(TP_THREADS)
-head_panel_kernel(const __nv_bfloat16* __restrict__ h, __nv_bfloat16* __restrict__ pan,
-                  int64_t n_h, int HD, int H, int N, int64_t ld) {
-  extern __shared__ __nv_bfloat16 tile[];  // [TP_COLS][HD + 2]
-  const int S = HD + 2, D = HD / H;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TP_COLS;
-  const int cols = static_cast<int>(max(min(static_cast<int64_t>(TP_COLS), n_h - c0),
-                                        static_cast<int64_t>(0)));
-  for (int i = threadIdx.x; i < cols * HD; i += TP_THREADS)
-    tile[(i / HD) * S + i % HD] = h[c0 * HD + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < H * N * TP_COLS; i += TP_THREADS) {
-    const int row = i / TP_COLS, c = i % TP_COLS, d = row % N;
-    if (c0 + c >= ld) continue;
-    pan[row * ld + c0 + c] = d < D && c < cols ? tile[c * S + (row / N) * D + d]
-                                               : __float2bfloat16_rn(0.f);
-  }
-}
-
-// the panel width N of a head of D features on the wgmma path (the next of
-// 8, 32, 48, 64, 128), 0 where the path does not take (H, D)
-inline int wgmma_width(int H, int D) {
-  if (H != 1 && H != 2 && H != 4 && H != 8) return 0;
-  const int widths[] = {8, 32, 48, 64, 128};
-  for (int n : widths)
-    if (n >= D) return H * n <= 128 ? n : 0;
-  return 0;
-}
-
 // the arguments of one launch, K4's or K15's.  K4's bf16 path on wgmma
 // reads h as the transposed panel hT [H N, ld_h] (see the design note) and
 // segments as runs of at most seg_cap <= MAX_SEG blocks; smem is the size
@@ -577,10 +522,8 @@ cudaError_t launch_wgmma_hn(const Args& a) {
   cudaError_t err = gta::set_smem(k, smem);
   if (err != cudaSuccess) return err;
   auto pan = static_cast<__nv_bfloat16*>(a.panel);
-  head_panel_kernel<<<static_cast<unsigned>((a.ld_h + TP_COLS - 1) / TP_COLS), TP_THREADS,
-                      TP_COLS * (a.HD + 2) * sizeof(__nv_bfloat16), a.st>>>(
-      static_cast<const __nv_bfloat16*>(a.h), pan, a.n_h, a.HD, H, N, a.ld_h);
-  err = cudaGetLastError();
+  err = gta::write_head_panel(static_cast<const __nv_bfloat16*>(a.h), pan, a.n_h, a.HD, H,
+                              N, a.ld_h, a.st);
   if (err != cudaSuccess) return err;
   dim3 grid(a.n_seg, (a.R + WG_ROWS - 1) / WG_ROWS);
   k<<<grid, WG_THREADS, smem, a.st>>>(
@@ -618,7 +561,7 @@ template <typename VT, typename HT, bool PANEL>
 cudaError_t launch_h(const Args& a) {
   if (a.n_seg == 0) return cudaSuccess;
   if constexpr (std::is_same_v<HT, __nv_bfloat16> && !PANEL) {
-    const int N = wgmma_width(a.H, a.HD / a.H);
+    const int N = gta::wgmma_width(a.H, a.HD / a.H);
     if (N > 0) return launch_wgmma<VT>(a, N);
   }
   // column chunk: the p panel [H, 64, CC] at or under 32 KB of f32

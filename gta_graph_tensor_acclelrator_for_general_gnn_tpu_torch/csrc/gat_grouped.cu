@@ -20,11 +20,11 @@
 // values; the format pads each chunk to the deepest level of its G row
 // blocks, so most sub-tiles hold few or no edges.
 //
-// Design: K3's per-edge work (gta::gat_walk, tile_walk.cuh) with one warp
-// per (chunk, sub-tile), G*NC warps in blocks of 8, each block staging
-// w_asrc and msrc in shared memory once.  The walk runs in prefix mode: an
-// empty sub-tile costs one read of its first 32 index pairs and pad slots
-// are never addressed.  [num | den] adds into a zeroed f32 buffer, one
+// Design: one edge at a time, a_s derived per edge (gta::gat_walk,
+// tile_walk.cuh), with one warp per (chunk, sub-tile), G*NC warps in blocks
+// of 8, each block staging w_asrc and msrc in shared memory once.  The walk
+// stops at the first 32 slots without an edge: an empty sub-tile costs one
+// read of its first 32 index pairs and pad slots are never addressed.  [num | den] adds into a zeroed f32 buffer, one
 // global atomic per run of slots with one receiver (run-to-run f32
 // rounding only); rows without edges read 0.
 #include "tile_walk.cuh"
@@ -57,10 +57,9 @@ gat_grouped_kernel(const int* __restrict__ chunk_grp, const int* __restrict__ ch
   const int64_t c = u / G;
   const int j = static_cast<int>(u % G);
   const int64_t row0 = (static_cast<int64_t>(chunk_grp[c]) * G + j) * R;
-  gta::gat_walk<HT, float>(src_local, dst_local, weight, u * ET, ET, R, C, row0,
-                           static_cast<int64_t>(chunk_cb[c]) * C, h, w_s,
-                           /*derive=*/true, nullptr, a_dst, m_s, acc, HD, H, n_h,
-                           n_a, n_out, slope, /*prefix=*/true, threadIdx.x & 31);
+  gta::gat_walk<HT>(src_local, dst_local, weight, u * ET, ET, R, C, row0,
+                    static_cast<int64_t>(chunk_cb[c]) * C, h, w_s, a_dst, m_s, acc, HD,
+                    H, n_h, n_a, n_out, slope, threadIdx.x & 31);
 }
 
 template <typename HT>

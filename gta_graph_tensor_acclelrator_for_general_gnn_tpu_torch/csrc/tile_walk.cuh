@@ -182,14 +182,16 @@ cudaError_t spmm_walk_config(const void* x, int F, const Launch& launch) {
 
 constexpr int GAT_MAXF = 8;  // features per lane: HD <= 256
 
-// GAT softmax-aggregate of each live slot src -> r under the global shift
-// bound (see gat_tiles.cu): adds [p * h[src] | p] into acc[r], p per head
-//   p = m * exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60)),
-// m the slot's multiplicity (1 when `mult` is null).  Derive mode: a_s =
-// h[src] . w_s (w_s [HD, H] f32 in shared memory, values of h's dtype),
-// a warp reduction per head; values mode: a_s = a_src[src].  p * h and p
-// round to h's dtype before the f32 sum, as on the TPU.  The sums of a
-// run of slots with one receiver are held in registers (lane l: features
+// GAT softmax-aggregate of each live slot src -> r of one sub-tile (K10)
+// in derive mode, under the global shift bound (see gat_grouped.cu): adds
+// [p * h[src] | p] into acc[r], p per head
+//   p = w * exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60)),
+// a_s = h[src] . w_s (w_s [HD, H] f32 in shared memory, values of h's
+// dtype), a warp reduction per head, and w the slot's weight (1 when
+// `weight` is null).  The warp reads the slots 32 at a time, stops at the
+// first 32 without an edge and takes the live ones one at a time.  p * h
+// and p round to h's dtype before the f32 sum, as on the TPU.  The sums of
+// a run of slots with one receiver are held in registers (lane l: features
 // l, l + 32, ...; lane h < H: head h's den) and added to acc[r] when the
 // receiver changes and after the walk.
 __device__ __forceinline__ void gat_flush_run(float* __restrict__ acc, int64_t r, int W,
@@ -204,14 +206,13 @@ __device__ __forceinline__ void gat_flush_run(float* __restrict__ acc, int64_t r
   if (lane < H) atomicAdd(arow + HD + lane, den);
 }
 
-template <typename HT, typename MT>
+template <typename HT>
 __device__ __forceinline__ void gat_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
-    const MT* __restrict__ mult, int64_t base, int ET, int R, int C, int64_t row0,
-    int64_t col0, const HT* __restrict__ h, const float* w_s, bool derive,
-    const HT* __restrict__ a_src, const float* __restrict__ a_dst, const float* m_s,
-    float* __restrict__ acc, int HD, int H, int64_t n_h, int64_t n_a, int64_t n_out,
-    float slope, bool prefix, int lane) {
+    const float* __restrict__ weight, int64_t base, int ET, int R, int C, int64_t row0,
+    int64_t col0, const HT* __restrict__ h, const float* w_s,
+    const float* __restrict__ a_dst, const float* m_s, float* __restrict__ acc, int HD,
+    int H, int64_t n_h, int64_t n_a, int64_t n_out, float slope, int lane) {
   const int W = HD + H, D = HD / H;
   float num[GAT_MAXF], den = 0.f;  // the current run's sums
   int64_t cur = -1;                // its receiver (the same in every lane)
@@ -223,9 +224,9 @@ __device__ __forceinline__ void gat_walk(
       d = dst_local[base + e];
     }
     const bool real = s >= 0 && s < C && d >= 0 && d < R;
-    if (prefix && __ballot_sync(0xffffffffu, real) == 0u) break;
+    if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
     const bool live = real && col0 + s < n_h && row0 + d < n_out;
-    const float m = live && mult != nullptr ? to_f(mult[base + e]) : 1.f;
+    const float m = live && weight != nullptr ? weight[base + e] : 1.f;
     unsigned todo = __ballot_sync(0xffffffffu, live);
     while (todo) {
       const int j = __ffs(todo) - 1;
@@ -248,19 +249,15 @@ __device__ __forceinline__ void gat_walk(
       }
       // lane hh < H ends up holding a_s[hh]
       float my_as = 0.f;
-      if (derive) {
-        for (int hh = 0; hh < H; ++hh) {
-          float part = 0.f;
+      for (int hh = 0; hh < H; ++hh) {
+        float part = 0.f;
 #pragma unroll
-          for (int k = 0; k < GAT_MAXF; ++k) {
-            const int f = lane + 32 * k;
-            if (f < HD) part = fmaf(hv[k], w_s[f * H + hh], part);
-          }
-          part = warp_sum(part);
-          if (lane == hh) my_as = part;
+        for (int k = 0; k < GAT_MAXF; ++k) {
+          const int f = lane + 32 * k;
+          if (f < HD) part = fmaf(hv[k], w_s[f * H + hh], part);
         }
-      } else if (lane < H) {
-        my_as = to_f(a_src[src * H + lane]);
+        part = warp_sum(part);
+        if (lane == hh) my_as = part;
       }
       float p = 0.f;
       if (lane < H) {
@@ -278,6 +275,139 @@ __device__ __forceinline__ void gat_walk(
     }
   }
   if (cur >= 0) gat_flush_run(acc, cur, W, HD, H, num, den, lane);
+}
+
+// GAT softmax-aggregate of each live slot src -> r of one tile (K3), with
+// spmm_walk's structure: the warp reads the slots 32 at a time, keeps the
+// live ones by ballot and stops at the first 32 without an edge; E lane
+// groups of LG = 32 / E lanes take their halves of a window's live slots,
+// each SPMM_PF at a time with all PF rows' loads issued before the first is
+// used; lane k of a group holds features f0 + (k + LG i) VEC + [0, VEC),
+// i < NV, of a pass (VEC = 4 only where D % 4 == 0, so one load's features
+// share a head).  a_s is per node ([n_h, H] float32): per edge each lane reads a_s[src] and a_dst[r] of the heads
+// of its NV loads alongside the row and forms their
+//   p = m * exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60))
+// itself, m the slot's multiplicity (1 when `mult` is null): no warp
+// reduction and no shuffle per feature.  num sums round_to<HT>(p * h) (the
+// product never contracted into an FMA), den sums round_to<HT>(p) on the
+// one lane whose load starts its head, both in registers over the group's
+// current run of slots with one receiver; a run is added into acc [n_out,
+// HD + H] with one float32 atomic per value (float4 atomics where VEC = 4
+// and HD + H is a multiple of 4, so the rows are 16-byte aligned) when the
+// receiver changes and after the walk.
+template <typename HT, typename MT, int VEC, int NV, int E>
+__device__ __forceinline__ void gat_prefix_walk(
+    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
+    const MT* __restrict__ mult, int64_t base, int ET, int R, int C, int64_t row0,
+    int64_t col0, const HT* __restrict__ h, const float* __restrict__ a_src,
+    const float* __restrict__ a_dst, const float* __restrict__ msrc, float* __restrict__ acc,
+    int HD, int H, int64_t n_h, int64_t n_a, int64_t n_out, float slope, int lane) {
+  static_assert(E == 1 || E == 2, "one or two lane groups");
+  using V = typename VecLoad<HT, VEC>::type;
+  constexpr int LG = 32 / E;          // lanes a group
+  constexpr int W = LG * VEC * NV;    // features a pass
+  const int grp = lane / LG, k = lane % LG;
+  const int D = HD / H, WA = HD + H;
+  for (int f0 = 0; f0 < HD; f0 += W) {
+    int hk[NV];      // the head of each of this lane's loads (-1 past HD)
+    bool own[NV];    // the load starts its head: this lane sums its den
+    float ms[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int f = f0 + (k + LG * i) * VEC;
+      hk[i] = f < HD ? f / D : -1;
+      own[i] = f < HD && f % D == 0;
+      ms[i] = f < HD ? msrc[hk[i]] : 0.f;
+    }
+    float num[NV][VEC] = {}, den[NV] = {};
+    int64_t cur = -1;  // the group's current run's receiver
+    auto flush = [&]() {
+      float* arow = acc + cur * WA;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (hk[i] < 0) continue;
+        float* p = arow + f0 + (k + LG * i) * VEC;
+        if (VEC == 1 || WA % 4 == 0) {
+          add_vec<VEC>(p, num[i]);
+        } else {  // rows of HD + H floats, not 16-byte aligned: one float at a time
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) atomicAdd(p + v, num[i][v]);
+        }
+        if (own[i]) atomicAdd(arow + HD + hk[i], den[i]);
+      }
+    };
+    for (int e0 = 0; e0 < ET; e0 += 32) {
+      const int e = e0 + lane;
+      int s = C, d = R;
+      if (e < ET) {
+        s = src_local[base + e];
+        d = dst_local[base + e];
+      }
+      const bool real = s >= 0 && s < C && d >= 0 && d < R;
+      if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
+      const bool live = real && col0 + s < n_h && row0 + d < n_out;
+      const float m = !live ? 0.f : mult != nullptr ? to_f(mult[base + e]) : 1.f;
+      const unsigned all = __ballot_sync(0xffffffffu, live);
+      // group g takes the g-th half of the live slots, in slot order
+      unsigned todo = all;
+      if (E > 1) {
+        const int n = __popc(all), rank = __popc(all & ((1u << lane) - 1u));
+        const unsigned first = __ballot_sync(0xffffffffu, live && rank < (n + 1) / 2);
+        todo = grp == 0 ? first : all & ~first;
+      }
+      while (__any_sync(0xffffffffu, todo != 0u)) {
+        int dq[SPMM_PF];
+        float mq[SPMM_PF], asq[SPMM_PF][NV], adq[SPMM_PF][NV];
+        V xv[SPMM_PF][NV];
+#pragma unroll
+        for (int q = 0; q < SPMM_PF; ++q) {
+          const int j = todo ? __ffs(todo) - 1 : -1;  // -1: past the group's last
+          todo &= todo - 1;
+          const int src = j >= 0 ? j : 0;
+          // every lane shuffles: the groups' j differ, and one may be done
+          const int sj = __shfl_sync(0xffffffffu, s, src);
+          const int dj = __shfl_sync(0xffffffffu, d, src);
+          dq[q] = j >= 0 ? dj : -1;
+          mq[q] = __shfl_sync(0xffffffffu, m, src);
+          const int64_t node = col0 + sj, r = row0 + dj;
+          const HT* xr = h + node * HD;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const bool on = j >= 0 && hk[i] >= 0;
+            xv[q][i] = on ? *reinterpret_cast<const V*>(xr + f0 + (k + LG * i) * VEC)
+                          : zero_of<V>();
+            asq[q][i] = on ? a_src[node * H + hk[i]] : 0.f;
+            adq[q][i] = on && r < n_a ? a_dst[r * H + hk[i]] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < SPMM_PF; ++q) {
+          if (dq[q] < 0) break;
+          if (row0 + dq[q] != cur) {
+            if (cur >= 0) flush();
+            cur = row0 + dq[q];
+#pragma unroll
+            for (int i = 0; i < NV; ++i) {
+              den[i] = 0.f;
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) num[i][v] = 0.f;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const float ad = adq[q][i];
+            const float z = leaky(asq[q][i] + ad, slope) - leaky(ms[i] + ad, slope);
+            const float p = expf(fminf(z, 60.f)) * mq[q];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              num[i][v] += round_to<HT>(__fmul_rn(p, unpack(xv[q][i], v)));
+            if (own[i]) den[i] += round_to<HT>(p);
+          }
+        }
+      }
+    }
+    if (cur >= 0) flush();
+  }
 }
 
 // Per-head edge dots of each live slot, written once (no atomics):

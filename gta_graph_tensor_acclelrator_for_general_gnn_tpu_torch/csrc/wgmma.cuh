@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the wgmma kernels (K2's bf16 path in
-// spmm_dense_blocks.cu, K4's in gat_dense_blocks.cu): cp.async copies into
-// a shared-memory ring, the wgmma fences, shared-memory matrix descriptors
-// in the 128-byte swizzle layout, and wgmma m64nNk16 with A from registers.
+// spmm_dense_blocks.cu, K4's in gat_dense_blocks.cu, K8's in
+// gat_dense_bwd_src.cu): cp.async copies into a shared-memory ring, the
+// wgmma fences, shared-memory matrix descriptors in the 128-byte swizzle
+// layout, wgmma m64nNk16 with A from registers, and the head-width rule,
+// exp and count reads of K4's and K8's attention paths.
 #pragma once
 #include "common.cuh"
 
@@ -221,6 +223,37 @@ __device__ __forceinline__ void wgmma_rs<128, 1>(float* d, const uint32_t* a, ui
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// the panel width N of a head of D features on K4's and K8's wgmma paths
+// (compiler/schedule._gat_wgmma_width): the next of 8, 32, 48, 64, 128, 0
+// where the paths do not take (H, D)
+inline int wgmma_width(int H, int D) {
+  if (H != 1 && H != 2 && H != 4 && H != 8) return 0;
+  const int widths[] = {8, 32, 48, 64, 128};
+  for (int n : widths)
+    if (n >= D) return H * n <= 128 ? n : 0;
+  return 0;
+}
+
+// exp runs as ex2 of log2(e)-scaled terms
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// a count of a dense block's tile as float32: int8 counts by adding the
+// sign-extended byte to the mantissa of 1.5 * 2^23 (exact for |v| < 2^22;
+// two full-rate operations instead of a quarter-rate int-to-float
+// conversion), bf16 values widened
+__device__ __forceinline__ float count_f(const char* p, int8_t) {
+  return __int_as_float(0x4B400000 + static_cast<int>(*reinterpret_cast<const int8_t*>(p))) -
+         12582912.f;
+}
+__device__ __forceinline__ float count_f(const char* p, __nv_bfloat16) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
 }
 
 }  // namespace gta

@@ -30,8 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..compiler.schedule import (_dense_attention_smem, _gat_wgmma_width,
-                                 _spmm_dense_smem)
+from ..compiler.schedule import (_dense_attention_smem, _dense_bwd_smem,
+                                 _gat_wgmma_width, _spmm_dense_smem)
 from ..graph import (DENSE_SEGMENT, DENSE_WIDE_SEGMENT, DenseBlockGraph,
                      GraphTensor, HybridGraph, TiledGraph, block_nnz)
 from . import _ext
@@ -582,18 +582,45 @@ def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
     # segments add their rows atomically: unvisited stripes stay 0
     out = torch.zeros((n, H + (HD if src_mode else 0)), dtype=torch.float32,
                       device=dev)
-    n_seg = int(bg.segments.shape[0])
+    # K8's bf16 path runs on wgmma over the wide segments (K4's shapes)
+    N = (_gat_wgmma_width(H, HD // H)
+         if src_mode and h.dtype == torch.bfloat16 else 0)
+    if N and (R % 16 or C % 16):
+        raise ValueError(f"K8's bf16 path copies 16-byte pieces of count "
+                         f"columns: block_rows {R} and block_cols {C} must "
+                         "be multiples of 16")
+    segs, seg_cap = ((bg.wide_segments, DENSE_WIDE_SEGMENT) if N
+                     else (bg.segments, DENSE_SEGMENT))
+    _ext.require(segs, "segments", dev, (torch.int32,), 2)
+    n_seg = int(segs.shape[0])
     if n_seg == 0 or n == 0:
         return out
     lib = _ext.library()
+    args = [segs.data_ptr(), bg.row_blocks.data_ptr(), bg.blk_cb.data_ptr(),
+            values.data_ptr(), _ext.DTYPE_CODE[values.dtype], h.data_ptr(),
+            gbar.data_ptr(), _ext.DTYPE_CODE[h.dtype], side.data_ptr(),
+            msrc.data_ptr(), out.data_ptr(), n_seg]
+    if src_mode:
+        # the wgmma path's scratch, which the kernel's entry point fills:
+        # gbar transposed (each head's D features on KT = D padded to 16
+        # rows) and the columns' terms [a_d | bound | 1/den | s2]
+        # transposed, every column block's columns
+        ld = -(-max(bg.n_col_blocks * C, n) // 8) * 8
+        KT = -(-N // 16) * 16
+        panel = (torch.empty((H * KT, ld), dtype=h.dtype, device=dev) if N
+                 else None)
+        ct = (torch.empty((4 * H, ld), dtype=torch.float32, device=dev)
+              if N else None)
+        args += [seg_cap, R, C, HD, H, n,
+                 None if panel is None else panel.data_ptr(),
+                 None if ct is None else ct.data_ptr(), ld,
+                 _dense_bwd_smem(HD, H, h.element_size(), True,
+                                 values.element_size())]
+    else:
+        args += [R, C, HD, H, n]
     with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(
-            bg.segments.data_ptr(), bg.row_blocks.data_ptr(),
-            bg.blk_cb.data_ptr(), values.data_ptr(),
-            _ext.DTYPE_CODE[values.dtype], h.data_ptr(), gbar.data_ptr(),
-            _ext.DTYPE_CODE[h.dtype], side.data_ptr(), msrc.data_ptr(),
-            out.data_ptr(), n_seg, R, C, HD, H, n, float(negative_slope),
-            _ext.stream(h))
+        rc = getattr(lib, entry)(*args, float(negative_slope),
+                                 _ext.stream(h))
     _ext.check(rc, entry)
     return out
 
@@ -626,8 +653,11 @@ def gat_dense_bwd_src(bg_t: DenseBlockGraph, h: torch.Tensor,
                       negative_slope: float = 0.2) -> torch.Tensor:
     """K8 wrapper: [das | dh] [n, H + HD] float32 over the TRANSPOSED
     graph's 'cr' dense split (rows = original senders); arguments as
-    :func:`gat_dense_bwd_dad`.  CPU tensors take the plain version; CUDA
-    tensors launch or raise."""
+    :func:`gat_dense_bwd_dad`.  bf16 ``h`` at K4's wgmma shapes
+    (``_gat_wgmma_width``) runs both products per head on tensor cores over
+    ``bg_t.wide_segments``; float32 and other shapes the dense walk over
+    ``bg_t.segments``.  CPU tensors take the plain version; CUDA tensors
+    launch or raise."""
     if h.device.type == "cpu":
         return _gat_dense_bwd_reference(bg_t, h, gbar, values, side, msrc,
                                         src_mode=True,
@@ -779,8 +809,9 @@ def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
 
 
 def _a_s_kernel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a_src at the tail kernel's precision (operands in h's dtype, f32
-    sum): msrc and the dense partial must see the logits the tail derives."""
+    """a_src at the TPU kernels' precision (operands in h's dtype, f32
+    sum): the one array that a per-tile tail (K3), msrc, the dense partial
+    and the backward read."""
     return h.float() @ w.to(h.dtype).float()
 
 
@@ -790,8 +821,9 @@ def _gat_hybrid_raw(hyb: HybridGraph, h, sw, d, wmode: bool, slope: float):
     sv = _a_s_kernel(h, sw) if wmode else sw
     msrc = sv.float().amax(0, keepdim=True)
     acc = _gat_forward(hyb.tiles, h, None if wmode else sw, d,
-                       w_asrc=sw if wmode else None, negative_slope=slope,
-                       normalize=False, msrc=msrc)
+                       w_asrc=sw if wmode else None,
+                       a_s=sv if wmode else None,
+                       negative_slope=slope, normalize=False, msrc=msrc)
     if hyb.dense is not None:
         accd = gat_dense_partial(hyb.dense, h, sv, d, msrc,
                                  negative_slope=slope)

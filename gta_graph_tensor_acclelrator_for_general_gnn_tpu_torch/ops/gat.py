@@ -53,9 +53,10 @@ def _gat_tiles_reference(tg: Tiling, h: torch.Tensor, mult: torch.Tensor,
     """Plain version of K3 (and, over a grouped tiling, of K10) over the
     same tile arrays and at the TPU kernel's rounding points: p*hs and p
     round to h's dtype before the sums.  Derive mode (``w_asrc`` [HD,
-    H] in h's dtype) forms a_s = hs @ w_asrc in f32; values mode reads
-    ``a_src`` [N, H] in h's dtype.  The rounded terms are summed in float64
-    and rounded once to float32 (as K1's and K9's plain version): a
+    H] in h's dtype) forms a_s = hs @ w_asrc in f32; otherwise ``a_src``
+    [N, H] is read as it is: float32 per-node logits (the hybrid path's) or
+    the values mode's, in h's dtype.  The rounded terms are summed in
+    float64 and rounded once to float32 (as K1's and K9's plain version): a
     multigraph row that repeats one term hundreds of times drifts by ~n/4
     ulps in a float32 sum of any order."""
     H = a_dst.shape[1]
@@ -93,10 +94,14 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
               negative_slope: float = 0.2,
               normalize: bool = True) -> torch.Tensor:
     """K3 wrapper: [n_node, HD] normalized, or raw [n_node, HD + H]
-    [num | den].  Exactly one of ``w_asrc`` (derive mode) and ``a_src``
-    (values mode), both in h's dtype.  ``a_dst`` [N, H] and ``msrc`` [1, H]
-    are float32.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    [num | den].  Exactly one of ``w_asrc`` [HD, H] in h's dtype (derive
+    mode: the kernel's entry point forms a_s = h @ w_asrc per node in
+    float32 first) and ``a_src`` [N, H], float32 per-node logits read as
+    they are or the values mode's in h's dtype, which the kernel reads
+    widened to float32 (exact).  ``a_dst`` [N, H] and
+    ``msrc`` [1, H] are float32.  The kernel walks each tile's edge prefix
+    (the builders' slot order).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if (w_asrc is None) == (a_src is None):
         raise ValueError("give exactly one of w_asrc and a_src")
     if h.device.type == "cpu":
@@ -111,9 +116,13 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
     _ext.require(mult, "mult", dev, dts, 2)
     _ext.require(a_dst, "a_dst", dev, (torch.float32,), 2)
     _ext.require(msrc, "msrc", dev, (torch.float32,), 2)
-    side = w_asrc if w_asrc is not None else a_src
-    _ext.require(side, "w_asrc" if w_asrc is not None else "a_src", dev,
-                 (h.dtype,), 2)
+    if w_asrc is not None:
+        _ext.require(w_asrc, "w_asrc", dev, (h.dtype,), 2)
+    else:
+        _ext.require(a_src, "a_src", dev, (torch.float32, h.dtype), 2)
+        if tuple(a_src.shape) != (h.shape[0], H):
+            raise ValueError(f"a_src shape {tuple(a_src.shape)} != "
+                             f"{(h.shape[0], H)}")
     for name in ("src_local", "dst_local"):
         _ext.require(getattr(tg, name), name, dev, (torch.int16,), 2)
     for name in ("tile_rb", "tile_cb"):
@@ -135,6 +144,11 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
            if normalize else None)
     if tg.n_tiles == 0 or tg.n_node == 0:
         return acc[:, :HD].clone() if normalize else acc
+    # derive mode: the per-node a_s the kernel's first launch writes
+    a_scr = (torch.empty((h.shape[0], H), dtype=torch.float32, device=dev)
+             if w_asrc is not None else None)
+    if a_src is not None:
+        a_src = a_src.float().contiguous()
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_gat_tiles(
@@ -144,6 +158,7 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
             h.data_ptr(), _ext.DTYPE_CODE[h.dtype],
             w_asrc.data_ptr() if w_asrc is not None else None,
             a_src.data_ptr() if a_src is not None else None,
+            a_scr.data_ptr() if a_scr is not None else None,
             a_dst.data_ptr(), msrc.data_ptr(), acc.data_ptr(),
             out.data_ptr() if normalize else None,
             tg.n_tiles, tg.block_rows, tg.block_cols, tg.tile_edges,
@@ -225,6 +240,7 @@ def _gat_forward(
     a_dst: torch.Tensor,
     *,
     w_asrc: Optional[torch.Tensor] = None,
+    a_s: Optional[torch.Tensor] = None,
     negative_slope: float = 0.2,
     normalize: bool = True,
     msrc: Optional[torch.Tensor] = None,
@@ -232,11 +248,16 @@ def _gat_forward(
     """Edge-tile attention: [N, HD] normalized or raw [N, HD + H].
 
     ``w_asrc`` [HD, H] instead of ``a_src`` when a_src is a linear map of h:
-    the kernel derives a_s from the gathered rows ("derive" mode).  ``msrc``
-    [1, H]: the shift bound; hybrid callers pass theirs so that every
-    partial shares it.  A grouped tiling runs K10, which takes the hybrid
-    partial path only, as in the JAX package: raw output, ``msrc`` and
-    ``w_asrc`` given."""
+    the kernel derives a_s from h ("derive" mode).  ``a_s`` [N, H] float32,
+    h @ w_asrc at the kernels' precision: per-node logits a per-tile tiling
+    (K3) reads as they are in place of deriving them (the hybrid path's,
+    which its msrc, dense partial and backward read too); a grouped tiling
+    (K10) derives its own from ``w_asrc``, so the hybrid path gives both and
+    this function picks by tiling.  ``a_src`` is rounded to h's dtype first
+    (values mode).  ``msrc`` [1, H]: the shift bound; hybrid callers pass
+    theirs so that every partial shares it.  A grouped tiling runs K10,
+    which takes the hybrid partial path only, as in the JAX package: raw
+    output, ``msrc`` and ``w_asrc`` given."""
     H = a_dst.shape[1]
     HD = h_src.shape[1]
     if HD % H:
@@ -250,7 +271,11 @@ def _gat_forward(
                            msrc.float().reshape(1, H).contiguous(),
                            w_asrc.to(dt).contiguous(),
                            negative_slope=negative_slope)
-    if w_asrc is not None:
+    if a_s is not None:
+        if msrc is None:
+            msrc = a_s.float().amax(0, keepdim=True)
+        kw = dict(a_src=a_s.float().contiguous())
+    elif w_asrc is not None:
         w_k = w_asrc.to(dt)
         if msrc is None:
             msrc = (h_src.float() @ w_k.float()).amax(0, keepdim=True)

@@ -188,15 +188,16 @@ def hub_graph(seed: int = 0, n_node: int = 2048, n_edge: int = 4000,
     return s.astype(np.int32), r.astype(np.int32), n_node
 
 
-def hub_tiling(device, seed: int = 0):
+def hub_tiling(device, seed: int = 0, unit_weight: bool = False):
     """The symmetric-norm tiling of :func:`hub_graph` at 128-wide blocks and
-    32-slot tiles."""
+    32-slot tiles; with ``unit_weight`` the attention kernels' unit-weight
+    tiling, whose slot weights are the copy counts of merged pairs."""
     from .. import graph as G
     s, r, n = hub_graph(seed=seed)
-    hg = G.build_host_graph(s, r, n, symmetric_norm=True,
+    hg = G.build_host_graph(s, r, n, symmetric_norm=not unit_weight,
                             edge_pad_multiple=128)
     return G.tile_graph(hg, block_rows=128, block_cols=128, tile_edges=32,
-                        device=device)
+                        unit_weight=unit_weight, device=device)
 
 
 def seg_block_graph(device, seed: int = 0):
@@ -240,7 +241,11 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     kernels.  K1 and K2 also at every ``SPMM_WIDTHS``; K2 with float
     values (of x's dtype) and on :func:`seg_block_graph` (row blocks of 8,
     9, 16 and 17 dense blocks); K1 on :func:`hub_tiling` (full tiles, runs
-    longer than a tile)."""
+    longer than a tile).  K3 in each of its a_s forms: float32 per-node
+    logits (the hybrid path's), derive mode (its per-node pass) and values
+    mode, on the hybrid tails, on a tail with a dead tile and on the
+    unit-weight hub tiling (full tiles, a run of 300 copies); and at 1 head
+    of 128 and 2 of 64, whose [num | den] rows are not 16-byte aligned."""
     import torch
 
     import dataclasses
@@ -272,6 +277,9 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                             tile_edges=128, min_nnz=64, block_layout="cr",
                             device=device).dense
     hub, seg = hub_tiling(device, seed), seg_block_graph(device, seed)
+    hub_u = hub_tiling(device, seed, unit_weight=True)
+    hub_terms = row_terms(hub_u)
+    dead_tail = _dead_tile(hys["cr"].tiles)
     seg_cr = dataclasses.replace(seg, values_layout="cr")
     rng = np.random.default_rng(seed)
     K = KernelCase
@@ -333,10 +341,72 @@ def kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                                     normalize=False),
                         A._gat_tiles_reference(tt, h, tt.weight, a_d, ms_w,
                                                w_asrc=w, normalize=False), HD)
+                yield K("gat_tiles", f"a_s f32 gap {tag}", name,
+                        A.gat_tiles(tt, h, tt.weight, a_d, ms, a_src=a_s,
+                                    normalize=False),
+                        A._gat_tiles_reference(tt, h, tt.weight, a_d, ms,
+                                               a_src=a_s, normalize=False),
+                        HD)
                 yield K("gat_dense_blocks", f"int8 {tag}", name,
                         D.gat_dense_blocks(bd, h, bd.values, a_s, a_d, ms),
                         D._gat_dense_reference(bd, h, bd.values, a_s, a_d,
                                                ms), HD)
+            for form, kw, msf in (("derive", dict(w_asrc=w), ms_w),
+                                  ("a_s f32", dict(a_src=a_s), ms)):
+                for tag, tt in (("dead tile", dead_tail),
+                                ("hub, full tiles", hub_u)):
+                    if tt is hub_u:
+                        h_t = torch.tensor(
+                            rng.standard_normal((tt.n_node, HD)), dtype=dt,
+                            device=device)
+                        a_dt = torch.tensor(
+                            rng.standard_normal((tt.n_node, H)), dtype=dt,
+                            device=device).float()
+                        kw_t = dict(kw) if "w_asrc" in kw else dict(
+                            a_src=torch.tensor(gap_a_src(rng, tt.n_node, H),
+                                               device=device))
+                        ms_t = ((h_t.float() @ w.float()) if "w_asrc" in kw
+                                else kw_t["a_src"]).amax(0, keepdim=True)
+                    else:
+                        h_t, a_dt, kw_t, ms_t = h, a_d, kw, msf
+                    case = f"{form} {tag} H={H} HD={HD}"
+                    yield K("gat_tiles", case, name,
+                            A.gat_tiles(tt, h_t, tt.weight, a_dt, ms_t,
+                                        normalize=False, **kw_t),
+                            A._gat_tiles_reference(tt, h_t, tt.weight, a_dt,
+                                                   ms_t, normalize=False,
+                                                   **kw_t), HD,
+                            hub_terms if tt is hub_u else None)
+        # K3 where each head's features take vector loads (D % 4 == 0) but
+        # the [num | den] rows (HD + H floats) are not 16-byte aligned, so
+        # a run's flush adds float by float: 1 head of 128, 2 of 64, in both
+        # a_s forms, on a hybrid tail and on the hub tiling (own generator:
+        # the cases above keep their data)
+        rng3 = np.random.default_rng(seed + 1)
+        for H, HD in ((1, 128), (2, 64)):
+            w = torch.tensor(rng3.standard_normal((HD, H)) / np.sqrt(HD),
+                             dtype=dt, device=device)
+            for tag, tt in (("cr tail", hys["cr"].tiles),
+                            ("hub, full tiles", hub_u)):
+                h_t = torch.tensor(rng3.standard_normal((tt.n_node, HD)),
+                                   dtype=dt, device=device)
+                a_dt = torch.tensor(rng3.standard_normal((tt.n_node, H)),
+                                    dtype=dt, device=device).float()
+                a_st = torch.tensor(gap_a_src(rng3, tt.n_node, H),
+                                    device=device)
+                for form, kw, ms_t in (
+                        ("derive", dict(w_asrc=w),
+                         (h_t.float() @ w.float()).amax(0, keepdim=True)),
+                        ("a_s f32", dict(a_src=a_st),
+                         a_st.amax(0, keepdim=True))):
+                    yield K("gat_tiles", f"{form} unaligned rows {tag} H={H} "
+                            f"HD={HD}", name,
+                            A.gat_tiles(tt, h_t, tt.weight, a_dt, ms_t,
+                                        normalize=False, **kw),
+                            A._gat_tiles_reference(tt, h_t, tt.weight, a_dt,
+                                                   ms_t, normalize=False,
+                                                   **kw), HD,
+                            hub_terms if tt is hub_u else None)
         # K4 alone: more head shapes (2 heads of 32; 8 heads of 8), values
         # of h's dtype in 'cr' blocks, and row blocks of 8, 9, 16 and 17
         # dense blocks (both sides of the 8- and 16-block run cuts), in
@@ -639,9 +709,16 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     hybrid split's tails (a merged slot of more than 127 copies, pad slots,
     a dead tile made by hand in each tiling) and 'cr' count blocks with an
     unvisited row block; the gap row's sources sit past the shift-bound
-    gap.  Checked against the plain versions, scaled by each output cell's
-    sum of elementary-term magnitudes (the plain versions' ``magnitude``
-    mode)."""
+    gap.  K8 also at the other head shapes of its wgmma path (2 heads of
+    32, 8 of 8, 1 of 128) on the transposed split, whose dense block holds
+    the pair past the int8 maximum at count 127, and on
+    :func:`seg_block_graph` (row blocks of 8, 9, 16 and 17 dense blocks:
+    both sides of the run cuts), with the row stripes no dense block visits
+    held to exact zeros.  Checked against the plain versions, scaled by
+    each output cell's sum of elementary-term magnitudes (the plain
+    versions' ``magnitude`` mode)."""
+    import dataclasses
+
     import torch
 
     from .. import graph as G
@@ -683,6 +760,34 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                     if k.startswith("gat_bwd_tiles") == tail:
                         yield KernelCase(k, f"H={H} HD={HD}", name, kern(),
                                          plain(), split, terms[k], mag())
+        seg_cr = dataclasses.replace(seg_block_graph(device, seed),
+                                     values_layout="cr")
+        for H, HD, tag, bgx in (
+                (2, 64, "twin", hy_t.dense), (8, 64, "twin", hy_t.dense),
+                (1, 128, "twin", hy_t.dense),
+                (4, 128, f"blocks per row block {SEG_COUNTS}", seg_cr),
+                (1, 41, f"blocks per row block {SEG_COUNTS}", seg_cr)):
+            nn = n if bgx is hy_t.dense else bgx.n_col_blocks * bgx.block_cols
+            h, gbar = (torch.tensor(rng.standard_normal((nn, HD)), dtype=dt,
+                                    device=device) for _ in range(2))
+            a_s = gap_a_src(rng, nn, H)
+            msrc = torch.tensor(a_s.max(0, keepdims=True), device=device)
+            side = bwd_side(rng, nn, H, torch.float32, device, a_s=a_s)
+            kern, plain, mag, split = bwd_runs(
+                tg, tg_t, hy.dense, bgx, h, gbar, side,
+                msrc)["gat_dense_bwd_src"]
+            out = kern()
+            case = f"{tag} H={H} HD={HD}"
+            yield KernelCase("gat_dense_bwd_src", case, name, out, plain(),
+                             split, row_terms(bgx)[:nn], mag())
+            R = bgx.block_rows
+            visited = torch.zeros(bgx.n_row_blocks, dtype=torch.bool,
+                                  device=device)
+            visited[bgx.blk_rb.long()] = True
+            stripe = out[~visited.repeat_interleave(R)[:nn]]
+            yield KernelCase("gat_dense_bwd_src",
+                             f"{case}: unvisited stripes are 0", name,
+                             stripe, torch.zeros_like(stripe))
 
 
 LAYER_KERNELS = ("gat_layer", "gat_dense_panel")

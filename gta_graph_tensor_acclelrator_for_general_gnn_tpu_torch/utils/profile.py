@@ -129,7 +129,7 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 for _ in range(3):
                     rc.run()
-                _trace(f"bench {name} recipe bf16 request",
+                trace(f"bench {name} recipe bf16 request",
                        args.out / f"trace_bench_{name}.json", rc.run, dev)
         return 0
     if args.layer:
@@ -143,7 +143,7 @@ def main(argv=None) -> int:
         with torch.inference_mode():
             for _ in range(3):
                 fwd(params, g, x)
-            _trace("GAT-2l bf16 request (gat_layer kind)",
+            trace("GAT-2l bf16 request (gat_layer kind)",
                    args.out / "trace_GAT_layer.json",
                    lambda: fwd(params, g, x), dev)
         return 0
@@ -162,7 +162,7 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 for _ in range(3):
                     fwd(params, g, x)
-                _trace(f"{net}-2l bf16 request ({make.__name__})",
+                trace(f"{net}-2l bf16 request ({make.__name__})",
                        args.out / f"trace_{net}_pair.json",
                        lambda: fwd(params, g, x), dev)
         return 0
@@ -183,20 +183,20 @@ def main(argv=None) -> int:
         with torch.inference_mode():
             for _ in range(3):
                 fwd(params, g, x)
-            _trace(f"{net}-2l bf16 request", args.out / f"trace_{net}.json",
+            trace(f"{net}-2l bf16 request", args.out / f"trace_{net}.json",
                    lambda: fwd(params, g, x), dev)
         if args.train:
             state = TT.TrainState(model.params,
                                   TT.adamw(model.params, 1e-2))
             step = TT.make_train_step(fwd)
             step(state, g, x, y, mask)
-            _trace(f"{net}-2l bf16 training step",
+            trace(f"{net}-2l bf16 training step",
                    args.out / f"trace_{net}_train.json",
                    lambda: step(state, g, x, y, mask), dev)
     return 0
 
 
-def _trace(what: str, path: Path, fn, dev) -> None:
+def trace(what: str, path: Path, fn, dev) -> None:
     """Trace one synchronised call of ``fn`` and print its summary."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)

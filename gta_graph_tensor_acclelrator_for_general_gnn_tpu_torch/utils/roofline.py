@@ -99,23 +99,26 @@ def spmm_dense(bg, x: torch.Tensor) -> Work:
                 ops=2.0 * nonzero_cells(bg) * F, ops_per_s=_rate(x.dtype))
 
 
-def _gat_edge_ops(HD: int, H: int, derive: bool) -> int:
-    """Per edge of the forward: a_s (HD*H multiply-adds in derive mode),
-    p per head (add, two leaky, subtract, min, exp, multiply, ~9), num and
-    den (a multiply and an add per feature, an add per head)."""
-    return 2 * HD * H * derive + 9 * H + 2 * HD + H
+def _gat_edge_ops(HD: int, H: int) -> int:
+    """Per edge of the forward: p per head (add, two leaky, subtract, min,
+    exp, multiply, ~9), num and den (a multiply and an add per feature, an
+    add per head)."""
+    return 9 * H + 2 * HD + H
 
 
 def gat_tail(tg, h: torch.Tensor, H: int, mult_bytes: int,
              derive: bool = True) -> Work:
-    """K3 / K10: per live slot its indices and multiplicity; h, a_dst
-    (and a_src in values mode) read once; [num | den] float32 written
-    once."""
+    """K3 / K10: per live slot its indices and multiplicity; h, a_dst and
+    (unless ``derive``) the float32 a_s read once; [num | den] float32
+    written once.  Derive mode forms a_s from h and w_asrc instead, once a
+    node (2 HD H operations): the least work, whether a kernel derives it
+    per node (K3) or per edge (K10)."""
     live, n, HD = live_slots(tg), h.shape[0], h.shape[1]
     side = 4 * n * H * (1 if derive else 2)
     return Work(bytes=live * (4 + mult_bytes) + _nbytes(h) + side
                 + 4 * tg.n_node * (HD + H),
-                ops=float(live * _gat_edge_ops(HD, H, derive)),
+                ops=float(live * _gat_edge_ops(HD, H)
+                          + (2 * n * HD * H if derive else 0)),
                 ops_per_s=_rate(h.dtype))
 
 
@@ -125,7 +128,7 @@ def gat_dense(bg, h: torch.Tensor, H: int) -> Work:
     n, HD = h.shape
     return Work(bytes=_nbytes(bg.values) + 8 * bg.n_blocks + _nbytes(h)
                 + 8 * n * H + 4 * bg.n_row_blocks * bg.block_rows * (HD + H),
-                ops=float(nonzero_cells(bg) * _gat_edge_ops(HD, H, False)),
+                ops=float(nonzero_cells(bg) * _gat_edge_ops(HD, H)),
                 ops_per_s=_rate(h.dtype))
 
 
@@ -137,15 +140,32 @@ def gat_dense(bg, h: torch.Tensor, H: int) -> Work:
 SMS, SM_CLOCK_HZ, EXP_PER_CLOCK_SM, CELL_OPS = 132, 1.98e9, 16, 10
 
 
-def dense_cell_floor_ms(cell_heads: int) -> float:
+def dense_cell_floor_ms(cell_heads: int, ops: int = CELL_OPS) -> float:
     """The least time a kernel that forms p for every one of
     ``cell_heads`` (cells times heads) could take on the card: the exps at
-    the special-function units' rate plus the rest of the chain at the
-    float32 rate.  ``gat_dense`` counts nonzero cells only; this is the
-    floor of a design that walks every cell."""
+    the special-function units' rate plus the rest of the chain (``ops``
+    float32 operations per cell-head) at the float32 rate.  ``gat_dense``
+    counts nonzero cells only; this is the floor of a design that walks
+    every cell."""
     exp_s = cell_heads / (SMS * SM_CLOCK_HZ * EXP_PER_CLOCK_SM)
-    ops_s = CELL_OPS * cell_heads / (PEAK_OPS_PER_S[torch.float32] / 2)
+    ops_s = ops * cell_heads / (PEAK_OPS_PER_S[torch.float32] / 2)
     return (exp_s + ops_s) * 1e3
+
+
+# the backward chain per cell-head besides its exp: the logit's add, two
+# leaky relus, the bound's subtract, the min, the count and 1/den
+# products, te - s2, the two products of dz, leaky' and the das add
+BWD_CELL_OPS = 12
+
+
+def dense_bwd_cell_floor_ms(cell_heads: int) -> float:
+    """K8's dense-cell floor: the least time a kernel that runs the
+    backward chain for every one of ``cell_heads`` (the cells of every
+    dense block times the heads, zero or not, as K8's bf16 path and the TPU
+    kernel do) could take on the card; its two products per head go to the
+    tensor cores, far below their rate.  ``gat_dense_bwd`` counts nonzero
+    cells only, which a dense design cannot reach."""
+    return dense_cell_floor_ms(cell_heads, BWD_CELL_OPS)
 
 
 def gat_dense_panel(bg, h: torch.Tensor, H: int) -> Work:

@@ -80,7 +80,29 @@ def _tilings():
         "hub hybrid tail": TG.hybrid_graph(TG.build_host_graph(
             *fixtures.hub_graph()[:2], fixtures.hub_graph()[2],
             symmetric_norm=True), device=CPU, **SPLIT).tiles,
+        **_gat_tilings(),
     }
+
+
+def _gat_tilings():
+    """name -> TiledGraph: the attention tilings K3 walks, on the hub graph
+    with 12,000 random edges (a 512 x 1024 tail block then holds ~1,500 of
+    them): the hybrid GAT tails at the smoke's geometry (256-wide dense
+    grid, 512 x 1024 tail tiles of 512 slots, unit weight, 'cr' int8
+    blocks) at its two layers' thresholds, and the one-hot ``gat`` kind's
+    tiling (512 x 1024, ET 512)."""
+    s, r, n = fixtures.hub_graph(n_edge=12_000)
+    hu = TG.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tail = dict(block_rows=256, block_cols=256, sparse_block_rows=512,
+                sparse_block_cols=1024, tile_edges=512, unit_weight=True,
+                values_dtype=np.int8, block_layout="cr", device=CPU)
+    out = {f"GAT hybrid tail thr {thr} (512x1024, ET 512)":
+           TG.hybrid_graph(hu, min_nnz=thr, **tail).tiles
+           for thr in (768, 256)}
+    out["GAT one-hot tiling (512x1024, ET 512)"] = TG.tile_graph(
+        hu, block_rows=512, block_cols=1024, tile_edges=512,
+        unit_weight=True, device=CPU)
+    return out
 
 
 def _block_graphs():
@@ -105,10 +127,12 @@ BLOCK_GRAPHS = list(_block_graphs())
 
 @pytest.mark.parametrize("name", TILINGS)
 def test_live_slots_form_each_tiles_prefix(name):
-    """K1's walk (and K9's) stops at the first 32 slots of a tile without an
-    edge, so the builders must put a tile's edges in a prefix of its slots,
-    sorted by receiver (the walk sums each receiver's run of slots): no pad
-    slot lies before an edge, and the receivers of the prefix never fall."""
+    """K1's walk (and K9's, and K3's) stops at the first 32 slots of a tile
+    without an edge, so the builders must put a tile's edges in a prefix of
+    its slots, sorted by receiver (the walk sums each receiver's run of
+    slots): no pad slot lies before an edge, and the receivers of the
+    prefix never fall; the SpMM tilings and the attention ones K3 reads,
+    full tiles among them."""
     tg = _tilings()[name]
     real = ((tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
             & (tg.src_local >= 0) & (tg.dst_local >= 0))
@@ -118,7 +142,7 @@ def test_live_slots_form_each_tiles_prefix(name):
     d = tg.dst_local.long()
     assert not bool(((d[:, 1:] < d[:, :-1]) & real[:, 1:]).any()), \
         "receivers out of order within a tile"
-    if name == "hub":
+    if name == "hub" or "512x1024" in name:
         assert int((n == tg.tile_edges).sum()) > 1      # full tiles
 @pytest.mark.parametrize("which", ["segments", "wide_segments"])
 @pytest.mark.parametrize("name", BLOCK_GRAPHS)
