@@ -25,10 +25,13 @@ Reddit's node count, and checks every hand-written kernel on the way:
      launch count rose, and compares each answer with the per-op path
      (``make_apply(schedules=None)``) on the card;
   5. training: on the same lowered forward, checks the GAT backward
-     kernels K5-K8 against their plain versions on the fixture cases and at
-     both layers' shapes (and times them in bf16; K8's bf16 calls run its
-     tensor-core path and print their cell-heads per second beside its
-     dense-cell floor, its float32 calls the per-cell walk), compares one
+     kernels K5-K8 against their plain versions on the fixture cases
+     (``fixtures.bwd_kernel_cases``: K7 at every head shape of its wgmma
+     path with int8 and bf16 values, K6 at 1 head of 128, 2 of 64, 4 of
+     32, 1 of 41 and 16 of 1, both dtypes) and at both layers' shapes (and
+     times them in bf16; K7's and K8's bf16 calls run their tensor-core
+     paths and print their cell-heads per second beside the dense-cell
+     floor, their float32 calls the per-cell walk), compares one
      float32 loss and every parameter's gradient with autograd through the
      per-op path, then takes 1 warm-up and 4 timed bf16 AdamW steps per
      model through ``models/train.make_train_step`` (and one more GAT-2l
@@ -94,7 +97,7 @@ calls its time, the plain version's, its bound on the card from
 function, ``torch.sparse.mm`` for K1, K2 and K9, ``torch.sparse.
 sampled_addmm`` at one head for K11 and K12, else null; each timed K2
 and K4 call also prints the rate at which it streamed its count blocks,
-each K4 and K8 call its cell-heads per second beside its dense-cell
+each K4, K7 and K8 call its cell-heads per second beside its dense-cell
 floor, each K3 call its edges per second, each K9 call the sub-tiles its
 work list holds and its edges per second), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
@@ -400,9 +403,9 @@ def _edge_note(tg):
 
 
 def _bwd_cell_note(graph, heads: int):
-    """K8's per-call rate: the cell-heads its bf16 path runs the chain for
-    (every cell of every dense block, per head) per second, beside its
-    dense-cell floor (``roofline.dense_bwd_cell_floor_ms``)."""
+    """K7's and K8's per-call rate: the cell-heads their bf16 paths run the
+    chain for (every cell of every dense block, per head) per second,
+    beside the dense-cell floor (``roofline.dense_bwd_cell_floor_ms``)."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     cells = graph.n_blocks * graph.block_rows * graph.block_cols * heads
     floor_ms = RL.dense_bwd_cell_floor_ms(cells)
@@ -575,6 +578,8 @@ def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
     rng = np.random.default_rng(0)
     for li, (H, HD) in enumerate(((HEADS, HIDDEN), (1, N_CLASS))):
         hyb, twin = pairs[li]
+        split_of = {"gat_dense_bwd_dad": hyb.dense,
+                    "gat_dense_bwd_src": twin.dense}
         terms = {"gat_bwd_tiles_dad": row_terms(hyb.tiles),
                  "gat_bwd_tiles_src": row_terms(twin.tiles),
                  "gat_dense_bwd_dad": row_terms(hyb.dense)[:n],
@@ -610,8 +615,8 @@ def bwd_slice_checks(checks: Checks, pairs, dev, n: int) -> None:
                         dev, split=split, terms=terms[k], scale=mag(),
                         timed_as=(f"layer {li}" if dt == torch.bfloat16
                                   else None), work=works[k],
-                        note=(_bwd_cell_note(twin.dense, H)
-                              if k == "gat_dense_bwd_src" else None))
+                        note=(_bwd_cell_note(split_of[k], H)
+                              if k in split_of else None))
 
 
 def training_phase(checks: Checks, models, fwd, hg, g, dev):

@@ -435,25 +435,26 @@ def _dense_attention_smem(HD: int, H: int, dtype_bytes: int, panel: bool,
 
 def _dense_bwd_smem(HD: int, H: int, dtype_bytes: int, src_mode: bool,
                     values_bytes: Optional[int] = None) -> int:
-    """K7 (``src_mode`` False) / K8, csrc/gat_bwd.cuh and
-    csrc/gat_dense_bwd_src.cu, as the K8 wrapper passes it to the launch.
-    bf16 h on K8's wgmma path (``_gat_wgmma_width`` > 0): 3 ring stages of
-    the gbar panel rows (H KT rows of 128 bytes, KT = N padded to 16), a
-    count tile of 64 columns by 128 rows (int8 counts, ``values_bytes`` 1,
-    or bf16 values, 2, each column padded by 16 bytes; None: the larger)
-    and the columns' four terms per head (64 f32 each), each stage rounded
-    up to 1 KB, then the 256 threads' te A fragments (16 bytes a head and
-    k-step each) and 1 KB of alignment; else the dense walk's 64-row
+    """K7 (``src_mode`` False, csrc/gat_dense_bwd_dad.cu) / K8
+    (csrc/gat_dense_bwd_src.cu), as their wrapper passes it to the launch.
+    bf16 h on the wgmma path (``_gat_wgmma_width`` > 0; the ring of
+    csrc/gat_bwd.cuh TcStage): 3 ring stages of the column panel rows (H
+    KT rows of 128 bytes, KT = N padded to 16), a count tile of 64 columns
+    by 128 rows (int8 counts, ``values_bytes`` 1, or bf16 values, 2, each
+    column padded by 16 bytes; None: the larger) and the columns' terms
+    (K7: a_s, K8: four terms per head; 64 f32 each), each stage rounded up
+    to 1 KB, then for K8 the 256 threads' te A fragments (16 bytes a head
+    and k-step each), and 1 KB of alignment; else the dense walk's 64-row
     sub-tile: the rows' vectors and side values, a 64 x 65 count chunk and
     the rows' accumulators (H wide for K7, H + HD for K8), float32."""
-    n = (_gat_wgmma_width(H, HD // H)
-         if src_mode and dtype_bytes == 2 else 0)
+    n = _gat_wgmma_width(H, HD // H) if dtype_bytes == 2 else 0
     if n:
         kt = -(-n // 16) * 16
+        terms, frags = (4 * H, 256 * H * kt) if src_mode else (H, 0)
 
         def ring(vb):
-            stage = H * kt * 128 + 64 * (128 * vb + 16) + 4 * H * 64 * 4
-            return 3 * (-(-stage // 1024) * 1024) + 256 * H * kt + 1024
+            stage = H * kt * 128 + 64 * (128 * vb + 16) + terms * 64 * 4
+            return 3 * (-(-stage // 1024) * 1024) + frags + 1024
         return (max(ring(1), ring(2)) if values_bytes is None
                 else ring(values_bytes))
     width = H + (HD if src_mode else 0)

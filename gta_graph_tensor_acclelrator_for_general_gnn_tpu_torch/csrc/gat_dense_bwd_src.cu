@@ -28,7 +28,8 @@
 // s2] transposed ([4H, ld] float32).  Per 64-column k-chunk, the chunk's
 // count tile ('cr' [64 columns][128 rows], 16-byte copies), its panel rows
 // (H KT rows of 128 bytes, 128-byte swizzle) and its column terms stream
-// through a ring of STAGES shared-memory stages by cp.async.  Per head:
+// through the ring of gat_bwd.cuh's tensor-core stage (tc_load_stage, which
+// K7 shares) by cp.async.  Per head:
 //   te = h_rows . gbar_colsᵀ   wgmma m64n64k16, A = the rows' h fragments
 //                              (formed once per CUDA block and stashed in
 //                              shared memory, each thread reading back only
@@ -82,40 +83,24 @@ struct SrcAcc {
 
 // ---- bf16 h: te and dh on wgmma, the chain in registers --------------------
 
-constexpr int WG_ROWS = 128;     // rows of a row block per CUDA block
-constexpr int WG_THREADS = 256;  // two warpgroups, 64 rows each
-constexpr int STAGES = 3;        // ring depth: two chunks in flight
-constexpr int MAX_SEG = 16;      // graph.DENSE_WIDE_SEGMENT: ids kept in shared memory
+using gta::TC_STAGES;
+using gta::TC_THREADS;
 
-// a stage's count tile: 'cr' [TC_KC cols][128 rows], each column's bytes
-// padded by 16 so a fragment's loads hit distinct banks
-template <typename VT> struct CountTile {
-  static constexpr int SZ = static_cast<int>(sizeof(VT));
-  static constexpr int STRIDE = WG_ROWS * SZ + 16;
-  static constexpr int BYTES = TC_KC * STRIDE;
-};
-
-// a stage: the gbar panel rows (H KT rows of 128 bytes, 128-byte swizzle),
-// the count tile, the column terms [4H][64] f32; a multiple of 1 KB so every
-// stage's panel starts on a swizzle atom.  The launch adds 1 KB for aligning
-// the ring (compiler/schedule._dense_bwd_smem mirrors the whole layout).
-template <typename VT, int H, int KT>
-__host__ __device__ constexpr int stage_bytes() {
-  return (H * KT * 128 + CountTile<VT>::BYTES + 4 * H * TC_KC * 4 + 1023) / 1024 * 1024;
-}
-// after the ring, each thread's te A fragments of its rows (one 16-byte
-// word per head and k-step, in the thread's own slots)
+// after the ring (gat_bwd.cuh TcStage: H KT gbar panel rows, the count
+// tile, the 4H column terms), each thread's te A fragments of its rows (one
+// 16-byte word per head and k-step, in the thread's own slots), then 1 KB
+// for aligning the ring (compiler/schedule._dense_bwd_smem mirrors it)
 template <int H, int KT>
 __host__ __device__ constexpr int frag_bytes() {
-  return H * (KT / 16) * WG_THREADS * 16;
+  return H * (KT / 16) * TC_THREADS * 16;
 }
 template <typename VT, int H, int KT>
 __host__ __device__ constexpr int wgmma_smem() {
-  return STAGES * stage_bytes<VT, H, KT>() + frag_bytes<H, KT>() + 1024;
+  return TC_STAGES * gta::TcStage<VT, H * KT, 4 * H>::BYTES + frag_bytes<H, KT>() + 1024;
 }
 
 template <typename VT, int H, int N>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(TC_THREADS, 1)
 gat_dense_bwd_wgmma_kernel(const int* __restrict__ segments,
                            const int* __restrict__ row_blocks, const int* __restrict__ blk_cb,
                            const VT* __restrict__ values, const __nv_bfloat16* __restrict__ h,
@@ -124,69 +109,33 @@ gat_dense_bwd_wgmma_kernel(const int* __restrict__ segments,
                            const float* __restrict__ side, float* __restrict__ out, int R,
                            int C, int HD, int64_t n, float slope) {
   constexpr int KT = (N + 15) / 16 * 16;
-  using CT = CountTile<VT>;
-  constexpr int SZ = CT::SZ, P_BYTES = H * KT * 128, SB = stage_bytes<VT, H, KT>();
+  using St = gta::TcStage<VT, H * KT, 4 * H>;
+  constexpr int SB = St::BYTES;
   extern __shared__ __align__(1024) char smem_raw[];
-  __shared__ int s_b[MAX_SEG];                     // the run's block ids
-  __shared__ int64_t s_col0[MAX_SEG];              // and their first columns
+  __shared__ int s_b[gta::TC_MAX_SEG];             // the run's block ids
+  __shared__ int64_t s_col0[gta::TC_MAX_SEG];      // and their first columns
   // the ring starts on a 1 KB boundary (the launch adds 1 KB for this)
-  const uint32_t raw0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t pad = (1024u - (raw0 & 1023u)) & 1023u;
-  const uint32_t smem0 = raw0 + pad;
+  const uint32_t pad = gta::tc_ring_pad(smem_raw);
   const char* smem = smem_raw + pad;
-  const int* seg = segments + 3 * blockIdx.x;
-  const int rb = seg[0], k_begin = seg[1], k_end = seg[2];
-  const int r_base = blockIdx.y * WG_ROWS;
-  const int rows_here = min(WG_ROWS, R - r_base);
-  const int64_t row_base = static_cast<int64_t>(rb) * R + r_base;
+  const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const gta::TcRun run = gta::tc_run(segments, row_blocks, blk_cb, R, C, s_b, s_col0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2;                        // warpgroup: rows 64 wg ..
-  const bool active = wg * 64 < rows_here;         // uniform per warpgroup
-  const int cpb = (C + TC_KC - 1) / TC_KC;         // k-chunks per dense block
-  const int iters = (k_end - k_begin) * cpb;
+  const bool active = wg * 64 < run.rows_here;     // uniform per warpgroup
   const int D = HD / H, W = H + HD, S = 4 * H;
-  if (tid < k_end - k_begin) {  // at most MAX_SEG (the launch checks)
-    const int b = row_blocks[k_begin + tid];
-    s_b[tid] = b;
-    s_col0[tid] = static_cast<int64_t>(blk_cb[b]) * C;
-  }
-  __syncthreads();
-
   auto load_stage = [&](int it, int stage) {
-    const int kk = it / cpb, c0 = (it % cpb) * TC_KC;
-    const int64_t col0 = s_col0[kk];
-    const VT* A = values + static_cast<int64_t>(s_b[kk]) * R * C;
-    const uint32_t sp = smem0 + stage * SB;          // gbar panel rows
-    const uint32_t sa = sp + P_BYTES;                // counts
-    const uint32_t sc = sa + CT::BYTES;              // column terms
-    for (int c = tid; c < H * KT * 8; c += WG_THREADS) {
-      const int nr = c >> 3, j = c & 7;
-      const bool ok = c0 + 8 * j < C;
-      const __nv_bfloat16* src = ok ? gT + nr * ld + col0 + c0 + 8 * j : gT;
-      gta::cp_async16(sp + gta::panel_offset(nr, j), src, ok ? 16 : 0);
-    }
-    constexpr int EPC = 16 / SZ, UPR = WG_ROWS / EPC;  // values per copy, copies per column
-    for (int c = tid; c < TC_KC * UPR; c += WG_THREADS) {
-      const int cc = c / UPR, r = (c % UPR) * EPC;
-      const bool ok = c0 + cc < C && r < rows_here;
-      const VT* src = ok ? A + static_cast<int64_t>(c0 + cc) * R + r_base + r : values;
-      gta::cp_async16(sa + cc * CT::STRIDE + r * SZ, src, ok ? 16 : 0);
-    }
-    for (int c = tid; c < S * (TC_KC / 4); c += WG_THREADS) {
-      const int row = c / (TC_KC / 4), u = c % (TC_KC / 4);
-      const bool ok = c0 + 4 * u < C;
-      const float* src = ok ? ct + row * ld + col0 + c0 + 4 * u : ct;
-      gta::cp_async16(sc + row * (TC_KC * 4) + 16 * u, src, ok ? 16 : 0);
-    }
+    gta::tc_load_stage<VT, H * KT, 4 * H>(smem0 + stage * SB, it, run, s_b, s_col0, values,
+                                          gT, ct, ld, R, C);
   };
 
   const int g = lane >> 2, t = lane & 3;
   const int ra = wg * 64 + (warp & 3) * 16 + g;    // this thread's rows ra, ra + 8
-  const int64_t row_a = row_base + ra, row_b = row_a + 8;
-  const bool ok_a = ra < rows_here && row_a < n, ok_b = ra + 8 < rows_here && row_b < n;
+  const int64_t row_a = run.row_base + ra, row_b = row_a + 8;
+  const bool ok_a = ra < run.rows_here && row_a < n;
+  const bool ok_b = ra + 8 < run.rows_here && row_b < n;
   // te's A: the rows' h per head, stashed once in the thread's own slots
-  uint4* frags = reinterpret_cast<uint4*>(smem_raw + pad + STAGES * SB);
-  auto frag = [&](int hh, int s) -> uint4& { return frags[(hh * (KT / 16) + s) * WG_THREADS + tid]; };
+  uint4* frags = reinterpret_cast<uint4*>(smem_raw + pad + TC_STAGES * SB);
+  auto frag = [&](int hh, int s) -> uint4& { return frags[(hh * (KT / 16) + s) * TC_THREADS + tid]; };
   float as_a[H], as_b[H];      // the rows' a_s
 #pragma unroll
   for (int hh = 0; hh < H; ++hh) {
@@ -217,20 +166,21 @@ gat_dense_bwd_wgmma_kernel(const int* __restrict__ segments,
   }
 
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < iters) load_stage(s, s);
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < run.iters) load_stage(s, s);
     gta::cp_async_commit();
   }
-  for (int it = 0; it < iters; ++it) {
-    gta::cp_async_wait<STAGES - 2>();
+  for (int it = 0; it < run.iters; ++it) {
+    gta::cp_async_wait<TC_STAGES - 2>();
     gta::fence_proxy_async();
     __syncthreads();  // chunk `it` landed for all; stage (it - 1) is free
-    if (it + STAGES - 1 < iters) load_stage(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    if (it + TC_STAGES - 1 < run.iters)
+      load_stage(it + TC_STAGES - 1, (it + TC_STAGES - 1) % TC_STAGES);
     gta::cp_async_commit();
     if (!active) continue;
-    const int st = it % STAGES;
-    const char* tile = smem + st * SB + P_BYTES;
-    const float* cts = reinterpret_cast<const float*>(tile + CT::BYTES);
+    const int st = it % TC_STAGES;
+    const char* tile = smem + st * SB + St::P_BYTES;
+    const float* cts = reinterpret_cast<const float*>(tile + St::CT::BYTES);
     const uint32_t sp = smem0 + st * SB;
     // te of head hh + 1 runs on the tensor cores during head hh's chain
     float te[2][32];
@@ -243,7 +193,7 @@ gat_dense_bwd_wgmma_kernel(const int* __restrict__ segments,
       if (hh + 1 < H) issue_te(hh + 1, te[(hh + 1) & 1], sp);
       uint32_t af[TC_KC / 16][4];
       const float* cth = cts + hh * TC_KC;
-      gta::dense_bwd_chain_src<VT>(te[hh & 1], tile, CT::STRIDE, ra, t, cth,
+      gta::dense_bwd_chain_src<VT>(te[hh & 1], tile, St::CT::STRIDE, ra, t, cth,
                                    cth + H * TC_KC, cth + 2 * H * TC_KC,
                                    cth + 3 * H * TC_KC, as_a[hh], as_b[hh], slope,
                                    das_a[hh], das_b[hh], af);
@@ -339,8 +289,8 @@ cudaError_t launch_wgmma_hn(const Args& a) {
       a.side, a.ms, a.ct, a.n, H, a.ld, a.slope);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid(a.n_seg, (a.R + WG_ROWS - 1) / WG_ROWS);
-  k<<<grid, WG_THREADS, smem, a.st>>>(a.sg, a.rbk, a.cb, static_cast<const VT*>(a.v), a.h,
+  dim3 grid(a.n_seg, (a.R + gta::TC_ROWS - 1) / gta::TC_ROWS);
+  k<<<grid, TC_THREADS, smem, a.st>>>(a.sg, a.rbk, a.cb, static_cast<const VT*>(a.v), a.h,
                                       a.panel, a.ct, a.ld, a.side, a.out, a.R, a.C, a.HD,
                                       a.n, a.slope);
   return cudaGetLastError();
@@ -355,7 +305,7 @@ cudaError_t launch_wgmma(const Args& a, int N) {
       (reinterpret_cast<uintptr_t>(a.ct) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(a.v) & 15) != 0)
     return cudaErrorInvalidValue;
-  if (a.seg_cap > MAX_SEG) return cudaErrorInvalidValue;  // runs' ids in shared memory
+  if (a.seg_cap > gta::TC_MAX_SEG) return cudaErrorInvalidValue;  // runs' ids in shared memory
   switch (a.H * 1000 + N) {
     case 1008: return launch_wgmma_hn<VT, 1, 8>(a);
     case 1032: return launch_wgmma_hn<VT, 1, 32>(a);

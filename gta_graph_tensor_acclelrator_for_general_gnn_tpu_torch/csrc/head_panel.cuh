@@ -1,24 +1,17 @@
-// The transposed head panel that K4's and K8's wgmma paths read as their B
-// operand, and the layout of its shared-memory stage copies.
+// The transposed head panel that K4's, K7's and K8's wgmma paths read as
+// their B operand.
 //
-// A panel holds a row-major [n_x, HD] bf16 array x (h for K4, gbar for K8)
-// transposed, each of its H heads' D features on NP rows (NP >= D, a
-// multiple of 8; rows past D hold zeros), every column present up to ld:
-// row hh NP + d, column c holds x[c, hh D + d] for d < D and c < n_x, else
-// 0.  A stage copy keeps 64 columns of each row (128 bytes), K-major in the
-// 128-byte swizzle layout (panel_offset), so each head's rows start on a 1
-// KB atom when NP is a multiple of 8.
+// A panel holds a row-major [n_x, HD] bf16 array x (h for K4 and K7, gbar
+// for K8) transposed, each of its H heads' D features on NP rows (NP >= D,
+// a multiple of 8; rows past D hold zeros), every column present up to
+// ld: row hh NP + d, column c holds x[c, hh D + d] for d < D and c < n_x,
+// else 0.  A stage copy keeps 64 columns of each row (128 bytes) in the
+// 128-byte swizzle layout (wgmma.cuh panel_offset), so each head's rows
+// start on a 1 KB atom when NP is a multiple of 8.
 #pragma once
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace gta {
-
-// byte offset of 16-byte unit j (columns 8j..8j+7) of panel row n in the
-// 128-byte swizzle layout: 1 KB atoms of 8 rows, units XOR-permuted by the
-// row
-__device__ __forceinline__ int panel_offset(int n, int j) {
-  return (n >> 3) * 1024 + (n & 7) * 128 + ((j ^ (n & 7)) << 4);
-}
 
 // A block transposes TP_COLS nodes through shared memory (rows padded by
 // one word: conflict-free column reads), reading them contiguously and

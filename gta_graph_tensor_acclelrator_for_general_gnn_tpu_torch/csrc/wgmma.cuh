@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the wgmma kernels (K2's bf16 path in
-// spmm_dense_blocks.cu, K4's in gat_dense_blocks.cu, K8's in
-// gat_dense_bwd_src.cu): cp.async copies into a shared-memory ring, the
-// wgmma fences, shared-memory matrix descriptors in the 128-byte swizzle
-// layout, wgmma m64nNk16 with A from registers, and the head-width rule,
-// exp and count reads of K4's and K8's attention paths.
+// spmm_dense_blocks.cu, K4's in gat_dense_blocks.cu, K7's and K8's in
+// gat_dense_bwd_dad.cu and gat_dense_bwd_src.cu): cp.async copies into a
+// shared-memory ring, the wgmma fences, shared-memory matrix descriptors
+// and stage offsets in the 128-byte swizzle layout, wgmma m64nNk16 with A
+// from registers, and the head-width rule, exp and count reads of the
+// attention paths.
 #pragma once
 #include "common.cuh"
 
@@ -53,6 +54,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// byte offset of 16-byte unit j (columns 8j..8j+7) of panel row n in the
+// 128-byte swizzle layout: 1 KB atoms of 8 rows, units XOR-permuted by the
+// row
+__device__ __forceinline__ int panel_offset(int n, int j) {
+  return (n >> 3) * 1024 + (n & 7) * 128 + ((j ^ (n & 7)) << 4);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -225,7 +233,7 @@ __device__ __forceinline__ void wgmma_rs<128, 1>(float* d, const uint32_t* a, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// the panel width N of a head of D features on K4's and K8's wgmma paths
+// the panel width N of a head of D features on K4's, K7's and K8's wgmma paths
 // (compiler/schedule._gat_wgmma_width): the next of 8, 32, 48, 64, 128, 0
 // where the paths do not take (H, D)
 inline int wgmma_width(int H, int D) {

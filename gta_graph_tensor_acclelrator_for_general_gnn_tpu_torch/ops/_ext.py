@@ -59,9 +59,10 @@ _SIGNATURES = {
                               VP],
     "gta_gat_bwd_tiles_src": [VP, VP, VP, VP, VP, I32, VP, VP, I32, VP, VP,
                               VP, I32, I32, I32, I32, I32, I32, I64, F32,
-                              VP],
+                              VP, VP],
     "gta_gat_dense_bwd_dad": [VP, VP, VP, VP, I32, VP, VP, I32, VP, VP, VP,
-                              I32, I32, I32, I32, I32, I64, F32, VP],
+                              I32, I32, I32, I32, I32, I32, I64, VP, VP, I64,
+                              I64, F32, VP],
     "gta_gat_dense_bwd_src": [VP, VP, VP, VP, I32, VP, VP, I32, VP, VP, VP,
                               I32, I32, I32, I32, I32, I32, I64, VP, VP, I64,
                               I64, F32, VP],

@@ -582,13 +582,13 @@ def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
     # segments add their rows atomically: unvisited stripes stay 0
     out = torch.zeros((n, H + (HD if src_mode else 0)), dtype=torch.float32,
                       device=dev)
-    # K8's bf16 path runs on wgmma over the wide segments (K4's shapes)
-    N = (_gat_wgmma_width(H, HD // H)
-         if src_mode and h.dtype == torch.bfloat16 else 0)
+    # K7's and K8's bf16 paths run on wgmma over the wide segments (K4's
+    # shapes)
+    N = _gat_wgmma_width(H, HD // H) if h.dtype == torch.bfloat16 else 0
     if N and (R % 16 or C % 16):
-        raise ValueError(f"K8's bf16 path copies 16-byte pieces of count "
-                         f"columns: block_rows {R} and block_cols {C} must "
-                         "be multiples of 16")
+        raise ValueError(f"{entry}'s bf16 path copies 16-byte pieces of "
+                         f"count columns: block_rows {R} and block_cols {C} "
+                         "must be multiples of 16")
     segs, seg_cap = ((bg.wide_segments, DENSE_WIDE_SEGMENT) if N
                      else (bg.segments, DENSE_SEGMENT))
     _ext.require(segs, "segments", dev, (torch.int32,), 2)
@@ -596,28 +596,24 @@ def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
     if n_seg == 0 or n == 0:
         return out
     lib = _ext.library()
+    # the wgmma path's scratch, which the kernel's entry point fills: the
+    # column vectors transposed (K7: h, K8: gbar; each head's D features on
+    # KT = D padded to 16 rows) and the columns' terms transposed (K7: a_s;
+    # K8: [a_d | bound | 1/den | s2]), every column block's columns
+    ld = -(-max(bg.n_col_blocks * C, n) // 8) * 8
+    KT = -(-N // 16) * 16
+    panel = (torch.empty((H * KT, ld), dtype=h.dtype, device=dev) if N
+             else None)
+    ct = (torch.empty(((4 if src_mode else 1) * H, ld), dtype=torch.float32,
+                      device=dev) if N else None)
     args = [segs.data_ptr(), bg.row_blocks.data_ptr(), bg.blk_cb.data_ptr(),
             values.data_ptr(), _ext.DTYPE_CODE[values.dtype], h.data_ptr(),
             gbar.data_ptr(), _ext.DTYPE_CODE[h.dtype], side.data_ptr(),
-            msrc.data_ptr(), out.data_ptr(), n_seg]
-    if src_mode:
-        # the wgmma path's scratch, which the kernel's entry point fills:
-        # gbar transposed (each head's D features on KT = D padded to 16
-        # rows) and the columns' terms [a_d | bound | 1/den | s2]
-        # transposed, every column block's columns
-        ld = -(-max(bg.n_col_blocks * C, n) // 8) * 8
-        KT = -(-N // 16) * 16
-        panel = (torch.empty((H * KT, ld), dtype=h.dtype, device=dev) if N
-                 else None)
-        ct = (torch.empty((4 * H, ld), dtype=torch.float32, device=dev)
-              if N else None)
-        args += [seg_cap, R, C, HD, H, n,
-                 None if panel is None else panel.data_ptr(),
-                 None if ct is None else ct.data_ptr(), ld,
-                 _dense_bwd_smem(HD, H, h.element_size(), True,
-                                 values.element_size())]
-    else:
-        args += [R, C, HD, H, n]
+            msrc.data_ptr(), out.data_ptr(), n_seg, seg_cap, R, C, HD, H, n,
+            None if panel is None else panel.data_ptr(),
+            None if ct is None else ct.data_ptr(), ld,
+            _dense_bwd_smem(HD, H, h.element_size(), src_mode,
+                            values.element_size())]
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(*args, float(negative_slope),
                                  _ext.stream(h))
@@ -632,8 +628,11 @@ def gat_dense_bwd_dad(bg: DenseBlockGraph, h: torch.Tensor,
     """K7 wrapper: dad [n, H] float32 over the rb-major 'cr' dense split.
     ``h`` and ``gbar`` [N, HD] share a dtype, ``values`` holds int8 counts
     or is of that dtype, ``side`` [N, 4H] float32 is [a_s | a_d | 1/den |
-    s2] and ``msrc`` [1, H] the forward's shift bound.  CPU tensors take
-    the plain version; CUDA tensors launch or raise."""
+    s2] and ``msrc`` [1, H] the forward's shift bound.  bf16 ``h`` at K4's
+    wgmma shapes (``_gat_wgmma_width``) runs te per head on tensor cores
+    over ``bg.wide_segments``; float32 and other shapes the dense walk over
+    ``bg.segments``.  CPU tensors take the plain version; CUDA tensors
+    launch or raise."""
     if h.device.type == "cpu":
         return _gat_dense_bwd_reference(bg, h, gbar, values, side, msrc,
                                         src_mode=False,

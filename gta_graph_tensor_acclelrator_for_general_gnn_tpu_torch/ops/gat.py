@@ -394,6 +394,11 @@ def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
     if tg.n_tiles == 0 or tg.n_node == 0:
         return out
     lib = _ext.library()
+    n = min(h.shape[0], tg.n_node)
+    # K6's scratch: the side panel repacked per node and head
+    scratch = (torch.empty((n, 4 * H), dtype=torch.float32, device=dev)
+               if src_mode else None)
+    extra = [scratch.data_ptr()] if src_mode else []
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             tg.tile_rb.data_ptr(), tg.tile_cb.data_ptr(),
@@ -401,9 +406,8 @@ def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
             tg.weight.data_ptr(), _ext.DTYPE_CODE[tg.weight.dtype],
             h.data_ptr(), gbar.data_ptr(), _ext.DTYPE_CODE[h.dtype],
             side.data_ptr(), msrc.data_ptr(), out.data_ptr(), tg.n_tiles,
-            tg.block_rows, tg.block_cols, tg.tile_edges, HD, H,
-            min(h.shape[0], tg.n_node), float(negative_slope),
-            _ext.stream(h))
+            tg.block_rows, tg.block_cols, tg.tile_edges, HD, H, n,
+            float(negative_slope), *extra, _ext.stream(h))
     _ext.check(rc, entry)
     return out
 

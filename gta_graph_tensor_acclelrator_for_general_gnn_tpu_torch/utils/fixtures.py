@@ -703,20 +703,29 @@ def bwd_runs(tg, tg_t, bg, bg_t, h, gbar, side, msrc):
             "gat_dense_bwd_src": dense(bg_t, True)}
 
 
+# (H, HD) of the backward cases: the two layers of GAT-2l (4 heads of 32,
+# 1 of 41 -> 48 on the wgmma paths), the other head shapes of K7's and K8's
+# wgmma paths (1 head of 128, 2 of 64, 2 of 32, 8 of 8) and 16 heads of 1
+# (the dense walk; one feature a head in K6's walk)
+BWD_SHAPES = ((4, 128), (1, 41), (1, 128), (2, 128), (2, 64), (8, 64), (16, 16))
+# the shapes of the wgmma paths taken with values in h's dtype too
+BWD_VALUE_SHAPES = ((4, 128), (1, 41), (1, 128), (2, 128), (8, 64))
+
+
 def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K5-K8 on the edge-case graph and its transpose, in float32 and
-    bfloat16, at 4 heads of 32 and 1 head of 41 (unaligned rows): the
-    hybrid split's tails (a merged slot of more than 127 copies, pad slots,
-    a dead tile made by hand in each tiling) and 'cr' count blocks with an
-    unvisited row block; the gap row's sources sit past the shift-bound
-    gap.  K8 also at the other head shapes of its wgmma path (2 heads of
-    32, 8 of 8, 1 of 128) on the transposed split, whose dense block holds
-    the pair past the int8 maximum at count 127, and on
-    :func:`seg_block_graph` (row blocks of 8, 9, 16 and 17 dense blocks:
-    both sides of the run cuts), with the row stripes no dense block visits
-    held to exact zeros.  Checked against the plain versions, scaled by
-    each output cell's sum of elementary-term magnitudes (the plain
-    versions' ``magnitude`` mode)."""
+    bfloat16, at every head shape of ``BWD_SHAPES``: the hybrid split's
+    tails (a merged slot of more than 127 copies, pad slots, a dead tile
+    made by hand in each tiling) and 'cr' int8 count blocks with an
+    unvisited row block, whose dense block holds the pair past the int8
+    maximum at count 127; the gap row's sources sit past the shift-bound
+    gap.  K7 and K8 also with block values in h's dtype (bf16 values on the
+    wgmma paths) at ``BWD_VALUE_SHAPES``, and on :func:`seg_block_graph`
+    (row blocks of 8, 9, 16 and 17 dense blocks: both sides of the run
+    cuts), with the row stripes no dense block visits held to exact zeros.
+    Checked against the plain versions, scaled by each output cell's sum
+    of elementary-term magnitudes (the plain versions' ``magnitude``
+    mode)."""
     import dataclasses
 
     import torch
@@ -734,6 +743,9 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     if float(hy.tiles.weight.float().max()) <= 1.0 or float(
             hy_t.tiles.weight.float().max()) <= 1.0:
         raise AssertionError("fixture lost its merged multi-edge slot")
+    for d in (hy.dense, hy_t.dense):
+        if int(d.values.max()) != 127:
+            raise AssertionError("fixture lost its saturated dense cell")
 
     tg, tg_t = _dead_tile(hy.tiles, 0), _dead_tile(hy_t.tiles, 0)
     terms = {"gat_bwd_tiles_dad": row_terms(tg),
@@ -741,15 +753,30 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
              "gat_dense_bwd_dad": row_terms(hy.dense)[:n],
              "gat_dense_bwd_src": row_terms(hy_t.dense)[:n]}
     rng = np.random.default_rng(seed)
+
+    def inputs(nn, H, HD, dt):
+        """(h, gbar, a_s, msrc): a_s with the gap row's sources pushed
+        past the shift-bound gap."""
+        h, gbar = (torch.tensor(rng.standard_normal((nn, HD)), dtype=dt,
+                                device=device) for _ in range(2))
+        a_s = gap_a_src(rng, nn, H)
+        msrc = torch.tensor(a_s.max(0, keepdims=True), device=device)
+        return h, gbar, a_s, msrc
+
+    def stripes(kernel, case, name, bgx, out):
+        """The output rows of the row blocks no dense block visits."""
+        R = bgx.block_rows
+        visited = torch.zeros(bgx.n_row_blocks, dtype=torch.bool,
+                              device=device)
+        visited[bgx.blk_rb.long()] = True
+        stripe = out[~visited.repeat_interleave(R)[:out.shape[0]]]
+        return KernelCase(kernel, f"{case}: unvisited stripes are 0", name,
+                          stripe, torch.zeros_like(stripe))
+
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
-        for H, HD in ((4, 128), (1, 41)):
-            h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
-                             device=device)
-            gbar = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
-                                device=device)
-            a_s = gap_a_src(rng, n, H)
-            msrc = torch.tensor(a_s.max(0, keepdims=True), device=device)
+        for H, HD in BWD_SHAPES:
+            h, gbar, a_s, msrc = inputs(n, H, HD, dt)
             # the tail kernels read side values rounded to the compute
             # dtype, the dense kernels float32 ones
             for tail, side_dt in ((True, dt), (False, torch.float32)):
@@ -760,34 +787,30 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                     if k.startswith("gat_bwd_tiles") == tail:
                         yield KernelCase(k, f"H={H} HD={HD}", name, kern(),
                                          plain(), split, terms[k], mag())
+        # K7 and K8: block values in h's dtype, and the run cuts
         seg_cr = dataclasses.replace(seg_block_graph(device, seed),
                                      values_layout="cr")
-        for H, HD, tag, bgx in (
-                (2, 64, "twin", hy_t.dense), (8, 64, "twin", hy_t.dense),
-                (1, 128, "twin", hy_t.dense),
-                (4, 128, f"blocks per row block {SEG_COUNTS}", seg_cr),
-                (1, 41, f"blocks per row block {SEG_COUNTS}", seg_cr)):
-            nn = n if bgx is hy_t.dense else bgx.n_col_blocks * bgx.block_cols
-            h, gbar = (torch.tensor(rng.standard_normal((nn, HD)), dtype=dt,
-                                    device=device) for _ in range(2))
-            a_s = gap_a_src(rng, nn, H)
-            msrc = torch.tensor(a_s.max(0, keepdims=True), device=device)
+        cases = [(H, HD, "values in h's dtype", b, b.dense)
+                 for H, HD in BWD_VALUE_SHAPES for b in (hy, hy_t)]
+        cases += [(H, HD, f"blocks per row block {SEG_COUNTS}", None, seg_cr)
+                  for H, HD in ((4, 128), (1, 41))]
+        for H, HD, tag, hyb, bgx in cases:
+            if hyb is not None:
+                bgx = dataclasses.replace(bgx, values=bgx.values.to(dt))
+            nn = n if hyb is not None else bgx.n_col_blocks * bgx.block_cols
+            h, gbar, a_s, msrc = inputs(nn, H, HD, dt)
             side = bwd_side(rng, nn, H, torch.float32, device, a_s=a_s)
-            kern, plain, mag, split = bwd_runs(
-                tg, tg_t, hy.dense, bgx, h, gbar, side,
-                msrc)["gat_dense_bwd_src"]
-            out = kern()
-            case = f"{tag} H={H} HD={HD}"
-            yield KernelCase("gat_dense_bwd_src", case, name, out, plain(),
-                             split, row_terms(bgx)[:nn], mag())
-            R = bgx.block_rows
-            visited = torch.zeros(bgx.n_row_blocks, dtype=torch.bool,
-                                  device=device)
-            visited[bgx.blk_rb.long()] = True
-            stripe = out[~visited.repeat_interleave(R)[:nn]]
-            yield KernelCase("gat_dense_bwd_src",
-                             f"{case}: unvisited stripes are 0", name,
-                             stripe, torch.zeros_like(stripe))
+            runs = bwd_runs(tg, tg_t, bgx, bgx, h, gbar, side, msrc)
+            kinds = (("gat_dense_bwd_src",) if hyb is hy_t else
+                     ("gat_dense_bwd_dad",) if hyb is hy else
+                     ("gat_dense_bwd_dad", "gat_dense_bwd_src"))
+            for k in kinds:
+                kern, plain, mag, split = runs[k]
+                out = kern()
+                case = f"{tag} H={H} HD={HD}"
+                yield KernelCase(k, case, name, out, plain(), split,
+                                 row_terms(bgx)[:nn], mag())
+                yield stripes(k, case, name, bgx, out)
 
 
 LAYER_KERNELS = ("gat_layer", "gat_dense_panel")

@@ -159,12 +159,12 @@ BWD_CELL_OPS = 12
 
 
 def dense_bwd_cell_floor_ms(cell_heads: int) -> float:
-    """K8's dense-cell floor: the least time a kernel that runs the
-    backward chain for every one of ``cell_heads`` (the cells of every
-    dense block times the heads, zero or not, as K8's bf16 path and the TPU
-    kernel do) could take on the card; its two products per head go to the
-    tensor cores, far below their rate.  ``gat_dense_bwd`` counts nonzero
-    cells only, which a dense design cannot reach."""
+    """K7's and K8's dense-cell floor: the least time a kernel that runs
+    the backward chain for every one of ``cell_heads`` (the cells of every
+    dense block times the heads, zero or not, as their bf16 paths and the
+    TPU kernels do) could take on the card; their products per head go to
+    the tensor cores, far below their rate.  ``gat_dense_bwd`` counts
+    nonzero cells only, which a dense design cannot reach."""
     return dense_cell_floor_ms(cell_heads, BWD_CELL_OPS)
 
 

@@ -1,18 +1,22 @@
-"""PyTorch port: how K8's wgmma path (``csrc/gat_dense_bwd_src.cu``,
-``gat_dense_bwd_wgmma_kernel``) is sized and what it reads, and K8's plain
-version on the shapes made to reach it.
+"""PyTorch port: how K7's and K8's wgmma paths (``csrc/gat_dense_bwd_dad.cu``
+``gat_dense_bwd_dad_wgmma_kernel``, ``csrc/gat_dense_bwd_src.cu``
+``gat_dense_bwd_wgmma_kernel``, both on the tensor-core stage of
+``csrc/gat_bwd.cuh``) are sized and what they read, and their plain
+versions on the shapes made to reach them.
 
-The bf16 path takes K4's head shapes (1, 2, 4 or 8 heads whose width D pads
+The bf16 paths take K4's head shapes (1, 2, 4 or 8 heads whose width D pads
 to N, the next of 8, 32, 48, 64, 128, with H N <= 128); the wrapper hands
-it the shared-memory size of its ring (``compiler/schedule._dense_bwd_smem``),
+each the shared-memory size of its ring (``compiler/schedule._dense_bwd_smem``),
 which the launch checks against its own layout, and walks
 ``DenseBlockGraph.wide_segments``.  float32 h and the other shapes keep the
 dense walk of ``csrc/gat_bwd.cuh`` over ``segments``.  The tuner prunes by
-``_kind_smem``, which must cover both.  K8's plain version, which the CPU
-wrapper takes, is held to the JAX package's TPU kernel (interpret mode) at
-1, 2 and 8 heads and at D = 41 (padded to 48 on the card) in both dtypes,
-and to a float64 sum of the same terms on row blocks of 8, 9, 16 and 17
-dense blocks (both sides of the run cuts).  Tolerances: float32 max |port -
+``_kind_smem``, which must cover both.  The plain versions, which the CPU
+wrapper takes, are held to the JAX package's TPU kernels (interpret mode)
+at 1, 2, 4 and 8 heads and at D = 41 (padded to 48 on the card) in both
+dtypes, and to a float64 sum of the same terms on row blocks of 8, 9, 16
+and 17 dense blocks (both sides of the run cuts).  The patches by which
+``utils/bwd_variants.py`` builds variants of K6 and K7 are held to apply
+to the sources as they are.  Tolerances: float32 max |port -
 ref| <= 1e-5 * max(1, max |ref|) (the same terms summed in another order);
 bfloat16 2e-2 * max(1, max |ref|), as ``test_torch_backward.py`` holds the
 dense backward (a value that lands on the other side of a bf16 rounding
@@ -20,6 +24,8 @@ boundary moves one term by up to 2^-8 of itself).  The kernel itself is
 held to the plain version on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import dataclasses
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +42,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops import dense as JD  # 
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as TSc  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as TD  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import bwd_variants as BV  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline  # noqa: E402
 
@@ -56,14 +63,16 @@ def _close(port, ref, tol):
     assert err <= bound, (err, bound)
 
 
-def _ring(H, N, vb):
-    """K8's wgmma ring: 3 stages of [gbar panel H KT x 128 B | count tile
-    64 x (128 vb + 16) B | column terms 4H x 64 f32], each rounded up to
-    1 KB, then 256 threads' te A fragments (16 B a head and k-step), plus
-    1 KB of alignment."""
+def _ring(H, N, vb, src_mode=True):
+    """The wgmma ring: 3 stages of [column panel H KT x 128 B | count tile
+    64 x (128 vb + 16) B | column terms 4H (K8) or H (K7) x 64 f32], each
+    rounded up to 1 KB, then for K8 256 threads' te A fragments (16 B a
+    head and k-step), plus 1 KB of alignment."""
     kt = -(-N // 16) * 16
-    stage = H * kt * 128 + 64 * (128 * vb + 16) + 4 * H * 64 * 4
-    return 3 * (-(-stage // 1024) * 1024) + 256 * H * kt + 1024
+    terms = 4 * H if src_mode else H
+    stage = H * kt * 128 + 64 * (128 * vb + 16) + terms * 64 * 4
+    frags = 256 * H * kt if src_mode else 0
+    return 3 * (-(-stage // 1024) * 1024) + frags + 1024
 
 
 def _walk(HD, H, src_mode):
@@ -72,31 +81,40 @@ def _walk(HD, H, src_mode):
     return 4 * (64 * HD + 64 * 4 * H + 64 * 65 + 64 * width)
 
 
+@pytest.mark.parametrize("src_mode", [True, False])
 @pytest.mark.parametrize("HD,H,N", [(128, 4, 32), (41, 1, 48), (64, 2, 32),
                                     (64, 8, 8), (128, 1, 128), (8, 1, 8)])
 @pytest.mark.parametrize("vb", [1, 2, None])
-def test_dense_bwd_smem_follows_the_wgmma_launch(HD, H, N, vb):
-    """``_dense_bwd_smem`` is the size K8's launch accepts on the wgmma path
-    (int8 counts, bf16 values, or the larger when the value type is not
-    given); the head panel's KT rows a head are N padded to 16 (8 -> 16);
-    every size fits one H100 block."""
+def test_dense_bwd_smem_follows_the_wgmma_launch(HD, H, N, vb, src_mode):
+    """``_dense_bwd_smem`` is the size K8's (``src_mode``) or K7's launch
+    accepts on the wgmma path (int8 counts, bf16 values, or the larger when
+    the value type is not given); the head panel's KT rows a head are N
+    padded to 16 (8 -> 16); every size fits one H100 block, and K7's ring
+    at most half of the SM's shared memory (two blocks an SM fit)."""
     assert TSc._gat_wgmma_width(H, HD // H) == N
-    want = _ring(H, N, vb) if vb else max(_ring(H, N, 1), _ring(H, N, 2))
-    assert TSc._dense_bwd_smem(HD, H, 2, True, vb) == want
+    want = (_ring(H, N, vb, src_mode) if vb else
+            max(_ring(H, N, 1, src_mode), _ring(H, N, 2, src_mode)))
+    assert TSc._dense_bwd_smem(HD, H, 2, src_mode, vb) == want
     assert want <= TSc.SMEM_BLOCK_BYTES
+    if not src_mode:
+        assert want <= TSc.SMEM_BLOCK_BYTES // 2
     assert TSc._kind_smem("gat_hybrid", HD, H, 2) >= want
 
 
 def test_dense_bwd_smem_of_the_walk():
-    """float32 h, K7 (which stays on the walk) and the shapes the wgmma path
-    does not take request the walk's sub-tile; the main instantiation's
-    numbers by hand."""
+    """float32 h and the shapes the wgmma paths do not take request the
+    walk's sub-tile, for K7 and K8 alike; the main instantiations' numbers
+    by hand (K8: a 29 KB stage and 32 KB of A fragments; K7: a 26 KB
+    stage, no fragments)."""
     assert _ring(4, 32, 1) == 3 * 29696 + 32768 + 1024
-    assert TSc._dense_bwd_smem(128, 4, 4, True, 1) == _walk(128, 4, True)
-    assert TSc._dense_bwd_smem(128, 4, 2, False, 1) == _walk(128, 4, False)
-    for HD, H in ((16, 16), (256, 4), (256, 1)):
-        assert TSc._gat_wgmma_width(H, HD // H) == 0
-        assert TSc._dense_bwd_smem(HD, H, 2, True) == _walk(HD, H, True)
+    assert _ring(4, 32, 1, False) == 3 * 26624 + 1024
+    for src_mode in (True, False):
+        assert TSc._dense_bwd_smem(128, 4, 4, src_mode, 1) == _walk(
+            128, 4, src_mode)
+        for HD, H in ((16, 16), (256, 4), (256, 1)):
+            assert TSc._gat_wgmma_width(H, HD // H) == 0
+            assert TSc._dense_bwd_smem(HD, H, 2, src_mode) == _walk(
+                HD, H, src_mode)
     for HD, H in ((128, 4), (41, 1), (64, 8), (16, 16), (256, 4)):
         for db in (2, 4):
             assert TSc._kind_smem("gat_hybrid", HD, H, db) >= max(
@@ -157,14 +175,15 @@ def _bwd_inputs(seed, n, H, HD):
 
 
 @pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,HD", [(1, 41), (2, 64), (8, 64), (1, 128)])
+@pytest.mark.parametrize("H,HD", [(1, 41), (2, 64), (8, 64), (1, 128),
+                                  (4, 128), (2, 128)])
 def test_dense_bwd_plain_matches_jax_at_the_wgmma_shapes(edge_pair, dtn, H,
                                                         HD):
-    """K8's [das | dh] (and K7's dad) plain versions at the head shapes of
-    K8's wgmma path beyond the Reddit layer's 4 heads of 32: 1 head of 41
-    (N = 48), 2 of 32, 8 of 8 (N = 8, KT = 16) and 1 of 128, on the 'cr'
-    split whose dense block holds the saturated pair at count 127 and whose
-    last row block no dense block visits."""
+    """K8's [das | dh] and K7's dad plain versions at the head shapes of
+    their wgmma paths: 1 head of 41 (N = 48), 2 of 32, 8 of 8 (N = 8, KT =
+    16), 1 of 128, 4 of 32 and 2 of 64, on the 'cr' split whose dense block
+    holds the saturated pair at count 127 and whose last row block no dense
+    block visits."""
     jf, jt, tf, tt = edge_pair
     tdt, jdt = DTYPES[dtn]
     h, gbar, a_s, a_d, den, out = _bwd_inputs(5, tf.tiles.n_node, H, HD)
@@ -180,6 +199,7 @@ def test_dense_bwd_plain_matches_jax_at_the_wgmma_shapes(edge_pair, dtn, H,
         _close(a, b, TOL[dtn])
     assert float(got[0][512:].float().abs().max()) == 0.0   # unvisited stripe
     assert float(got[1][512:].abs().max()) == 0.0
+    assert float(got[2][512:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("H,HD", [(4, 128), (1, 41)])
@@ -227,3 +247,65 @@ def test_dense_bwd_src_plain_matches_float64_across_run_cuts(H, HD):
         want[rows, H:] += np.einsum("rch,chd->rhd", alpha, gc).reshape(R, HD)
     _close(got, want, TOL["float32"])
     assert float(got[len(fixtures.SEG_COUNTS) * R:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("H,HD", [(4, 128), (1, 41)])
+def test_dense_bwd_dad_plain_matches_float64_across_run_cuts(H, HD):
+    """K7's plain version on row blocks of 8, 9, 16 and 17 dense blocks
+    (its wgmma path's runs of at most 16 cut the last in two, the walk's
+    runs of 8 the last three) against a float64 sum of the same terms,
+    the rows the receivers; the row block without dense blocks reads 0."""
+    bg = dataclasses.replace(fixtures.seg_block_graph(CPU),
+                             values_layout="cr")
+    R = C = bg.block_rows
+    n = bg.n_col_blocks * C
+    rng = np.random.default_rng(12)
+    h, gbar = (rng.standard_normal((n, HD)).astype(np.float32)
+               for _ in range(2))
+    a_s = fixtures.gap_a_src(rng, n, H)
+    msrc = a_s.max(0, keepdims=True)
+    side = fixtures.bwd_side(rng, n, H, torch.float32, CPU, a_s=a_s)
+    got = TD.gat_dense_bwd_dad(bg, torch.from_numpy(h),
+                               torch.from_numpy(gbar), bg.values, side,
+                               torch.from_numpy(msrc))
+    D = HD // H
+    sd = side.double().numpy()
+    lk = lambda v: np.where(v >= 0, v, 0.2 * v)  # noqa: E731
+    want = np.zeros((n, H))
+    vals = bg.values.double().numpy()
+    for b, (rb, cb) in enumerate(zip(bg.blk_rb.tolist(),
+                                     bg.blk_cb.tolist())):
+        cnt = vals[b].T                                   # [R rows, C cols]
+        rows, cols = slice(rb * R, (rb + 1) * R), slice(cb * C, (cb + 1) * C)
+        a_sc = sd[cols, :H][None]                         # senders: columns
+        a_dr, rden, s2 = (sd[rows, k * H:(k + 1) * H][:, None, :]
+                          for k in (1, 2, 3))
+        lraw = a_sc + a_dr
+        p = cnt[:, :, None] * np.exp(np.minimum(
+            lk(lraw) - lk(msrc.astype(np.float64) + a_dr), 60.0))
+        alpha = p * rden
+        gr = gbar[rows].reshape(R, H, D).astype(np.float64)
+        hc = h[cols].reshape(C, H, D).astype(np.float64)
+        te = np.einsum("rhd,chd->rch", gr, hc)
+        dz = alpha * (te - s2) * np.where(lraw >= 0, 1.0, 0.2)
+        want[rows] += dz.sum(1)
+    _close(got, want, TOL["float32"])
+    assert float(got[len(fixtures.SEG_COUNTS) * R:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("patch,edits", [
+    ("base", 0), ("k6_pf2", 1), ("k6_blocks3", 1), ("k7_skip_all", 1),
+    ("k7_noskip", 1), ("k7_blocks2", 1)])
+def test_bwd_variant_patches_apply_to_the_sources(patch, edits, tmp_path):
+    """``utils/bwd_variants.py`` builds each variant of K6 and K7 from a
+    copy of ``csrc/`` with texts replaced: every patch finds its texts in
+    the sources as they are and edits one file (a source edit that drops
+    a text fails here, not on the card); an unknown patch raises."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(Path(BV.__file__).resolve().parents[1] / "csrc", csrc)
+    before = {f.name: f.read_text() for f in csrc.iterdir()}
+    BV._patch(csrc, patch)
+    assert sum(f.read_text() != before[f.name]
+               for f in csrc.iterdir()) == edits
+    with pytest.raises(ValueError):
+        BV._patch(csrc, "k9_pf2")

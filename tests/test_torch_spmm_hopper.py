@@ -85,7 +85,10 @@ def _tilings():
 
 
 def _gat_tilings():
-    """name -> TiledGraph: the attention tilings K3 walks, on the hub graph
+    """name -> TiledGraph: the attention tilings K3 walks, and their
+    transposed twins, which K6 walks (built as
+    ``compiler/fusion.lower_schedule(..., build_transpose=True)`` builds
+    them: the same builder over ``transpose_host_graph``), on the hub graph
     with 12,000 random edges (a 512 x 1024 tail block then holds ~1,500 of
     them): the hybrid GAT tails at the smoke's geometry (256-wide dense
     grid, 512 x 1024 tail tiles of 512 slots, unit weight, 'cr' int8
@@ -96,12 +99,15 @@ def _gat_tilings():
     tail = dict(block_rows=256, block_cols=256, sparse_block_rows=512,
                 sparse_block_cols=1024, tile_edges=512, unit_weight=True,
                 values_dtype=np.int8, block_layout="cr", device=CPU)
-    out = {f"GAT hybrid tail thr {thr} (512x1024, ET 512)":
-           TG.hybrid_graph(hu, min_nnz=thr, **tail).tiles
-           for thr in (768, 256)}
-    out["GAT one-hot tiling (512x1024, ET 512)"] = TG.tile_graph(
-        hu, block_rows=512, block_cols=1024, tile_edges=512,
-        unit_weight=True, device=CPU)
+    out = {}
+    for graph, twin in ((hu, ""), (TG.transpose_host_graph(hu)[0],
+                                   " twin")):
+        for thr in (768, 256):
+            out[f"GAT hybrid tail{twin} thr {thr} (512x1024, ET 512)"] = (
+                TG.hybrid_graph(graph, min_nnz=thr, **tail).tiles)
+        out[f"GAT one-hot tiling{twin} (512x1024, ET 512)"] = TG.tile_graph(
+            graph, block_rows=512, block_cols=1024, tile_edges=512,
+            unit_weight=True, device=CPU)
     return out
 
 
@@ -127,12 +133,12 @@ BLOCK_GRAPHS = list(_block_graphs())
 
 @pytest.mark.parametrize("name", TILINGS)
 def test_live_slots_form_each_tiles_prefix(name):
-    """K1's walk (and K9's, and K3's) stops at the first 32 slots of a tile
-    without an edge, so the builders must put a tile's edges in a prefix of
-    its slots, sorted by receiver (the walk sums each receiver's run of
-    slots): no pad slot lies before an edge, and the receivers of the
-    prefix never fall; the SpMM tilings and the attention ones K3 reads,
-    full tiles among them."""
+    """K1's walk (and K9's, K3's and K6's) stops at the first 32 slots of a
+    tile without an edge, so the builders must put a tile's edges in a
+    prefix of its slots, sorted by receiver (the walk sums each receiver's
+    run of slots): no pad slot lies before an edge, and the receivers of the
+    prefix never fall; the SpMM tilings, the attention ones K3 reads and
+    their transposed twins K6 reads, full tiles among them."""
     tg = _tilings()[name]
     real = ((tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
             & (tg.src_local >= 0) & (tg.dst_local >= 0))
