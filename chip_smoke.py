@@ -27,8 +27,9 @@ Reddit's node count, and checks every hand-written kernel on the way:
   5. training: on the same lowered forward, checks the GAT backward
      kernels K5-K8 against their plain versions on the fixture cases
      (``fixtures.bwd_kernel_cases``: K7 at every head shape of its wgmma
-     path with int8 and bf16 values, K6 at 1 head of 128, 2 of 64, 4 of
-     32, 1 of 41 and 16 of 1, both dtypes) and at both layers' shapes (and
+     path with int8 and bf16 values, K5 and K6 at 1 head of 128, 2 of 64,
+     4 of 32, 1 of 41 and 16 of 1 and with rows off the vector loads'
+     alignment, both dtypes) and at both layers' shapes (and
      times them in bf16; K7's and K8's bf16 calls run their tensor-core
      paths and print their cell-heads per second beside the dense-cell
      floor, their float32 calls the per-cell walk), compares one
@@ -51,9 +52,11 @@ Reddit's node count, and checks every hand-written kernel on the way:
      gradients against per-op autograd (K9 launched in the backward), and 1
      warm-up and 2 timed bf16 AdamW steps;
   7. SDDMM and pair aggregation: (a) K11-K13 against their plain versions
-     on the fixture cases; (b) DGN-2l and PNA-2l (602/128/41) with their
-     pair chains on K13 (``pair_agg_partition``, 1024²/ET512 ``onehot``):
-     K13 checked and timed at each layer's shape, 3 bf16 and 1 float32
+     on the fixture cases (K13's hub row cut into two chunks of its work
+     list); (b) DGN-2l and PNA-2l (602/128/41) with their pair chains on
+     K13 (``pair_agg_partition``, 1024²/ET512 ``onehot``): K13's work list
+     built again and timed (its chunks and cut rows printed), K13 checked
+     and timed at each layer's shape, 3 bf16 and 1 float32
      requests per model on the smoke's graph, and on a reduced graph of
      the same generator (a tenth of the edges, where the per-op path fits)
      answers, float32 losses and gradients against the per-op path; (c)
@@ -1181,6 +1184,18 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
         say(f"  {mname} pair-agg tiling {PAIR_TILE}: {tg.n_tiles} tiles, "
             f"{slots} slots for {live} edges ({slots / live:.2f} slots per "
             "edge)")
+        # the lowering built K13's work list; built again here to time it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = PA._build_pair_work(tg, hg.n_node)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        longest = int(torch.diff(work.chunk_ptr.long()).max())
+        say(f"  {mname} K13 work list: built in {ms:.1f} ms, "
+            f"{work.slot_src.numel()} slots in {work.n_chunks} chunks of at "
+            f"most {PA.PAIR_CHUNK} ({longest} in the longest), "
+            f"{work.split_rows.numel()} of {hg.n_node} rows cut")
+        del work
         for f in found:
             pair_agg_checks(checks, [f[:3]], f[3], dev, hg.n_node)
 

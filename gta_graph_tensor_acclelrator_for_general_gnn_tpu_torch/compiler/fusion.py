@@ -388,6 +388,9 @@ def lower_schedule(
                 twin = (get_tiled(tc, True, host_graph_t), get_perm_t())
         elif kind in ("gat_layer", "sddmm", "pair_agg"):
             data = get_tiled(tc, unit_weight=True)
+            if kind == "pair_agg" and data.src_local.is_cuda:
+                # K13's work list, at set-up rather than in a request
+                pair_mod.pair_work(data, host_graph.n_node)
         else:
             data = None
         plans.append((kind, block, tc, plan, data, twin))

@@ -10,7 +10,9 @@
 //   alpha = p * mult / den[d]
 //   dz    = alpha * (te - s2[d]) * leaky'(a_s[s] + a_d[d])
 // in the order of operations of the TPU kernels.  The side panel [N, 4H]
-// float32 packs [a_s | a_d | 1/den | s2] per node.
+// float32 packs [a_s | a_d | 1/den | s2] per node; the tail walks also read
+// it repacked per node and head, [N, H, 4] (ops/gat.pack_side, once per
+// backward for K5 and K6 together).
 //
 // ``Acc::SRC`` says which end of an edge the walked rows are: false for
 // the forward split (rows = receivers d; K5, K7 sum dad there), true for
@@ -21,8 +23,8 @@
 
 namespace gta {
 
-// The lane-strided walks (K5's tail walk, the dense walk) hold a node's HD
-// features with lane l taking features l, l + 32, ...
+// The dense walk holds a node's HD features lane-strided, lane l taking
+// features l, l + 32, ...
 constexpr int BWD_MAXF = 8;  // features per lane: HD <= 256
 
 // head of each of this lane's features (-1 past HD)
@@ -76,145 +78,8 @@ inline bool bwd_shape_ok(int HD, int H) {
 }
 
 // ---------------------------------------------------------------------------
-// The tail walk of K5: K3's earlier design (K6 walks by
-// gat_bwd_prefix_walk, below).  One warp per tile, so the work
-// spreads evenly whatever the row-block skew; the warp keeps the live slots
-// of each 32-slot group by ballot (pad slots and dead tiles, cb < 0, add
-// nothing and are never addressed); per live edge the lanes gather h[s] and
-// gbar[d] lane-strided, te is a warp reduction per head, lane h runs head
-// h's chain, and every lane calls
-//   Acc::add<HT>(run, alpha, dz, gbar[d] lane-strided, hk, lane, H)
-// (alpha and dz are those of the lane's head for lanes < H, else 0), which
-// adds the edge's rounded terms into the register sums of the current run
-// of slots with one walked row (the builders sort a tile's slots by
-// receiver, the walked row of either split).  When the walked row changes,
-// and after the walk,
-//   Acc::flush(out, row, run, hk, lane, H, HD)
-// adds the run's sums into the zeroed float32 output with one global
-// atomic per value (order varies by run: float32 rounding only).  A hub
-// row of 2e5 slots thus takes a few hundred atomics of run sums, and a row
-// that repeats one edge drifts only over a run, as in gta::gat_walk.
-// ---------------------------------------------------------------------------
-
-// The register sums of one run: lane h < H holds head h's, and for the
-// source kernel every lane its features' (lane-strided, as the rows).
-struct BwdRun {
-  float head;
-  float feat[BWD_MAXF];
-  __device__ __forceinline__ void zero() {
-    head = 0.f;
-#pragma unroll
-    for (int k = 0; k < BWD_MAXF; ++k) feat[k] = 0.f;
-  }
-};
-
-constexpr int TILE_WARPS = 8;
-
-template <typename Acc, typename HT, typename MT>
-__global__ void __launch_bounds__(TILE_WARPS * 32)
-gat_bwd_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_cb,
-                     const int16_t* __restrict__ src_local,
-                     const int16_t* __restrict__ dst_local, const MT* __restrict__ mult,
-                     const HT* __restrict__ h, const HT* __restrict__ gbar,
-                     const float* __restrict__ side, const float* __restrict__ msrc,
-                     float* __restrict__ out, int T, int R, int C, int ET, int HD, int H,
-                     int64_t n, float slope) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
-  if (t >= T) return;
-  const int cb = tile_cb[t];
-  if (cb < 0) return;  // dead tile
-  int hk[BWD_MAXF];
-  lane_heads(HD, HD / H, lane, hk);
-  const float ms = lane < H ? msrc[lane] : 0.f;
-  const int64_t row0 = static_cast<int64_t>(tile_rb[t]) * R;
-  const int64_t col0 = static_cast<int64_t>(cb) * C;
-  const int64_t base = static_cast<int64_t>(t) * ET;
-  const int S = 4 * H;
-  BwdRun run;
-  run.zero();
-  int64_t cur = -1;  // the current run's walked row (the same in every lane)
-  for (int e0 = 0; e0 < ET; e0 += 32) {
-    const int e = e0 + lane;
-    int c = C, r = R;
-    float m = 0.f;
-    if (e < ET) {
-      c = src_local[base + e];
-      r = dst_local[base + e];
-      m = to_f(mult[base + e]);
-    }
-    const bool live = c >= 0 && c < C && r >= 0 && r < R && col0 + c < n && row0 + r < n;
-    unsigned todo = __ballot_sync(0xffffffffu, live);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int64_t row = row0 + __shfl_sync(0xffffffffu, r, j);
-      const int64_t col = col0 + __shfl_sync(0xffffffffu, c, j);
-      const int64_t src = Acc::SRC ? row : col;
-      const int64_t dst = Acc::SRC ? col : row;
-      const float mj = __shfl_sync(0xffffffffu, m, j);
-      if (row != cur) {
-        if (cur >= 0) Acc::flush(out, cur, run, hk, lane, H, HD);
-        cur = row;
-        run.zero();
-      }
-      float hv[BWD_MAXF], gv[BWD_MAXF];
-      load_row(h + src * HD, HD, lane, hv);
-      load_row(gbar + dst * HD, HD, lane, gv);
-      const float te = head_dot(hv, gv, hk, H, lane);
-      float alpha = 0.f, dz = 0.f;
-      if (lane < H) {
-        const float* sd = side + dst * S;
-        edge_grad(side[src * S + lane], sd[H + lane], sd[2 * H + lane], sd[3 * H + lane],
-                  ms, mj, te, slope, alpha, dz);
-      }
-      Acc::template add<HT>(run, alpha, dz, gv, hk, lane, H);
-    }
-  }
-  if (cur >= 0) Acc::flush(out, cur, run, hk, lane, H, HD);
-}
-
-template <typename Acc, typename HT, typename MT>
-cudaError_t launch_tiles(const void* rb, const void* cb, const void* s, const void* d,
-                         const void* mult, const void* h, const void* g, const void* side,
-                         const void* ms, void* out, int T, int R, int C, int ET, int HD,
-                         int H, int64_t n, float slope, void* stream) {
-  const int blocks = (T + TILE_WARPS - 1) / TILE_WARPS;
-  gat_bwd_tiles_kernel<Acc, HT, MT>
-      <<<blocks, TILE_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(rb), static_cast<const int*>(cb),
-          static_cast<const int16_t*>(s), static_cast<const int16_t*>(d),
-          static_cast<const MT*>(mult), static_cast<const HT*>(h),
-          static_cast<const HT*>(g), static_cast<const float*>(side),
-          static_cast<const float*>(ms), static_cast<float*>(out), T, R, C, ET, HD, H, n,
-          slope);
-  return cudaGetLastError();
-}
-
-// the body of a tail kernel's C entry point: h in float32 or bf16, the
-// slot multiplicities (``mult``) likewise
-template <typename Acc>
-int tiles_entry(const void* rb, const void* cb, const void* s, const void* d,
-                const void* mult, int m_dtype, const void* h, const void* g, int h_dtype,
-                const void* side, const void* ms, void* out, int T, int R, int C, int ET,
-                int HD, int H, int64_t n, float slope, void* st) {
-  if (!bwd_shape_ok(HD, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool hb = h_dtype == BF16, mb = m_dtype == BF16;
-  cudaError_t err;
-  if (hb && mb)
-    err = launch_tiles<Acc, __nv_bfloat16, __nv_bfloat16>(rb, cb, s, d, mult, h, g, side, ms, out, T, R, C, ET, HD, H, n, slope, st);
-  else if (hb)
-    err = launch_tiles<Acc, __nv_bfloat16, float>(rb, cb, s, d, mult, h, g, side, ms, out, T, R, C, ET, HD, H, n, slope, st);
-  else if (mb)
-    err = launch_tiles<Acc, float, __nv_bfloat16>(rb, cb, s, d, mult, h, g, side, ms, out, T, R, C, ET, HD, H, n, slope, st);
-  else
-    err = launch_tiles<Acc, float, float>(rb, cb, s, d, mult, h, g, side, ms, out, T, R, C, ET, HD, H, n, slope, st);
-  return static_cast<int>(err);
-}
-
-// ---------------------------------------------------------------------------
-// The tail prefix walk (K6; K5 takes it with an Acc whose SRC is false):
-// K3's walk (tile_walk.cuh gat_prefix_walk) for the backward chain.  The
+// The tail prefix walk of K5 (SRC false) and K6 (SRC true): K3's walk
+// (tile_walk.cuh gat_prefix_walk) for the backward chain.  The
 // warp reads a tile's slots 32 at a time, keeps the live ones by ballot
 // and stops at the first 32 without an edge (the builders put a tile's
 // edges in a prefix of its slots, sorted by the walked row).  E lane
@@ -224,15 +89,19 @@ int tiles_entry(const void* rb, const void* cb, const void* s, const void* d,
 // holds features (k + LG i) VEC + [0, VEC), i <
 // NV, of the one pass that covers HD (VEC = 4 only where D % 4 == 0, so
 // one load's features share a head).  The side terms come packed per node
-// and head, [a_s, a_d, 1/den, s2] float32 ([N, H, 4]: one 16-byte load a
-// head).  Per edge a group gathers the column's vector (gbar[d] for SRC,
-// h[s] otherwise) and the column's side terms of its lanes' heads; the
-// walked row's vector and side terms are loaded once, with the batch in
-// which its run of slots starts.  te of a head is each lane's partial over
-// its features, summed by xor shuffles across the lanes of the group that
-// hold that head (group_head_dots); every lane that holds a head runs its
-// chain (edge_grad), so alpha is never shuffled.  Register sums over the
-// group's current run: das or dad (round_to<HT>(dz)) on the lane whose
+// and head, [a_s, a_d, 1/den, s2] float32 (``sidep`` [N, H, 4]: one
+// 16-byte load a head).  Per edge a group gathers the column's vector
+// (gbar[d] for SRC, h[s] otherwise) and the column's side terms of its
+// lanes' heads: for SRC the receiver's four, else the sender's a_s alone
+// (one float of its packed terms: on the card that beat reading a node's H
+// a_s contiguous from the unpacked [N, 4H] panel, a second panel beside
+// the packed one); the walked row's vector and side terms are loaded once,
+// with the batch in which its run of slots starts.  te of a head is each
+// lane's partial over its features, summed by xor shuffles across the
+// lanes of the group that hold that head (group_head_dots); every lane
+// that holds a head runs its chain (edge_grad), so alpha is never
+// shuffled.  Register sums over the group's current run: das or dad
+// (round_to<HT>(dz)) on the lane whose
 // load starts the head, and for SRC dh (round_to<HT>(alpha * gbar), the
 // product never contracted into an FMA) on every lane.  A run is added
 // into the zeroed float32 output of Acc::width(H, HD) columns per row
@@ -244,8 +113,9 @@ int tiles_entry(const void* rb, const void* cb, const void* s, const void* d,
 // edges a lane group gathers at a time.  Each edge already keeps several
 // gathers of a lane in flight (its column vector's NV loads, its side
 // terms and, where a run starts, the walked row's); one edge a group at
-// four blocks an SM took less time on the card than two at three blocks or
-// four at one, since each more edge costs some twenty registers a lane
+// four blocks an SM took less time on the card than two (K5, K6; K6 also
+// at three blocks) or four at one (K6), since each more edge costs some
+// twenty registers a lane
 constexpr int BWD_PF = 1;
 
 // lanes of one load that hold a head, where they form an aligned power of
@@ -394,7 +264,12 @@ __device__ __forceinline__ void gat_bwd_prefix_walk(
           gq[q][i] = on ? *reinterpret_cast<const V*>(colvec + col * HD + f) : zero_of<V>();
           rvq[q][i] = on && fresh[q] ? *reinterpret_cast<const V*>(rowvec + row * HD + f)
                                      : zero_of<V>();
-          if (on && !same[i]) terms(col, i, cq[q][i]);
+          if (on && !same[i]) {
+            if (SRC)
+              terms(col, i, cq[q][i]);
+            else  // the sender's a_s alone
+              cq[q][i][0] = sidep[(col * H + hk[i]) * 4];
+          }
           if (on && fresh[q] && !same[i]) terms(row, i, rtq[q][i]);
           if (i > 0 && same[i]) {
 #pragma unroll
@@ -451,6 +326,112 @@ __device__ __forceinline__ void gat_bwd_prefix_walk(
     }
   }
   if (cur >= 0) flush();
+}
+
+// The tail kernels K5 and K6: one warp per tile (a row block's 512-row
+// stripe of [das | dh], 270 KB at H + HD = 132, would not fit a block's
+// 227 KB of shared memory), walking by gat_bwd_prefix_walk; each .cu
+// holds its Acc and a C entry that calls tail_entry<Acc>.
+constexpr int TAIL_WARPS = 8;
+
+// blocks an SM the walk's registers are held to: four (64 registers a
+// thread) where a lane holds at most three loads, the GAT-2l layers'
+// walks: they wait on gathers, so warps in flight count most (on the card
+// both took more time at five blocks an SM, K6 spilling there, K5 at
+// three and K6 at two); two where a lane holds more (HD past 128 in bf16,
+// one feature a lane past 48)
+template <int NV>
+constexpr int walk_blocks() {
+  return NV <= 3 ? 4 : 2;
+}
+
+template <typename Acc, typename HT, typename MT, int VEC, int NV, int E>
+__global__ void __launch_bounds__(TAIL_WARPS * 32, walk_blocks<NV>())
+gat_bwd_tail_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_cb,
+                    const int16_t* __restrict__ src_local,
+                    const int16_t* __restrict__ dst_local, const MT* __restrict__ mult,
+                    const HT* __restrict__ h, const HT* __restrict__ gbar,
+                    const float* __restrict__ sidep, const float* __restrict__ msrc,
+                    float* __restrict__ out, int T, int R, int C, int ET, int HD, int H, int L,
+                    int64_t n, float slope) {
+  const int t = blockIdx.x * TAIL_WARPS + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const int cb = tile_cb[t];
+  if (cb < 0) return;  // dead tile
+  gat_bwd_prefix_walk<Acc, HT, MT, VEC, NV, E>(
+      src_local, dst_local, mult, static_cast<int64_t>(t) * ET, ET, R, C,
+      static_cast<int64_t>(tile_rb[t]) * R, static_cast<int64_t>(cb) * C, h, gbar, sidep,
+      msrc, out, HD, H, L, n, slope, threadIdx.x & 31);
+}
+
+struct TailArgs {
+  const int *rb, *cb;
+  const int16_t *s, *d;
+  const void *mult, *h, *g;
+  const float *sidep, *ms;  // sidep: the side panel packed [n, H, 4]
+  float* out;
+  int T, R, C, ET, HD, H;
+  int64_t n;
+  float slope;
+  cudaStream_t st;
+};
+
+template <typename Acc, typename HT, typename MT, int VEC, int NV, int E>
+cudaError_t tail_run(const TailArgs& a) {
+  const int L = lanes_per_head(a.HD / a.H, VEC, 32 / E);
+  gat_bwd_tail_kernel<Acc, HT, MT, VEC, NV, E>
+      <<<(a.T + TAIL_WARPS - 1) / TAIL_WARPS, TAIL_WARPS * 32, 0, a.st>>>(
+          a.rb, a.cb, a.s, a.d, static_cast<const MT*>(a.mult), static_cast<const HT*>(a.h),
+          static_cast<const HT*>(a.g), a.sidep, a.ms, a.out, a.T, a.R, a.C, a.ET, a.HD, a.H, L,
+          a.n, a.slope);
+  return cudaGetLastError();
+}
+
+// the walk's configuration: one pass covers HD (te needs a head's every
+// feature in the pass).  Vector loads where D % 4 == 0 and both rows are
+// aligned for them (bf16 by half-warps, 64 features a load step; float32 by
+// the whole warp, 128); else one feature a lane, by half-warps up to 48
+// features, else by the whole warp
+template <typename Acc, typename HT, typename MT>
+cudaError_t tail_launch(const TailArgs& a) {
+  constexpr uintptr_t AL = 4 * sizeof(HT);
+  const bool vec = (a.HD / a.H) % 4 == 0 && reinterpret_cast<uintptr_t>(a.h) % AL == 0 &&
+                   reinterpret_cast<uintptr_t>(a.g) % AL == 0;
+  if (vec) {
+    if constexpr (sizeof(HT) == 2)
+      return a.HD <= 128 ? tail_run<Acc, HT, MT, 4, 2, 2>(a) : tail_run<Acc, HT, MT, 4, 4, 2>(a);
+    else
+      return a.HD <= 128 ? tail_run<Acc, HT, MT, 4, 1, 1>(a) : tail_run<Acc, HT, MT, 4, 2, 1>(a);
+  }
+  return a.HD <= 48 ? tail_run<Acc, HT, MT, 1, 3, 2>(a) : tail_run<Acc, HT, MT, 1, 8, 1>(a);
+}
+
+// the body of a tail kernel's C entry point: h float32 or bf16, the slot
+// multiplicities (``mult``) likewise; ``sidep`` (the side panel packed per
+// node and head) 16-byte aligned
+template <typename Acc>
+int tail_entry(const void* rb, const void* cb, const void* s, const void* d, const void* mult,
+               int m_dtype, const void* h, const void* g, int h_dtype, const void* sidep,
+               const void* ms, void* out, int T, int R, int C, int ET, int HD, int H, int64_t n,
+               float slope, void* stream) {
+  if (!bwd_shape_ok(HD, H) || (reinterpret_cast<uintptr_t>(sidep) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TailArgs a{static_cast<const int*>(rb), static_cast<const int*>(cb),
+                   static_cast<const int16_t*>(s), static_cast<const int16_t*>(d), mult, h, g,
+                   static_cast<const float*>(sidep), static_cast<const float*>(ms),
+                   static_cast<float*>(out), T, R, C, ET, HD, H, n, slope,
+                   static_cast<cudaStream_t>(stream)};
+  const bool hb = h_dtype == BF16, mb = m_dtype == BF16;
+  cudaError_t err;
+  if (hb && mb)
+    err = tail_launch<Acc, __nv_bfloat16, __nv_bfloat16>(a);
+  else if (hb)
+    err = tail_launch<Acc, __nv_bfloat16, float>(a);
+  else if (mb)
+    err = tail_launch<Acc, float, __nv_bfloat16>(a);
+  else
+    err = tail_launch<Acc, float, float>(a);
+  return static_cast<int>(err);
 }
 
 // ---------------------------------------------------------------------------

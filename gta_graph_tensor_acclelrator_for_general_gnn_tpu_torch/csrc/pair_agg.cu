@@ -10,39 +10,49 @@
 // package, which gathers U and V and scatters the sum and count through
 // one-hot matmuls and takes each row's tile maximum with a segmented
 // cumulative max (there is no max-matmul on the MXU).  Hopper gathers rows
-// directly and has an atomic max, so this kernel reads the same tile arrays
-// and keeps z in registers.  Numerics as the TPU kernel: the sum adds z
-// rounded to u's dtype in float32, the max is of z rounded to u's dtype
-// (the rounding is monotone, so it is the rounded maximum), and a dead tile
-// (cb < 0) reads column block 0, as the TPU kernel's BlockSpec
-// max(cb[t], 0) does.
+// directly, so this kernel keeps z in registers.  Numerics as the TPU
+// kernel: the sum adds z rounded to u's dtype in float32, the max is of z
+// rounded to u's dtype (the rounding is monotone, so it is the rounded
+// maximum), and a dead tile (cb < 0) reads column block 0, as the TPU
+// kernel's BlockSpec max(cb[t], 0) does.
 //
-// Bound on the card: memory.  Each live slot reads its two index words and
-// two D-wide rows and adds into 2D + 1 floats; u and v are read, and the
-// [N, D] sum and max written, once when the L2 cache holds the rows.
+// Bound on the card: memory and latency.  Each counted slot gathers one
+// D-wide row of u; v is read, and the [N, D] sum and max written, once per
+// row.  On TPU-shaped tiles (1024² blocks, 512 slots, ~170 edges a tile) a
+// receiver has about one slot a tile, so a walk over the tiles would
+// flush about one slot per receiver run: 2D + 1 atomics an edge.
 //
-// Design: one warp per tile, lanes over features (256 features a pass; a
-// wider D takes more passes over the tile).  The warp walks the live slots
-// in order, found by ballot.  tile_graph sorts each tile's slots by
-// receiver (a stable sort by block over receiver-sorted edges), so a
-// receiver's slots form one run: the warp accumulates the run's sum and max
-// in registers and flushes them with one float32 atomic add and one atomic
-// max per (row, feature), and one count add per row, when the receiver
-// changes.  The float max uses the integer order of IEEE-754 bits: signed
-// atomicMax for values >= 0 and unsigned atomicMin for negative ones, over
-// a buffer the wrapper fills with -inf; -0.0 is flushed as +0.0, which the
-// signed order would put below -inf.  The maximum is exact in any order;
-// the sum of a row spread over several tiles (the hubs) adds in an order
-// that varies from run to run (f32 rounding only).  The wrapper sets the
-// max of rows without a slot to 0.
-#include "common.cuh"
+// Design: the kernel walks the tiling's receiver-ordered work list
+// (ops/pairagg.pair_work: the counted slots' senders sorted by receiver,
+// tile order kept within a row, cut into chunks of at most PAIR_CHUNK
+// slots of one receiver, every row at least one chunk).  One lane group
+// per chunk: it loads v[r] once, reads its chunk's senders LG at a time
+// (one coalesced load, then shuffles within the group), gathers u rows
+// PF at a time with all PF loads issued before the first is used (K1's
+// vector rules: bf16 rows with D % 4 == 0 by half-warps, 8-byte loads,
+// 64 features a load step; float32 by the whole warp, 16-byte loads;
+// else one feature a lane, by half-warps up to 48 features), and sums and
+// maxes z in registers in slot order.  A row of one chunk (every row up
+// to PAIR_CHUNK slots, empty rows included) is written with plain stores:
+// no atomic, its max needs no sign trick and its sum's order is fixed.  A
+// row cut into several chunks (the hubs) adds each chunk's sum and count
+// with float32 atomics (order varies by run: f32 rounding only) and its
+// max by the integer order of IEEE-754 bits (signed atomicMax for values
+// >= 0, unsigned atomicMin for negative ones; -0.0 flushed as +0.0, which
+// the signed order would put below -inf), into rows the wrapper set to 0
+// and -inf.
+#include "tile_walk.cuh"
 
 namespace {
 
-using gta::to_f;
-
 constexpr int WARPS = 8;
-constexpr int MAXF = 8;  // features per lane and pass
+// u rows in flight per lane group, and blocks an SM the registers are held
+// to (64 a thread): the walk waits on gathers, so warps in flight count
+// most.  On the card two or eight rows in flight, chunks of 64 or 256
+// slots, and the sum-and-max instantiations left at their 79 registers
+// all took more time
+constexpr int PF = 4;
+constexpr int BLOCKS = 4;
 
 __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   v = v == 0.f ? 0.f : v;
@@ -52,119 +62,160 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
 }
 
-// Add one receiver's run (its slots in this tile, features f0 + lane +
-// 32k) into the outputs.
-template <typename T>
-__device__ __forceinline__ void flush_run(const float* s_acc, const float* m_acc,
-                                          int64_t r, int run, int f0, int lane, int D,
-                                          float* sum, float* mx, float* cnt) {
-#pragma unroll
-  for (int k = 0; k < MAXF; ++k) {
-    const int f = f0 + lane + 32 * k;
-    if (f < D) {
-      atomicAdd(sum + r * D + f, s_acc[k]);
-      if (mx != nullptr) atomic_max_f32(mx + r * D + f, gta::round_to<T>(m_acc[k]));
-    }
-  }
-  if (f0 == 0 && lane == 0) atomicAdd(cnt + r, static_cast<float>(run));
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if (VEC == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-pair_agg_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_cb,
-                const int16_t* __restrict__ src_local,
-                const int16_t* __restrict__ dst_local, const T* __restrict__ u,
+template <typename T, int VEC, int NV, int E, bool WANT_MAX>
+__global__ void __launch_bounds__(WARPS * 32, BLOCKS)
+pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row,
+                const int* __restrict__ slot_src, const T* __restrict__ u,
                 const T* __restrict__ v, float* __restrict__ sum, float* __restrict__ mx,
-                float* __restrict__ cnt, int n_tiles, int R, int C, int ET, int D,
-                int64_t n, bool use_leaky, float slope) {
-  const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (t >= n_tiles) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t base = static_cast<int64_t>(t) * ET;
-  const int64_t row0 = static_cast<int64_t>(tile_rb[t]) * R;
-  const int cb = tile_cb[t];
-  const int64_t col0 = static_cast<int64_t>(cb > 0 ? cb : 0) * C;
+                float* __restrict__ cnt, int n_chunks, int D, bool use_leaky, float slope) {
+  using V = typename gta::VecLoad<T, VEC>::type;
+  constexpr int LG = 32 / E;        // lanes a group
+  constexpr int W = LG * VEC * NV;  // features a pass
+  const int lane = threadIdx.x & 31, k = lane % LG;
+  const int c = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * E + lane / LG;
+  if (c >= n_chunks) return;  // the whole group: its shuffles use its own mask
+  const unsigned gmask = (0xffffffffu >> (32 - LG)) << (lane - k);
+  const int b = chunk_ptr[c], end = chunk_ptr[c + 1];
+  const int rc = chunk_row[c];
+  const bool split = rc < 0;
+  const int64_t r = split ? ~rc : rc;
+  if (k == 0) {
+    const float m = static_cast<float>(end - b);
+    if (split)
+      atomicAdd(cnt + r, m);
+    else
+      cnt[r] = m;
+  }
   const float neg_inf = __uint_as_float(0xff800000u);
-  for (int f0 = 0; f0 < D; f0 += 32 * MAXF) {
-    float s_acc[MAXF], m_acc[MAXF];
-    int64_t cur = -1;
-    int run = 0;
-    for (int e0 = 0; e0 < ET; e0 += 32) {
-      const int e = e0 + lane;
-      int s = C, d = R;
-      if (e < ET) {
-        s = src_local[base + e];
-        d = dst_local[base + e];
-      }
-      const bool live = d >= 0 && d < R && row0 + d < n;
-      unsigned todo = __ballot_sync(0xffffffffu, live);
-      while (todo) {
-        const int j = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int sj = __shfl_sync(0xffffffffu, s, j);
-        const int64_t r = row0 + __shfl_sync(0xffffffffu, d, j);
-        if (r != cur) {
-          if (cur >= 0) flush_run<T>(s_acc, m_acc, cur, run, f0, lane, D, sum, mx, cnt);
-          cur = r;
-          run = 0;
+  for (int f0 = 0; f0 < D; f0 += W) {
+    bool on[NV];
+    float vv[NV][VEC], s[NV][VEC], m[NV][VEC];
 #pragma unroll
-          for (int k = 0; k < MAXF; ++k) {
-            s_acc[k] = 0.f;
-            m_acc[k] = neg_inf;
+    for (int i = 0; i < NV; ++i) {
+      const int f = f0 + (k + LG * i) * VEC;
+      on[i] = f < D;
+      const V x = on[i] ? *reinterpret_cast<const V*>(v + r * D + f) : gta::zero_of<V>();
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        vv[i][e] = gta::unpack(x, e);
+        s[i][e] = 0.f;
+        m[i][e] = neg_inf;
+      }
+    }
+    for (int p0 = b; p0 < end; p0 += LG) {
+      const int here = min(LG, end - p0);
+      const int mine = k < here ? slot_src[p0 + k] : -1;
+      for (int q0 = 0; q0 < here; q0 += PF) {
+        V uq[PF][NV];
+#pragma unroll
+        for (int q = 0; q < PF; ++q) {
+          const int j = q0 + q;
+          const int sj = __shfl_sync(gmask, mine, j < here ? j : 0, LG);
+          const bool ok = j < here && sj >= 0;  // a pad sender reads 0
+          const T* ur = u + static_cast<int64_t>(ok ? sj : 0) * D;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int f = f0 + (k + LG * i) * VEC;
+            uq[q][i] = ok && on[i] ? *reinterpret_cast<const V*>(ur + f) : gta::zero_of<V>();
           }
         }
-        ++run;
-        const bool has_u = sj >= 0 && sj < C && col0 + sj < n;
-        const T* ur = u + (col0 + (has_u ? sj : 0)) * D;
-        const T* vr = v + r * D;
 #pragma unroll
-        for (int k = 0; k < MAXF; ++k) {
-          const int f = f0 + lane + 32 * k;
-          if (f < D) {
-            float z = (has_u ? to_f(ur[f]) : 0.f) + to_f(vr[f]);
-            if (use_leaky) z = gta::leaky(z, slope);
-            s_acc[k] += gta::round_to<T>(z);
-            m_acc[k] = fmaxf(m_acc[k], z);
-          }
+        for (int q = 0; q < PF; ++q) {
+          if (q0 + q >= here) break;
+#pragma unroll
+          for (int i = 0; i < NV; ++i)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              float z = gta::unpack(uq[q][i], e) + vv[i][e];
+              if (use_leaky) z = gta::leaky(z, slope);
+              s[i][e] += gta::round_to<T>(z);
+              if (WANT_MAX) m[i][e] = fmaxf(m[i][e], z);
+            }
         }
       }
     }
-    if (cur >= 0) flush_run<T>(s_acc, m_acc, cur, run, f0, lane, D, sum, mx, cnt);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (!on[i]) continue;
+      const int64_t o = r * D + f0 + (k + LG * i) * VEC;
+      float mr[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) mr[e] = end > b ? gta::round_to<T>(m[i][e]) : 0.f;
+      if (!split) {
+        store_vec<VEC>(sum + o, s[i]);
+        if (WANT_MAX) store_vec<VEC>(mx + o, mr);
+      } else {
+        gta::add_vec<VEC>(sum + o, s[i]);
+        if (WANT_MAX) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) atomic_max_f32(mx + o + e, mr[e]);
+        }
+      }
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const int* rb, const int* cb, const int16_t* s, const int16_t* d,
-                   const void* u, const void* v, float* sum, float* mx, float* cnt, int T_,
-                   int R, int C, int ET, int D, int64_t n, bool use_leaky, float slope,
-                   cudaStream_t st) {
-  const int blocks = (T_ + WARPS - 1) / WARPS;
-  pair_agg_kernel<T><<<blocks, WARPS * 32, 0, st>>>(
-      rb, cb, s, d, static_cast<const T*>(u), static_cast<const T*>(v), sum, mx, cnt, T_,
-      R, C, ET, D, n, use_leaky, slope);
+struct Args {
+  const int *ptr, *row, *src;
+  const void *u, *v;
+  float *sum, *mx, *cnt;
+  int n_chunks, D;
+  bool leaky;
+  float slope;
+  cudaStream_t st;
+};
+
+template <typename T, int VEC, int NV, int E>
+cudaError_t run(const Args& a) {
+  const int groups = WARPS * E;
+  const unsigned blocks = static_cast<unsigned>((a.n_chunks + groups - 1) / groups);
+  const T* u = static_cast<const T*>(a.u);
+  const T* v = static_cast<const T*>(a.v);
+  if (a.mx != nullptr)
+    pair_agg_kernel<T, VEC, NV, E, true><<<blocks, WARPS * 32, 0, a.st>>>(
+        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.cnt, a.n_chunks, a.D, a.leaky, a.slope);
+  else
+    pair_agg_kernel<T, VEC, NV, E, false><<<blocks, WARPS * 32, 0, a.st>>>(
+        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.cnt, a.n_chunks, a.D, a.leaky, a.slope);
   return cudaGetLastError();
+}
+
+// K1's vector rules (tile_walk.cuh spmm_walk_config), with one feature a
+// lane by half-warps up to 48 features (the 41 logits of a last layer)
+template <typename T>
+cudaError_t launch(const Args& a) {
+  constexpr uintptr_t AL = 4 * sizeof(T);
+  if (a.D % 4 == 0 && reinterpret_cast<uintptr_t>(a.u) % AL == 0 &&
+      reinterpret_cast<uintptr_t>(a.v) % AL == 0) {
+    if constexpr (sizeof(T) == 2)
+      return run<T, 4, 2, 2>(a);
+    else
+      return run<T, 4, 1, 1>(a);
+  }
+  return a.D <= 48 ? run<T, 1, 3, 2>(a) : run<T, 1, 2, 1>(a);
 }
 
 }  // namespace
 
-extern "C" int gta_pair_agg(const void* tile_rb, const void* tile_cb,
-                            const void* src_local, const void* dst_local, const void* u,
-                            const void* v, int dtype, void* sum, void* mx, void* cnt,
-                            int T, int R, int C, int ET, int D, int64_t n, int leaky,
-                            float slope, void* stream) {
-  auto rb = static_cast<const int*>(tile_rb);
-  auto cb = static_cast<const int*>(tile_cb);
-  auto s = static_cast<const int16_t*>(src_local);
-  auto d = static_cast<const int16_t*>(dst_local);
-  auto ys = static_cast<float*>(sum);
-  auto ym = static_cast<float*>(mx);
-  auto yc = static_cast<float*>(cnt);
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == gta::BF16
-          ? launch<__nv_bfloat16>(rb, cb, s, d, u, v, ys, ym, yc, T, R, C, ET, D, n,
-                                  leaky != 0, slope, st)
-          : launch<float>(rb, cb, s, d, u, v, ys, ym, yc, T, R, C, ET, D, n, leaky != 0,
-                          slope, st);
+// K13 over a work list (ops/pairagg.PairWork): ``sum``, ``mx`` (null: no
+// max) and ``cnt`` float32, 16-byte aligned; the rows of split chunks
+// (chunk_row < 0) set to 0, -inf and 0 by the caller.
+extern "C" int gta_pair_agg(const void* chunk_ptr, const void* chunk_row, const void* slot_src,
+                            const void* u, const void* v, int dtype, void* sum, void* mx,
+                            void* cnt, int n_chunks, int D, int leaky, float slope,
+                            void* stream) {
+  const Args a{static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_row),
+               static_cast<const int*>(slot_src), u, v, static_cast<float*>(sum),
+               static_cast<float*>(mx), static_cast<float*>(cnt), n_chunks, D, leaky != 0,
+               slope, static_cast<cudaStream_t>(stream)};
+  const cudaError_t err = dtype == gta::BF16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
   return static_cast<int>(err);
 }

@@ -185,6 +185,9 @@ class TiledGraph:
       edge_id:  int32[T, ET]  index into the edge arrays (pad: e_pad - 1)
       weight:   float32 or bfloat16 [T, ET]  per-edge weight, 0 on padding
       row_first_tile: int32[RB+1]  first tile of each row block.
+      work_lists: work lists derived from the tiling on first use, by
+        key (``ops.pairagg.pair_work``: K13's receiver chunks), so a
+        tiling no kernel walks that way never builds one.
     """
 
     tile_rb: torch.Tensor
@@ -200,6 +203,8 @@ class TiledGraph:
     n_node: int
     n_row_blocks: int
     n_col_blocks: int
+    work_lists: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
 
     @property
     def n_tiles(self) -> int:

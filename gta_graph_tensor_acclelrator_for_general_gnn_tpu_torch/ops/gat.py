@@ -377,10 +377,26 @@ def _require_bwd(h, gbar, side, msrc, dev):
                          f"msrc {tuple(msrc.shape)}")
 
 
+def pack_side(side: torch.Tensor) -> torch.Tensor:
+    """The side panel [N, 4H] = [a_s | a_d | 1/den | s2] repacked per node
+    and head, [N, H, 4] float32 (one 16-byte load a head in the tail
+    walks); with one head that is ``side`` itself, no copy."""
+    n, H4 = side.shape
+    return side.view(n, 4, H4 // 4).transpose(1, 2).contiguous()
+
+
 def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
-                   src_mode: bool, entry: str) -> torch.Tensor:
+                   src_mode: bool, entry: str,
+                   packed: Optional[torch.Tensor]) -> torch.Tensor:
     dev = h.device
     _require_bwd(h, gbar, side, msrc, dev)
+    packed = pack_side(side) if packed is None else packed
+    _ext.require(packed, "packed", dev, (torch.float32,), 3)
+    if (tuple(packed.shape) != (side.shape[0], msrc.shape[1], 4)
+            or packed.data_ptr() % 16):
+        raise ValueError(f"packed side {tuple(packed.shape)} must be the "
+                         f"16-byte aligned [N, H, 4] repack of side "
+                         f"{tuple(side.shape)}")
     _ext.require(tg.weight, "weight", dev, (torch.float32, torch.bfloat16), 2)
     for name in ("src_local", "dst_local"):
         _ext.require(getattr(tg, name), name, dev, (torch.int16,), 2)
@@ -395,36 +411,35 @@ def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
         return out
     lib = _ext.library()
     n = min(h.shape[0], tg.n_node)
-    # K6's scratch: the side panel repacked per node and head
-    scratch = (torch.empty((n, 4 * H), dtype=torch.float32, device=dev)
-               if src_mode else None)
-    extra = [scratch.data_ptr()] if src_mode else []
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             tg.tile_rb.data_ptr(), tg.tile_cb.data_ptr(),
             tg.src_local.data_ptr(), tg.dst_local.data_ptr(),
             tg.weight.data_ptr(), _ext.DTYPE_CODE[tg.weight.dtype],
             h.data_ptr(), gbar.data_ptr(), _ext.DTYPE_CODE[h.dtype],
-            side.data_ptr(), msrc.data_ptr(), out.data_ptr(), tg.n_tiles,
+            packed.data_ptr(), msrc.data_ptr(), out.data_ptr(), tg.n_tiles,
             tg.block_rows, tg.block_cols, tg.tile_edges, HD, H, n,
-            float(negative_slope), *extra, _ext.stream(h))
+            float(negative_slope), _ext.stream(h))
     _ext.check(rc, entry)
     return out
 
 
 def gat_bwd_tiles_dad(tg: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
                       side: torch.Tensor, msrc: torch.Tensor, *,
-                      negative_slope: float = 0.2) -> torch.Tensor:
+                      negative_slope: float = 0.2,
+                      packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5 wrapper: dad [n, H] float32 over the forward tail tiling.  ``h``
     and ``gbar`` [N, HD] share a dtype; ``side`` [N, 4H] float32 is
-    [a_s | a_d | 1/den | s2]; ``msrc`` [1, H] is the forward's shift bound.
-    CPU tensors take the plain version; CUDA tensors launch or raise."""
+    [a_s | a_d | 1/den | s2]; ``msrc`` [1, H] is the forward's shift bound;
+    ``packed`` is ``pack_side(side)`` where the caller has it (else the
+    wrapper packs).  CPU tensors take the plain version; CUDA tensors
+    launch or raise."""
     if h.device.type == "cpu":
         return _gat_bwd_tiles_reference(tg, h, gbar, side, msrc,
                                         src_mode=False,
                                         negative_slope=negative_slope)
     out = _gat_bwd_tiles(tg, h, gbar, side, msrc, negative_slope, False,
-                         "gta_gat_bwd_tiles_dad")
+                         "gta_gat_bwd_tiles_dad", packed)
     gat_bwd_tiles_dad.launches += 1
     return out
 
@@ -434,7 +449,8 @@ gat_bwd_tiles_dad.launches = 0
 
 def gat_bwd_tiles_src(tg_t: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
                       side: torch.Tensor, msrc: torch.Tensor, *,
-                      negative_slope: float = 0.2) -> torch.Tensor:
+                      negative_slope: float = 0.2,
+                      packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6 wrapper: [das | dh] [n, H + HD] float32 over the TRANSPOSED tail
     tiling (its rows are the original senders); arguments as
     :func:`gat_bwd_tiles_dad`.  CPU tensors take the plain version; CUDA
@@ -444,7 +460,7 @@ def gat_bwd_tiles_src(tg_t: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
                                         src_mode=True,
                                         negative_slope=negative_slope)
     out = _gat_bwd_tiles(tg_t, h, gbar, side, msrc, negative_slope, True,
-                         "gta_gat_bwd_tiles_src")
+                         "gta_gat_bwd_tiles_src", packed)
     gat_bwd_tiles_src.launches += 1
     return out
 
@@ -471,7 +487,8 @@ def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h: torch.Tensor,
     (combined) raw denominator, ``out`` its normalized output; the shift
     bound is the per-head max of ``a_s`` (or of ``a_s_bound``, the a_src
     the forward bounded with).  As on the TPU, h, gbar, a_s, a_d, 1/den
-    and s2 enter the kernels rounded to h's dtype."""
+    and s2 enter the kernels rounded to h's dtype.  The side panel is
+    packed per node and head once, for K5 and K6 both."""
     H = a_d.shape[1]
     dt = h.dtype
     s2, rden = bwd_node_terms(gbar, out, den)
@@ -481,8 +498,11 @@ def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h: torch.Tensor,
                      dim=1).contiguous()
     hc = h.contiguous()
     gc = gbar.to(dt).contiguous()
-    dad = gat_bwd_tiles_dad(tg, hc, gc, side, msrc, negative_slope=slope)
-    sd = gat_bwd_tiles_src(tg_t, hc, gc, side, msrc, negative_slope=slope)
+    packed = None if h.device.type == "cpu" else pack_side(side)
+    dad = gat_bwd_tiles_dad(tg, hc, gc, side, msrc, negative_slope=slope,
+                            packed=packed)
+    sd = gat_bwd_tiles_src(tg_t, hc, gc, side, msrc, negative_slope=slope,
+                           packed=packed)
     return sd[:, H:].to(dt), sd[:, :H].to(a_s.dtype), dad.to(a_d.dtype)
 
 

@@ -6,11 +6,13 @@
 without the [E, D] edge tensor of the per-op path.
 
 Counterpart of the JAX package's ``ops/pairagg.py``.  K13
-``csrc/pair_agg.cu`` (replacing the TPU kernel ``_pair_agg_kernel``) reads
-a :class:`~..graph.TiledGraph` in place and returns each row's sum, max and
-count; :func:`_pair_agg_reference` is its plain PyTorch version, and the
-wrapper :func:`pair_agg` takes it for a tensor on the CPU and launches the
-kernel for a CUDA tensor (or raises).  :func:`pair_aggregate` is
+``csrc/pair_agg.cu`` (replacing the TPU kernel ``_pair_agg_kernel``) walks
+a receiver-ordered work list of a :class:`~..graph.TiledGraph`'s counted
+slots (:func:`pair_work`, built on the tiling's device at first use and
+kept with the tiling) and returns each row's sum, max and count;
+:func:`_pair_agg_reference` is its plain PyTorch version, and the wrapper
+:func:`pair_agg` takes it for a tensor on the CPU and launches the kernel
+for a CUDA tensor (or raises).  :func:`pair_aggregate` is
 differentiable: its backward is autograd of the JAX package's float32
 formulation over the tile edge lists (:func:`_pair_agg_twin`), as the JAX
 custom VJP is; the JAX package has no backward kernel.
@@ -55,6 +57,73 @@ def _kernel_slots(tg: TiledGraph, t0: int, t1: int, n: int):
     live = (dl < R) & (row < n)
     has = ((sl < C) & (col < n))[live]
     return torch.where(has, col[live], 0), has, row[live]
+
+
+# slots a chunk of the work list holds at most: a hub row of ~2e5 slots
+# spreads over the card in chunks, each a lane group's, and a row of more
+# slots than this is cut (its chunks then meet in the outputs by atomics)
+PAIR_CHUNK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class PairWork:
+    """K13's work list of a tiling at ``n`` rows: the slots that
+    :func:`_kernel_slots` counts, sorted by receiver (a stable sort, so
+    tile order holds within a row) and cut into chunks of at most
+    ``PAIR_CHUNK`` slots of one receiver.  Every row 0..n-1 has at least
+    one chunk (an empty row one empty chunk), in row order.
+
+      slot_src:  int32[S]     sender of each slot, -1 for a pad sender
+      chunk_ptr: int32[NC+1]  chunk c holds slots chunk_ptr[c]:chunk_ptr[c+1]
+      chunk_row: int32[NC]    its receiver r, or ~r (= -r - 1) where r's
+                              slots are cut into several chunks
+      split_rows: int64[NS]   those receivers, ascending
+    """
+
+    slot_src: torch.Tensor
+    chunk_ptr: torch.Tensor
+    chunk_row: torch.Tensor
+    split_rows: torch.Tensor
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.chunk_row.shape[0])
+
+
+def _build_pair_work(tg: TiledGraph, n: int) -> PairWork:
+    dev = tg.src_local.device
+    parts = [_kernel_slots(tg, t0, t1, n) for t0, t1 in _unit_steps(tg, 8)]
+    src = torch.cat([torch.where(has, s, -1) for s, has, _ in parts]
+                    ) if parts else torch.zeros(0, dtype=torch.long,
+                                                device=dev)
+    dst = torch.cat([d for _, _, d in parts]) if parts else src.clone()
+    if src.numel() >= 2 ** 31:
+        raise ValueError(f"{src.numel()} counted slots: the work list "
+                         "indexes them in int32")
+    dst, order = torch.sort(dst, stable=True)
+    cnt = torch.bincount(dst, minlength=n)[:n]
+    nch = ((cnt + PAIR_CHUNK - 1) // PAIR_CHUNK).clamp(min=1)
+    row = torch.repeat_interleave(torch.arange(n, device=dev), nch)
+    first = torch.cumsum(nch, 0) - nch
+    start = torch.cumsum(cnt, 0) - cnt
+    j = torch.arange(row.numel(), device=dev) - first[row]
+    ptr = torch.cat([start[row] + PAIR_CHUNK * j,
+                     torch.full((1,), src.numel(), device=dev)])
+    split = nch > 1
+    return PairWork(
+        slot_src=src[order].to(torch.int32),
+        chunk_ptr=ptr.to(torch.int32),
+        chunk_row=torch.where(split[row], -row - 1, row).to(torch.int32),
+        split_rows=torch.nonzero(split).reshape(-1))
+
+
+def pair_work(tg: TiledGraph, n: int) -> PairWork:
+    """K13's work list of ``tg`` at ``n`` rows (u's), built on the
+    tiling's device at first use and kept in ``tg.work_lists``."""
+    key = ("pair_agg", n)
+    if key not in tg.work_lists:
+        tg.work_lists[key] = _build_pair_work(tg, n)
+    return tg.work_lists[key]
 
 
 def _pair_agg_reference(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
@@ -120,27 +189,30 @@ def pair_agg(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
     for k in ("tile_rb", "tile_cb"):
         _ext.require(getattr(tg, k), k, dev, (torch.int32,), 1)
     n, D = u.shape
-    # the kernel adds into zeroed sums and counts with atomics, and takes
-    # the max over -inf; rows without a slot get max 0 below
-    y_sum = torch.zeros((n, D), dtype=torch.float32, device=dev)
-    y_max = (torch.full((n, D), float("-inf"), dtype=torch.float32,
-                        device=dev) if want_max else None)
-    cnt = torch.zeros((n, 1), dtype=torch.float32, device=dev)
-    if D and tg.n_tiles:
+    work = pair_work(tg, n)
+    # the kernel writes every row: a row of one chunk by plain stores, a
+    # row cut into several by atomics, into its 0 (sum, count) and -inf
+    # (max) set here
+    y_sum = torch.empty((n, D), dtype=torch.float32, device=dev)
+    y_max = (torch.empty((n, D), dtype=torch.float32, device=dev)
+             if want_max else None)
+    cnt = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    if work.split_rows.numel():
+        for y, fill in ((y_sum, 0.0), (cnt, 0.0), (y_max, float("-inf"))):
+            if y is not None:
+                y.index_fill_(0, work.split_rows, fill)
+    if work.n_chunks:
         lib = _ext.library()
         with torch.cuda.device(dev):
             rc = lib.gta_pair_agg(
-                tg.tile_rb.data_ptr(), tg.tile_cb.data_ptr(),
-                tg.src_local.data_ptr(), tg.dst_local.data_ptr(),
-                u.data_ptr(), v.data_ptr(), _ext.DTYPE_CODE[u.dtype],
-                y_sum.data_ptr(), None if y_max is None else y_max.data_ptr(),
-                cnt.data_ptr(), tg.n_tiles, tg.block_rows, tg.block_cols,
-                tg.tile_edges, D, n, int(sf == "leaky_relu"), slope,
+                work.chunk_ptr.data_ptr(), work.chunk_row.data_ptr(),
+                work.slot_src.data_ptr(), u.data_ptr(), v.data_ptr(),
+                _ext.DTYPE_CODE[u.dtype], y_sum.data_ptr(),
+                None if y_max is None else y_max.data_ptr(), cnt.data_ptr(),
+                work.n_chunks, D, int(sf == "leaky_relu"), slope,
                 _ext.stream(u))
         _ext.check(rc, "pair_agg")
         pair_agg.launches += 1
-    if want_max:
-        y_max.masked_fill_(cnt == 0, 0.0)
     return y_sum, y_max, cnt
 
 

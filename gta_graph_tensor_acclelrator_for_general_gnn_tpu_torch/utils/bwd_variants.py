@@ -15,10 +15,12 @@ joined by ``+``; each patch replaces one text of one source and fails if
 the text is not there:
 
 - ``base``: the sources as they are;
-- ``k6_pfN``: K6's walk gathers N edges a lane group at a time
-  (``gat_bwd.cuh`` ``BWD_PF``);
-- ``k6_blocksN``: K6's registers held to N blocks an SM for every walk
-  shape;
+- ``k6_pfN``: the tail walk of K5 and K6 gathers N edges a lane group at
+  a time (``gat_bwd.cuh`` ``BWD_PF``);
+- ``k6_blocksN``, ``k5_blocksN``: K6's (K5's) registers held to N blocks
+  an SM for every walk shape;
+- ``k5_e1``: K5's walk by whole warps, one edge at a time (bf16 rows of
+  128 by 8-byte loads, 41 logits one feature a lane);
 - ``k7_skip_all``, ``k7_noskip``: K7 skips its cell steps without a count
   at every head count, or at none;
 - ``k7_blocks2``: K7 at two blocks an SM (at most 128 registers): no te
@@ -27,7 +29,7 @@ the text is not there:
 Needs one CUDA device::
 
     python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.\\
-bwd_variants --variants base,k6_pf2+k6_blocks3,k7_noskip [--rounds 2]
+bwd_variants --variants base,k5_e1,k5_blocks3,k6_pf2 [--rounds 2]
 """
 from __future__ import annotations
 
@@ -85,14 +87,22 @@ def _replace(path: Path, old: str, new: str) -> None:
 
 def _patch(csrc: Path, patch: str) -> None:
     """Apply one patch of the module docstring's list to ``csrc``."""
-    bwd, src, dad = (csrc / f for f in ("gat_bwd.cuh",
-                                        "gat_bwd_tiles_src.cu",
-                                        "gat_dense_bwd_dad.cu"))
+    bwd, dad = csrc / "gat_bwd.cuh", csrc / "gat_dense_bwd_dad.cu"
     if patch.startswith("k6_pf"):
         _replace(bwd, "constexpr int BWD_PF = 1;",
                  f"constexpr int BWD_PF = {int(patch[5:])};")
-    elif patch.startswith("k6_blocks"):
-        _replace(src, "return NV <= 3 ? 4 : 2;", f"return {int(patch[9:])};")
+    elif patch.startswith(("k6_blocks", "k5_blocks")):
+        mine = "Acc::SRC" if patch.startswith("k6") else "!Acc::SRC"
+        _replace(bwd, "TAIL_WARPS * 32, walk_blocks<NV>())",
+                 f"TAIL_WARPS * 32, {mine} ? {int(patch[9:])} : "
+                 "walk_blocks<NV>())")
+    elif patch == "k5_e1":
+        _replace(bwd, "return a.HD <= 128 ? tail_run<Acc, HT, MT, 4, 2, 2>(a)",
+                 "return !Acc::SRC && a.HD <= 128 ? tail_run<Acc, HT, MT, 4, 1, 1>(a)"
+                 " : a.HD <= 128 ? tail_run<Acc, HT, MT, 4, 2, 2>(a)")
+        _replace(bwd, "return a.HD <= 48 ? tail_run<Acc, HT, MT, 1, 3, 2>(a)",
+                 "return Acc::SRC && a.HD <= 48 ? tail_run<Acc, HT, MT, 1, 3, 2>(a)"
+                 " : !Acc::SRC && a.HD <= 64 ? tail_run<Acc, HT, MT, 1, 2, 1>(a)")
     elif patch == "k7_skip_all":
         _replace(dad, "unsigned live = H > 1 ? 0xffu : 0u;",
                  "unsigned live = 0u;")

@@ -608,11 +608,12 @@ NEG_ROW = 300      # a receiver whose z the pair-agg cases push below 0
 def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K13 against its plain version on the edge-case graph's 128-wide
     tiling at ET 64, in float32 and bfloat16: sf none and leaky_relu, with
-    and without the max, at D = 48, 41 (unaligned) and 300 (two passes of
-    the kernel's 256 features).  The graph has empty rows, a hub row whose
-    200 copies of one pair span several tiles (ties in the max), and a dead
-    tile whose slots look live (read from column block 0, as on the TPU);
-    row ``NEG_ROW`` gets only negative z.  Sum, max and count are separate
+    and without the max, at D = 48, 41 (unaligned) and 300 (three passes of
+    the kernel's 128 features).  The graph has empty rows, a hub row whose
+    200 copies of one pair span several tiles (ties in the max) and are
+    cut into two chunks of K13's work list (``PAIR_CHUNK`` 128: its rows
+    meet by atomics), and a dead tile whose slots look live (read from
+    column block 0, as on the TPU); row ``NEG_ROW`` gets only negative z.  Sum, max and count are separate
     cases: the sum scaled by its row's sum of |term| (terms may cancel),
     the max and count by themselves."""
     import torch
@@ -625,6 +626,9 @@ def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     tg = _dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
                                  tile_edges=64, unit_weight=True,
                                  device=device))
+    work = PA.pair_work(tg, n)
+    if HOT_PAIR[1] not in work.split_rows.tolist():
+        raise AssertionError("fixture's hub row is no longer cut into chunks")
     rng = np.random.default_rng(seed)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
@@ -676,10 +680,12 @@ def bwd_runs(tg, tg_t, bg, bg_t, h, gbar, side, msrc):
     from ..ops import dense as D
     from ..ops import gat as A
     H = msrc.shape[1]
+    # packed once, as the backward does for K5 and K6 together
+    packed = A.pack_side(side) if side.is_cuda else None
 
     def tail(tgx, src):
         kern = A.gat_bwd_tiles_src if src else A.gat_bwd_tiles_dad
-        return (lambda: kern(tgx, h, gbar, side, msrc),
+        return (lambda: kern(tgx, h, gbar, side, msrc, packed=packed),
                 lambda: A._gat_bwd_tiles_reference(tgx, h, gbar, side, msrc,
                                                    src_mode=src),
                 lambda: A._gat_bwd_tiles_reference(tgx, h, gbar, side, msrc,
@@ -787,6 +793,21 @@ def bwd_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                     if k.startswith("gat_bwd_tiles") == tail:
                         yield KernelCase(k, f"H={H} HD={HD}", name, kern(),
                                          plain(), split, terms[k], mag())
+        # K5 and K6 with h and gbar rows off their vector loads' alignment
+        # (one element past an aligned start): the walk's one-feature-a-
+        # lane path at D % 4 == 0
+        for H, HD in ((4, 128), (1, 128)):
+            h, gbar, a_s, msrc = inputs(n, H, HD, dt)
+            h, gbar = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(
+                n, HD) for x in (h, gbar))
+            side = bwd_side(rng, n, H, dt, device, a_s=a_s)
+            runs = bwd_runs(tg, tg_t, hy.dense, hy_t.dense, h, gbar, side,
+                            msrc)
+            for k in ("gat_bwd_tiles_dad", "gat_bwd_tiles_src"):
+                kern, plain, mag, split = runs[k]
+                yield KernelCase(k, f"rows off alignment H={H} HD={HD}",
+                                 name, kern(), plain(), split, terms[k],
+                                 mag())
         # K7 and K8: block values in h's dtype, and the run cuts
         seg_cr = dataclasses.replace(seg_block_graph(device, seed),
                                      values_layout="cr")

@@ -15,8 +15,8 @@ wrapper takes, are held to the JAX package's TPU kernels (interpret mode)
 at 1, 2, 4 and 8 heads and at D = 41 (padded to 48 on the card) in both
 dtypes, and to a float64 sum of the same terms on row blocks of 8, 9, 16
 and 17 dense blocks (both sides of the run cuts).  The patches by which
-``utils/bwd_variants.py`` builds variants of K6 and K7 are held to apply
-to the sources as they are.  Tolerances: float32 max |port -
+``utils/bwd_variants.py`` builds variants of K5, K6 and K7 are held to
+apply to the sources as they are.  Tolerances: float32 max |port -
 ref| <= 1e-5 * max(1, max |ref|) (the same terms summed in another order);
 bfloat16 2e-2 * max(1, max |ref|), as ``test_torch_backward.py`` holds the
 dense backward (a value that lands on the other side of a bf16 rounding
@@ -33,6 +33,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import gta_graph_tensor_acclelrator_for_general_gnn_tpu as J  # noqa: E402
@@ -54,13 +55,86 @@ SPLIT = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=100,
              unit_weight=True, values_dtype=np.int8, block_layout="cr")
 
 
-def _close(port, ref, tol):
+def _float_state() -> str:
+    """The process state that can change float32 arithmetic, for a
+    failure's message (never asserted on)."""
+    return (f"torch.get_float32_matmul_precision() = "
+            f"{torch.get_float32_matmul_precision()!r}, "
+            f"torch.get_num_threads() = {torch.get_num_threads()}, "
+            f"jax.config.jax_default_matmul_precision = "
+            f"{jax.config.jax_default_matmul_precision!r}, a float32 "
+            f"denormal times 1 in torch = "
+            f"{float(torch.tensor([1e-40]) * 1.0):.3g} (0: flushed)")
+
+
+def _close(port, ref, tol, f64=None):
+    """max |port - ref| <= tol * max(1, max |ref|).  With ``f64``, the same
+    quantity in float64, a failure's message says which side is further
+    from it, by how much, and the process's float state."""
     port = port.detach().float().cpu().numpy()
     ref = np.asarray(jnp.asarray(ref, jnp.float32), np.float64)
     assert port.shape == ref.shape
     bound = tol * max(1.0, float(np.abs(ref).max()))
     err = float(np.abs(port - ref).max())
-    assert err <= bound, (err, bound)
+    msg = (err, bound)
+    if f64 is not None and not err <= bound:
+        e_port, e_ref = (float(np.abs(a - f64).max()) for a in (port, ref))
+        msg = (f"|port - jax| {err:.3e} > {bound:.3e}; against float64: "
+               f"port {e_port:.3e}, jax {e_ref:.3e}, so "
+               f"{'the port' if e_port > e_ref else 'JAX'} is off; "
+               f"{_float_state()}")
+    assert err <= bound, msg
+
+
+def _lk(v):
+    return np.where(v >= 0, v, 0.2 * v)
+
+
+def _dense_bwd_f64(bg, bg_t, h, gbar, a_s, a_d, den, out):
+    """``gat_dense_bwd``'s (dh, das, dad) in float64 numpy, from float64
+    copies of its inputs: the chain of every dense cell, summed per row
+    (dad over ``bg``, rows the receivers; [das | dh] over ``bg_t``, rows
+    the senders)."""
+    n, HD = h.shape
+    H = a_d.shape[1]
+    D = HD // H
+    R = C = bg.block_rows
+    npad = max(n, bg.n_row_blocks * R, bg.n_col_blocks * C)
+    pad = lambda x: np.concatenate(  # noqa: E731
+        [x.astype(np.float64), np.zeros((npad - n, x.shape[1]))])
+    h, gbar, a_s, a_d, out = map(pad, (h, gbar, a_s, a_d, out))
+    den = pad(den)
+    s2 = (gbar.reshape(npad, H, D) * out.reshape(npad, H, D)).sum(-1)
+    rden = 1.0 / np.maximum(den, 1e-20)
+    msrc = a_s[:n].max(0, keepdims=True)
+    dad, sd = np.zeros((npad, H)), np.zeros((npad, H + HD))
+    for split, src_mode in ((bg, False), (bg_t, True)):
+        vals = split.values.double().numpy()
+        for b, (rb, cb) in enumerate(zip(split.blk_rb.tolist(),
+                                         split.blk_cb.tolist())):
+            cnt = vals[b].T                               # [R rows, C cols]
+            rows = slice(rb * R, (rb + 1) * R)
+            cols = slice(cb * C, (cb + 1) * C)
+            s, d = (rows, cols) if src_mode else (cols, rows)
+            a_ss = a_s[s][:, None, :] if src_mode else a_s[s][None]
+            a_dd, rd, s2d = ((x[d][None] if src_mode else x[d][:, None, :])
+                             for x in (a_d, rden, s2))
+            lraw = a_ss + a_dd
+            p = cnt[:, :, None] * np.exp(np.minimum(
+                _lk(lraw) - _lk(msrc + a_dd), 60.0))
+            alpha = p * rd
+            hs = h[s].reshape(-1, H, D)
+            gd = gbar[d].reshape(-1, H, D)
+            te = (np.einsum("rhd,chd->rch", hs, gd) if src_mode
+                  else np.einsum("rhd,chd->rch", gd, hs))
+            dz = alpha * (te - s2d) * np.where(lraw >= 0, 1.0, 0.2)
+            if src_mode:
+                sd[rows, :H] += dz.sum(1)
+                sd[rows, H:] += np.einsum("rch,chd->rhd", alpha,
+                                          gd).reshape(R, HD)
+            else:
+                dad[rows] += dz.sum(1)
+    return sd[:n, H:], sd[:n, :H], dad[:n]
 
 
 def _ring(H, N, vb, src_mode=True):
@@ -195,8 +269,12 @@ def test_dense_bwd_plain_matches_jax_at_the_wgmma_shapes(edge_pair, dtn, H,
                            torch.tensor(a_s), torch.tensor(a_d),
                            torch.tensor(den), torch.tensor(out),
                            torch.tensor(gbar))
-    for a, b in zip(got, want):
-        _close(a, b, TOL[dtn])
+    # the same in float64 from h and gbar as rounded to the dtype: which
+    # side a failure is off on
+    hr, gr = (torch.tensor(x, dtype=tdt).double().numpy() for x in (h, gbar))
+    f64 = _dense_bwd_f64(tf.dense, tt.dense, hr, gr, a_s, a_d, den, out)
+    for a, b, c in zip(got, want, f64):
+        _close(a, b, TOL[dtn], f64=c)
     assert float(got[0][512:].float().abs().max()) == 0.0   # unvisited stripe
     assert float(got[1][512:].abs().max()) == 0.0
     assert float(got[2][512:].abs().max()) == 0.0
@@ -295,9 +373,9 @@ def test_dense_bwd_dad_plain_matches_float64_across_run_cuts(H, HD):
 
 @pytest.mark.parametrize("patch,edits", [
     ("base", 0), ("k6_pf2", 1), ("k6_blocks3", 1), ("k7_skip_all", 1),
-    ("k7_noskip", 1), ("k7_blocks2", 1)])
+    ("k7_noskip", 1), ("k7_blocks2", 1), ("k5_blocks3", 1), ("k5_e1", 1)])
 def test_bwd_variant_patches_apply_to_the_sources(patch, edits, tmp_path):
-    """``utils/bwd_variants.py`` builds each variant of K6 and K7 from a
+    """``utils/bwd_variants.py`` builds each variant of K5, K6 and K7 from a
     copy of ``csrc/`` with texts replaced: every patch finds its texts in
     the sources as they are and edits one file (a source edit that drops
     a text fails here, not on the card); an unknown patch raises."""

@@ -71,12 +71,35 @@ def _np(a):
     return np.asarray(jnp.asarray(a, jnp.float32))
 
 
-def _close(port, ref, tol=TOL["float32"]):
+def _float_state() -> str:
+    """The process state that can change float32 arithmetic, for a
+    failure's message (never asserted on)."""
+    return (f"torch.get_float32_matmul_precision() = "
+            f"{torch.get_float32_matmul_precision()!r}, "
+            f"torch.get_num_threads() = {torch.get_num_threads()}, "
+            f"jax.config.jax_default_matmul_precision = "
+            f"{jax.config.jax_default_matmul_precision!r}, a float32 "
+            f"denormal times 1 in torch = "
+            f"{float(torch.tensor([1e-40]) * 1.0):.3g} (0: flushed)")
+
+
+def _close(port, ref, tol=TOL["float32"], f64=None):
+    """max |port - ref| <= tol * max(1, max |ref|).  With ``f64``, the same
+    quantity in float64, a failure's message says which side is further
+    from it, by how much, and the process's float state."""
     port, ref = _np(port), _np(ref)
     assert port.shape == ref.shape
     bound = tol * max(1.0, float(np.abs(ref).max()))
     err = float(np.abs(port - ref).max())
-    assert err <= bound, (err, bound)
+    msg = (err, bound)
+    if f64 is not None and not err <= bound:
+        e_port, e_ref = (float(np.abs(np.asarray(a, np.float64) - f64).max())
+                         for a in (port, ref))
+        msg = (f"|port - jax| {err:.3e} > {bound:.3e}; against float64: "
+               f"port {e_port:.3e}, jax {e_ref:.3e}, so "
+               f"{'the port' if e_port > e_ref else 'JAX'} is off; "
+               f"{_float_state()}")
+    assert err <= bound, msg
 
 
 def _close_rows(port, ref, tol):
@@ -250,9 +273,21 @@ def test_grouped_gat_partials_match_jax(H, HD, weights, dtn):
                           torch.tensor(a_d), w_asrc=torch.tensor(w, dtype=tdt),
                           normalize=False, msrc=torch.tensor(msrc))
     assert got.shape == (n, HD + H)
+    # the same [num | den] in float64 over the live slots, from the rounded
+    # inputs: which side a float32 failure is off on
+    mask, src, dst = TSp._live_slots(tt, 0, tt.n_chunks)
+    src, dst = src.numpy(), dst.numpy()
+    m = tt.weight[mask].double().numpy()[:, None]
+    a_s = hr.astype(np.float64)[src] @ wr.astype(np.float64)
+    a_dd = a_d.astype(np.float64)[dst]
+    lk = lambda v: np.where(v >= 0, v, 0.2 * v)  # noqa: E731
+    p = m * np.exp(np.minimum(lk(a_s + a_dd) - lk(msrc + a_dd), 60.0))
+    f64 = np.zeros((n, HD + H))
+    np.add.at(f64, dst, np.concatenate(
+        [np.repeat(p, HD // H, axis=1) * hr.astype(np.float64)[src], p], 1))
     for cols in (slice(0, HD), slice(HD, None)):     # num and den apart
         if dtn == "float32":
-            _close(got[:, cols], np.asarray(want)[:, cols])
+            _close(got[:, cols], np.asarray(want)[:, cols], f64=f64[:, cols])
         else:
             _close_rows(got[:, cols], np.asarray(want)[:, cols],
                         TOL["bfloat16"])
