@@ -70,10 +70,17 @@ Reddit's node count, and checks every hand-written kernel on the way:
      (a) K14 and K15 against their plain versions on the fixture cases
      (``fixtures.layer_kernel_cases``: dead tile, empty rows, pad slots, 1
      and 4 heads, every final activation, a logit row above the clamp and
-     one that underflows, both dtypes); (b) GAT-2l (602/128/41) with every
+     one that underflows, both dtypes; K14 at F = 43, 70 and 64, so that
+     its bf16 projection stages x rows by 2, 4 and 16 bytes, over 600
+     rows, not a multiple of its 128; K15 at every head
+     width of its tensor-core path, on int8 counts, on bf16 values and on
+     row blocks of 17 dense blocks, two wide-segment runs); (b) GAT-2l
+     (602/128/41) with every
      layer on ``layer_partition`` at 512x1024x512 ``onehot`` (the
      ``gat_layer`` kind): K14 checked stage by stage and timed at both
-     layers' shapes (its projection also beside ``torch.matmul``), the
+     layers' shapes, each stage also alone (the projection beside its
+     bound and ``torch.matmul``; the walk with its edges per second; the
+     epilogue), the
      logits' static-shift domain printed, 3 bf16 and 1 float32 requests
      against the per-op path; (c) GAT-2l with the attention chain as the
      ``gat`` kind on the same tile, lowered with the transposed twin:
@@ -90,8 +97,10 @@ Reddit's node count, and checks every hand-written kernel on the way:
      temporary directory), then ``cli run`` and ``cli train`` with that
      schedule; (f) run right after phase 4, on its lowered GAT-2l
      forward: ``DENSE_EXP_PANEL`` set, K15 checked and timed at both
-     layers' dense splits beside K4, and one bf16 and one float32 request
-     against the K4 path (the flag restored after).
+     layers' dense splits beside K4 (each with its cell-heads per second
+     and its own dense-cell floor), one bf16 and one float32 request
+     against the K4 path, and 3 x 4 bf16 requests timed with the flag on
+     and off in turns (the flag restored after).
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -388,6 +397,17 @@ def _cell_note(graph, heads: int):
     floor_ms = RL.dense_cell_floor_ms(cells)
     return lambda ms: (f"   {cells / ms / 1e6:.1f} G cell-heads/s over "
                        f"{cells} (dense-cell floor {floor_ms:.4f} ms)")
+
+
+def _panel_cell_note(graph, heads: int):
+    """K15's per-call rate: the cell-heads it forms p for per second, and
+    its own dense-cell floor (``roofline.dense_panel_cell_floor_ms``: the
+    panel chain, no exponential)."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    cells = graph.n_blocks * graph.block_rows * graph.block_cols * heads
+    floor_ms = RL.dense_panel_cell_floor_ms(cells)
+    return lambda ms: (f"   {cells / ms / 1e6:.1f} G cell-heads/s over "
+                       f"{cells} (panel dense-cell floor {floor_ms:.4f} ms)")
 
 
 def _profile(what: str, name: str, fn, dev) -> None:
@@ -1670,6 +1690,45 @@ def layer_domain(tg, a_s, a_d, slope: float = 0.2) -> tuple:
     return lo, hi, dead
 
 
+def layer_stage_times(checks: Checks, tg, xk, w, ws, wd, kw, li: int,
+                      dev) -> None:
+    """Phase 8b, per layer in bf16: K14's stages timed apart (printed, not
+    in the kernel's row).  The projection on ``xk`` (x as the lowering
+    casts it, contiguous) beside its own bound and ``torch.matmul`` of the
+    same product; the walk on that projection with its edges per second;
+    the epilogue."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    HD, H = w.shape[1], ws.shape[1]
+    mm = lambda: torch.matmul(xk, w)  # noqa: E731
+    mm.label = "torch.matmul (x W alone)"
+    checks.time_call(
+        "gat_layer", f"l{li} projection",
+        lambda: A.gat_layer_projection(xk, w, ws, wd),
+        lambda: A._gat_layer_project_plain(xk, w, ws, wd),
+        dev, lambda: RL.gat_layer_projection(xk, HD, H),
+        library=mm, in_row=False)
+    proj = A.gat_layer_projection(xk, w, ws, wd)
+    acc = torch.zeros((xk.shape[0], HD + H), dtype=torch.float32, device=dev)
+    edges = RL.live_slots(tg)
+    for stage, what in ((2, "walk"), (4, "epilogue")):
+        ms = _median_calls(lambda: A._gat_layer_launch(
+            tg, xk, w, ws, wd, kw["negative_slope"], kw["final_sf"], stage,
+            proj=proj, acc=acc), dev)
+        rate = (f", {edges / ms / 1e6:.3f} Gedge/s over {edges} edges"
+                if stage == 2 else "")
+        say(f"  gat_layer          l{li} {what} alone: {ms:.4f} ms{rate}")
+
+
+def _median_calls(fn, dev) -> float:
+    """ms per call of ``fn`` (CUDA events, CALLS in a row, median of
+    REPEATS)."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms
+    return median_ms(fn, device=dev, warmup=1, repeats=REPEATS, calls=CALLS)
+
+
 def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
     """Phase 8b: GAT-2l with every layer on the ``gat_layer`` kind (K14)
     over 512x1024x512 ``onehot`` tiles, lowered once per dtype.  K14 held
@@ -1710,7 +1769,7 @@ def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
         cdt = dt or torch.float32
         xin = x
         for li, lp in enumerate(plans):
-            xk = xin.to(cdt).contiguous()
+            xk = xin.to(cdt).contiguous()       # as the lowering casts it
             w, ws, wd = (params[k].detach().to(cdt).contiguous()
                          for k in (lp.w_name, lp.was_name, lp.wad_name))
             HD, H = w.shape[1], ws.shape[1]
@@ -1737,14 +1796,8 @@ def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
                         lambda: A.gat_layer_tiles(tg, xk, w, ws, wd, **kw),
                         lambda: A._gat_layer_plain(tg, xk, w, ws, wd, **kw),
                         dev, lambda: RL.gat_layer(tg, xk, HD, H))
-                    mm = lambda: torch.matmul(xk, w)  # noqa: E731
-                    mm.label = "torch.matmul (x W alone)"
-                    checks.time_call(
-                        "gat_layer", f"l{li} projection",
-                        lambda: A.gat_layer_projection(xk, w, ws, wd),
-                        lambda: A._gat_layer_project_plain(xk, w, ws, wd),
-                        dev, lambda: RL.gat_layer_projection(xk, HD, H),
-                        library=mm, in_row=False)
+                    layer_stage_times(checks, tg, xk, w, ws, wd, kw, li,
+                                      dev)
                 xin = fns[dtn].layer_fns[li](params, g, xin)
 
     A.gat_layer_tiles.launches = 0
@@ -2074,7 +2127,8 @@ def exp_panel_phase(checks: Checks, gat_fwd, gat_hybs, model, hg, g,
                                                      ps, pd), dev,
                 split=HD, terms=terms,
                 timed_as=f"layer {li}" if timed else None,
-                work=lambda: RL.gat_dense_panel(bga, h, H))
+                work=lambda: RL.gat_dense_panel(bga, h, H),
+                note=_panel_cell_note(bga, H))
             if timed:
                 checks.time_call(
                     "gat_dense_blocks", f"l{li} beside K15",
@@ -2082,7 +2136,8 @@ def exp_panel_phase(checks: Checks, gat_fwd, gat_hybs, model, hg, g,
                                                ms),
                     lambda: D._gat_dense_reference(bga, h, bga.values, a_s,
                                                    a_d, ms), dev,
-                    lambda: RL.gat_dense(bga, h, H), in_row=False)
+                    lambda: RL.gat_dense(bga, h, H), in_row=False,
+                    note=_cell_note(bga, H))
     params = dict(model.params)
     reqs = (("bfloat16", 0), ("float32", 0))
     outs = {}
@@ -2108,6 +2163,22 @@ def exp_panel_phase(checks: Checks, gat_fwd, gat_hybs, model, hg, g,
             if not (bool(torch.isfinite(outs[dtn]).all())
                     and rel <= tol[dtn]):
                 raise AssertionError(f"exp-panel path {dtn}: {rel}")
+    # bf16 request latency, the two paths in turns (after the counts)
+    lat = {}
+    xr = _request_x(0, n, dev)
+    with torch.inference_mode():
+        for _ in range(REQUESTS):
+            for panel in (False, True, True, False):
+                D.DENSE_EXP_PANEL = panel
+                try:
+                    lat.setdefault(panel, []).append(
+                        _timed(gat_fwd["bfloat16"], params, g, xr)[1])
+                finally:
+                    D.DENSE_EXP_PANEL = False
+    for panel, v in lat.items():
+        say(f"latency GAT-2l bfloat16 hybrid, "
+            f"{'exp panels (K15)' if panel else 'K4'}: median "
+            f"{statistics.median(v):.3f} ms over {len(v)} requests")
     return launches
 
 

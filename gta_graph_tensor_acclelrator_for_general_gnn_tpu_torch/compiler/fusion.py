@@ -34,7 +34,7 @@ from .schedule import Schedule, TileConfig
 
 # the port's own kernel version: it keys the tuner's memo
 # (tune/search.py), so a measurement of older kernels never resurfaces
-KERNEL_VERSION = 1
+KERNEL_VERSION = 2
 
 
 @dataclasses.dataclass

@@ -406,20 +406,26 @@ def _gat_wgmma_width(H: int, D: int) -> int:
 
 def _dense_attention_smem(HD: int, H: int, dtype_bytes: int, panel: bool,
                           values_bytes: Optional[int] = None) -> int:
-    """K4 / K15, csrc/gat_dense_blocks.cu, as the K4 wrapper passes it to
-    the launch.  bf16 h on K4's wgmma path: 3 ring stages of the h panel
-    (H N rows of 128 bytes), a count tile of 64 columns by 256 rows (int8
-    counts, ``values_bytes`` 1, or bf16 values, 2, in the larger of its two
-    layouts; None: the larger) and a_s of the chunk, each stage rounded up
-    to 1 KB, plus 1 KB of alignment and the rows' a_d and bound; else the
-    mma.sync / FMA kernel's smem_bytes (column chunk and tensor-core choice
-    as its launch_h picks them)."""
-    n = _gat_wgmma_width(H, HD // H) if dtype_bytes == 2 and not panel else 0
+    """K4 (``panel`` False) / K15 (``panel`` True), csrc/gat_dense_blocks.cu,
+    as their wrappers pass it to the launch.  bf16 h on the wgmma path
+    (``_gat_wgmma_width`` > 0): 3 ring stages of the h panel (H N rows of
+    128 bytes), a count tile of 64 columns by 256 rows (int8 counts,
+    ``values_bytes`` 1, or bf16 values, 2, in the larger of its two
+    layouts; None: the larger) and a_s of the chunk (K15: a_s, E1s and E2s,
+    three arrays [64, H]), each stage rounded up to 1 KB, plus 1 KB of alignment and the rows' terms
+    (K4: a_d and the bound; K15: a_d,
+    E1d and E2d); else the mma.sync / FMA kernel's smem_bytes (column chunk
+    and tensor-core choice as its launch_h picks them)."""
+    n = _gat_wgmma_width(H, HD // H) if dtype_bytes == 2 else 0
     if n:
+        # K4: a_s per column and head; K15: a_s, E1s and E2s
+        cols = 3 * H if panel else H
+        rows = 3 if panel else 2        # a_d, bound [| E2d] per head
+
         def ring(vb):
             tile = max(64 * (256 * vb + 16), 256 * (64 * vb + 16))
-            stage = -(-(H * n * 128 + tile + 64 * H * 4) // 1024) * 1024
-            return 3 * stage + 1024 + 2 * 256 * H * 4
+            stage = -(-(H * n * 128 + tile + 64 * 4 * cols) // 1024) * 1024
+            return 3 * stage + 1024 + rows * 256 * H * 4
         return (max(ring(1), ring(2)) if values_bytes is None
                 else ring(values_bytes))
     BM, PAD = 64, 8
@@ -476,6 +482,23 @@ def _spmm_dense_smem(F: int, dtype_bytes: int,
                 else stage[values_bytes]) + 1024
 
 
+def _gat_layer_smem(HD: int, H: int, dtype_bytes: int) -> int:
+    """K14's projection, csrc/gat_layer.cu, as its wrapper passes it to the
+    launch (the walk and the epilogue request none).  bf16 at HD <= 128
+    (N = ``_gat_wgmma_width(1, HD)``): the larger of 3 ring stages of [x
+    tile 128 rows x 128 bytes | W panel N rows x 128 bytes] and the
+    epilogue's f32 hq tile [128, N + 1] that reuses their space, plus 1 KB
+    of alignment and wa_s | wa_d [HD, 2H] f32; else the FMA kernel's f32
+    hq tile [64, HP] (HP = HD padded to 16), wa_s | wa_d and its k-chunk
+    staging of x [64, 32] and W [32, HP]."""
+    n = _gat_wgmma_width(1, HD) if dtype_bytes == 2 else 0
+    if n:
+        ring = 3 * (128 * 128 + n * 128)
+        return max(ring, 128 * (n + 1) * 4) + 1024 + 8 * HD * H
+    hp = (HD + 15) // 16 * 16
+    return (64 * hp + 2 * HD * H + 64 * 32 + 32 * hp) * 4
+
+
 def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
     """The largest dynamic shared memory, in bytes, that a kernel of
     ``kind`` (forward and backward) requests at width HD and H heads, by
@@ -490,10 +513,7 @@ def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
                    _dense_bwd_smem(HD, H, dtype_bytes, False),
                    _dense_bwd_smem(HD, H, dtype_bytes, True))
     if kind == "gat_layer":                         # K14: gat_layer.cu
-        hp = (HD + 15) // 16 * 16
-        stage = ((64 + hp) * 40 * 2 if dtype_bytes == 2
-                 else (64 * 32 + 32 * hp) * 4)
-        return (64 * hp + 2 * HD * H) * 4 + stage
+        return _gat_layer_smem(HD, H, dtype_bytes)
     if kind == "sddmm":                             # K11, K12: 8 warps
         return 8 * HD * 4 if HD // H < 32 else 0
     if kind == "spmm_hybrid":                       # K2 (K1: none)

@@ -50,7 +50,7 @@
 // with N the next of 8, 32, 48, 64, 128 at or above D) and float32 h run
 // on gat_dense_kernel below.
 //
-// gat_dense_kernel (float32 h, those shapes, and K15): one CUDA block per
+// gat_dense_kernel (float32 h and those shapes): one CUDA block per
 // (segment, 64-row sub-tile), where a segment is a run of at most 8 dense
 // blocks of one row block (DenseBlockGraph.segments).  Per block and
 // column chunk of CC columns, the counts, the h panel and a_s of the chunk
@@ -71,8 +71,16 @@
 // with per-node panels built in PyTorch (pan_s [n_cols, 2H] = [E1s | E2s],
 // pan_d [n_rows, 3H] = [E1d | E2d | raw a_d], pad entries 0)
 //   p[r,c] = count[r,c] * (a_s[c] + a_d[r] >= 0 ? E1s[c] E1d[r] : E2s[c] E2d[r])
-// with no per-cell exponential; num and den as K4.  K15 runs on
-// gat_dense_kernel in every dtype (its panel mode).
+// with no per-cell exponential; num and den as K4.  K15 runs on K4's
+// kernels in their panel mode and takes the same split: bf16 h at the
+// wgmma head shapes on gat_dense_wgmma_kernel<..., PANEL = true>, whose
+// ring stages the chunk's a_s, E1s and E2s as three arrays [KC][H] (three
+// shared loads a cell column: utils/layer_variants.py measured one packed
+// 16-byte entry a column and head 5% slower) and whose rows keep E1d, E2d
+// and the raw a_d in shared memory in place of K4's log2(e)-scaled a_d and bound (each thread
+// forms p from them for its A-fragment cells: a compare, a select and two
+// multiplies, no exponential); float32 h and the other shapes on
+// gat_dense_kernel<..., PANEL = true>.
 #include <type_traits>
 
 #include "head_panel.cuh"
@@ -275,30 +283,36 @@ template <typename VT> struct CountTile {
 };
 
 // a stage: the h panel (H N rows of 128 bytes, K-major, 128-byte swizzle),
-// the count tile, a_s of the chunk [KC][H] f32; a multiple of 1 KB so every
-// stage's panel starts on a swizzle atom.  After the ring: a_d and the
-// bound of the 256 rows [256][H] f32 each (log2(e)-scaled).  The launch
-// adds 1 KB for aligning the ring (compiler/schedule._dense_attention_smem
-// mirrors this).
-template <typename VT, int H, int N>
+// the count tile, then K4: a_s of the chunk [KC][H] f32; K15: a_s, E1s and
+// E2s of the chunk [3][KC][H] f32; a multiple of 1 KB so every stage's panel starts
+// on a swizzle atom.  After the ring, per row of the 256, [H] f32 each: K4
+// a_d and the bound (log2(e)-scaled); K15 the raw a_d, E1d and E2d.  The
+// launch adds 1 KB for aligning the ring (compiler/schedule.
+// _dense_attention_smem mirrors this).
+template <typename VT, int H, int N, bool PANEL>
 __host__ __device__ constexpr int stage_bytes() {
-  return (H * N * 128 + CountTile<VT>::BYTES + KC * H * 4 + 1023) / 1024 * 1024;
+  return (H * N * 128 + CountTile<VT>::BYTES + KC * 4 * (PANEL ? 3 : 1) * H + 1023) /
+         1024 * 1024;
 }
-template <typename VT, int H, int N>
+template <typename VT, int H, int N, bool PANEL>
 __host__ __device__ constexpr int wgmma_smem() {
-  return STAGES * stage_bytes<VT, H, N>() + 1024 + 2 * WG_ROWS * H * 4;
+  return STAGES * stage_bytes<VT, H, N, PANEL>() + 1024 + (PANEL ? 3 : 2) * WG_ROWS * H * 4;
 }
 
-template <typename VT, int H, int N>
+// PANEL (K15): a_dst, msrc and slope are not read; pan_s [n_ps, 2H] and
+// pan_d [n_pd, 3H] are (K4 passes null panels)
+template <typename VT, int H, int N, bool PANEL>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__ row_blocks,
                        const int* __restrict__ blk_cb, const VT* __restrict__ values,
                        int layout_cr, const __nv_bfloat16* __restrict__ hT, int64_t ld_h,
                        const float* __restrict__ a_src, const float* __restrict__ a_dst,
-                       const float* __restrict__ msrc, float* __restrict__ out, int R, int C,
-                       int HD, int64_t n_a, int64_t n_out, float slope) {
+                       const float* __restrict__ msrc, const float* __restrict__ pan_s,
+                       const float* __restrict__ pan_d, float* __restrict__ out, int R, int C,
+                       int HD, int64_t n_a, int64_t n_ps, int64_t n_pd, int64_t n_out,
+                       float slope) {
   using CT = CountTile<VT>;
-  constexpr int SZ = CT::SZ, B_BYTES = H * N * 128, SB = stage_bytes<VT, H, N>();
+  constexpr int SZ = CT::SZ, B_BYTES = H * N * 128, SB = stage_bytes<VT, H, N, PANEL>();
   extern __shared__ __align__(1024) char smem_raw[];
   __shared__ int s_b[MAX_SEG];                     // the run's block ids
   __shared__ int64_t s_col0[MAX_SEG];              // and their first columns
@@ -307,8 +321,10 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
   const uint32_t pad = (1024u - (raw0 & 1023u)) & 1023u;
   const uint32_t smem0 = raw0 + pad;
   char* smem = smem_raw + pad;
-  float* s_ad = reinterpret_cast<float*>(smem + STAGES * SB);  // [256][H]
-  float* s_bnd = s_ad + WG_ROWS * H;                            // [256][H]
+  // the rows' terms [256][H] each: K4 a_d, bound; K15 a_d, E1d, E2d
+  float* s_ad = reinterpret_cast<float*>(smem + STAGES * SB);
+  float* s_bnd = s_ad + WG_ROWS * H;
+  float* s_e2d = s_bnd + WG_ROWS * H;              // PANEL only
   const int* seg = segments + 3 * blockIdx.x;
   const int rb = seg[0], k_begin = seg[1], k_end = seg[2];
   const int r_base = blockIdx.y * WG_ROWS;
@@ -328,9 +344,17 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
   for (int i = tid; i < WG_ROWS * H; i += WG_THREADS) {
     const int r = i / H, hh = i % H;
     const int64_t row = row_base + r;
-    const float a = (r < rows_here && row < n_a) ? a_dst[row * H + hh] : 0.f;
-    s_ad[i] = a * LOG2E;
-    s_bnd[i] = leaky(msrc[hh] + a, slope) * LOG2E;
+    if constexpr (PANEL) {
+      const bool ok = r < rows_here && row < n_pd;
+      const float* pr = pan_d + row * 3 * H;
+      s_ad[i] = ok ? pr[2 * H + hh] : 0.f;
+      s_bnd[i] = ok ? pr[hh] : 0.f;
+      s_e2d[i] = ok ? pr[H + hh] : 0.f;
+    } else {
+      const float a = (r < rows_here && row < n_a) ? a_dst[row * H + hh] : 0.f;
+      s_ad[i] = a * LOG2E;
+      s_bnd[i] = leaky(msrc[hh] + a, slope) * LOG2E;
+    }
   }
   __syncthreads();
 
@@ -340,7 +364,7 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
     const VT* A = values + static_cast<int64_t>(s_b[kk]) * R * C;
     const uint32_t sp = smem0 + stage * SB;          // h panel
     const uint32_t sa = sp + B_BYTES;                // counts
-    const uint32_t ss = sa + CT::BYTES;              // a_s
+    const uint32_t ss = sa + CT::BYTES;              // a_s, or the column terms
     for (int c = tid; c < H * N * 8; c += WG_THREADS) {
       const int n = c >> 3, j = c & 7;
       const bool ok = c0 + 8 * j < C;
@@ -365,10 +389,22 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
         gta::cp_async16(sa + r * CT::RC_STRIDE + cc * SZ, src, ok ? 16 : 0);
       }
     }
-    for (int c = tid; c < KC * H; c += WG_THREADS) {
-      const int64_t col = col0 + c0 + c / H;
-      const bool ok = c0 + c / H < C && col < n_a;
-      gta::cp_async4(ss + 4 * c, ok ? a_src + col * H + c % H : a_src, ok ? 4 : 0);
+    if constexpr (PANEL) {  // a_s, E1s and E2s of each column and head
+      for (int c = tid; c < KC * H * 3; c += WG_THREADS) {
+        const int cc = c / (3 * H), hh = (c / 3) % H, w = c % 3;
+        const int64_t col = col0 + c0 + cc;
+        const bool ok = c0 + cc < C && col < (w == 0 ? n_a : n_ps);
+        const float* src =
+            w == 0 ? a_src + col * H + hh : pan_s + col * 2 * H + (w - 1) * H + hh;
+        gta::cp_async4(ss + 4 * (w * KC * H + cc * H + hh), ok ? src : a_src,
+                       ok ? 4 : 0);
+      }
+    } else {
+      for (int c = tid; c < KC * H; c += WG_THREADS) {
+        const int64_t col = col0 + c0 + c / H;
+        const bool ok = c0 + c / H < C && col < n_a;
+        gta::cp_async4(ss + 4 * c, ok ? a_src + col * H + c % H : a_src, ok ? 4 : 0);
+      }
     }
   };
 
@@ -413,19 +449,40 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
     const uint32_t sp = smem0 + st * SB;
 #pragma unroll
     for (int hh = 0; hh < H; ++hh) {
+      // K4: a_d and bound; K15: a_d, E1d and E2d of rows ra, ra + 8
       const float ad[2] = {s_ad[ra * H + hh], s_ad[(ra + 8) * H + hh]};
       const float bd[2] = {s_bnd[ra * H + hh], s_bnd[(ra + 8) * H + hh]};
+      float e2d[2] = {0.f, 0.f};
+      if constexpr (PANEL) {
+        e2d[0] = s_e2d[ra * H + hh];
+        e2d[1] = s_e2d[(ra + 8) * H + hh];
+      }
 #pragma unroll
       for (int s = 0; s < KC / 16; ++s) {
         const char* ts = tile + 16 * s * sc;
         float p[2][4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float a_s = as[(16 * s + 2 * t + (q & 1) + 8 * (q >> 1)) * H + hh];
+          const int col = 16 * s + 2 * t + (q & 1) + 8 * (q >> 1);
+          float4 ct;  // K4: a_s; K15: {a_s, E1s, E2s}
+          ct.x = as[col * H + hh];
+          if constexpr (PANEL) {
+            ct.y = as[KC * H + col * H + hh];
+            ct.z = as[2 * KC * H + col * H + hh];
+          }
+          const float a_s = ct.x;
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
-            const float z = leaky(fmaf(a_s, LOG2E, ad[v]), slope) - bd[v];
-            p[v][q] = count_f(ts + off[v][q], VT()) * ex2(fminf(z, clamp));
+            if constexpr (PANEL) {
+              // the branch test in float32 on the raw logits, as the plain
+              // version; then count * (column term * row term)
+              const bool pos = a_s + ad[v] >= 0.f;
+              const float e = pos ? ct.y * bd[v] : ct.z * e2d[v];
+              p[v][q] = count_f(ts + off[v][q], VT()) * e;
+            } else {
+              const float z = leaky(fmaf(a_s, LOG2E, ad[v]), slope) - bd[v];
+              p[v][q] = count_f(ts + off[v][q], VT()) * ex2(fminf(z, clamp));
+            }
             den[v][hh] += p[v][q];
           }
         }
@@ -480,11 +537,11 @@ gat_dense_wgmma_kernel(const int* __restrict__ segments, const int* __restrict__
   }
 }
 
-// the arguments of one launch, K4's or K15's.  K4's bf16 path on wgmma
-// reads h as the transposed panel hT [H N, ld_h] (see the design note) and
+// the arguments of one launch, K4's or K15's.  The bf16 paths on wgmma read
+// h as the transposed panel hT [H N, ld_h] (see the design note) and
 // segments as runs of at most seg_cap <= MAX_SEG blocks; smem is the size
 // the wrapper computed (compiler/schedule._dense_attention_smem), which the
-// launch checks against its own layout (0: K15, not checked).
+// launch checks against the chosen path's layout.
 struct Args {
   const int *sg, *rbk, *cb;
   const void *v, *h;
@@ -502,7 +559,7 @@ struct Args {
 template <typename VT, typename HT, bool MMA, bool PANEL>
 cudaError_t launch(const Args& a, int CC) {
   const size_t smem = smem_bytes(a.HD, a.H, CC, MMA, PANEL);
-  if (a.smem != 0 && a.smem != smem) return cudaErrorInvalidValue;
+  if (a.smem != smem) return cudaErrorInvalidValue;
   auto k = gat_dense_kernel<VT, HT, MMA, PANEL>;
   cudaError_t err = gta::set_smem(k, smem);
   if (err != cudaSuccess) return err;
@@ -514,11 +571,11 @@ cudaError_t launch(const Args& a, int CC) {
   return cudaGetLastError();
 }
 
-template <typename VT, int H, int N>
+template <typename VT, int H, int N, bool PANEL>
 cudaError_t launch_wgmma_hn(const Args& a) {
-  constexpr size_t smem = wgmma_smem<VT, H, N>();
+  constexpr size_t smem = wgmma_smem<VT, H, N, PANEL>();
   if (a.smem != smem) return cudaErrorInvalidValue;  // the wrapper's size is the ring's
-  auto k = gat_dense_wgmma_kernel<VT, H, N>;
+  auto k = gat_dense_wgmma_kernel<VT, H, N, PANEL>;
   cudaError_t err = gta::set_smem(k, smem);
   if (err != cudaSuccess) return err;
   auto pan = static_cast<__nv_bfloat16*>(a.panel);
@@ -528,11 +585,11 @@ cudaError_t launch_wgmma_hn(const Args& a) {
   dim3 grid(a.n_seg, (a.R + WG_ROWS - 1) / WG_ROWS);
   k<<<grid, WG_THREADS, smem, a.st>>>(
       a.sg, a.rbk, a.cb, static_cast<const VT*>(a.v), a.layout_cr, pan, a.ld_h, a.as, a.ad,
-      a.ms, a.out, a.R, a.C, a.HD, a.n_a, a.n_out, a.slope);
+      a.ms, a.ps, a.pd, a.out, a.R, a.C, a.HD, a.n_a, a.n_ps, a.n_pd, a.n_out, a.slope);
   return cudaGetLastError();
 }
 
-template <typename VT>
+template <typename VT, bool PANEL>
 cudaError_t launch_wgmma(const Args& a, int N) {
   // 16-byte copies of count rows (R or C a multiple of 16) and hT rows
   if (a.R % 16 != 0 || a.C % 16 != 0 || a.ld_h % 8 != 0 || a.panel == nullptr ||
@@ -541,18 +598,18 @@ cudaError_t launch_wgmma(const Args& a, int N) {
     return cudaErrorInvalidValue;
   if (a.seg_cap > MAX_SEG) return cudaErrorInvalidValue;  // runs' ids in shared memory
   switch (a.H * 1000 + N) {
-    case 1008: return launch_wgmma_hn<VT, 1, 8>(a);
-    case 1032: return launch_wgmma_hn<VT, 1, 32>(a);
-    case 1048: return launch_wgmma_hn<VT, 1, 48>(a);
-    case 1064: return launch_wgmma_hn<VT, 1, 64>(a);
-    case 1128: return launch_wgmma_hn<VT, 1, 128>(a);
-    case 2008: return launch_wgmma_hn<VT, 2, 8>(a);
-    case 2032: return launch_wgmma_hn<VT, 2, 32>(a);
-    case 2048: return launch_wgmma_hn<VT, 2, 48>(a);
-    case 2064: return launch_wgmma_hn<VT, 2, 64>(a);
-    case 4008: return launch_wgmma_hn<VT, 4, 8>(a);
-    case 4032: return launch_wgmma_hn<VT, 4, 32>(a);
-    case 8008: return launch_wgmma_hn<VT, 8, 8>(a);
+    case 1008: return launch_wgmma_hn<VT, 1, 8, PANEL>(a);
+    case 1032: return launch_wgmma_hn<VT, 1, 32, PANEL>(a);
+    case 1048: return launch_wgmma_hn<VT, 1, 48, PANEL>(a);
+    case 1064: return launch_wgmma_hn<VT, 1, 64, PANEL>(a);
+    case 1128: return launch_wgmma_hn<VT, 1, 128, PANEL>(a);
+    case 2008: return launch_wgmma_hn<VT, 2, 8, PANEL>(a);
+    case 2032: return launch_wgmma_hn<VT, 2, 32, PANEL>(a);
+    case 2048: return launch_wgmma_hn<VT, 2, 48, PANEL>(a);
+    case 2064: return launch_wgmma_hn<VT, 2, 64, PANEL>(a);
+    case 4008: return launch_wgmma_hn<VT, 4, 8, PANEL>(a);
+    case 4032: return launch_wgmma_hn<VT, 4, 32, PANEL>(a);
+    case 8008: return launch_wgmma_hn<VT, 8, 8, PANEL>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -560,9 +617,9 @@ cudaError_t launch_wgmma(const Args& a, int N) {
 template <typename VT, typename HT, bool PANEL>
 cudaError_t launch_h(const Args& a) {
   if (a.n_seg == 0) return cudaSuccess;
-  if constexpr (std::is_same_v<HT, __nv_bfloat16> && !PANEL) {
+  if constexpr (std::is_same_v<HT, __nv_bfloat16>) {
     const int N = gta::wgmma_width(a.H, a.HD / a.H);
-    if (N > 0) return launch_wgmma<VT>(a, N);
+    if (N > 0) return launch_wgmma<VT, PANEL>(a, N);
   }
   // column chunk: the p panel [H, 64, CC] at or under 32 KB of f32
   int CC = 32;
@@ -576,7 +633,8 @@ cudaError_t launch_h(const Args& a) {
 // values are int8 counts or of h's dtype (the wrappers check)
 template <bool PANEL>
 int dispatch(const Args& a, int v_dtype, int h_dtype) {
-  if (v_dtype != gta::I8 && v_dtype != h_dtype) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.smem == 0 || (v_dtype != gta::I8 && v_dtype != h_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool hb = h_dtype == gta::BF16;
   cudaError_t err;
   if (v_dtype == gta::I8 && hb)
@@ -592,12 +650,12 @@ int dispatch(const Args& a, int v_dtype, int h_dtype) {
 
 }  // namespace
 
-// K4.  h [n_h, HD].  bf16 h on the wgmma path (compiler/schedule
-// ._gat_wgmma_width > 0): `panel` is the wrapper's bf16 scratch [H N,
-// ld_p] (ld_p a multiple of 8 covering every column block) that
-// head_panel_kernel fills first, and segments are the wide ones (at most
-// seg_cap = DENSE_WIDE_SEGMENT blocks); otherwise panel is unused and the
-// segments hold at most DENSE_SEGMENT.  smem: compiler/schedule
+// K4 and K15 take the same split.  h [n_h, HD].  bf16 h on the wgmma path
+// (compiler/schedule._gat_wgmma_width > 0): `panel` is the wrapper's bf16
+// scratch [H N, ld_p] (ld_p a multiple of 8 covering every column block)
+// that head_panel_kernel fills first, and segments are the wide ones (at
+// most seg_cap = DENSE_WIDE_SEGMENT blocks); otherwise panel is unused and
+// the segments hold at most DENSE_SEGMENT.  smem: compiler/schedule
 // ._dense_attention_smem, checked against the chosen path's layout.
 extern "C" int gta_gat_dense_blocks(const void* segments, const void* row_blocks,
                                     const void* blk_cb, const void* values,
@@ -608,7 +666,6 @@ extern "C" int gta_gat_dense_blocks(const void* segments, const void* row_blocks
                                     int n_seg, int seg_cap, int R, int C, int HD, int H,
                                     int64_t n_h, int64_t n_a, int64_t n_out, int64_t smem,
                                     float slope, void* stream) {
-  if (smem <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int*>(segments), static_cast<const int*>(row_blocks),
                static_cast<const int*>(blk_cb), values, h, panel, layout_cr,
                static_cast<const float*>(a_src), static_cast<const float*>(a_dst),
@@ -618,18 +675,21 @@ extern "C" int gta_gat_dense_blocks(const void* segments, const void* row_blocks
   return dispatch<false>(a, v_dtype, h_dtype);
 }
 
+// K15: as K4 with the exp panels pan_s [n_ps, 2H], pan_d [n_pd, 3H] in place
+// of a_dst and msrc
 extern "C" int gta_gat_dense_panel(const void* segments, const void* row_blocks,
                                    const void* blk_cb, const void* values, int v_dtype,
-                                   int layout_cr, const void* h, int h_dtype,
-                                   const void* a_src, const void* pan_s, const void* pan_d,
-                                   void* out, int n_seg, int R, int C, int HD, int H,
-                                   int64_t n_h, int64_t n_a, int64_t n_ps, int64_t n_pd,
-                                   int64_t n_out, void* stream) {
+                                   int layout_cr, const void* h, int h_dtype, void* panel,
+                                   int64_t ld_p, const void* a_src, const void* pan_s,
+                                   const void* pan_d, void* out, int n_seg, int seg_cap,
+                                   int R, int C, int HD, int H, int64_t n_h, int64_t n_a,
+                                   int64_t n_ps, int64_t n_pd, int64_t n_out, int64_t smem,
+                                   void* stream) {
   const Args a{static_cast<const int*>(segments), static_cast<const int*>(row_blocks),
-               static_cast<const int*>(blk_cb), values, h, nullptr, layout_cr,
+               static_cast<const int*>(blk_cb), values, h, panel, layout_cr,
                static_cast<const float*>(a_src), nullptr, nullptr,
                static_cast<const float*>(pan_s), static_cast<const float*>(pan_d),
-               static_cast<float*>(out), n_seg, 0, R, C, HD, H, HD, n_h, n_a, n_ps, n_pd,
-               n_out, 0, 0.f, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(out), n_seg, seg_cap, R, C, HD, H, ld_p, n_h, n_a, n_ps,
+               n_pd, n_out, static_cast<size_t>(smem), 0.f, static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, v_dtype, h_dtype);
 }

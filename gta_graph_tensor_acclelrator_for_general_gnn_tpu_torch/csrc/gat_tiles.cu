@@ -96,7 +96,7 @@ gat_tiles_kernel(const int* __restrict__ tile_rb, const int* __restrict__ tile_c
   if (t >= T) return;
   const int cb = tile_cb[t];
   if (cb < 0) return;  // dead tile
-  gta::gat_prefix_walk<HT, MT, VEC, NV, E>(
+  gta::gat_prefix_walk<HT, MT, gta::ShiftBound, VEC, NV, E>(
       src_local, dst_local, mult, static_cast<int64_t>(t) * ET, ET, R, C,
       static_cast<int64_t>(tile_rb[t]) * R, static_cast<int64_t>(cb) * C, h, a_src, a_dst,
       msrc, acc, HD, H, n_h, n_a, n_out, slope, threadIdx.x & 31);
@@ -142,17 +142,9 @@ struct Launch {
   }
 };
 
-// the walk's configuration for h's dtype, width and alignment: spmm_walk's
-// (vector loads where HD % 4 == 0 and h is aligned for them), and only where
-// D % 4 == 0, so that the four features of a load share a head; otherwise
-// one feature a lane, by half-warps two edges at a time up to 48 features
-// (the 41 logits of a last layer), else by the whole warp
 template <typename HT, typename MT>
 cudaError_t launch(const Args& a) {
-  const Launch<HT, MT> l{a};
-  if ((a.HD / a.H) % 4 == 0) return gta::spmm_walk_config<HT>(a.h, a.HD, l);
-  if (a.HD <= 48) return l.template run<1, 3, 2>();
-  return l.template run<1, 2, 1>();
+  return gta::gat_walk_config<HT>(a.h, a.HD, a.H, Launch<HT, MT>{a});
 }
 
 template <typename HT, typename MT>

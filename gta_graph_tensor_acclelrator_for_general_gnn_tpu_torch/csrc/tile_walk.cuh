@@ -277,25 +277,45 @@ __device__ __forceinline__ void gat_walk(
   if (cur >= 0) gat_flush_run(acc, cur, W, HD, H, num, den, lane);
 }
 
-// GAT softmax-aggregate of each live slot src -> r of one tile (K3), with
-// spmm_walk's structure: the warp reads the slots 32 at a time, keeps the
-// live ones by ballot and stops at the first 32 without an edge; E lane
-// groups of LG = 32 / E lanes take their halves of a window's live slots,
-// each SPMM_PF at a time with all PF rows' loads issued before the first is
-// used; lane k of a group holds features f0 + (k + LG i) VEC + [0, VEC),
-// i < NV, of a pass (VEC = 4 only where D % 4 == 0, so one load's features
-// share a head).  a_s is per node ([n_h, H] float32): per edge each lane reads a_s[src] and a_dst[r] of the heads
-// of its NV loads alongside the row and forms their
-//   p = m * exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60))
-// itself, m the slot's multiplicity (1 when `mult` is null): no warp
-// reduction and no shuffle per feature.  num sums round_to<HT>(p * h) (the
-// product never contracted into an FMA), den sums round_to<HT>(p) on the
-// one lane whose load starts its head, both in registers over the group's
-// current run of slots with one receiver; a run is added into acc [n_out,
-// HD + H] with one float32 atomic per value (float4 atomics where VEC = 4
-// and HD + H is a multiple of 4, so the rows are 16-byte aligned) when the
-// receiver changes and after the walk.
-template <typename HT, typename MT, int VEC, int NV, int E>
+// The logit of an edge of the prefix walk, per head: its softmax term p
+// from a_s[src], a_dst[r] and the head's bound term `ms` (bound(msrc, hh),
+// read once a pass).  ShiftBound is K3's, under the global per-head shift
+// bound leaky(msrc + a_d); StaticShift is K14's, under the static shift
+// SHIFT with the logit clamped at SHIFT + 60 (no msrc).
+struct ShiftBound {
+  static __device__ __forceinline__ float bound(const float* msrc, int hh) { return msrc[hh]; }
+  static __device__ __forceinline__ float p(float as, float ad, float ms, float slope) {
+    return expf(fminf(leaky(as + ad, slope) - leaky(ms + ad, slope), 60.f));
+  }
+};
+struct StaticShift {
+  static constexpr float SHIFT = 12.f;  // ops/gat.py SHIFT
+  static __device__ __forceinline__ float bound(const float*, int) { return 0.f; }
+  static __device__ __forceinline__ float p(float as, float ad, float, float slope) {
+    return expf(fminf(leaky(as + ad, slope), SHIFT + 60.f) - SHIFT);
+  }
+};
+
+// GAT softmax-aggregate of each live slot src -> r of one tile (K3, and
+// K14's walk), with spmm_walk's structure: the warp reads the slots 32 at a
+// time, keeps the live ones by ballot and stops at the first 32 without an
+// edge; E lane groups of LG = 32 / E lanes take their halves of a window's
+// live slots, each SPMM_PF at a time with all PF rows' loads issued before
+// the first is used; lane k of a group holds features f0 + (k + LG i) VEC +
+// [0, VEC), i < NV, of a pass (VEC = 4 only where D % 4 == 0, so one
+// load's features share a head).  a_s is per node ([n_h, H] float32): per
+// edge each lane reads a_s[src] and a_dst[r] of the heads of its NV loads
+// alongside the row and forms their p = m * Logit::p(a_s, a_d, bound) (K3's
+// ShiftBound: exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60))) itself,
+// m the slot's multiplicity (1 when `mult` is null): no warp reduction and
+// no shuffle per feature.  num sums round_to<HT>(p * h) (the product never
+// contracted into an FMA), den sums round_to<HT>(p) on the one lane whose
+// load starts its head, both in registers over the group's current run of
+// slots with one receiver; a run is added into acc [n_out, HD + H] with one
+// float32 atomic per value (float4 atomics where VEC = 4 and HD + H is a
+// multiple of 4, so the rows are 16-byte aligned) when the receiver changes
+// and after the walk.
+template <typename HT, typename MT, typename Logit, int VEC, int NV, int E>
 __device__ __forceinline__ void gat_prefix_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
     const MT* __restrict__ mult, int64_t base, int ET, int R, int C, int64_t row0,
@@ -317,7 +337,7 @@ __device__ __forceinline__ void gat_prefix_walk(
       const int f = f0 + (k + LG * i) * VEC;
       hk[i] = f < HD ? f / D : -1;
       own[i] = f < HD && f % D == 0;
-      ms[i] = f < HD ? msrc[hk[i]] : 0.f;
+      ms[i] = f < HD ? Logit::bound(msrc, hk[i]) : 0.f;
     }
     float num[NV][VEC] = {}, den[NV] = {};
     int64_t cur = -1;  // the group's current run's receiver
@@ -395,9 +415,7 @@ __device__ __forceinline__ void gat_prefix_walk(
           }
 #pragma unroll
           for (int i = 0; i < NV; ++i) {
-            const float ad = adq[q][i];
-            const float z = leaky(asq[q][i] + ad, slope) - leaky(ms[i] + ad, slope);
-            const float p = expf(fminf(z, 60.f)) * mq[q];
+            const float p = Logit::p(asq[q][i], adq[q][i], ms[i], slope) * mq[q];
 #pragma unroll
             for (int v = 0; v < VEC; ++v)
               num[i][v] += round_to<HT>(__fmul_rn(p, unpack(xv[q][i], v)));
@@ -408,6 +426,19 @@ __device__ __forceinline__ void gat_prefix_walk(
     }
     if (cur >= 0) flush();
   }
+}
+
+// Runs launch.template run<VEC, NV, E>() with gat_prefix_walk's
+// configuration: spmm_walk's (vector loads where HD % 4 == 0 and h is
+// aligned for them), and only where D % 4 == 0, so that the four features
+// of a load share a head; otherwise one feature a lane, by half-warps two
+// edges at a time up to 48 features (the 41 logits of a last layer), else
+// by the whole warp
+template <typename HT, typename Launch>
+cudaError_t gat_walk_config(const void* h, int HD, int H, const Launch& launch) {
+  if ((HD / H) % 4 == 0) return spmm_walk_config<HT>(h, HD, launch);
+  if (HD <= 48) return launch.template run<1, 3, 2>();
+  return launch.template run<1, 2, 1>();
 }
 
 // Per-head edge dots of each live slot, written once (no atomics):

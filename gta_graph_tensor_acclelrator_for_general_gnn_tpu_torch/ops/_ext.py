@@ -76,12 +76,12 @@ _SIGNATURES = {
                           I32, I32, I32, I64, I64, VP],
     "gta_pair_agg": [VP, VP, VP, VP, VP, I32, VP, VP, VP, I32, I32, I32, F32,
                      VP],
-    "gta_gat_layer": [VP, VP, VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, VP,
-                      I32, I32, I32, I32, I64, I32, I32, I32, I32, F32, I32,
-                      VP],
-    "gta_gat_dense_panel": [VP, VP, VP, VP, I32, I32, VP, I32, VP, VP, VP, VP,
-                            I32, I32, I32, I32, I32, I64, I64, I64, I64, I64,
-                            VP],
+    "gta_gat_layer": [VP, VP, VP, VP, VP, VP, VP, VP, I32, VP, I64, VP, VP,
+                      VP, VP, VP, I32, I32, I32, I32, I64, I32, I32, I32, I32,
+                      F32, I32, I64, VP],
+    "gta_gat_dense_panel": [VP, VP, VP, VP, I32, I32, VP, I32, VP, I64, VP,
+                            VP, VP, VP, I32, I32, I32, I32, I32, I32, I64,
+                            I64, I64, I64, I64, I64, VP],
 }
 
 

@@ -36,6 +36,7 @@ from ..graph import (DENSE_SEGMENT, DENSE_WIDE_SEGMENT, DenseBlockGraph,
                      GraphTensor, HybridGraph, TiledGraph, block_nnz)
 from . import _ext
 from .gat import _edge_grad, _gat_forward, _leaky
+from .primitives import exp_f64
 from .spmm import _PLAIN_CHUNK, spmm
 
 # ---------------------------------------------------------------------------
@@ -264,13 +265,42 @@ def _gat_dense_reference(bg: DenseBlockGraph, h: torch.Tensor,
         bound = _leaky(ms + a_d, negative_slope)[:, :, None, :]
         e = _leaky(asp[cb][:, None, :, :] + a_d[:, :, None, :],
                    negative_slope)                             # [b, R, C, H]
-        p = cnt[..., None] * torch.exp(torch.clamp(e - bound, max=60.0))
+        p = cnt[..., None] * exp_f64(torch.clamp(e - bound, max=60.0))
         den = p.sum(dim=2)                                     # [b, R, H]
         pr = p.to(h.dtype).float() if h.dtype != torch.float32 else p
         hb = hp[cb].float().view(-1, C, H, D)
         num = torch.einsum("brch,bchd->brhd", pr, hb).reshape(-1, R, HD)
         acc.index_add_(0, rb, torch.cat([num, den], dim=2))
     return acc.view(RB * R, HD + H)
+
+
+def _dense_attention_split(bg: DenseBlockGraph, h: torch.Tensor, H: int):
+    """What K4's and K15's launches take besides their inputs: (the zeroed
+    [n_rows, HD + H] output, the segments, their cap, the wgmma path's h
+    panel scratch, its leading dimension); segments None when there is
+    nothing to launch.  bf16 h at the wgmma head shapes (``_gat_wgmma_width``)
+    runs on the wide segments with the panel, h transposed, each head's D
+    features on N rows, every column block's columns (the kernel fills it);
+    other shapes on the 8-block segments."""
+    R, C = bg.block_rows, bg.block_cols
+    HD = h.shape[1]
+    # segments add their partials atomically: unvisited rows stay 0
+    out = torch.zeros((bg.n_row_blocks * R, HD + H), dtype=torch.float32,
+                      device=h.device)
+    N = _gat_wgmma_width(H, HD // H) if h.dtype == torch.bfloat16 else 0
+    if N and (R % 16 or C % 16):
+        raise ValueError(f"the bf16 dense-attention path copies 16-byte "
+                         f"pieces of count rows: block_rows {R} and "
+                         f"block_cols {C} must be multiples of 16")
+    segs, seg_cap = ((bg.wide_segments, DENSE_WIDE_SEGMENT) if N
+                     else (bg.segments, DENSE_SEGMENT))
+    _ext.require(segs, "segments", h.device, (torch.int32,), 2)
+    if int(segs.shape[0]) == 0:
+        return out, None, seg_cap, None, 0
+    ld = -(-max(bg.n_col_blocks * C, h.shape[0]) // 8) * 8
+    panel = (torch.empty((H * N, ld), dtype=h.dtype, device=h.device) if N
+             else None)
+    return out, segs, seg_cap, panel, ld
 
 
 def gat_dense_blocks(bg: DenseBlockGraph, h: torch.Tensor,
@@ -301,25 +331,9 @@ def gat_dense_blocks(bg: DenseBlockGraph, h: torch.Tensor,
     if HD % H or a_src.shape[1] != H or tuple(msrc.shape) != (1, H):
         raise ValueError(f"inconsistent heads: h {tuple(h.shape)}, a_src "
                          f"{tuple(a_src.shape)}, msrc {tuple(msrc.shape)}")
-    n_rows = bg.n_row_blocks * R
-    # segments add their partials atomically: unvisited rows stay 0
-    out = torch.zeros((n_rows, HD + H), dtype=torch.float32, device=dev)
-    N = _gat_wgmma_width(H, HD // H) if h.dtype == torch.bfloat16 else 0
-    if N and (R % 16 or C % 16):
-        raise ValueError(f"K4's bf16 path copies 16-byte pieces of count "
-                         f"rows: block_rows {R} and block_cols {C} must be "
-                         "multiples of 16")
-    segs, seg_cap = ((bg.wide_segments, DENSE_WIDE_SEGMENT) if N
-                     else (bg.segments, DENSE_SEGMENT))
-    _ext.require(segs, "segments", dev, (torch.int32,), 2)
-    n_seg = int(segs.shape[0])
-    if n_seg == 0:
+    out, segs, seg_cap, panel, ld = _dense_attention_split(bg, h, H)
+    if segs is None:
         return out
-    # the wgmma path's B operand: h transposed, each head's D features on
-    # N rows, every column block's columns (the kernel fills it)
-    ld = -(-max(bg.n_col_blocks * C, h.shape[0]) // 8) * 8
-    panel = (torch.empty((H * N, ld), dtype=h.dtype, device=dev) if N
-             else None)
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_gat_dense_blocks(
@@ -329,8 +343,8 @@ def gat_dense_blocks(bg: DenseBlockGraph, h: torch.Tensor,
             h.data_ptr(), _ext.DTYPE_CODE[h.dtype],
             None if panel is None else panel.data_ptr(), ld,
             a_src.data_ptr(), a_dst.data_ptr(), msrc.data_ptr(),
-            out.data_ptr(), n_seg, seg_cap, R, C, HD, H, h.shape[0],
-            a_dst.shape[0], n_rows,
+            out.data_ptr(), int(segs.shape[0]), seg_cap, R, C, HD, H,
+            h.shape[0], a_dst.shape[0], out.shape[0],
             _dense_attention_smem(HD, H, h.element_size(), False,
                                   values.element_size()),
             float(negative_slope), _ext.stream(h))
@@ -362,10 +376,10 @@ def exp_panels(a_src: torch.Tensor, a_dst: torch.Tensor, msrc: torch.Tensor,
     ms = msrc.float().reshape(1, -1)
     t = ms + a_d32
     bound = torch.where(t >= 0, t, sl * t)
-    pans = torch.cat([torch.exp(a_s32 - ms), torch.exp(sl * (a_s32 - ms))],
+    pans = torch.cat([exp_f64(a_s32 - ms), exp_f64(sl * (a_s32 - ms))],
                      dim=1)
-    pand = torch.cat([torch.exp(t - bound), torch.exp(sl * t - bound),
-                      a_d32], dim=1)
+    pand = torch.cat([exp_f64(t - bound), exp_f64(sl * t - bound), a_d32],
+                     dim=1)
     return (_pad_rows(pans, max(n_cols, pans.shape[0])).contiguous(),
             _pad_rows(pand, max(n_rows, pand.shape[0])).contiguous())
 
@@ -413,8 +427,11 @@ def gat_dense_panel_blocks(bg: DenseBlockGraph, h: torch.Tensor,
     """K15 wrapper: K4's [num | den] partials [n_rows, HD + H] float32 from
     the exp panels of :func:`exp_panels` (``pan_s`` [n_cols, 2H], ``pan_d``
     [n_rows, 3H], float32); ``a_src`` [N, H] float32 still gives each cell's
-    branch.  ``values`` holds int8 counts or is of h's dtype.  CPU tensors
-    take the plain version; CUDA tensors launch or raise."""
+    branch.  ``values`` holds int8 counts or is of h's dtype.  bf16 ``h`` at
+    K4's wgmma head shapes runs on K4's tensor-core kernel in its panel mode
+    over ``bg.wide_segments``; float32 and other shapes on the 8-block
+    segments, as K4.  CPU tensors take the plain version; CUDA tensors
+    launch or raise."""
     if h.device.type == "cpu":
         return _gat_dense_panel_reference(bg, h, values, a_src, pan_s, pan_d)
     dev = h.device
@@ -434,22 +451,24 @@ def gat_dense_panel_blocks(bg: DenseBlockGraph, h: torch.Tensor,
         raise ValueError(f"inconsistent heads: h {tuple(h.shape)}, a_src "
                          f"{tuple(a_src.shape)}, pan_s {tuple(pan_s.shape)}, "
                          f"pan_d {tuple(pan_d.shape)}")
-    n_rows = bg.n_row_blocks * R
-    # segments add their partials atomically: unvisited rows stay 0
-    out = torch.zeros((n_rows, HD + H), dtype=torch.float32, device=dev)
-    n_seg = int(bg.segments.shape[0])
-    if n_seg == 0:
+    out, segs, seg_cap, panel, ld = _dense_attention_split(bg, h, H)
+    if segs is None:
         return out
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_gat_dense_panel(
-            bg.segments.data_ptr(), bg.row_blocks.data_ptr(),
+            segs.data_ptr(), bg.row_blocks.data_ptr(),
             bg.blk_cb.data_ptr(), values.data_ptr(),
             _ext.DTYPE_CODE[values.dtype], int(bg.values_layout == "cr"),
-            h.data_ptr(), _ext.DTYPE_CODE[h.dtype], a_src.data_ptr(),
-            pan_s.data_ptr(), pan_d.data_ptr(), out.data_ptr(), n_seg, R, C,
-            HD, H, h.shape[0], a_src.shape[0], pan_s.shape[0],
-            pan_d.shape[0], n_rows, _ext.stream(h))
+            h.data_ptr(), _ext.DTYPE_CODE[h.dtype],
+            None if panel is None else panel.data_ptr(), ld,
+            a_src.data_ptr(), pan_s.data_ptr(), pan_d.data_ptr(),
+            out.data_ptr(), int(segs.shape[0]), seg_cap, R, C, HD, H,
+            h.shape[0], a_src.shape[0], pan_s.shape[0], pan_d.shape[0],
+            out.shape[0],
+            _dense_attention_smem(HD, H, h.element_size(), True,
+                                  values.element_size()),
+            _ext.stream(h))
     _ext.check(rc, "gat_dense_panel")
     gat_dense_panel_blocks.launches += 1
     return out
@@ -748,7 +767,7 @@ def _gat_reference_g(g: GraphTensor, h, a_src, a_dst, slope,
                    device=h.device)
     m = m.scatter_reduce_(0, dst[:, None].expand_as(e), e, "amax")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.where(mask, torch.exp(e - m.index_select(0, dst)),
+    p = torch.where(mask, exp_f64(e - m.index_select(0, dst)),
                     torch.zeros_like(e)) * w
     den = torch.zeros((n + 1, H), dtype=torch.float32,
                       device=h.device).index_add_(0, dst, p)

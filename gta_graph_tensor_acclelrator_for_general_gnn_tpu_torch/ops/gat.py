@@ -32,16 +32,37 @@ from typing import Optional, Sequence
 import torch
 
 from .. import ir
+from ..compiler.schedule import _gat_layer_smem, _gat_wgmma_width
 from ..graph import GraphTensor, GroupedTiledGraph, TiledGraph
 from . import _ext
+from .primitives import exp_f64
 from .spmm import Tiling, _geometry, _live_slots, _require_slots, _unit_steps
 
 NEG = -1e30
+SHIFT = 12.0   # the whole-layer kernel's static softmax shift
 
 
 def _leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
     # jax.nn.leaky_relu: its gradient at 0 is 1, not the slope
     return torch.where(v >= 0, v, slope * v)
+
+
+def shift_bound_p(a_s: torch.Tensor, a_d: torch.Tensor, msrc: torch.Tensor,
+                  slope: float) -> torch.Tensor:
+    """An edge's softmax term under the global per-head shift bound,
+    exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60)): the ShiftBound
+    logit of csrc/tile_walk.cuh (K3, K10, the backward kernels)."""
+    return exp_f64(torch.clamp(_leaky(a_s + a_d, slope)
+                               - _leaky(msrc + a_d, slope), max=60.0))
+
+
+def static_shift_p(a_s: torch.Tensor, a_d: torch.Tensor,
+                   slope: float) -> torch.Tensor:
+    """An edge's softmax term under K14's static shift, exp(min(leaky(a_s +
+    a_d), SHIFT + 60) - SHIFT): the StaticShift logit of
+    csrc/tile_walk.cuh."""
+    return exp_f64(torch.clamp(_leaky(a_s + a_d, slope), max=SHIFT + 60.0)
+                   - SHIFT)
 
 
 def _gat_tiles_reference(tg: Tiling, h: torch.Tensor, mult: torch.Tensor,
@@ -73,9 +94,7 @@ def _gat_tiles_reference(tg: Tiling, h: torch.Tensor, mult: torch.Tensor,
         hs = h.index_select(0, src).float()
         a_s = hs @ wf if wf is not None else a_src.index_select(0, src).float()
         a_d = ad_all.index_select(0, dst)
-        z = (_leaky(a_s + a_d, negative_slope)
-             - _leaky(ms + a_d, negative_slope))
-        p = torch.exp(torch.clamp(z, max=60.0)) * m
+        p = shift_bound_p(a_s, a_d, ms, negative_slope) * m
         v = torch.cat([p.repeat_interleave(D, dim=1) * hs, p], dim=1)
         if h.dtype != torch.float32:
             v = v.to(h.dtype).float()
@@ -311,9 +330,7 @@ def _edge_grad(a_s, a_d, rden, s2, ms, mult, te, slope):
     """alpha and dz of a batch of edges [e, H], float32, in the kernels'
     order of operations."""
     lraw = a_s + a_d
-    p = torch.exp(torch.clamp(_leaky(lraw, slope) - _leaky(ms + a_d, slope),
-                              max=60.0))
-    alpha = p * mult * rden
+    alpha = shift_bound_p(a_s, a_d, ms, slope) * mult * rden
     dz = alpha * (te - s2) * torch.where(lraw >= 0, 1.0, slope)
     return alpha, dz
 
@@ -526,7 +543,7 @@ def _gat_reference(tg: TiledGraph, h_src, a_src, a_dst, negative_slope):
     m = torch.full((n, H), float("-inf"), dtype=f32, device=dev)
     m = m.scatter_reduce_(0, dst[:, None].expand_as(e), e, "amax")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(e - m.index_select(0, dst))
+    p = exp_f64(e - m.index_select(0, dst))
     den = torch.zeros((n, H), dtype=f32, device=dev).index_add_(0, dst, p)
     num = torch.zeros((n, HD), dtype=f32, device=dev).index_add_(
         0, dst, p.repeat_interleave(D, dim=1) * hs)
@@ -648,7 +665,6 @@ def gat_attention(
 # the whole GAT layer (K14)
 # ---------------------------------------------------------------------------
 
-SHIFT = 12.0   # the whole-layer kernel's static softmax shift
 # final activations of the whole-layer kernel, codes of csrc/gat_layer.cu
 SF_CODE = {"identity": 0, "relu": 1, "elu": 2, "leaky_relu": 3}
 
@@ -661,7 +677,7 @@ def _sf_apply(v: torch.Tensor, sf: str, slope: float) -> torch.Tensor:
     if sf == "relu":
         return torch.clamp(v, min=0.0)
     if sf == "elu":
-        return torch.where(v > 0, v, torch.exp(torch.clamp(v, max=0.0)) - 1.0)
+        return torch.where(v > 0, v, exp_f64(torch.clamp(v, max=0.0)) - 1.0)
     if sf == "leaky_relu":
         return torch.where(v >= 0, v, slope * v)
     raise ValueError(f"whole-layer kernel: unsupported sf {sf!r}")
@@ -681,20 +697,21 @@ def _gat_layer_reference(tg: TiledGraph, x, w, wa_src, wa_dst,
 def _gat_layer_project_plain(x, w, wa_src, wa_dst):
     """Plain version of K14's projection: (hq, a_s, a_d).  hq = x w summed
     in float32 and rounded to x's dtype; a_s | a_d = hq [wa_s | wa_d]
-    summed in float32 and rounded to x's dtype (a_d returned as float32)."""
+    summed in float32 and rounded to x's dtype, returned widened to float32
+    (exact), as the kernel writes them for its walk."""
     dt = x.dtype
     H = wa_src.shape[1]
     hq = (x.float() @ w.to(dt).float()).to(dt)
     wv = torch.cat([wa_src, wa_dst], dim=1).to(dt).float()
-    sd = (hq.float() @ wv).to(dt)
-    return hq, sd[:, :H].contiguous(), sd[:, H:].float()
+    sd = (hq.float() @ wv).to(dt).float()
+    return hq, sd[:, :H].contiguous(), sd[:, H:].contiguous()
 
 
 def _gat_layer_walk_plain(tg: TiledGraph, hq, a_s, a_d, *,
                           negative_slope: float = 0.2,
                           final_sf: str = "identity") -> torch.Tensor:
-    """Plain version of K14's walk and epilogue from a projection (hq, a_s
-    in the compute dtype, a_d float32): p = exp(min(leaky(a_s + a_d),
+    """Plain version of K14's walk and epilogue from a projection (hq in
+    the compute dtype, a_s and a_d float32): p = exp(min(leaky(a_s + a_d),
     SHIFT + 60) - SHIFT) over the live slots (tile weights not read), p and
     p hq rounded to hq's dtype before the sums, then sf(num / max(den,
     1e-30)), [n_node, HD] float32.  num and den are summed in float64 and
@@ -709,10 +726,8 @@ def _gat_layer_walk_plain(tg: TiledGraph, hq, a_s, a_d, *,
     for t0, t1 in _unit_steps(tg, HD + H):
         _, src, dst = _live_slots(tg, t0, t1)
         hs = hq.index_select(0, src).float()
-        e = torch.clamp(_leaky(a_s.index_select(0, src).float()
-                               + a_d.index_select(0, dst), negative_slope),
-                        max=SHIFT + 60.0)
-        p = torch.exp(e - SHIFT)
+        p = static_shift_p(a_s.index_select(0, src).float(),
+                           a_d.index_select(0, dst), negative_slope)
         v = torch.cat([p.repeat_interleave(D, dim=1) * hs, p], dim=1)
         if dt != torch.float32:
             v = v.to(dt).float()
@@ -757,20 +772,30 @@ def _require_layer(tg, x, w, wa_src, wa_dst):
                              f"{tg.n_node} nodes")
 
 
-def _gat_layer_launch(tg, x, w, wa_src, wa_dst, slope, final_sf, stages):
+def _gat_layer_launch(tg, x, w, wa_src, wa_dst, slope, final_sf, stages,
+                      proj=None, acc=None):
     """Launch the stages of K14 (bits: 1 projection, 2 walk, 4 epilogue)
-    into fresh buffers; returns (out, hq, a_s, a_d)."""
+    into fresh buffers, or into ``proj`` (hq, a_s, a_d) and ``acc`` [n, HD
+    + H] where given (the smoke times the stages apart); returns (out, hq,
+    a_s, a_d)."""
     dev = x.device
     n, F = x.shape
     HD, H = w.shape[1], wa_src.shape[1]
     f32 = torch.float32
-    hq = torch.empty((n, HD), dtype=x.dtype, device=dev)
-    a_s = torch.empty((n, H), dtype=x.dtype, device=dev)
-    a_d = torch.empty((n, H), dtype=f32, device=dev)
+    hq, a_s, a_d = proj if proj is not None else (
+        torch.empty((n, HD), dtype=x.dtype, device=dev),
+        torch.empty((n, H), dtype=f32, device=dev),
+        torch.empty((n, H), dtype=f32, device=dev))
     # the walk adds into [num | den] with atomics: zeroed
-    acc = (torch.zeros((n, HD + H), dtype=f32, device=dev) if stages & 2
-           else None)
+    if acc is None and stages & 6:
+        acc = torch.zeros((n, HD + H), dtype=f32, device=dev)
     out = torch.empty((n, HD), dtype=f32, device=dev) if stages & 4 else None
+    # the bf16 tensor-core projection's B operand: W transposed, HD padded
+    # to the wgmma width, F to a multiple of 8 (the kernel fills it)
+    N = _gat_wgmma_width(1, HD) if x.dtype == torch.bfloat16 else 0
+    ld_w = -(-F // 8) * 8
+    w_panel = (torch.empty((N, ld_w), dtype=x.dtype, device=dev)
+               if N and stages & 1 else None)
     T = tg.n_tiles if tg is not None else 0
     geo = ((tg.block_rows, tg.block_cols, tg.tile_edges) if tg is not None
            else (0, 0, 0))
@@ -779,11 +804,14 @@ def _gat_layer_launch(tg, x, w, wa_src, wa_dst, slope, final_sf, stages):
         rc = lib.gta_gat_layer(
             *(getattr(tg, k).data_ptr() if tg is not None else None
               for k in ("tile_rb", "tile_cb", "src_local", "dst_local")),
-            x.data_ptr(), w.data_ptr(), wa_src.data_ptr(), wa_dst.data_ptr(),
-            _ext.DTYPE_CODE[x.dtype], hq.data_ptr(), a_s.data_ptr(),
-            a_d.data_ptr(), None if acc is None else acc.data_ptr(),
+            x.data_ptr(), w.data_ptr(), wa_src.data_ptr(),
+            wa_dst.data_ptr(), _ext.DTYPE_CODE[x.dtype],
+            None if w_panel is None else w_panel.data_ptr(), ld_w,
+            hq.data_ptr(), a_s.data_ptr(), a_d.data_ptr(),
+            None if acc is None else acc.data_ptr(),
             None if out is None else out.data_ptr(), T, *geo, n, F, HD, H,
-            SF_CODE[final_sf], float(slope), stages, _ext.stream(x))
+            SF_CODE[final_sf], float(slope), stages,
+            _gat_layer_smem(HD, H, x.element_size()), _ext.stream(x))
     _ext.check(rc, "gat_layer")
     return out, hq, a_s, a_d
 
@@ -794,7 +822,8 @@ def gat_layer_tiles(tg: TiledGraph, x: torch.Tensor, w: torch.Tensor,
                     final_sf: str = "identity") -> torch.Tensor:
     """K14 wrapper: the whole GAT layer, [n_node, HD] float32.  ``x`` [n_node,
     F] float32 or bfloat16; ``w`` [F, HD], ``wa_src`` / ``wa_dst`` [HD, H]
-    in x's dtype.  CPU tensors take the plain version; CUDA tensors launch
+    in x's dtype.  The kernel walks each tile's edge prefix (the builders'
+    slot order).  CPU tensors take the plain version; CUDA tensors launch
     the kernel (three stages) or raise."""
     if final_sf not in SF_CODE:
         raise ValueError(f"whole-layer kernel: unsupported sf {final_sf!r}")

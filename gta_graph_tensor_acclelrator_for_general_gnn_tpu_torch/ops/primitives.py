@@ -50,9 +50,23 @@ def gather_to_nodes(e: torch.Tensor, g: GraphTensor, reduce: str = ir.ADD,
     return out[: g.n_node]
 
 
+def exp_f64(v: torch.Tensor) -> torch.Tensor:
+    """exp of ``v``; on the CPU taken in float64 and rounded once to v's
+    dtype.  There PyTorch takes a contiguous float32 exp from MKL's vector
+    math library (``vmsExp``), whose first call in a process now and then
+    returns the main thread's share of the elements far less accurate
+    than float32 (oneMKL 2024.0 on an AVX-512 / AMX host;
+    ``MKL_CBWR=COMPATIBLE`` avoids it); every float32 exp of the port's
+    plain versions and per-op path goes through here.  Other devices take
+    ``torch.exp`` as it is."""
+    if v.device.type != "cpu":
+        return torch.exp(v)
+    return torch.exp(v.double()).to(v.dtype)
+
+
 _SF_FNS: Dict[str, Callable] = {
     "relu": torch.relu,
-    "exp": torch.exp,
+    "exp": exp_f64,
     "elu": tF.elu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,

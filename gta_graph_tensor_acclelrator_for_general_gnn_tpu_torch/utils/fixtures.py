@@ -910,6 +910,12 @@ def gat_layer_checks(tg, x, w, wa_src, wa_dst, *, dtype_name: str, case: str,
                          terms=terms, scale=mag)
 
 
+# K15's head shapes (H, HD) beyond the two layers': the rest of the wgmma
+# path's widths N (2 heads of 32 and 4 of 16: N = 32; 8 of 8: N = 8; 2 of
+# 64: N = 64; 1 of 128: N = 128)
+PANEL_SHAPES = ((2, 64), (4, 64), (8, 64), (2, 128), (1, 128))
+
+
 def layer_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K14 and K15 against their plain versions on the edge-case graph, in
     float32 and bfloat16.  K14 (:func:`gat_layer_checks`): the whole graph
@@ -917,9 +923,18 @@ def layer_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     rows 512-598, a dead tile whose slots look live), every final
     activation, 4 heads of 32 (F = 43) and 1 head of 41 (F = 64); row
     CLAMP_ROW's logits pushed above the clamp SHIFT + 60 and the gap row's
-    below the exp's underflow (knob feature).  K15: the 'cr' int8 split
-    with an unvisited row block, 4 heads of 32 and 1 of 41, the gap row's
-    sources past the shift-bound gap, from :func:`~..ops.dense.exp_panels`."""
+    below the exp's underflow (knob feature); and 1 head of 41 at F = 70,
+    so that the bf16 projection meets every way it stages x rows (by 2, 4
+    and 16 bytes: F = 43, 70, 64) and n = 600 rows, not a multiple of its
+    128.  K15: the
+    'cr' int8 split with an unvisited row block, 4 heads of 32 and 1 of 41,
+    the gap row's sources past the shift-bound gap, from
+    :func:`~..ops.dense.exp_panels`; then every other width of the bf16
+    wgmma path (``PANEL_SHAPES``) on that split, on values of h's dtype,
+    and on :func:`seg_block_graph`'s 'cr' blocks, whose row blocks of 17
+    dense blocks take two wide-segment runs."""
+    import dataclasses
+
     import torch
 
     from .. import graph as G
@@ -931,33 +946,49 @@ def layer_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                                  tile_edges=128, unit_weight=True,
                                  device=device))
     terms = row_terms(tg)
-    hy = G.hybrid_graph(hg, block_rows=128, block_cols=128, tile_edges=128,
-                        min_nnz=64, unit_weight=True, values_dtype=np.int8,
-                        block_layout="cr", device=device)
-    bd = hy.dense
+    split = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=64,
+                 unit_weight=True, block_layout="cr", device=device)
+    bd = G.hybrid_graph(hg, values_dtype=np.int8, **split).dense
+    bd_v = G.hybrid_graph(hg, **split).dense
+    seg_cr = dataclasses.replace(seg_block_graph(device, seed),
+                                 values_layout="cr")
     rng = np.random.default_rng(seed)
+
+    def panel_case(tag, bg, H, HD, dt, name, gap=True):
+        nb = max(bg.n_col_blocks * bg.block_cols, n)
+        h = torch.tensor(rng.standard_normal((nb, HD)), dtype=dt,
+                         device=device)
+        a_s = torch.tensor(gap_a_src(rng, nb, H) if gap else
+                           rng.standard_normal((nb, H)).astype(np.float32),
+                           device=device)
+        a_d = torch.tensor(rng.standard_normal((nb, H)), dtype=dt,
+                           device=device).float()
+        pan_s, pan_d = D.exp_panels(
+            a_s, a_d, a_s.amax(0, keepdim=True),
+            bg.n_col_blocks * bg.block_cols, bg.n_row_blocks * bg.block_rows)
+        v = bg.values if bg.values.dtype == torch.int8 else bg.values.to(dt)
+        return KernelCase(
+            "gat_dense_panel", f"{tag} H={H} HD={HD}", name,
+            D.gat_dense_panel_blocks(bg, h, v, a_s, pan_s, pan_d),
+            D._gat_dense_panel_reference(bg, h, v, a_s, pan_s, pan_d), HD)
+
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
-        for H, HD, F in ((4, 128, 43), (1, 41, 64)):
+        for H, HD, F in ((4, 128, 43), (1, 41, 64), (1, 41, 70)):
             arrays = layer_inputs(rng, n, F, HD, H,
                                   knobs={CLAMP_ROW: 2.0, GAP_ROW: -6.0})
             x, w, wa_s, wa_d = (torch.tensor(a, device=device).to(dt)
                                 for a in arrays)
-            for sf in SFS:
+            for sf in (SFS if F != 70 else ("elu",)):
                 yield from gat_layer_checks(
                     tg, x, w, wa_s, wa_d, dtype_name=name, terms=terms,
                     case=f"H={H} HD={HD} F={F} sf={sf}", final_sf=sf)
-            h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
-                             device=device)
-            a_s = torch.tensor(gap_a_src(rng, n, H), device=device)
-            a_d = torch.tensor(rng.standard_normal((n, H)), dtype=dt,
-                               device=device).float()
-            pan_s, pan_d = D.exp_panels(
-                a_s, a_d, a_s.amax(0, keepdim=True),
-                bd.n_col_blocks * bd.block_cols,
-                bd.n_row_blocks * bd.block_rows)
-            yield KernelCase(
-                "gat_dense_panel", f"int8 cr H={H} HD={HD}", name,
-                D.gat_dense_panel_blocks(bd, h, bd.values, a_s, pan_s, pan_d),
-                D._gat_dense_panel_reference(bd, h, bd.values, a_s, pan_s,
-                                             pan_d), HD)
+            if F != 70:
+                yield panel_case("int8 cr", bd, H, HD, dt, name)
+        for H, HD in PANEL_SHAPES:
+            yield panel_case("int8 cr", bd, H, HD, dt, name)
+        for H, HD in PANEL_SHAPES + ((4, 128), (1, 41)):
+            yield panel_case(f"{name} values cr", bd_v, H, HD, dt, name,
+                             gap=False)
+            yield panel_case(f"blocks per row block {SEG_COUNTS} cr", seg_cr,
+                             H, HD, dt, name, gap=False)

@@ -140,14 +140,15 @@ def gat_dense(bg, h: torch.Tensor, H: int) -> Work:
 SMS, SM_CLOCK_HZ, EXP_PER_CLOCK_SM, CELL_OPS = 132, 1.98e9, 16, 10
 
 
-def dense_cell_floor_ms(cell_heads: int, ops: int = CELL_OPS) -> float:
+def dense_cell_floor_ms(cell_heads: int, ops: int = CELL_OPS,
+                        exps: int = 1) -> float:
     """The least time a kernel that forms p for every one of
-    ``cell_heads`` (cells times heads) could take on the card: the exps at
-    the special-function units' rate plus the rest of the chain (``ops``
-    float32 operations per cell-head) at the float32 rate.  ``gat_dense``
-    counts nonzero cells only; this is the floor of a design that walks
-    every cell."""
-    exp_s = cell_heads / (SMS * SM_CLOCK_HZ * EXP_PER_CLOCK_SM)
+    ``cell_heads`` (cells times heads) could take on the card: ``exps``
+    exponentials per cell-head at the special-function units' rate plus
+    the rest of the chain (``ops`` float32 operations per cell-head) at
+    the float32 rate.  ``gat_dense`` counts nonzero cells only; this is the
+    floor of a design that walks every cell."""
+    exp_s = exps * cell_heads / (SMS * SM_CLOCK_HZ * EXP_PER_CLOCK_SM)
     ops_s = ops * cell_heads / (PEAK_OPS_PER_S[torch.float32] / 2)
     return (exp_s + ops_s) * 1e3
 
@@ -166,6 +167,18 @@ def dense_bwd_cell_floor_ms(cell_heads: int) -> float:
     the tensor cores, far below their rate.  ``gat_dense_bwd`` counts
     nonzero cells only, which a dense design cannot reach."""
     return dense_cell_floor_ms(cell_heads, BWD_CELL_OPS)
+
+
+# K15's chain per cell-head, in place of K4's exp chain: the branch's add
+# and compare, the selects of the column and the row term, their product,
+# the count's decode and product, and the den add
+PANEL_CELL_OPS = 8
+
+
+def dense_panel_cell_floor_ms(cell_heads: int) -> float:
+    """K15's dense-cell floor: K4's with the exp-panel chain, no
+    exponential and ``PANEL_CELL_OPS`` float32 operations per cell-head."""
+    return dense_cell_floor_ms(cell_heads, PANEL_CELL_OPS, exps=0)
 
 
 def gat_dense_panel(bg, h: torch.Tensor, H: int) -> Work:
@@ -202,8 +215,10 @@ def gat_layer(tg, x: torch.Tensor, HD: int, H: int) -> Work:
 
 def gat_layer_projection(x: torch.Tensor, HD: int, H: int) -> Work:
     """K14's projection stage alone: x and the three weights read once,
-    hq [n, HD] and a_s | a_d [n, 2H] written once; 2 n F HD + 4 n HD H
-    operations."""
+    hq [n, HD] and a_s [n, H] in x's dtype and a_d [n, H] float32 written
+    once; 2 n F HD + 4 n HD H operations.  (The kernel writes a_s widened
+    to float32 for its walk: 2 n H bytes more in bf16, a cost of the
+    design that the bound does not count.)"""
     n, F = x.shape
     es = x.element_size()
     return Work(bytes=_nbytes(x) + es * (F * HD + 2 * HD * H)

@@ -30,6 +30,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops import gat as JA  # no
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as TD  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as TSp  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -46,13 +47,78 @@ ATT_SPLIT = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=60,
                  unit_weight=True, values_dtype=np.int8, block_layout="cr")
 
 
-def _close(port, ref, tol):
+def _float_state() -> str:
+    """The process state that can change float32 arithmetic, for a
+    failure's message (never asserted on)."""
+    mk = torch.backends.mkldnn
+    return (f"torch.get_float32_matmul_precision() = "
+            f"{torch.get_float32_matmul_precision()!r}, "
+            f"torch.backends.fp32_precision = "
+            f"{torch.backends.fp32_precision!r}, "
+            f"torch.backends.mkldnn.matmul.fp32_precision = "
+            f"{mk.matmul.fp32_precision!r}, "
+            f"torch.backends.mkldnn.fp32_precision = {mk.fp32_precision!r}, "
+            f"torch.get_num_threads() = {torch.get_num_threads()}, "
+            f"jax.config.jax_default_matmul_precision = "
+            f"{jax.config.jax_default_matmul_precision!r}, a float32 "
+            f"denormal times 1 in torch = "
+            f"{float(torch.tensor([1e-40]) * 1.0):.3g} (0: flushed)")
+
+
+def _close(port, ref, tol, f64=None):
+    """max |port - ref| <= tol * max(1, max |ref|).  With ``f64``, the same
+    quantity in float64, a failure's message says which side is further
+    from it, by how much, and the process's float state."""
     port = port.detach().float().cpu().numpy()
     ref = np.asarray(jnp.asarray(ref, jnp.float32))
     assert port.shape == ref.shape
     bound = tol * max(1.0, float(np.abs(ref).max()))
     err = float(np.abs(port - ref).max())
-    assert err <= bound, (err, bound)
+    msg = (err, bound)
+    if f64 is not None and not err <= bound:
+        e_port, e_ref = (float(np.abs(np.asarray(a, np.float64) - f64).max())
+                         for a in (port, ref))
+        msg = (f"|port - jax| {err:.3e} > {bound:.3e}; against float64: "
+               f"port {e_port:.3e}, jax {e_ref:.3e}, so "
+               f"{'the port' if e_port > e_ref else 'JAX'} is off; "
+               f"{_float_state()}")
+    assert err <= bound, msg
+
+
+def _tail_bwd_f64(tg, tg_t, h, gbar, a_s, a_d, den, out):
+    """``_gat_bwd_fused``'s (dh, das, dad) in float64 numpy from float64
+    copies of its (rounded) inputs: per live slot s -> d of weight m and
+    per head, alpha = m p / den[d] under the shift bound of max a_s, te =
+    <gbar_d, h_s>, dz = alpha (te - <gbar_d, out_d>) leaky'(a_s[s] +
+    a_d[d]); dad[d] sums dz over ``tg``, das[s] dz and dh[s] alpha gbar_d
+    over the transposed ``tg_t`` (its rows are the senders)."""
+    n, HD = h.shape
+    H = a_d.shape[1]
+    D = HD // H
+    h, gbar, a_s, a_d, den, out = (np.asarray(x, np.float64) for x in (
+        h, gbar, a_s, a_d, den, out))
+    s2 = (gbar.reshape(n, H, D) * out.reshape(n, H, D)).sum(-1)
+    rden = 1.0 / np.maximum(den, 1e-20)
+    msrc = a_s.max(0, keepdims=True)
+    dh, das, dad = np.zeros((n, HD)), np.zeros((n, H)), np.zeros((n, H))
+    for tiling, src_mode in ((tg, False), (tg_t, True)):
+        valid, col, row = TSp._live_slots(tiling, 0, tiling.n_tiles)
+        m = tiling.weight.double()[valid].numpy()[:, None]
+        col, row = col.numpy(), row.numpy()
+        s, d = (row, col) if src_mode else (col, row)
+        lraw = a_s[s] + a_d[d]
+        lk = lambda v: np.where(v >= 0, v, 0.2 * v)  # noqa: E731
+        p = np.exp(np.minimum(lk(lraw) - lk(msrc + a_d[d]), 60.0))
+        alpha = p * m * rden[d]
+        te = (h[s].reshape(-1, H, D) * gbar[d].reshape(-1, H, D)).sum(-1)
+        dz = alpha * (te - s2[d]) * np.where(lraw >= 0, 1.0, 0.2)
+        if src_mode:
+            np.add.at(das, s, dz)
+            np.add.at(dh, s, (alpha[:, :, None]
+                              * gbar[d].reshape(-1, H, D)).reshape(-1, HD))
+        else:
+            np.add.at(dad, d, dz)
+    return dh, das, dad
 
 
 def _dead_first_tile(tg):
@@ -133,9 +199,14 @@ def test_gat_bwd_fused_matches_jax(edge_pair, monkeypatch, dtn, H, HD,
         torch.tensor(h, dtype=tdt), torch.tensor(a_s),
         torch.tensor(a_d, dtype=tdt), torch.tensor(den), torch.tensor(out),
         torch.tensor(gbar), 0.2)
-    for name, a, b in zip(("dh", "das", "dad"), got, want):
+    # the same in float64 from the inputs as rounded to the dtype: which
+    # side a failure is off on
+    hr, adr = (torch.tensor(x, dtype=tdt).double().numpy() for x in (h, a_d))
+    f64 = _tail_bwd_f64(_dead_first_tile(tf.tiles), _dead_first_tile(tt.tiles),
+                        hr, gbar, a_s, adr, den, out)
+    for name, a, b, c in zip(("dh", "das", "dad"), got, want, f64):
         assert a.dtype == {"dh": tdt, "das": torch.float32, "dad": tdt}[name]
-        _close(a, b, TOL[dtn])
+        _close(a, b, TOL[dtn], f64=c)
 
 
 @pytest.mark.parametrize("dtn", ["float32", "bfloat16"])

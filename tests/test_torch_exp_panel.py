@@ -50,6 +50,43 @@ def splits():
                                                          device=CPU), n
 
 
+def _wide_graph(seed=5):
+    """(senders, receivers, n): 1,280 nodes, random edges plus 2,560 from
+    every 64-wide column block into rows 0-63, so that row block 0 of a
+    64-wide dense grid holds 20 dense blocks, more than one run of
+    DENSE_WIDE_SEGMENT."""
+    rng = np.random.default_rng(seed)
+    n = 1280
+    s = np.concatenate([rng.integers(0, n, 3000), rng.integers(0, n, 2560)])
+    r = np.concatenate([rng.integers(0, n, 3000), rng.integers(0, 64, 2560)])
+    return s.astype(np.int32), r.astype(np.int32), n
+
+
+# name -> (graph, split arguments): the edge-case graph's 'cr' split with
+# int8 counts (an unvisited row stripe from row 512 on) and with float
+# values (rounded to h's dtype, bf16 in the bf16 cases), and a graph whose
+# first row block is cut into two wide_segments runs
+SPLITS = {
+    "int8": (fixtures.edge_case_graph, SPLIT),
+    "values": (fixtures.edge_case_graph,
+               {k: v for k, v in SPLIT.items() if k != "values_dtype"}),
+    "wide row block": (_wide_graph, dict(SPLIT, block_rows=64, block_cols=64,
+                                         min_nnz=24)),
+}
+
+
+@pytest.fixture(scope="module")
+def all_splits():
+    out = {}
+    for name, (graph, kw) in SPLITS.items():
+        s, r, n = graph()[:3]
+        hj = J.build_host_graph(s, r, n, edge_pad_multiple=128)
+        ht = TG.build_host_graph(s, r, n, edge_pad_multiple=128)
+        out[name] = (JG.hybrid_graph(hj, **kw),
+                     TG.hybrid_graph(ht, **kw, device=CPU), n)
+    return out
+
+
 def _inputs(n, HD, H, gap, seed=3):
     rng = np.random.default_rng(seed)
     h = rng.standard_normal((n, HD)).astype(np.float32)
@@ -59,16 +96,30 @@ def _inputs(n, HD, H, gap, seed=3):
     return h, a_s, a_d, a_s.max(0, keepdims=True)
 
 
+# the wgmma head shapes (1, 2, 4, 8 heads with H N <= 128: 1 head of 41, 2
+# of 32, 4 of 32, 8 of 8) and one the wgmma path does not take (16 of 1)
+PANEL_SHAPES = [(16, 16), (128, 4), (41, 1), (64, 2), (64, 8)]
+CASES = ([("int8", gap) for gap in (False, True)]
+         + [("values", False), ("wide row block", False)])
+
+
 @pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
-@pytest.mark.parametrize("HD,H", [(16, 16), (128, 4), (41, 1)])
-@pytest.mark.parametrize("gap", [False, True])
-def test_exp_panel_partial_matches_jax(monkeypatch, splits, dtn, HD, H, gap):
+@pytest.mark.parametrize("HD,H", PANEL_SHAPES)
+@pytest.mark.parametrize("split,gap", CASES)
+def test_exp_panel_partial_matches_jax(monkeypatch, all_splits, dtn, HD, H,
+                                       split, gap):
     """``gat_dense_partial_t`` with the flag set in both packages: K15's
-    plain version against ``_gat_dense_kernel_t2`` in interpret mode, with
-    an unvisited row stripe and (``gap``) a row whose sources sit past the
-    shift-bound gap."""
-    yj, yt, n = splits
+    plain version against ``_gat_dense_kernel_t2`` in interpret mode, at
+    every wgmma head shape, on int8 counts with an unvisited row stripe
+    and (``gap``) a row whose sources sit past the shift-bound gap, on
+    values of h's dtype, and on a row block of 20 dense blocks (two runs of
+    the wgmma path's wide segments)."""
+    yj, yt, n = all_splits[split]
     tdt, jdt = DTYPES[dtn]
+    if split == "wide row block":
+        assert int((yt.dense.blk_rb == 0).sum()) > TG.DENSE_WIDE_SEGMENT
+        assert int(yt.dense.wide_segments.shape[0]) > int(
+            yt.dense.blk_rb.unique().numel())
     h, a_s, a_d, ms = _inputs(n, HD, H, gap)
     monkeypatch.setattr(JD, "DENSE_EXP_PANEL", True)
     monkeypatch.setattr(TD, "DENSE_EXP_PANEL", True)
@@ -80,7 +131,8 @@ def test_exp_panel_partial_matches_jax(monkeypatch, splits, dtn, HD, H, gap):
                                 torch.from_numpy(a_s), torch.from_numpy(a_d),
                                 torch.from_numpy(ms))
     _close(pt, pj, TOL[dtn])
-    assert float(pt[:, 512:].abs().max()) == 0.0      # unvisited stripe
+    if split != "wide row block":
+        assert float(pt[:, 512:].abs().max()) == 0.0      # unvisited stripe
     # and the port's K4 path with the flag off computes the same partials
     monkeypatch.setattr(TD, "DENSE_EXP_PANEL", False)
     p4 = TD.gat_dense_partial_t(yt.dense, torch.from_numpy(h).to(tdt),

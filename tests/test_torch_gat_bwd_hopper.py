@@ -58,8 +58,14 @@ SPLIT = dict(block_rows=128, block_cols=128, tile_edges=128, min_nnz=100,
 def _float_state() -> str:
     """The process state that can change float32 arithmetic, for a
     failure's message (never asserted on)."""
+    mk = torch.backends.mkldnn
     return (f"torch.get_float32_matmul_precision() = "
             f"{torch.get_float32_matmul_precision()!r}, "
+            f"torch.backends.fp32_precision = "
+            f"{torch.backends.fp32_precision!r}, "
+            f"torch.backends.mkldnn.matmul.fp32_precision = "
+            f"{mk.matmul.fp32_precision!r}, "
+            f"torch.backends.mkldnn.fp32_precision = {mk.fp32_precision!r}, "
             f"torch.get_num_threads() = {torch.get_num_threads()}, "
             f"jax.config.jax_default_matmul_precision = "
             f"{jax.config.jax_default_matmul_precision!r}, a float32 "
@@ -219,6 +225,23 @@ def test_dense_bwd_cell_floor_counts_every_cell_head():
     assert got == pytest.approx(exp_ms + ops_ms)
     assert got > roofline.dense_cell_floor_ms(cells)
     assert roofline.dense_bwd_cell_floor_ms(2 * cells) == pytest.approx(
+        2 * got)
+
+
+def test_dense_panel_cell_floor_has_no_exp():
+    """K15's floor: PANEL_CELL_OPS float32 operations per cell-head at the
+    non-FMA half of the float32 rate and no exponential, so it sits below
+    K4's floor by the exps and the ops that the panels replace."""
+    cells = 2529 * 65536 * 4
+    ops_ms = roofline.PANEL_CELL_OPS * cells / (
+        roofline.PEAK_OPS_PER_S[torch.float32] / 2) * 1e3
+    got = roofline.dense_panel_cell_floor_ms(cells)
+    assert got == pytest.approx(ops_ms)
+    assert got == pytest.approx(roofline.dense_cell_floor_ms(
+        cells, roofline.PANEL_CELL_OPS, exps=0))
+    assert roofline.PANEL_CELL_OPS < roofline.CELL_OPS
+    assert got < roofline.dense_cell_floor_ms(cells)
+    assert roofline.dense_panel_cell_floor_ms(2 * cells) == pytest.approx(
         2 * got)
 
 

@@ -75,17 +75,19 @@ def test_wgmma_width_follows_the_launcher():
 
 
 def test_dense_attention_smem_follows_the_launch():
-    """``_dense_attention_smem`` is the size K4's launch accepts: on the
-    wgmma path 3 stages of [h panel H N x 128 B | count tile | a_s 64 H
-    f32], each rounded up to 1 KB, plus 1 KB of alignment and the rows'
-    a_d and bound (the count tile the larger of its layouts: 64 x (256 +
-    16) or 256 x (64 + 16) bytes for int8, twice the values for bf16);
-    float32 h, K15 and the shapes the wgmma path does not take keep the
-    mma.sync / FMA kernel's size.  Every size fits one H100 block."""
-    def ring(H, N, vb):
+    """``_dense_attention_smem`` is the size K4's and K15's launches
+    accept: on the wgmma path 3 stages of [h panel H N x 128 B | count tile
+    | K4: a_s 64 H f32; K15: a_s, E1s and E2s 3 x 64 H f32], each rounded
+    up to 1 KB, plus 1 KB of alignment and the rows' terms (K4: a_d and
+    bound; K15: a_d, E1d and E2d) (the count tile the larger of its layouts: 64 x (256 + 16) or 256
+    x (64 + 16) bytes for int8, twice the values for bf16); float32 h and
+    the shapes the wgmma path does not take keep the mma.sync / FMA
+    kernel's size.  Every size fits one H100 block."""
+    def ring(H, N, vb, panel=False):
         tile = max(64 * (256 * vb + 16), 256 * (64 * vb + 16))
-        stage = -(-(H * N * 128 + tile + 256 * H) // 1024) * 1024
-        return 3 * stage + 1024 + 2048 * H
+        cols = 256 * 3 * H if panel else 256 * H
+        stage = -(-(H * N * 128 + tile + cols) // 1024) * 1024
+        return 3 * stage + 1024 + (3 if panel else 2) * 1024 * H
     assert ring(4, 32, 1) == 3 * 37888 + 1024 + 8192
     assert TSc._dense_attention_smem(128, 4, 2, False, 1) == ring(4, 32, 1)
     assert TSc._dense_attention_smem(41, 1, 2, False, 1) == ring(1, 48, 1)
@@ -104,7 +106,14 @@ def test_dense_attention_smem_follows_the_launch():
         return (f + cc * HD + H * 64 * cc) * 4
     assert TSc._dense_attention_smem(128, 4, 4, False, 1) == mma(
         128, 4, False, False)
-    assert TSc._dense_attention_smem(128, 4, 2, True) == mma(128, 4, True,
+    assert TSc._dense_attention_smem(128, 4, 2, True) == ring(4, 32, 2,
+                                                              True)
+    assert TSc._dense_attention_smem(41, 1, 2, True, 1) == ring(1, 48, 1,
+                                                                True)
+    assert TSc._dense_attention_smem(64, 8, 2, True, 2) == ring(8, 8, 2, True)
+    assert TSc._dense_attention_smem(128, 4, 4, True) == mma(128, 4, True,
+                                                             False)
+    assert TSc._dense_attention_smem(256, 4, 2, True) == mma(256, 4, True,
                                                              True)
     assert TSc._dense_attention_smem(256, 4, 2, False, 1) == mma(
         256, 4, False, True)
@@ -112,7 +121,10 @@ def test_dense_attention_smem_follows_the_launch():
         for db in (2, 4):
             assert TSc._kind_smem("gat_hybrid", HD, H, db) <= (
                 TSc.SMEM_BLOCK_BYTES)
-    assert TSc._kind_smem("gat_hybrid", 128, 4, 2) >= ring(4, 32, 2)
+            for vb in (1, 2):
+                assert TSc._dense_attention_smem(HD, H, db, True, vb) <= (
+                    TSc.SMEM_BLOCK_BYTES)
+    assert TSc._kind_smem("gat_hybrid", 128, 4, 2) >= ring(4, 32, 2, True)
 
 
 @pytest.mark.parametrize("dtn", ["float32", "bfloat16"])

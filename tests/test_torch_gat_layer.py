@@ -2,7 +2,9 @@
 and the backward of the ``gat`` kind (``_gat_vjp``: K5 and K6 through
 their plain versions, or the edge formulation) against the JAX package,
 whose Pallas kernels run in interpret mode on the CPU.  Inputs are made
-with numpy from a seed and handed to both.
+with numpy from a seed and handed to both.  The patches by which
+``utils/layer_variants.py`` builds variants of K14 and K15 are held to
+apply to the sources as they are.
 
 Tolerance: max |port - jax| <= 1e-5 * max(1, max |jax|) in float32; in
 bfloat16 1e-3 relative, the bound of ``test_torch_gat.py``'s bf16 test
@@ -10,6 +12,8 @@ bfloat16 1e-3 relative, the bound of ``test_torch_gat.py``'s bf16 test
 so a value near a bf16 rounding boundary may round the other way; one flip
 moves one term by 2^-8 of itself)."""
 import dataclasses
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +41,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.lower impor
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as TP  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import layer_variants as LV  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 CPU = "cpu"     # the port's entry points default to the CUDA card
@@ -76,12 +81,15 @@ def edge_tiles():
 
 
 @pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,HD,F", [(1, 41, 64), (2, 16, 24), (4, 128, 43)])
+@pytest.mark.parametrize("H,HD,F", [(1, 41, 64), (2, 16, 24), (4, 128, 43),
+                                    (1, 41, 70), (4, 128, 70)])
 @pytest.mark.parametrize("sf", fixtures.SFS)
 def test_gat_layer_plain_matches_jax_kernel(edge_tiles, dtn, H, HD, F, sf):
     """K14's plain version against ``_gat_layer_forward(interpret=True)``
     on the edge cases: pad slots, a dead tile, empty rows, the hot pair's
-    200 slots, a row above the clamp and one whose p underflows."""
+    200 slots, a row above the clamp and one whose p underflows; at widths
+    that the bf16 projection tiles unevenly (n = 600 rows, not a multiple of
+    its 128; F = 43 or 70, not a multiple of 8; HD = 41 padded to 48)."""
     tj, tt, n = edge_tiles
     tdt, jdt = DTYPES[dtn]
     arrays = fixtures.layer_inputs(
@@ -103,6 +111,133 @@ def test_gat_layer_plain_matches_jax_kernel(edge_tiles, dtn, H, HD, F, sf):
     e_edge = e[dst, src]
     assert float(e_edge[dst == fixtures.CLAMP_ROW].max()) > TA.SHIFT + 60
     assert float(e_edge[dst == fixtures.GAP_ROW].max()) < TA.SHIFT - 104
+
+
+@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
+def test_logit_policies_reproduce_the_plain_walks(edge_tiles, dtn):
+    """The walk's two logits (csrc/tile_walk.cuh ShiftBound for K3,
+    StaticShift for K14; ``shift_bound_p`` and ``static_shift_p``) against
+    their formulas in numpy (the exponent in float32, as the kernels form
+    it, its exp in float64), elementwise across the clamps, and the raw
+    [num | den] of K3's plain version and K14's plain walk against a
+    float64 numpy walk over the tiling's live slots under each formula
+    (values rounded to the dtype as the kernels round them)."""
+    _, tt, n = edge_tiles
+    tdt = DTYPES[dtn][0]
+    rng = np.random.default_rng(11)
+    H, HD = 2, 16
+    f32 = np.float32
+    lk = lambda v: np.where(v >= 0, v, f32(0.2) * v)  # noqa: E731
+
+    def k3(a, b, ms):
+        return np.exp(np.minimum(lk(a + b) - lk(ms + b), f32(60.0)),
+                      dtype=np.float64)
+
+    def k14(a, b):
+        return np.exp(np.minimum(lk(a + b), f32(TA.SHIFT + 60.0))
+                      - f32(TA.SHIFT), dtype=np.float64)
+    a = rng.uniform(-400.0, 400.0, (1000, H)).astype(f32)
+    b = rng.uniform(-40.0, 40.0, (1000, H)).astype(f32)
+    ms = a.max(0, keepdims=True)
+    want_k3, want_k14 = k3(a, b, ms), k14(a, b)
+    got_k3 = TA.shift_bound_p(*map(torch.from_numpy, (a, b, ms)), 0.2)
+    got_k14 = TA.static_shift_p(torch.from_numpy(a), torch.from_numpy(b), 0.2)
+    for got, want in ((got_k3, want_k3), (got_k14, want_k14)):
+        np.testing.assert_allclose(got.double().numpy(), want, rtol=1e-6,
+                                   atol=1e-37)
+    assert float(got_k14.max()) == pytest.approx(np.exp(60.0), rel=1e-6)
+    # the two walks over the tiling's live slots
+    h = torch.tensor(rng.standard_normal((n, HD)), dtype=tdt)
+    a_s = torch.tensor(rng.standard_normal((n, H)), dtype=tdt).float()
+    a_d = torch.tensor(rng.standard_normal((n, H)), dtype=tdt).float()
+    msrc = a_s.amax(0, keepdim=True)
+    unit = torch.ones_like(tt.weight)
+    _, src, dst = TA._live_slots(tt, 0, tt.n_tiles)
+    src, dst = src.numpy(), dst.numpy()
+    as32, ad32 = a_s.numpy()[src], a_d.numpy()[dst]
+    h64 = h.double().numpy()[src]
+    for name, p in (("K3", k3(as32, ad32, msrc.numpy())),
+                    ("K14", k14(as32, ad32))):
+        terms = torch.from_numpy(np.concatenate(
+            [np.repeat(p, HD // H, axis=1) * h64, p], 1)).float()
+        terms = terms.to(tdt).double().numpy()   # the kernels' rounding
+        want = np.zeros((n, HD + H))
+        np.add.at(want, dst, terms)
+        if name == "K3":
+            got = TA._gat_tiles_reference(tt, h, unit, a_d, msrc, a_src=a_s,
+                                          normalize=False)
+        else:
+            out = TA._gat_layer_walk_plain(tt, h, a_s, a_d)
+            den = np.repeat(np.maximum(want[:, HD:], 1e-30), HD // H, axis=1)
+            want = want[:, :HD] / den
+            got = out
+        _close(got, want, TOL["float32"])
+
+
+def test_gat_layer_smem_follows_the_launch():
+    """``_gat_layer_smem`` is the size K14's projection launch accepts (and
+    ``_kind_smem("gat_layer")`` reports): bf16 at HD <= 128, the larger of
+    3 ring stages of [x tile 128 x 128 B | W panel N x 128 B] and the
+    epilogue's f32 tile [128, N + 1], plus 1 KB of alignment and wa_s |
+    wa_d [HD, 2H] f32; else the FMA kernel's f32 tiles.  Every size fits
+    one H100 block."""
+    def wgmma(HD, H, N):
+        return max(3 * (16384 + 128 * N), 512 * (N + 1)) + 1024 + 8 * HD * H
+
+    def fma(HD, H):
+        hp = -(-HD // 16) * 16
+        return 4 * (64 * hp + 2 * HD * H + 64 * 32 + 32 * hp)
+    assert TS._gat_layer_smem(128, 4, 2) == wgmma(128, 4, 128) == 103424
+    assert TS._gat_layer_smem(41, 1, 2) == wgmma(41, 1, 48)
+    assert TS._gat_layer_smem(16, 2, 2) == wgmma(16, 2, 32)
+    assert TS._gat_layer_smem(8, 1, 2) == wgmma(8, 1, 8)
+    assert TS._gat_layer_smem(128, 4, 4) == fma(128, 4)
+    assert TS._gat_layer_smem(256, 8, 2) == fma(256, 8)
+    for HD, H in ((128, 4), (41, 1), (16, 2), (256, 8), (256, 32)):
+        for db in (2, 4):
+            assert TS._kind_smem("gat_layer", HD, H, db) == (
+                TS._gat_layer_smem(HD, H, db))
+            assert TS._gat_layer_smem(HD, H, db) <= TS.SMEM_BLOCK_BYTES
+
+
+@pytest.mark.parametrize("variant,edits", [
+    ("base", 0), ("fold", 2), ("walk_blocks2", 1), ("proj_blocks1", 1),
+    ("proj_stages4", 1), ("k15_packed", 1), ("x_padded", 1)])
+def test_layer_variant_patches_apply_to_the_sources(variant, edits,
+                                                     tmp_path):
+    """``utils/layer_variants.py`` builds each variant of K14 and K15 from a
+    copy of ``csrc/`` with texts replaced: every patch finds each of its
+    texts once in the sources as they are and edits the files it names
+    (``fold`` the walk's header and K14's source); K14's wrapper is given
+    the shared-memory size of the variant's ring, which at 3 stages is
+    ``_gat_layer_smem``'s, and K15's wrapper that of its column terms
+    (with ``k15_packed``: 16 bytes a column and head, and 16 more a
+    column when H > 1); an unknown patch raises."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(Path(LV.__file__).resolve().parents[1] / "csrc", csrc)
+    before = {f.name: f.read_text() for f in csrc.iterdir()}
+    for patch in variant.split("+"):
+        LV._patch(csrc, patch)
+    assert sum(f.read_text() != before[f.name]
+               for f in csrc.iterdir()) == edits
+    with pytest.raises(ValueError):
+        LV._patch(csrc, "k14_pf2")
+    smem = LV._layer_smem(LV._stages(variant))
+    for HD, H, db in ((128, 4, 2), (41, 1, 2), (128, 4, 4), (256, 8, 2)):
+        deep = LV._stages(variant) if db == 2 and HD <= 128 else 3
+        assert smem(HD, H, db) - TS._gat_layer_smem(HD, H, db) == (
+            (deep - 3) * 128 * (128 + TS._gat_wgmma_width(1, HD)))
+    panel = LV._panel_smem(variant == "k15_packed")
+    for HD, H, N in ((128, 4, 32), (41, 1, 48), (64, 8, 8)):
+        for vb in (1, 2):
+            tile = max(64 * (256 * vb + 16), 256 * (64 * vb + 16))
+            cols = 4 * H + (4 if H > 1 else 0) if variant == "k15_packed" \
+                else 3 * H
+            stage = -(-(H * N * 128 + tile + 256 * cols) // 1024) * 1024
+            assert panel(HD, H, 2, True, vb) == (
+                3 * stage + 1024 + 3 * 1024 * H)
+            assert panel(HD, H, 2, False, vb) == (
+                TS._dense_attention_smem(HD, H, 2, False, vb))
 
 
 def test_gat_layer_tiles_takes_its_plain_version_on_cpu(edge_tiles):

@@ -74,8 +74,14 @@ def _np(a):
 def _float_state() -> str:
     """The process state that can change float32 arithmetic, for a
     failure's message (never asserted on)."""
+    mk = torch.backends.mkldnn
     return (f"torch.get_float32_matmul_precision() = "
             f"{torch.get_float32_matmul_precision()!r}, "
+            f"torch.backends.fp32_precision = "
+            f"{torch.backends.fp32_precision!r}, "
+            f"torch.backends.mkldnn.matmul.fp32_precision = "
+            f"{mk.matmul.fp32_precision!r}, "
+            f"torch.backends.mkldnn.fp32_precision = {mk.fp32_precision!r}, "
             f"torch.get_num_threads() = {torch.get_num_threads()}, "
             f"jax.config.jax_default_matmul_precision = "
             f"{jax.config.jax_default_matmul_precision!r}, a float32 "

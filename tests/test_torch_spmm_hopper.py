@@ -108,7 +108,23 @@ def _gat_tilings():
         out[f"GAT one-hot tiling{twin} (512x1024, ET 512)"] = TG.tile_graph(
             graph, block_rows=512, block_cols=1024, tile_edges=512,
             unit_weight=True, device=CPU)
+    out["GAT gat_layer kind, lowered (512x1024, ET 512)"] = _gat_layer_tiling(
+        hu)
     return out
+
+
+def _gat_layer_tiling(hg):
+    """The tiling that the ``gat_layer`` kind walks (K14), as the lowering
+    builds it: a GAT layer's ``layer_partition`` through
+    ``compiler/fusion.lower_schedule`` at the smoke's 512 x 1024, ET 512."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import build_op_graph
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import fusion as TF
+    g = build_op_graph("GAT", 16, 8, heads=2)
+    part = TSc.layer_partition(g)
+    fn = TF.lower_schedule(g, TSc.Schedule(blocks=part, tiles=(
+        TSc.TileConfig(512, 1024, 512),)), hg, device=CPU)
+    tg, = [d for k, _, d, _ in fn.plans if k == "gat_layer"]
+    return tg
 
 
 def _block_graphs():
@@ -138,7 +154,8 @@ def test_live_slots_form_each_tiles_prefix(name):
     prefix of its slots, sorted by receiver (the walk sums each receiver's
     run of slots): no pad slot lies before an edge, and the receivers of the
     prefix never fall; the SpMM tilings, the attention ones K3 reads and
-    their transposed twins K6 reads, full tiles among them."""
+    their transposed twins K6 reads, and the tiling the ``gat_layer``
+    kind's lowering builds for K14's walk, full tiles among them."""
     tg = _tilings()[name]
     real = ((tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
             & (tg.src_local >= 0) & (tg.dst_local >= 0))
