@@ -43,7 +43,11 @@ Reddit's node count, and checks every hand-written kernel on the way:
      fixture's grouped tilings; (b) the root bench's two Reddit recipes
      (``bench.spmm_recipe``, ``bench.gat_recipe``: int8 dense blocks plus a
      512²/ET128/G16 grouped tail, F = 128 and H = 4 x 32, bf16) on the same
-     graph, K9 and K10 checked and timed at their shapes, K2 on the SpMM
+     graph, K9 and K10 checked and timed at their shapes (K10's work list
+     against all NC G sub-tiles; K10 in both forms of a_s, the hybrid
+     path's float32 array in the row and derive mode printed, also at
+     GAT-2l's last layer, 1 head of 41, beside K3 on the same edges as a
+     per-tile tail), K2 on the SpMM
      recipe's dense blocks and K1 on its per-tile tail checked and timed
      (printed, not in the kernels' rows), each recipe served and compared
      with the same split built with a per-tile tail; (c)
@@ -65,7 +69,9 @@ Reddit's node count, and checks every hand-written kernel on the way:
      (d) the hybrid SDDMM (dense-block logits plus K12 on phase 6's SpMM
      recipe split, and K11 on the same split with a per-tile tail; F =
      128, bf16), K11 and K12 also at 4 heads on the GAT recipe's tails,
-     grouped and per-tile logits compared in edge order;
+     grouped and per-tile logits compared in edge order; at each of
+     K11's timed shapes (c, d) its walk, its edges per second and
+     ``sampled_addmm`` beside it;
   8. the whole-layer GAT kind, the gat kind's backward, the exp panels:
      (a) K14 and K15 against their plain versions on the fixture cases
      (``fixtures.layer_kernel_cases``: dead tile, empty rows, pad slots, 1
@@ -110,8 +116,8 @@ function, ``torch.sparse.mm`` for K1, K2 and K9, ``torch.sparse.
 sampled_addmm`` at one head for K11 and K12, else null; each timed K2
 and K4 call also prints the rate at which it streamed its count blocks,
 each K4, K7 and K8 call its cell-heads per second beside its dense-cell
-floor, each K3 call its edges per second, each K9 call the sub-tiles its
-work list holds and its edges per second), the
+floor, each K3 and K11 call its edges per second, each K9 and K10 call
+the sub-tiles its work list holds and its edges per second), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script then exits non-zero without that line.  Needs
 one CUDA device.
@@ -437,8 +443,8 @@ def _bwd_cell_note(graph, heads: int):
 
 
 def _walk_note(tg):
-    """K9's per-call rate: the sub-tiles its work list holds against all
-    the tiling's sub-tiles, and the live edges it aggregated per second."""
+    """K9's and K10's per-call rate: the sub-tiles their work list holds
+    against all the tiling's sub-tiles, and the live edges per second."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     edges, listed = RL.live_slots(tg), int(tg.live_sub.shape[0])
     return lambda ms: (f"   {listed} of {tg.n_tiles} sub-tiles listed, "
@@ -861,8 +867,11 @@ def bench_recipes(checks: Checks, hg, dev) -> dict:
                                  checks.sparse_mm(*lib), in_row=False,
                                  stream_bytes=_stream_bytes(kname, lib[0]))
     rg = recipes[("GAT", "grouped")]
-    tga = rg.split.tiles
+    tga, tgt = rg.split.tiles, recipes[("GAT", "tiles")].split.tiles
     terms = row_terms(tga)
+    mult_bytes = 0 if tga.weight_all_unit else 4
+    say(f"  K10's work list: {int(tga.live_sub.shape[0])} of {tga.n_tiles} "
+        f"sub-tiles (NC G = {tga.n_chunks} x {tga.group}) hold an edge")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     for H, HD in ((HEADS, HIDDEN), (1, N_CLASS)):
@@ -874,16 +883,55 @@ def bench_recipes(checks: Checks, hg, dev) -> dict:
                 wa = torch.randn((HD, H), generator=gen, device=dev) / HD**0.5
                 ad = torch.randn((hg.n_node, H), generator=gen, device=dev)
             h, wa = h.to(dt), wa.to(dt)
-            ms = D._a_s_kernel(h, wa).amax(0, keepdim=True)
-            timed = dt == torch.bfloat16 and HD == HIDDEN
+            # the grouped hybrid path's form: one float32 a_s, which msrc
+            # and K4 read too
+            a_s = D._a_s_kernel(h, wa)
+            ms = a_s.amax(0, keepdim=True)
+            timed = dt == torch.bfloat16
+            dn, shape = str(dt).split(".")[1], f"H={H} HD={HD}"
             checks.slice_case(
-                "gat_grouped", f"bench GAT tail H={H} HD={HD}",
-                str(dt).split(".")[1],
-                lambda: A.gat_grouped(tga, h, ad, ms, wa),
-                lambda: A._gat_grouped_reference(tga, h, ad, ms, wa), dev,
-                split=HD, terms=terms, timed_as="bench" if timed else None,
-                work=lambda: RL.gat_tail(tga, h, H, 0 if tga.weight_all_unit
-                                         else 4))
+                "gat_grouped", f"bench GAT tail {shape}", dn,
+                lambda: A.gat_grouped(tga, h, ad, ms, a_src=a_s),
+                lambda: A._gat_tiles_reference(tga, h, tga.weight, ad, ms,
+                                               a_src=a_s, normalize=False),
+                dev, split=HD, terms=terms,
+                timed_as="bench" if timed and HD == HIDDEN else None,
+                work=lambda: RL.gat_tail(tga, h, H, mult_bytes,
+                                         derive=False),
+                note=_walk_note(tga))
+            # derive mode (w_asrc: the per-node pass first), printed
+            kern = lambda: A.gat_grouped(tga, h, ad, ms, wa)  # noqa: E731
+            plain = lambda: A._gat_grouped_reference(  # noqa: E731
+                tga, h, ad, ms, wa)
+            checks.compare(fixtures.KernelCase(
+                "gat_grouped", f"bench GAT tail {shape} derive", dn, kern(),
+                plain(), HD, terms))
+            if timed:
+                checks.time_call(
+                    "gat_grouped", f"{shape} derive", kern, plain, dev,
+                    lambda: RL.gat_tail(tga, h, H, mult_bytes),
+                    in_row=False, note=_walk_note(tga))
+                if HD != HIDDEN:
+                    checks.time_call(
+                        "gat_grouped", f"{shape} a_src",
+                        lambda: A.gat_grouped(tga, h, ad, ms, a_src=a_s),
+                        lambda: A._gat_tiles_reference(
+                            tga, h, tga.weight, ad, ms, a_src=a_s,
+                            normalize=False),
+                        dev, lambda: RL.gat_tail(tga, h, H, mult_bytes,
+                                                 derive=False),
+                        in_row=False, note=_walk_note(tga))
+                # K3 on the same edges as a per-tile tail: the per-edge
+                # rate K10 is held to
+                checks.time_call(
+                    "gat_tiles", f"GAT recipe per-tile tail {shape}",
+                    lambda: A.gat_tiles(tgt, h, tgt.weight, ad, ms,
+                                        a_src=a_s, normalize=False),
+                    lambda: A._gat_tiles_reference(tgt, h, tgt.weight, ad,
+                                                   ms, a_src=a_s,
+                                                   normalize=False),
+                    dev, lambda: RL.gat_tail(tgt, h, H, 0, derive=False),
+                    in_row=False, note=_edge_note(tgt))
     del terms
 
     counted = {"spmm_grouped": SP.spmm_grouped, "gat_grouped": A.gat_grouped}
@@ -1318,6 +1366,31 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
     return launches
 
 
+def k11_walk_and_library(checks: Checks, tg, xs, xd, H: int, what: str,
+                         dev, library) -> None:
+    """At one of K11's timed shapes: the walk it takes (``ops/sddmm.
+    k11_walk``, named by the launch), and ``library`` (``sampled_addmm``)
+    timed beside it where it is not already in the kernel's row (at H > 1:
+    one head over the same F-wide rows, a yardstick, not the same
+    function)."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as SD
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import _slots
+    SD.sddmm_tiles(tg, xs, xd, H)
+    say(f"  sddmm_tiles        {what}: walk {SD.k11_walk()!r}")
+    if library is None:
+        return
+    kern = lambda: _slots(SD.sddmm_tiles(tg, xs, xd, H))  # noqa: E731
+    plain = lambda: _slots(SD._sddmm_reference(tg, xs, xd, H))  # noqa: E731
+    work = lambda: RL.sddmm_tail(tg, xs, xd, H)  # noqa: E731
+    lib = library
+    if H > 1:
+        lib = lambda: library()  # noqa: E731
+        lib.label = f"{library.label}, one head of the same rows"
+    checks.time_call("sddmm_tiles", what, kern, plain, dev, work, lib,
+                     in_row=False, note=_edge_note(tg))
+
+
 def sddmm_gat(checks: Checks, model, hg, g, dev) -> int:
     """Phase 7c: GAT-2l with each layer's logit block on the ``sddmm``
     kind (K11 over a 1024²/ET512 ``onehot`` tiling), the rest op by
@@ -1358,16 +1431,17 @@ def sddmm_gat(checks: Checks, model, hg, g, dev) -> int:
             kern = lambda: _slots(SD.sddmm_tiles(tg, xs, xd, H))  # noqa: E731
             plain = lambda: _slots(SD._sddmm_reference(tg, xs, xd, H))  # noqa: E731
             work = lambda: RL.sddmm_tail(tg, xs, xd, H)  # noqa: E731
+            lib = checks.sampled_addmm(tg, xs, xd) if timed else None
             checks.slice_case(
                 "sddmm_tiles", f"GAT l{li} ADD H={H} P=2", name, kern, plain,
                 dev, scale=_slots(SD._sddmm_reference(tg, xs.abs(),
                                                       xd.abs(), H)),
                 timed_as=f"GAT l{li} ADD" if timed and H == 1 else None,
-                work=work, library=(checks.sampled_addmm(tg, xs, xd)
-                                    if timed and H == 1 else None))
-            if timed and H > 1:
-                checks.time_call("sddmm_tiles", f"GAT l{li} ADD", kern,
-                                 plain, dev, work, in_row=False)
+                work=work, library=lib if H == 1 else None,
+                note=_edge_note(tg))
+            if timed:
+                k11_walk_and_library(checks, tg, xs, xd, H, f"GAT l{li} ADD",
+                                  dev, lib if H > 1 else None)
     checks.csr.clear()
 
     reqs = (("bfloat16", 0), ("float32", 0))
@@ -1423,22 +1497,26 @@ def hybrid_sddmm(checks: Checks, recipes, hg, dev) -> dict:
 
     def check(tg, tail, what, xs0, xd0, H, in_row):
         kernel, kern_fn, plain_fn = kernels[tail]
+        note = _edge_note(tg) if tail == "tiles" else None
         for dt in (torch.bfloat16, torch.float32):
             xs, xd = xs0.to(dt), xd0.to(dt)
             kern = lambda: _slots(kern_fn(tg, xs, xd, H))  # noqa: E731
             plain = lambda: _slots(plain_fn(tg, xs, xd, H))  # noqa: E731
             work = lambda: RL.sddmm_tail(tg, xs, xd, H)  # noqa: E731
             timed = dt == torch.bfloat16
+            lib = checks.sampled_addmm(tg, xs, xd) if timed else None
             checks.slice_case(
                 kernel, f"{what} {tail} tail H={H}", str(dt).split(".")[1],
                 kern, plain, dev, scale=_slots(plain_fn(tg, xs.abs(),
                                                         xd.abs(), H)),
                 timed_as=what if timed and in_row else None, work=work,
-                library=(checks.sampled_addmm(tg, xs, xd)
-                         if timed and in_row else None))
+                library=lib if in_row else None, note=note)
             if timed and not in_row:
                 checks.time_call(kernel, what, kern, plain, dev, work,
-                                 in_row=False)
+                                 in_row=False, note=note)
+            if timed and tail == "tiles":
+                k11_walk_and_library(checks, tg, xs, xd, H, what, dev,
+                                  None if in_row else lib)
 
     def edge_order(tg, e):
         return SD.tiles_to_edges(tg, e, int(tg.edge_id.max()) + 1)

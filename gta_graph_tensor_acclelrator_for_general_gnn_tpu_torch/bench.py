@@ -163,9 +163,10 @@ def spmm_recipe(hg: G.HostGraph, device=None,
 def gat_recipe(hg: G.HostGraph, device=None,
                tail_format: str = "grouped") -> Recipe:
     """The hybrid GAT recipe (root bench.py:224-251): 'cr' int8 dense
-    blocks at threshold 128 (K4) and the grouped tail (K10), derive mode,
-    raw partials under one shift bound, then the normalisation; H = 4, HD =
-    128, bf16.  ``tail_format="tiles"``: a per-tile tail (K3)."""
+    blocks at threshold 128 (K4) and the grouped tail (K10), given w_asrc:
+    a_s = h @ w_asrc formed once for msrc and both partials, raw partials
+    under one shift bound, then the normalisation; H = 4, HD = 128, bf16.
+    ``tail_format="tiles"``: a per-tile tail (K3)."""
     dev = G.resolve_device(device)
     t0 = time.perf_counter()
     hyb = G.hybrid_graph(

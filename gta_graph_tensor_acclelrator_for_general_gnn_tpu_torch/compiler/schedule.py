@@ -503,18 +503,18 @@ def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
     """The largest dynamic shared memory, in bytes, that a kernel of
     ``kind`` (forward and backward) requests at width HD and H heads, by
     the formula beside its launch."""
-    gat_tail = HD * H * 4                           # K3's a_s pass: gat_tiles.cu
+    gat_tail = HD * H * 4                           # K3's, K10's a_s pass: gat_as.cuh
     if kind == "gat":
         return gat_tail                             # K5, K6 request none
     if kind == "gat_hybrid":
-        return max((HD * H + H) * 4,                # K10: gat_grouped.cu
+        return max(gat_tail,                        # K3, K10
                    _dense_attention_smem(HD, H, dtype_bytes, False),
                    _dense_attention_smem(HD, H, dtype_bytes, True),
                    _dense_bwd_smem(HD, H, dtype_bytes, False),
                    _dense_bwd_smem(HD, H, dtype_bytes, True))
     if kind == "gat_layer":                         # K14: gat_layer.cu
         return _gat_layer_smem(HD, H, dtype_bytes)
-    if kind == "sddmm":                             # K11, K12: 8 warps
+    if kind == "sddmm":                             # K12: 8 warps (K11: none)
         return 8 * HD * 4 if HD // H < 32 else 0
     if kind == "spmm_hybrid":                       # K2 (K1: none)
         return _spmm_dense_smem(HD, dtype_bytes)

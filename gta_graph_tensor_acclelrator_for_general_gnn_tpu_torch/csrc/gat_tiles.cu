@@ -17,7 +17,7 @@
 // which msrc, K4 and the backward read too; the values mode's a_src, in h's
 // dtype, is widened to float32 by the wrapper, exactly); or derive mode,
 // w_asrc [HD, H] in h's dtype, from which a first launch forms a_s = h .
-// w_asrc per node into the wrapper's float32 scratch (gat_as_kernel: one
+// w_asrc per node into the wrapper's float32 scratch (gat_as.cuh: one
 // warp a node, bf16 x bf16 products and float32 sums, the arithmetic the
 // TPU kernel does in its body, which the old per-edge derivation repeated
 // for every edge).
@@ -44,44 +44,12 @@
 // order varies from run to run (f32 rounding only).  When normalizing, a
 // second launch of this library divides num by max(den, 1e-20) per head;
 // rows without edges read 0 either way.
+#include "gat_as.cuh"
 #include "tile_walk.cuh"
 
 namespace {
 
-using gta::to_f;
-
 constexpr int WARPS = 8;
-
-// a_s[node, hh] = sum_f h[node, f] w[f, hh]: one warp a node, lane l taking
-// features l, l + 32, ... (f32 products of h's values, summed by fmaf in
-// feature order and then across the warp); w staged in shared memory
-template <typename HT>
-__global__ void __launch_bounds__(WARPS * 32)
-gat_as_kernel(const HT* __restrict__ h, const HT* __restrict__ w, float* __restrict__ a_s,
-              int64_t n_h, int HD, int H) {
-  extern __shared__ float w_s[];  // [HD, H]
-  for (int i = threadIdx.x; i < HD * H; i += blockDim.x) w_s[i] = to_f(w[i]);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t node = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (node >= n_h) return;
-  float hv[gta::GAT_MAXF];
-#pragma unroll
-  for (int k = 0; k < gta::GAT_MAXF; ++k) {
-    const int f = lane + 32 * k;
-    hv[k] = f < HD ? to_f(h[node * HD + f]) : 0.f;
-  }
-  for (int hh = 0; hh < H; ++hh) {
-    float part = 0.f;
-#pragma unroll
-    for (int k = 0; k < gta::GAT_MAXF; ++k) {
-      const int f = lane + 32 * k;
-      if (f < HD) part = fmaf(hv[k], w_s[f * H + hh], part);
-    }
-    part = gta::warp_sum(part);
-    if (lane == 0) a_s[node * H + hh] = part;
-  }
-}
 
 template <typename HT, typename MT, int VEC, int NV, int E>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -150,16 +118,8 @@ cudaError_t launch(const Args& a) {
 template <typename HT, typename MT>
 cudaError_t launch_h(const Args& a, const void* w, float* a_scr) {
   if (w != nullptr) {  // derive mode: a_s per node first, into the scratch
-    const size_t smem = static_cast<size_t>(a.HD) * a.H * sizeof(float);
-    cudaError_t err = gta::set_smem(gat_as_kernel<HT>, smem);
+    const cudaError_t err = gta::launch_a_s<HT>(a.h, w, a_scr, a.n_h, a.HD, a.H, a.st);
     if (err != cudaSuccess) return err;
-    if (a.n_h > 0) {
-      gat_as_kernel<HT><<<static_cast<unsigned>((a.n_h + WARPS - 1) / WARPS), WARPS * 32,
-                          smem, a.st>>>(static_cast<const HT*>(a.h),
-                                        static_cast<const HT*>(w), a_scr, a.n_h, a.HD, a.H);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
     Args b = a;
     b.a_s = a_scr;
     return launch<HT, MT>(b);

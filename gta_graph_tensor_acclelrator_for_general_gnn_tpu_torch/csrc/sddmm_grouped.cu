@@ -16,9 +16,9 @@
 // blocks) included.
 //
 // Design: one warp per (chunk, sub-tile), G*NC warps in blocks of 8 (K9's
-// layout), walking its slots by gta::sddmm_walk (tile_walk.cuh) in prefix
-// mode: an empty sub-tile costs one read of its first 32 index pairs, and
-// pad slots are never addressed.  Each slot's output is written once by one
+// layout), walking its slots by gta::sddmm_walk (tile_walk.cuh), which
+// stops at the sub-tile's edge prefix: an empty sub-tile costs one read of
+// its first 32 index pairs, and pad slots are never addressed.  Each slot's output is written once by one
 // lane; the wrapper zero-fills the output, so pad slots read exact zeros.
 #include "tile_walk.cuh"
 
@@ -46,7 +46,7 @@ sddmm_grouped_kernel(const int* __restrict__ chunk_grp, const int* __restrict__ 
   gta::sddmm_walk<XT>(src_local, dst_local, u * ET, ET, R, C, row0,
                       static_cast<int64_t>(cb) * C, x_src, x_dst, out, n_sub * ET, F,
                       heads, n_src, n_dst, /*round_prod=*/true, smem + w * stage,
-                      /*prefix=*/true, threadIdx.x & 31);
+                      threadIdx.x & 31);
 }
 
 template <typename XT>

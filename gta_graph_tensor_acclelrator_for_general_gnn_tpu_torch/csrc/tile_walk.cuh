@@ -1,27 +1,28 @@
-// Slot walks shared by the edge-tile kernels: K1, K3 and K11 walk one tile
-// of a TiledGraph per warp, the grouped kernels K9, K10 and K12 one
+// Slot walks shared by the edge-tile kernels: K1, K3, K11 and K14 walk one
+// tile of a TiledGraph per warp, the grouped kernels K9, K10 and K12 one
 // sub-tile of a GroupedTiledGraph chunk per warp (K1 and K9 by the one
-// SpMM walk, spmm_walk).  A tile is ET slots of
-// (src_local, dst_local[, weight]); slot e holds edge
+// SpMM walk, spmm_walk; K3, K10 and K14 by gat_prefix_walk).  A tile is ET
+// slots of (src_local, dst_local[, weight]); slot e holds edge
 // (col0 + src_local[e]) -> (row0 + dst_local[e]), and pad slots carry
 // src == C or dst == R.
 //
 // The warp reads 32 slots at a time and keeps the live ones by ballot, so a
 // pad slot is never addressed (the pad row x[col0 + C] is never read) and its
-// weight is never loaded.  spmm_walk, and the other walks with `prefix`, rely
-// on the tile's edges filling a prefix of its slots, as the host builders
-// place them (slot = offset of the edge in its block, mod ET): the walk stops
-// at the first 32 slots without an edge, so an empty sub-tile costs one read
-// of its first 32 index pairs.  Sums go to y / acc by float32 global atomics,
-// whose order varies from run to run (f32 rounding only).  Both walks that sum
-// first sum each run of slots with one receiver in registers (the builders
-// sort a tile's slots by receiver) and add it once per run.  A hub row of 2e5
+// weight is never loaded.  Every walk relies on the tile's edges filling a
+// prefix of its slots, as the host builders place them (slot = offset of
+// the edge in its block, mod ET): the walk stops at the first 32 slots
+// without an edge, so an empty sub-tile costs one read of its first 32
+// index pairs.  Sums go to y / acc by float32 global atomics, whose order
+// varies from run to run (f32 rounding only).  The walks that sum first
+// sum each run of slots with one receiver in registers (the builders sort
+// a tile's slots by receiver) and add it once per run.  A hub row of 2e5
 // edges then takes a few hundred atomic adds of run sums instead of 2e5 of
 // single terms, and a multigraph row that repeats one edge hundreds of times
 // (the smoke's graph sends ~600 copies of i -> hub into some rows), whose
 // float32 sum rounds the same way at every add and so drifts by ~n/4 ulps
 // rather than sqrt(n), drifts only over a run (at most ET slots) and over the
-// few run sums.
+// few run sums.  The SDDMM walks (K11, K12) write each slot's dots once,
+// with plain stores.
 #pragma once
 #include "common.cuh"
 
@@ -178,103 +179,6 @@ cudaError_t spmm_walk_config(const void* x, int F, const Launch& launch) {
       return launch.template run<4, 1, 1>();
   }
   return launch.template run<1, 2, 1>();
-}
-
-constexpr int GAT_MAXF = 8;  // features per lane: HD <= 256
-
-// GAT softmax-aggregate of each live slot src -> r of one sub-tile (K10)
-// in derive mode, under the global shift bound (see gat_grouped.cu): adds
-// [p * h[src] | p] into acc[r], p per head
-//   p = w * exp(min(leaky(a_s + a_d) - leaky(msrc + a_d), 60)),
-// a_s = h[src] . w_s (w_s [HD, H] f32 in shared memory, values of h's
-// dtype), a warp reduction per head, and w the slot's weight (1 when
-// `weight` is null).  The warp reads the slots 32 at a time, stops at the
-// first 32 without an edge and takes the live ones one at a time.  p * h
-// and p round to h's dtype before the f32 sum, as on the TPU.  The sums of
-// a run of slots with one receiver are held in registers (lane l: features
-// l, l + 32, ...; lane h < H: head h's den) and added to acc[r] when the
-// receiver changes and after the walk.
-__device__ __forceinline__ void gat_flush_run(float* __restrict__ acc, int64_t r, int W,
-                                              int HD, int H, const float* num, float den,
-                                              int lane) {
-  float* arow = acc + r * W;
-#pragma unroll
-  for (int k = 0; k < GAT_MAXF; ++k) {
-    const int f = lane + 32 * k;
-    if (f < HD) atomicAdd(arow + f, num[k]);
-  }
-  if (lane < H) atomicAdd(arow + HD + lane, den);
-}
-
-template <typename HT>
-__device__ __forceinline__ void gat_walk(
-    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
-    const float* __restrict__ weight, int64_t base, int ET, int R, int C, int64_t row0,
-    int64_t col0, const HT* __restrict__ h, const float* w_s,
-    const float* __restrict__ a_dst, const float* m_s, float* __restrict__ acc, int HD,
-    int H, int64_t n_h, int64_t n_a, int64_t n_out, float slope, int lane) {
-  const int W = HD + H, D = HD / H;
-  float num[GAT_MAXF], den = 0.f;  // the current run's sums
-  int64_t cur = -1;                // its receiver (the same in every lane)
-  for (int e0 = 0; e0 < ET; e0 += 32) {
-    const int e = e0 + lane;
-    int s = C, d = R;
-    if (e < ET) {
-      s = src_local[base + e];
-      d = dst_local[base + e];
-    }
-    const bool real = s >= 0 && s < C && d >= 0 && d < R;
-    if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
-    const bool live = real && col0 + s < n_h && row0 + d < n_out;
-    const float m = live && weight != nullptr ? weight[base + e] : 1.f;
-    unsigned todo = __ballot_sync(0xffffffffu, live);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int64_t src = col0 + __shfl_sync(0xffffffffu, s, j);
-      const int64_t r = row0 + __shfl_sync(0xffffffffu, d, j);
-      const float mj = __shfl_sync(0xffffffffu, m, j);
-      if (r != cur) {
-        if (cur >= 0) gat_flush_run(acc, cur, W, HD, H, num, den, lane);
-        cur = r;
-        den = 0.f;
-#pragma unroll
-        for (int k = 0; k < GAT_MAXF; ++k) num[k] = 0.f;
-      }
-      float hv[GAT_MAXF];
-#pragma unroll
-      for (int k = 0; k < GAT_MAXF; ++k) {
-        const int f = lane + 32 * k;
-        hv[k] = f < HD ? to_f(h[src * HD + f]) : 0.f;
-      }
-      // lane hh < H ends up holding a_s[hh]
-      float my_as = 0.f;
-      for (int hh = 0; hh < H; ++hh) {
-        float part = 0.f;
-#pragma unroll
-        for (int k = 0; k < GAT_MAXF; ++k) {
-          const int f = lane + 32 * k;
-          if (f < HD) part = fmaf(hv[k], w_s[f * H + hh], part);
-        }
-        part = warp_sum(part);
-        if (lane == hh) my_as = part;
-      }
-      float p = 0.f;
-      if (lane < H) {
-        const float ad = r < n_a ? a_dst[r * H + lane] : 0.f;
-        const float z = leaky(my_as + ad, slope) - leaky(m_s[lane] + ad, slope);
-        p = expf(fminf(z, 60.f)) * mj;
-      }
-#pragma unroll
-      for (int k = 0; k < GAT_MAXF; ++k) {
-        const int f = lane + 32 * k;
-        const float pf = __shfl_sync(0xffffffffu, p, f < HD ? f / D : 0);
-        if (f < HD) num[k] += round_to<HT>(pf * hv[k]);
-      }
-      if (lane < H) den += round_to<HT>(p);
-    }
-  }
-  if (cur >= 0) gat_flush_run(acc, cur, W, HD, H, num, den, lane);
 }
 
 // The logit of an edge of the prefix walk, per head: its softmax term p
@@ -441,22 +345,27 @@ cudaError_t gat_walk_config(const void* h, int HD, int H, const Launch& launch) 
   return launch.template run<1, 2, 1>();
 }
 
-// Per-head edge dots of each live slot, written once (no atomics):
+// ---- the SDDMM walks: K12's sddmm_walk, K11's sddmm_lane_walk and
+// sddmm_group_walk -----------------------------------------------------------
+
+// Per-head edge dots of each live slot of one sub-tile (K12), written once
+// (no atomics):
 //   out[h * plane + base + e] = sum over head h's P = F / heads features f
 //                               of prod(x_src[col0 + s, f], x_dst[row0 + d, f])
-// prod is the float32 product of the two values (exact for bf16 inputs),
-// rounded to XT first when `round_prod` (the grouped TPU kernel's
-// astype(dt) before its head sum).  Pad slots are not written: the caller
-// zero-fills `out`.  P >= 32: each head is a warp reduction of its lanes'
-// partial sums.  P < 32: the warp stages the slot's F products in `prod`
-// (F floats of shared memory) and lane h sums head h's P products.
+// prod is the float32 product of the two values, rounded to XT first when
+// `round_prod` (the grouped TPU kernel's astype(dt) before its head sum).
+// Pad slots are not written: the caller zero-fills `out`.  The warp takes
+// the live slots one at a time.  P >= 32: each head is a warp reduction of
+// its lanes' partial sums.  P < 32: the warp stages the slot's F products
+// in `prod` (F floats of shared memory) and lane h sums head h's P
+// products.
 template <typename XT>
 __device__ __forceinline__ void sddmm_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
     int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
     const XT* __restrict__ x_src, const XT* __restrict__ x_dst, float* __restrict__ out,
     int64_t plane, int F, int heads, int64_t n_src, int64_t n_dst, bool round_prod,
-    float* prod, bool prefix, int lane) {
+    float* prod, int lane) {
   const int P = F / heads;
   for (int e0 = 0; e0 < ET; e0 += 32) {
     const int e = e0 + lane;
@@ -466,7 +375,7 @@ __device__ __forceinline__ void sddmm_walk(
       d = dst_local[base + e];
     }
     const bool real = s >= 0 && s < C && d >= 0 && d < R;
-    if (prefix && __ballot_sync(0xffffffffu, real) == 0u) break;
+    if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
     const bool live = real && col0 + s < n_src && row0 + d < n_dst;
     unsigned todo = __ballot_sync(0xffffffffu, live);
     while (todo) {
@@ -501,6 +410,344 @@ __device__ __forceinline__ void sddmm_walk(
       }
     }
   }
+}
+
+// K11's walks compute the same dots as sddmm_walk with round_prod false
+// (the float32 product of the two values, never contracted into an FMA,
+// summed per head in feature order within a lane), stop at the tile's
+// edge prefix, and write zeros into every slot that holds no live edge, up
+// to ET: the caller need not zero-fill `out`.
+
+// Zeros into slots [e0, ET) of one tile, every head (e0 a multiple of 32):
+// float4 stores where ET % 4 == 0, so that each head's slots start 16-byte
+// aligned (base = t ET, plane = T ET)
+__device__ __forceinline__ void sddmm_zero_slots(float* __restrict__ out, int64_t base,
+                                                 int e0, int ET, int64_t plane, int heads,
+                                                 int lane) {
+  if (ET % 4 == 0) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int hh = 0; hh < heads; ++hh) {
+      float4* o = reinterpret_cast<float4*>(out + hh * plane + base);
+      for (int e = e0 + 4 * lane; e < ET; e += 128) o[e >> 2] = z;
+    }
+  } else {
+    for (int hh = 0; hh < heads; ++hh)
+      for (int e = e0 + lane; e < ET; e += 32) out[hh * plane + base + e] = 0.f;
+  }
+}
+
+// A narrow row loaded whole as NW 32-bit words, LB bytes a load
+template <int LB> struct WordLoad;
+template <> struct WordLoad<4> { using type = uint32_t; };
+template <> struct WordLoad<8> { using type = uint2; };
+template <> struct WordLoad<16> { using type = uint4; };
+
+template <int NW, int LB>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[NW]) {
+  using T = typename WordLoad<LB>::type;
+  constexpr int PER = LB / 4;
+  const T* q = static_cast<const T*>(p);
+#pragma unroll
+  for (int k = 0; k < NW / PER; ++k) {
+    const T v = q[k];
+    if constexpr (PER == 1) {
+      w[k] = v;
+    } else if constexpr (PER == 2) {
+      w[2 * k] = v.x;
+      w[2 * k + 1] = v.y;
+    } else {
+      w[4 * k] = v.x;
+      w[4 * k + 1] = v.y;
+      w[4 * k + 2] = v.z;
+      w[4 * k + 3] = v.w;
+    }
+  }
+}
+
+// element i of a row of XT held as 32-bit words
+template <typename XT>
+__device__ __forceinline__ float word_elem(const uint32_t* w, int i) {
+  if constexpr (sizeof(XT) == 2)
+    return bf16_half(w[i >> 1], i & 1);
+  else
+    return __uint_as_float(w[i]);
+}
+
+// K11, narrow rows: lane l takes slot e0 + l of each window of 32 slots.
+// It gathers its slot's two rows whole (FN > 0: FN = F features, a power of
+// two of at most 32 bytes, in LB-byte loads; FN = 0: F features one at a
+// time), sums each head's products in registers and writes its `heads`
+// floats: per head, the 32 slots of a window are 32 consecutive floats, so
+// the warp's stores coalesce.  No shuffle per edge and no shared memory.
+template <typename XT, int FN, int LB>
+__device__ __forceinline__ void sddmm_lane_walk(
+    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
+    int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
+    const XT* __restrict__ x_src, const XT* __restrict__ x_dst, float* __restrict__ out,
+    int64_t plane, int F, int heads, int64_t n_src, int64_t n_dst, int lane) {
+  const int P = F / heads;
+  int e0 = 0;
+  for (; e0 < ET; e0 += 32) {
+    const int e = e0 + lane;
+    int s = C, d = R;
+    if (e < ET) {
+      s = src_local[base + e];
+      d = dst_local[base + e];
+    }
+    const bool real = s >= 0 && s < C && d >= 0 && d < R;
+    if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
+    const bool live = real && col0 + s < n_src && row0 + d < n_dst;
+    float* o = out + base + e;
+    if (live) {
+      const XT* a = x_src + (col0 + s) * F;
+      const XT* b = x_dst + (row0 + d) * F;
+      float acc = 0.f;
+      int hh = 0, n = 0;  // the head being summed, its products so far
+      if constexpr (FN > 0) {
+        constexpr int NW = FN * static_cast<int>(sizeof(XT)) / 4;
+        uint32_t wa[NW], wb[NW];
+        load_words<NW, LB>(a, wa);
+        load_words<NW, LB>(b, wb);
+#pragma unroll
+        for (int f = 0; f < FN; ++f) {
+          acc += __fmul_rn(word_elem<XT>(wa, f), word_elem<XT>(wb, f));
+          if (++n == P) {
+            o[hh * plane] = acc;
+            ++hh;
+            n = 0;
+            acc = 0.f;
+          }
+        }
+      } else {
+        for (int f = 0; f < F; ++f) {
+          acc += __fmul_rn(to_f(a[f]), to_f(b[f]));
+          if (++n == P) {
+            o[hh * plane] = acc;
+            ++hh;
+            n = 0;
+            acc = 0.f;
+          }
+        }
+      }
+    } else if (e < ET) {
+      for (int hh = 0; hh < heads; ++hh) o[hh * plane] = 0.f;
+    }
+  }
+  sddmm_zero_slots(out, base, e0, ET, plane, heads, lane);
+}
+
+constexpr int SDDMM_MAXH = 8;  // heads whose sums a lane holds
+
+// How sddmm_group_walk sums a slot's heads.  The first two hand each
+// head's sum to the slot's own lane, which holds at most SDDMM_MAXH.
+enum SddmmHeads {
+  // a head is whole loads: Q = P / VEC lanes of a load, Q a power of two
+  // (a segmented __shfl_xor tree of log2 Q steps a load; past a group's
+  // LG lanes, the lanes' loads of a head added first, then a tree over
+  // the group)
+  HEADS_SEG,
+  // any other split: each lane adds its products of each head, then a
+  // tree over the group, a head at a time
+  HEADS_ANY,
+  // a load holds VEC / P whole heads (P divides VEC: MUL's heads = F, any
+  // number of heads): the lane writes them itself
+  HEADS_OWN,
+};
+
+// K11, wide rows, with spmm_walk's structure: E lane groups of LG = 32 / E
+// lanes take their halves of a window's live slots in slot order, each
+// SPMM_PF slots at a time with the loads of all PF pairs of rows issued
+// before the first is used; lane k of a group holds features f0 + (k + LG
+// i) VEC + [0, VEC), i < NV, of a pass of W = LG VEC NV features.  The
+// passes run inside the slot loop, so a head may span passes.  HEADS_SEG
+// and HEADS_ANY form each head's sum of a pass by a __shfl_xor tree, and
+// the slot's own lane (lane j takes slot e0 + j) adds it into its register
+// res[h]; after the window each lane writes its slot's `heads` floats, so
+// a window's outputs leave in one coalesced store per head.
+template <typename XT, int VEC, int NV, int E, SddmmHeads HS>
+__device__ __forceinline__ void sddmm_group_walk(
+    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
+    int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
+    const XT* __restrict__ x_src, const XT* __restrict__ x_dst, float* __restrict__ out,
+    int64_t plane, int F, int heads, int64_t n_src, int64_t n_dst, int lane) {
+  static_assert(E == 1 || E == 2, "one or two lane groups");
+  using V = typename VecLoad<XT, VEC>::type;
+  constexpr int LG = 32 / E;          // lanes a group
+  constexpr int W = LG * VEC * NV;    // features a pass
+  const int grp = lane / LG, k = lane % LG;
+  const int P = F / heads;
+  int hk[NV][VEC];  // the head of each feature of a pass (-1 past F)
+  auto heads_of = [&](int f0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const int f = f0 + (k + LG * i) * VEC + v;
+        hk[i][v] = f < F ? f / P : -1;
+      }
+  };
+  heads_of(0);
+  int e0 = 0;
+  for (; e0 < ET; e0 += 32) {
+    const int e = e0 + lane;
+    int s = C, d = R;
+    if (e < ET) {
+      s = src_local[base + e];
+      d = dst_local[base + e];
+    }
+    const bool real = s >= 0 && s < C && d >= 0 && d < R;
+    if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
+    const bool live = real && col0 + s < n_src && row0 + d < n_dst;
+    const unsigned all = __ballot_sync(0xffffffffu, live);
+    // group g takes the g-th half of the live slots, in slot order; this
+    // lane's slot is the step-th of group `from` (its first lane)
+    unsigned todo = all, mine = all;
+    int from = 0;
+    if (E > 1) {
+      const int n = __popc(all), rank = __popc(all & ((1u << lane) - 1u));
+      const unsigned first = __ballot_sync(0xffffffffu, live && rank < (n + 1) / 2);
+      todo = grp == 0 ? first : all & ~first;
+      const bool in_first = (first >> lane) & 1u;
+      mine = in_first ? first : all & ~first;
+      from = in_first ? 0 : LG;
+    }
+    const int step = __popc(mine & ((1u << lane) - 1u));
+    float res[SDDMM_MAXH];
+#pragma unroll
+    for (int c = 0; c < SDDMM_MAXH; ++c) res[c] = 0.f;
+    for (int taken = 0; __any_sync(0xffffffffu, todo != 0u); taken += SPMM_PF) {
+      int jq[SPMM_PF];
+      const XT* aq[SPMM_PF];
+      const XT* bq[SPMM_PF];
+#pragma unroll
+      for (int q = 0; q < SPMM_PF; ++q) {
+        const int j = todo ? __ffs(todo) - 1 : -1;  // -1: past the group's last
+        todo &= todo - 1;
+        const int src = j >= 0 ? j : 0;
+        // every lane shuffles: the groups' j differ, and one may be done
+        const int sj = __shfl_sync(0xffffffffu, s, src);
+        const int dj = __shfl_sync(0xffffffffu, d, src);
+        jq[q] = j;
+        aq[q] = x_src + (col0 + sj) * F;
+        bq[q] = x_dst + (row0 + dj) * F;
+      }
+      for (int f0 = 0; f0 < F; f0 += W) {
+        if (F > W) heads_of(f0);
+        V xa[SPMM_PF][NV], xb[SPMM_PF][NV];
+#pragma unroll
+        for (int q = 0; q < SPMM_PF; ++q)
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int f = f0 + (k + LG * i) * VEC;
+            const bool on = jq[q] >= 0 && f < F;
+            xa[q][i] = on ? *reinterpret_cast<const V*>(aq[q] + f) : zero_of<V>();
+            xb[q][i] = on ? *reinterpret_cast<const V*>(bq[q] + f) : zero_of<V>();
+          }
+#pragma unroll
+        for (int q = 0; q < SPMM_PF; ++q) {
+          float pr[NV][VEC];
+#pragma unroll
+          for (int i = 0; i < NV; ++i)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              pr[i][v] = __fmul_rn(unpack(xa[q][i], v), unpack(xb[q][i], v));
+          const bool mine_q = live && step == taken + q;
+          if constexpr (HS == HEADS_SEG) {
+            float sl[NV];  // the lane's sum of each load
+#pragma unroll
+            for (int i = 0; i < NV; ++i) {
+              sl[i] = 0.f;
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) sl[i] += pr[i][v];
+            }
+            const int Q = P / VEC;
+            if (Q <= LG) {  // a head is Q lanes of a load, a pass whole heads
+#pragma unroll
+              for (int i = 0; i < NV; ++i)
+                for (int o = Q >> 1; o > 0; o >>= 1)
+                  sl[i] += __shfl_xor_sync(0xffffffffu, sl[i], o);
+#pragma unroll
+              for (int c = 0; c < SDDMM_MAXH; ++c) {
+                if (c >= heads) break;
+                // the head starts at feature (kc + LG ic) VEC of the pass
+                const int loc = c * P - f0;
+                if (loc < 0 || loc >= W) continue;
+                const int ic = loc / (LG * VEC), kc = (loc / VEC) % LG;
+                float v = sl[0];
+#pragma unroll
+                for (int i = 1; i < NV; ++i)
+                  if (i == ic) v = sl[i];
+                const float got = __shfl_sync(0xffffffffu, v, from + kc);
+                if (mine_q) res[c] += got;
+              }
+            } else {  // a head is whole loads of every lane of the group
+#pragma unroll
+              for (int c = 0; c < SDDMM_MAXH; ++c) {
+                if (c >= heads) break;
+                if (c * P >= f0 + W || (c + 1) * P <= f0) continue;  // not in this pass
+                float part = 0.f;
+#pragma unroll
+                for (int i = 0; i < NV; ++i)
+                  if (hk[i][0] == c) part += sl[i];
+#pragma unroll
+                for (int o = LG / 2; o > 0; o >>= 1)
+                  part += __shfl_xor_sync(0xffffffffu, part, o);
+                const float got = __shfl_sync(0xffffffffu, part, from);
+                if (mine_q) res[c] += got;
+              }
+            }
+          } else if constexpr (HS == HEADS_ANY) {
+#pragma unroll
+            for (int c = 0; c < SDDMM_MAXH; ++c) {
+              if (c >= heads) break;
+              if (c * P >= f0 + W || (c + 1) * P <= f0) continue;  // not in this pass
+              float part = 0.f;
+#pragma unroll
+              for (int i = 0; i < NV; ++i)
+#pragma unroll
+                for (int v = 0; v < VEC; ++v)
+                  if (hk[i][v] == c) part += pr[i][v];
+#pragma unroll
+              for (int o = LG / 2; o > 0; o >>= 1)
+                part += __shfl_xor_sync(0xffffffffu, part, o);
+              const float got = __shfl_sync(0xffffffffu, part, from);
+              if (mine_q) res[c] += got;
+            }
+          } else {
+            if (jq[q] < 0) continue;
+            float* o = out + base + e0 + jq[q];
+#pragma unroll
+            for (int i = 0; i < NV; ++i) {
+              if (hk[i][0] < 0) continue;
+              float acc = 0.f;
+              int hh = hk[i][0], n = 0;
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) {
+                acc += pr[i][v];
+                if (++n == P) {
+                  o[hh * plane] = acc;
+                  ++hh;
+                  n = 0;
+                  acc = 0.f;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    if (e < ET) {
+      float* o = out + base + e;
+      if constexpr (HS != HEADS_OWN) {
+#pragma unroll
+        for (int c = 0; c < SDDMM_MAXH; ++c)
+          if (c < heads) o[c * plane] = live ? res[c] : 0.f;
+      } else if (!live) {
+        for (int hh = 0; hh < heads; ++hh) o[hh * plane] = 0.f;
+      }
+    }
+  }
+  sddmm_zero_slots(out, base, e0, ET, plane, heads, lane);
 }
 
 }  // namespace gta

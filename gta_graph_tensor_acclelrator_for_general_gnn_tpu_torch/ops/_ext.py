@@ -68,8 +68,9 @@ _SIGNATURES = {
                               I64, F32, VP],
     "gta_spmm_grouped": [VP, VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32,
                          I32, I32, I32, I64, I64, VP],
-    "gta_gat_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, I32, I32,
-                        I32, I32, I32, I32, I32, I64, I64, I64, F32, VP],
+    "gta_gat_grouped": [VP, VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, VP,
+                        VP, I32, I32, I32, I32, I32, I32, I32, I64, I64, I64,
+                        F32, VP],
     "gta_sddmm_tiles": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
                         I32, I32, I64, I64, VP],
     "gta_sddmm_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
@@ -154,6 +155,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.gta_error_string.argtypes = [ctypes.c_int]
     lib.gta_error_string.restype = ctypes.c_char_p
+    lib.gta_sddmm_tiles_walk.argtypes = []
+    lib.gta_sddmm_tiles_walk.restype = ctypes.c_char_p
     _lib = lib
     return lib
 

@@ -828,14 +828,14 @@ def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
 
 def _a_s_kernel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a_src at the TPU kernels' precision (operands in h's dtype, f32
-    sum): the one array that a per-tile tail (K3), msrc, the dense partial
-    and the backward read."""
+    sum): the one array that the tail (K3, or K10 for a grouped one), msrc,
+    the dense partial and the backward read."""
     return h.float() @ w.to(h.dtype).float()
 
 
 def _gat_hybrid_raw(hyb: HybridGraph, h, sw, d, wmode: bool, slope: float):
-    """Raw [num | den] of the tail (K3) plus the dense blocks (K4) under
-    one shift bound."""
+    """Raw [num | den] of the tail (K3, or K10 for a grouped one) plus the
+    dense blocks (K4) under one shift bound, all reading one a_s."""
     sv = _a_s_kernel(h, sw) if wmode else sw
     msrc = sv.float().amax(0, keepdim=True)
     acc = _gat_forward(hyb.tiles, h, None if wmode else sw, d,

@@ -204,44 +204,72 @@ def _gat_grouped_reference(tg: GroupedTiledGraph, h: torch.Tensor,
 
 
 def gat_grouped(tg: GroupedTiledGraph, h: torch.Tensor, a_dst: torch.Tensor,
-                msrc: torch.Tensor, w_asrc: torch.Tensor, *,
+                msrc: torch.Tensor, w_asrc: Optional[torch.Tensor] = None, *,
+                a_src: Optional[torch.Tensor] = None,
                 negative_slope: float = 0.2) -> torch.Tensor:
     """K10 wrapper: raw [num | den] [n_node, HD + H] float32 over a grouped
-    tiling, head-major, in derive mode (a_s = h[src] @ ``w_asrc``, [HD,
-    H] in h's dtype).  ``a_dst`` [N, H] and ``msrc`` [1, H] are float32.
-    The kernel reads the weight stream unless ``tg.weight_all_unit``.  CPU
-    tensors take the plain version; CUDA tensors launch or raise."""
+    tiling, head-major.  Exactly one of ``w_asrc`` [HD, H] in h's dtype
+    (derive mode: the kernel's entry point forms a_s = h @ w_asrc per node
+    in float32 first, K3's pass) and ``a_src`` [N, H] float32, per-node
+    logits read as they are (the grouped hybrid path's, which its msrc and
+    the dense partial read too).  ``a_dst`` [N, H] and ``msrc`` [1, H] are
+    float32.  The kernel walks the sub-tiles of ``tg.live_sub`` by their
+    edge prefixes and reads the weight stream unless
+    ``tg.weight_all_unit``.  CPU tensors take the plain version; CUDA
+    tensors launch or raise."""
+    if (w_asrc is None) == (a_src is None):
+        raise ValueError("give exactly one of w_asrc and a_src")
     if h.device.type == "cpu":
-        return _gat_grouped_reference(tg, h, a_dst, msrc, w_asrc,
-                                      negative_slope=negative_slope)
+        if w_asrc is not None:
+            return _gat_grouped_reference(tg, h, a_dst, msrc, w_asrc,
+                                          negative_slope=negative_slope)
+        return _gat_tiles_reference(tg, h, tg.weight, a_dst, msrc,
+                                    a_src=a_src, negative_slope=negative_slope,
+                                    normalize=False)
     dev = h.device
     H = a_dst.shape[1]
     HD = h.shape[1]
     _ext.require(h, "h", dev, (torch.float32, torch.bfloat16), 2)
-    _ext.require(w_asrc, "w_asrc", dev, (h.dtype,), 2)
+    if w_asrc is not None:
+        _ext.require(w_asrc, "w_asrc", dev, (h.dtype,), 2)
+        if tuple(w_asrc.shape) != (HD, H):
+            raise ValueError(f"w_asrc shape {tuple(w_asrc.shape)} != "
+                             f"{(HD, H)}")
+    else:
+        _ext.require(a_src, "a_src", dev, (torch.float32,), 2)
+        if tuple(a_src.shape) != (h.shape[0], H):
+            raise ValueError(f"a_src shape {tuple(a_src.shape)} != "
+                             f"{(h.shape[0], H)}")
     _ext.require(a_dst, "a_dst", dev, (torch.float32,), 2)
     _ext.require(msrc, "msrc", dev, (torch.float32,), 2)
     _ext.require(tg.weight, "weight", dev, (torch.float32,), 3)
+    _ext.require(tg.live_sub, "live_sub", dev, (torch.int32,), 1)
     _require_slots(tg, dev, ("chunk_grp", "chunk_cb"))
     if HD % H or HD > 256 or H > 32:
         raise ValueError(f"K10 takes HD % H == 0, HD <= 256, H <= 32; got "
                          f"HD={HD}, H={H}")
-    if tuple(msrc.shape) != (1, H) or tuple(w_asrc.shape) != (HD, H):
-        raise ValueError(f"msrc {tuple(msrc.shape)} or w_asrc "
-                         f"{tuple(w_asrc.shape)} do not fit H={H}, HD={HD}")
+    if tuple(msrc.shape) != (1, H):
+        raise ValueError(f"msrc shape {tuple(msrc.shape)} != {(1, H)}")
     # the kernel adds into a zeroed buffer with atomics
     acc = torch.zeros((tg.n_node, HD + H), dtype=torch.float32, device=dev)
     if tg.n_chunks == 0 or tg.n_node == 0:
         return acc
+    # derive mode: the per-node a_s the kernel's first launch writes
+    a_scr = (torch.empty((h.shape[0], H), dtype=torch.float32, device=dev)
+             if w_asrc is not None else None)
     lib = _ext.library()
     with torch.cuda.device(dev):
         rc = lib.gta_gat_grouped(
-            tg.chunk_grp.data_ptr(), tg.chunk_cb.data_ptr(),
-            tg.src_local.data_ptr(), tg.dst_local.data_ptr(),
+            tg.live_sub.data_ptr(), tg.chunk_grp.data_ptr(),
+            tg.chunk_cb.data_ptr(), tg.src_local.data_ptr(),
+            tg.dst_local.data_ptr(),
             None if tg.weight_all_unit else tg.weight.data_ptr(),
-            h.data_ptr(), _ext.DTYPE_CODE[h.dtype], w_asrc.data_ptr(),
+            h.data_ptr(), _ext.DTYPE_CODE[h.dtype],
+            w_asrc.data_ptr() if w_asrc is not None else None,
+            a_src.data_ptr() if a_src is not None else None,
+            a_scr.data_ptr() if a_scr is not None else None,
             a_dst.data_ptr(), msrc.data_ptr(), acc.data_ptr(),
-            tg.n_chunks, tg.group, tg.block_rows, tg.block_cols,
+            tg.live_sub.numel(), tg.group, tg.block_rows, tg.block_cols,
             tg.tile_edges, HD, H, h.shape[0], a_dst.shape[0], tg.n_node,
             float(negative_slope), _ext.stream(h))
     _ext.check(rc, "gat_grouped")
@@ -268,28 +296,28 @@ def _gat_forward(
 
     ``w_asrc`` [HD, H] instead of ``a_src`` when a_src is a linear map of h:
     the kernel derives a_s from h ("derive" mode).  ``a_s`` [N, H] float32,
-    h @ w_asrc at the kernels' precision: per-node logits a per-tile tiling
-    (K3) reads as they are in place of deriving them (the hybrid path's,
-    which its msrc, dense partial and backward read too); a grouped tiling
-    (K10) derives its own from ``w_asrc``, so the hybrid path gives both and
-    this function picks by tiling.  ``a_src`` is rounded to h's dtype first
-    (values mode).  ``msrc`` [1, H]: the shift bound; hybrid callers pass
-    theirs so that every partial shares it.  A grouped tiling runs K10,
-    which takes the hybrid partial path only, as in the JAX package: raw
-    output, ``msrc`` and ``w_asrc`` given."""
+    h @ w_asrc at the kernels' precision: per-node logits that K3 and K10
+    read as they are in place of deriving them (the hybrid path's, which
+    its msrc, dense partial and backward read too).  ``a_src`` is rounded
+    to h's dtype first (values mode).  ``msrc`` [1, H]: the shift bound;
+    hybrid callers pass theirs so that every partial shares it.  A grouped
+    tiling runs K10, which takes the hybrid partial path only, as in the
+    JAX package: raw output, ``msrc`` given, and ``a_s`` or ``w_asrc``."""
     H = a_dst.shape[1]
     HD = h_src.shape[1]
     if HD % H:
         raise ValueError(f"HD={HD} is not a multiple of H={H}")
     dt = h_src.dtype
     if isinstance(tg, GroupedTiledGraph):
-        if normalize or msrc is None or w_asrc is None:
+        if normalize or msrc is None or (a_s is None and w_asrc is None):
             raise ValueError("a grouped tiling supports the hybrid partial "
-                             "path only: normalize=False, msrc and w_asrc")
+                             "path only: normalize=False, msrc, and a_s or "
+                             "w_asrc")
+        kw = (dict(a_src=a_s.float().contiguous()) if a_s is not None
+              else dict(w_asrc=w_asrc.to(dt).contiguous()))
         return gat_grouped(tg, h_src.contiguous(), a_dst.float().contiguous(),
                            msrc.float().reshape(1, H).contiguous(),
-                           w_asrc.to(dt).contiguous(),
-                           negative_slope=negative_slope)
+                           negative_slope=negative_slope, **kw)
     if a_s is not None:
         if msrc is None:
             msrc = a_s.float().amax(0, keepdim=True)

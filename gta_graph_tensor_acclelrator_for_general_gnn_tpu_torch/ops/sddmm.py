@@ -83,8 +83,8 @@ def _sddmm_grouped_reference(tg: GroupedTiledGraph, x_src: torch.Tensor,
 
 def _launch(name: str, tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor,
             heads: int, units: tuple, geometry: tuple) -> torch.Tensor:
-    """Check the inputs of K11 / K12, launch, and return the zero-filled
-    output that the kernel writes the live slots of."""
+    """Check the inputs of K11 / K12, launch, and return the output: K11
+    writes every slot of it, K12 the live slots of a zero-filled one."""
     dev = x_src.device
     _ext.require(x_src, "x_src", dev, (torch.float32, torch.bfloat16), 2)
     _ext.require(x_dst, "x_dst", dev, (x_src.dtype,), 2)
@@ -98,12 +98,13 @@ def _launch(name: str, tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor,
         _ext.require(getattr(tg, k), k, dev, (torch.int32,), 1)
     F = x_src.shape[1]
     _check_heads(F, heads)
-    if F // heads < 32 and 8 * F * 4 > 227 * 1024:
-        raise ValueError(f"F={F} with heads narrower than 32: the staging "
+    k11 = name == "sddmm_tiles"
+    if not k11 and F // heads < 32 and 8 * F * 4 > 227 * 1024:
+        raise ValueError(f"F={F} with heads narrower than 32: K12's staging "
                          "buffer exceeds shared memory")
     n_units, _, per_unit = _geometry(tg)
-    out = torch.zeros((heads, n_units, per_unit), dtype=torch.float32,
-                      device=dev)
+    out = (torch.empty if k11 and F else torch.zeros)(
+        (heads, n_units, per_unit), dtype=torch.float32, device=dev)
     if F == 0 or n_units == 0:
         return out
     lib = _ext.library()
@@ -118,10 +119,19 @@ def _launch(name: str, tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor,
     return out
 
 
+def k11_walk() -> str:
+    """The walk of K11's last launch, as ``csrc/sddmm_tiles.cu``
+    ``sddmm_config`` picked it from (F, heads, dtype, alignment): printed
+    by ``chip_smoke.py`` beside K11's times."""
+    return _ext.library().gta_sddmm_tiles_walk().decode()
+
+
 def sddmm_tiles(tg: TiledGraph, x_src: torch.Tensor, x_dst: torch.Tensor,
                 heads: int = 1) -> torch.Tensor:
     """K11 wrapper: [heads, T, ET] float32.  x_src and x_dst share one
-    dtype (float32 or bfloat16).  CPU tensors take the plain version; CUDA
+    dtype (float32 or bfloat16).  The kernel walks each tile's edge prefix
+    (the builders' slot order) and writes the zeros of the other slots
+    too, so the output is allocated unfilled.  CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise."""
     if x_src.device.type == "cpu":
         return _sddmm_reference(tg, x_src, x_dst, heads)

@@ -500,7 +500,9 @@ def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K9 and K10 on :func:`grouped_tilings`, in float32 and bfloat16,
     against their plain versions: K9 at every ``GROUPED_WIDTHS`` (weighted
     tilings with the weight stream, unit ones without); K10 at 4 heads of
-    32, 1 head of 41 and 16 heads of 1, derive mode."""
+    32, 1 head of 41 and 16 heads of 1, in both forms of a_s: derive mode
+    (``w_asrc``) and the float32 per-node array (``a_src``, the grouped
+    hybrid path's)."""
     import torch
 
     from ..ops import gat as A
@@ -526,19 +528,35 @@ def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                                     / np.sqrt(HD), dtype=dt, device=device)
                 a_d = torch.tensor(rng.standard_normal((n, H)),
                                    dtype=torch.float32, device=device)
-                ms = (h.float() @ w_as.float()).amax(0, keepdim=True)
+                a_s = h.float() @ w_as.float()
+                ms = a_s.amax(0, keepdim=True)
                 yield KernelCase(
                     "gat_grouped", f"{tag} H={H} HD={HD}", name,
                     A.gat_grouped(tg, h, a_d, ms, w_as),
                     A._gat_grouped_reference(tg, h, a_d, ms, w_as), HD)
+                yield KernelCase(
+                    "gat_grouped", f"{tag} H={H} HD={HD} a_src", name,
+                    A.gat_grouped(tg, h, a_d, ms, a_src=a_s),
+                    A._gat_tiles_reference(tg, h, tg.weight, a_d, ms,
+                                           a_src=a_s, normalize=False), HD)
 
 
 SDDMM_KERNELS = ("sddmm_tiles", "sddmm_grouped")
 # (heads, per-head width P): MUL's heads = F (P = 1), the ADD augmentation
 # (P = 2) at 4 heads and 1, heads of a warp's width, one head of 128, and a
 # width past a warp that is no multiple of it; P < 32 and P >= 32 take
-# separate code in the kernels
-SDDMM_SHAPES = ((128, 1), (4, 2), (1, 2), (4, 32), (1, 128), (2, 41))
+# separate code in K12.  K11's walk (csrc/sddmm_tiles.cu sddmm_config) cuts
+# at rows of 32 bytes and at SDDMM_MAXH = 8 heads: 8 heads of 2 (bf16 a lane
+# a slot, float32 lane groups), 3 of 4 (bf16 a lane a slot one feature at a
+# time, float32 lane groups), 9 of 2 (past 8 heads that straddle loads: a
+# lane a slot, one feature at a time), 16 of 4 (past 8 heads, each within a
+# load) and 5 of 1 (a lane a slot, F no power of two)
+SDDMM_SHAPES = ((128, 1), (4, 2), (1, 2), (4, 32), (1, 128), (2, 41),
+                (8, 2), (3, 4), (9, 2), (16, 4), (5, 1))
+# K11 on rows one element off their allocation's alignment: the narrow
+# rows' whole-row loads and the wide rows' vector loads give way to
+# narrower ones
+SDDMM_UNALIGNED = ((1, 2), (4, 2), (1, 128), (128, 1))
 
 
 def _slots(e):
@@ -554,14 +572,55 @@ def _dead_tile(tg, t: int = 1):
     return dataclasses.replace(tg, tile_cb=cb)
 
 
+def _unaligned(x):
+    """``x`` copied into rows that start one element past an aligned
+    allocation (contiguous, so the wrappers take it)."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _over_nan(shape, device, run):
+    """``run()``'s output, which it must allocate over a freed block of NaN
+    of its own size: K11 writes every slot of an unfilled output, so a slot
+    it misses reads NaN (which the check rejects), not the zeros of fresh
+    memory or an earlier call's result.  The allocator's pool is as it was
+    before the NaN block, so the output takes that block; raise if not."""
+    import torch
+    nan = torch.full(shape, float("nan"), dtype=torch.float32, device=device)
+    ptr = nan.data_ptr()
+    del nan
+    out = run()
+    if out.data_ptr() != ptr:
+        raise AssertionError("K11's output did not take the NaN block")
+    return out
+
+
+def _prefix_cases(tg, ET: int) -> None:
+    """Raise unless ``tg`` holds a full tile (ET live slots) and a tile
+    whose edge prefix ends inside a window of 32 slots."""
+    n = ((tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
+         & (tg.tile_cb >= 0)[:, None]).sum(1)
+    if not (bool((n == ET).any()) and bool(((n % 32) != 0).any())):
+        raise AssertionError("K11's fixture tiling lost its full tile or its "
+                             "prefix that ends mid-window")
+
+
 def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K11 and K12 against their plain versions on the edge-case graph, in
     float32 and bfloat16, at every (heads, P) of ``SDDMM_SHAPES``.  K11:
     the whole graph at 128-wide blocks, ET 64, with a dead tile whose slots
-    look live (it must read exact zeros); K12: the grouped tilings at
-    32-row blocks in groups of 2 (a chunk of padding, mostly empty
-    sub-tiles) and at 128-row blocks in groups of 4.  Each slot is a check
-    row scaled by its heads' sums of |product|, since a dot may cancel."""
+    look live (it must read exact zeros), and at ET 50 (no multiple of 4
+    or 32: the last window of a tile runs past ET, and the zeros past the
+    edge prefix go a float at a time), both with full tiles and tiles whose
+    prefix ends mid-window; also at ``SDDMM_UNALIGNED`` with rows off the
+    vector loads' alignment.  On the card K11's output lies over NaN
+    (:func:`_over_nan`), so each slot checked is one the kernel wrote.  K12: the grouped tilings at 32-row blocks in
+    groups of 2 (a chunk of padding, mostly empty sub-tiles) and at 128-row
+    blocks in groups of 4.  Each slot is a check row scaled by its heads'
+    sums of |product|, since a dot may cancel."""
     import torch
 
     from .. import graph as G
@@ -569,9 +628,12 @@ def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
 
     s, r, n, _ = edge_case_graph(seed=seed)
     hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
-    tg = _dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
-                                 tile_edges=64, unit_weight=True,
-                                 device=device))
+    tiles = {ET: G.tile_graph(hg, block_rows=128, block_cols=128,
+                              tile_edges=ET, unit_weight=True, device=device)
+             for ET in (64, 50)}
+    for ET, t in tiles.items():
+        _prefix_cases(t, ET)
+    tg = _dead_tile(tiles[64])
     grouped = {
         "R32 G2": G.tile_graph_grouped(hg, block_rows=32, block_cols=64,
                                        tile_edges=32, group=2, device=device),
@@ -580,9 +642,25 @@ def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                                         device=device),
     }
     runs = [("sddmm_tiles", "dead tile", tg, SD.sddmm_tiles,
+             SD._sddmm_reference),
+            ("sddmm_tiles", "ET 50", tiles[50], SD.sddmm_tiles,
              SD._sddmm_reference)]
     runs += [("sddmm_grouped", tag, t, SD.sddmm_grouped,
               SD._sddmm_grouped_reference) for tag, t in grouped.items()]
+
+    def case(kernel, tag, t, kern, plain, xs, xd, H):
+        if kernel == "sddmm_tiles" and xs.device.type == "cuda":
+            out = _over_nan((H, t.n_tiles, t.tile_edges), xs.device,
+                            lambda: kern(t, xs, xd, H))
+        else:
+            out = kern(t, xs, xd, H)
+        yield KernelCase(kernel, tag, name, _slots(out),
+                         _slots(plain(t, xs, xd, H)),
+                         scale=_slots(plain(t, xs.abs(), xd.abs(), H)))
+        if tag.startswith("dead tile"):
+            yield KernelCase(kernel, f"{tag}: dead tile is 0", name,
+                             out[:, 1], torch.zeros_like(out[:, 1]))
+
     rng = np.random.default_rng(seed)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
@@ -590,15 +668,13 @@ def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
             xs, xd = (torch.tensor(rng.standard_normal((n, H * P)), dtype=dt,
                                    device=device) for _ in range(2))
             for kernel, tag, t, kern, plain in runs:
-                out = kern(t, xs, xd, H)
-                case = f"{tag} H={H} P={P}"
-                yield KernelCase(kernel, case, name, _slots(out),
-                                 _slots(plain(t, xs, xd, H)),
-                                 scale=_slots(plain(t, xs.abs(), xd.abs(),
-                                                    H)))
-                if kernel == "sddmm_tiles":
-                    yield KernelCase(kernel, f"{case}: dead tile is 0", name,
-                                     out[:, 1], torch.zeros_like(out[:, 1]))
+                yield from case(kernel, f"{tag} H={H} P={P}", t, kern, plain,
+                                xs, xd, H)
+            if (H, P) in SDDMM_UNALIGNED:
+                yield from case("sddmm_tiles", f"dead tile H={H} P={P} "
+                                "unaligned", tg, SD.sddmm_tiles,
+                                SD._sddmm_reference, _unaligned(xs),
+                                _unaligned(xd), H)
 
 
 PAIR_KERNELS = ("pair_agg",)

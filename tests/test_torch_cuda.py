@@ -6,7 +6,7 @@ grouped-tail kernels K9 and K10), ``utils/fixtures.sddmm_kernel_cases``
 (the SDDMM kernels K11 and K12), ``utils/fixtures.pair_agg_kernel_cases``
 (the pair aggregation K13) and ``utils/fixtures.layer_kernel_cases`` (the
 whole GAT layer K14, stage by stage, and the exp-panel dense partial
-K15).
+K15), and the walk K11 picks at the cuts between its paths.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed.  On a machine with a CUDA device:
@@ -291,6 +291,58 @@ def test_sddmm_and_pair_agg_kernels_match_plain_versions_on_cuda():
     _ext.library()
     _check_new_cases(dev)
     torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
+def test_k11_walk_follows_the_cuts(dtn):
+    """The walk K11 takes (``ops/sddmm.k11_walk``, named by its launch) at
+    the fixture shapes either side of its cuts: rows of at most 32 bytes a lane
+    per slot (whole-row loads for a power-of-two F on aligned rows), wider
+    ones by lane groups, segmented head trees where a head is a power of
+    two of loads' lanes, past 8 heads only where each head lies within one
+    load; rows one element off alignment give up the wide loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the walk is the library's choice")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as TS
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtn]
+    bf = dt == torch.bfloat16
+    s, r, n, _ = fixtures.edge_case_graph()
+    tg = TG.tile_graph(TG.build_host_graph(s, r, n, edge_pad_multiple=128),
+                       block_rows=128, block_cols=128, tile_edges=64,
+                       device="cuda")
+
+    def walk(H, P, unaligned=False):
+        x = torch.zeros((n, H * P), dtype=dt, device="cuda")
+        if unaligned:
+            x = fixtures._unaligned(x)
+        TS.sddmm_tiles(tg, x, x, H)
+        return TS.k11_walk()
+
+    lane16 = "a lane per slot, 16-byte loads"
+    scalar = "a lane per slot, a feature at a time"
+    groups = "half-warps" if bf else "whole warps"
+    seg = f"lane groups ({groups}, 4 a load), head sums by segmented trees"
+    assert walk(1, 2) == ("a lane per slot, 4-byte loads" if bf else
+                          "a lane per slot, 8-byte loads")
+    assert walk(4, 2) == lane16
+    assert walk(8, 2) == (lane16 if bf else
+                          "lane groups (whole warps, 4 a load), head sums "
+                          "by a tree a head")
+    assert walk(3, 4) == (scalar if bf else seg)
+    assert walk(5, 1) == scalar
+    assert walk(9, 2) == scalar
+    assert walk(1, 128) == walk(4, 32) == seg
+    assert walk(128, 1) == f"lane groups ({groups}, 4 a load), heads within a load"
+    assert walk(16, 4) == walk(128, 1)
+    assert walk(2, 41) == ("lane groups (whole warps, 1 a load), head sums "
+                           "by a tree a head")
+    assert walk(4, 2, unaligned=True) == scalar
+    assert walk(1, 128, unaligned=True) == (
+        "lane groups (whole warps, 1 a load), head sums by segmented trees")
+    assert walk(128, 1, unaligned=True) == (
+        "lane groups (whole warps, 1 a load), heads within a load")
 
 
 def _check_layer_cases(device):

@@ -13,6 +13,7 @@ same terms summed in another order); bfloat16 1e-2 of each row's largest
 |jax| (both round the same products to bf16; a product whose f32 value
 differs in its last bit between the libraries may round the other way,
 2^-8 of itself); gradients 1e-4 * max(1, max |jax|)."""
+import functools
 import json
 
 import numpy as np
@@ -300,6 +301,77 @@ def test_grouped_gat_partials_match_jax(H, HD, weights, dtn):
     with pytest.raises(ValueError, match="hybrid partial"):
         TA._gat_forward(tt, torch.tensor(h), None, torch.tensor(a_d),
                         w_asrc=torch.tensor(w), msrc=torch.tensor(msrc))
+
+
+@functools.lru_cache(maxsize=None)
+def _fixture_grouped_pairs():
+    """name -> (JAX tiling, port tiling) for every tiling of
+    ``utils/fixtures.grouped_tilings``: JAX's builders given the fixture's
+    arguments, their arrays checked equal to the port's."""
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = J.build_host_graph(s, r, n, symmetric_norm=True,
+                            edge_pad_multiple=128)
+    hg_u = J.build_host_graph(s, r, n, edge_pad_multiple=128)
+    split = dict(block_rows=128, block_cols=128, tile_edges=64, min_nnz=64,
+                 values_dtype=np.int8, tail_format="grouped", tail_group=4)
+    hub = J.build_host_graph(*fixtures.hub_graph(), edge_pad_multiple=128)
+    jax_tilings = {
+        "weighted R32 G2": JG.tile_graph_grouped(
+            hg, block_rows=32, block_cols=64, tile_edges=32, group=2),
+        "unit R128 G4": JG.tile_graph_grouped(
+            hg_u, block_rows=128, block_cols=128, tile_edges=64, group=4,
+            unit_weight=True),
+        "rc int8 sg16 tail": JG.hybrid_graph(hg, supergroup=16,
+                                             **split).tiles,
+        "cr int8 unit tail": JG.hybrid_graph(hg_u, unit_weight=True,
+                                             block_layout="cr",
+                                             **split).tiles,
+        "hub R128 G4 ET32": JG.tile_graph_grouped(
+            hub, block_rows=128, block_cols=128, tile_edges=32, group=4,
+            unit_weight=True),
+    }
+    port = fixtures.grouped_tilings(CPU)
+    assert set(port) == set(jax_tilings)
+    for k, tj in jax_tilings.items():
+        _assert_grouped_equal(tj, port[k])
+    return {k: (tj, port[k]) for k, tj in jax_tilings.items()}
+
+
+@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,HD", [(4, 128), (1, 41), (16, 16)])
+@pytest.mark.parametrize("tiling", ["weighted R32 G2", "unit R128 G4",
+                                    "rc int8 sg16 tail", "cr int8 unit tail",
+                                    "hub R128 G4 ET32"])
+def test_grouped_gat_a_src_form_matches_jax(tiling, H, HD, dtn):
+    """K10's wrapper fed the float32 a_s that the grouped hybrid hands it
+    (``_a_s_kernel(h, w_asrc)``, its msrc the column max) against JAX's
+    grouped TPU kernel deriving a_s itself from the same h and w_asrc
+    (interpret mode): raw [num | den] under one msrc, num and den apart,
+    on every grouped fixture tiling at K10's fixture head shapes, within
+    the bounds of ``test_grouped_gat_partials_match_jax``."""
+    tj, tt = _fixture_grouped_pairs()[tiling]
+    tdt, jdt = DTYPES[dtn]
+    n = tt.n_node
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((n, HD)).astype(np.float32)
+    w = (rng.standard_normal((HD, H)) / np.sqrt(HD)).astype(np.float32)
+    a_d = rng.standard_normal((n, H)).astype(np.float32)
+    ht, wt = torch.tensor(h, dtype=tdt), torch.tensor(w, dtype=tdt)
+    a_s = TD._a_s_kernel(ht, wt)
+    assert a_s.dtype == torch.float32
+    msrc = a_s.amax(0, keepdim=True)
+    want = JA._gat_forward(tj, jnp.asarray(h, jdt), None, jnp.asarray(a_d),
+                           w_asrc=jnp.asarray(w, jdt), normalize=False,
+                           msrc=jnp.asarray(msrc.numpy()), interpret=True)
+    got = TA.gat_grouped(tt, ht, torch.tensor(a_d), msrc, a_src=a_s)
+    assert got.shape == (n, HD + H)
+    assert float(got[:, HD:].max()) > 0.0
+    for cols in (slice(0, HD), slice(HD, None)):     # num and den apart
+        if dtn == "float32":
+            _close(got[:, cols], np.asarray(want)[:, cols])
+        else:
+            _close_rows(got[:, cols], np.asarray(want)[:, cols],
+                        TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("edge_vals", [False, True])

@@ -81,6 +81,7 @@ def _tilings():
             *fixtures.hub_graph()[:2], fixtures.hub_graph()[2],
             symmetric_norm=True), device=CPU, **SPLIT).tiles,
         **_gat_tilings(),
+        **_sddmm_tilings(),
     }
 
 
@@ -127,6 +128,32 @@ def _gat_layer_tiling(hg):
     return tg
 
 
+def _sddmm_tilings():
+    """name -> TiledGraph: the tilings K11 walks by their edge prefixes, on
+    the hub graph with 12,000 random edges: the ``sddmm`` kind's, as
+    ``compiler/fusion.sddmm_schedules`` lowers GAT's logit block at the
+    smoke's 1024², ET 512, and the per-tile tail of the hybrid SDDMM at the
+    bench SpMM recipe's geometry (256-wide 'rc' int8 blocks in supergroups
+    of 16, 512² tail tiles of 128 slots; ``bench.spmm_recipe`` with
+    ``tail_format="tiles"``), its threshold raised so that the tail holds
+    full tiles."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import build_op_graph
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import fusion as TF
+    s, r, n = fixtures.hub_graph(n_edge=12_000)
+    hg = TG.build_host_graph(s, r, n, symmetric_norm=True,
+                             edge_pad_multiple=128)
+    g = build_op_graph("GAT", 16, 8, heads=2)
+    sched, = TF.sddmm_schedules([g])
+    fn = TF.lower_schedule(g, sched, hg, device=CPU)
+    tg, = [d for k, _, d, _ in fn.plans if k == "sddmm"]
+    tail = TG.hybrid_graph(
+        hg, block_rows=256, block_cols=256, tile_edges=128, min_nnz=512,
+        supergroup=16, values_dtype=np.int8, sparse_block_rows=512,
+        sparse_block_cols=512, device=CPU).tiles
+    return {"sddmm kind, lowered (1024², ET 512)": tg,
+            "hybrid SDDMM per-tile tail (512², ET 128)": tail}
+
+
 def _block_graphs():
     """name -> DenseBlockGraph: dense splits K2 walks."""
     hg = _fixture_host()
@@ -149,13 +176,15 @@ BLOCK_GRAPHS = list(_block_graphs())
 
 @pytest.mark.parametrize("name", TILINGS)
 def test_live_slots_form_each_tiles_prefix(name):
-    """K1's walk (and K9's, K3's and K6's) stops at the first 32 slots of a
-    tile without an edge, so the builders must put a tile's edges in a
-    prefix of its slots, sorted by receiver (the walk sums each receiver's
-    run of slots): no pad slot lies before an edge, and the receivers of the
-    prefix never fall; the SpMM tilings, the attention ones K3 reads and
-    their transposed twins K6 reads, and the tiling the ``gat_layer``
-    kind's lowering builds for K14's walk, full tiles among them."""
+    """K1's walk (and K9's, K3's, K6's and K11's) stops at the first 32
+    slots of a tile without an edge, so the builders must put a tile's
+    edges in a prefix of its slots, sorted by receiver (the walk sums each
+    receiver's run of slots): no pad slot lies before an edge, and the
+    receivers of the prefix never fall; the SpMM tilings, the attention
+    ones K3 reads and their transposed twins K6 reads, the tiling the
+    ``gat_layer`` kind's lowering builds for K14's walk, and the ``sddmm``
+    kind's and the hybrid SDDMM's per-tile tail that K11 reads, full tiles
+    among them."""
     tg = _tilings()[name]
     real = ((tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
             & (tg.src_local >= 0) & (tg.dst_local >= 0))
@@ -165,7 +194,7 @@ def test_live_slots_form_each_tiles_prefix(name):
     d = tg.dst_local.long()
     assert not bool(((d[:, 1:] < d[:, :-1]) & real[:, 1:]).any()), \
         "receivers out of order within a tile"
-    if name == "hub" or "512x1024" in name:
+    if name == "hub" or "512x1024" in name or "SDDMM" in name:
         assert int((n == tg.tile_edges).sum()) > 1      # full tiles
 @pytest.mark.parametrize("which", ["segments", "wide_segments"])
 @pytest.mark.parametrize("name", BLOCK_GRAPHS)
