@@ -71,7 +71,7 @@ Reddit's node count, and checks every hand-written kernel on the way:
      128, bf16), K11 and K12 also at 4 heads on the GAT recipe's tails,
      grouped and per-tile logits compared in edge order; at each of
      K11's timed shapes (c, d) its walk, its edges per second and
-     ``sampled_addmm`` beside it;
+     ``sampled_addmm`` beside it; at K12's (d) its walk (K11's rule);
   8. the whole-layer GAT kind, the gat kind's backward, the exp panels:
      (a) K14 and K15 against their plain versions on the fixture cases
      (``fixtures.layer_kernel_cases``: dead tile, empty rows, pad slots, 1
@@ -99,14 +99,27 @@ Reddit's node count, and checks every hand-written kernel on the way:
      both too), 1 warm-up and 2
      timed bf16 AdamW steps, K3, K5 and K6 launched; (d) the ``gat_layer``
      kind's float32 gradients against per-op autograd on phase 7's reduced
-     graph; (e) ``cli tune --stack`` on cora (memo and schedule in a
-     temporary directory), then ``cli run`` and ``cli train`` with that
-     schedule; (f) run right after phase 4, on its lowered GAT-2l
+     graph; (e) ``cli tune --stack`` for GAT and GCN on cora (memo and
+     schedules in a temporary directory; schedules with a stream and with
+     a densefull block must be among the measured), then ``cli run`` and
+     ``cli train`` with GAT's schedule; (f) run right after phase 4, on
+     its lowered GAT-2l
      forward: ``DENSE_EXP_PANEL`` set, K15 checked and timed at both
      layers' dense splits beside K4 (each with its cell-heads per second
      and its own dense-cell floor), one bf16 and one float32 request
      against the K4 path, and 3 x 4 bf16 requests timed with the flag on
-     and off in turns (the flag restored after).
+     and off in turns (the flag restored after);
+  9. the paths that run no kernel of their own (plain PyTorch, as the JAX
+     package leaves them to XLA), through ``lower_schedule``: (a) GCN-2l
+     and GAT-2l on PATH_STREAM (262,144-edge chunks) on the smoke's
+     graph, one float32 and 3 bf16 requests against the per-op path, and
+     one bf16 request at 16,384-edge chunks, with times and peak device
+     memory; (b) GCN-2l on PATH_DENSEFULL on a 65,536-node graph of the
+     same generator (the bf16 adjacency's build time and bytes, 3 bf16
+     and one float32 request against the per-op path, peak memory, the
+     gradient in x against per-op autograd); (c)
+     a densefull schedule on the smoke's graph lowers its block op by op
+     (past ``DENSEFULL_MAX_N``).
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -128,6 +141,7 @@ one CUDA device.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import os
 import statistics
@@ -1514,6 +1528,8 @@ def hybrid_sddmm(checks: Checks, recipes, hg, dev) -> dict:
             if timed and not in_row:
                 checks.time_call(kernel, what, kern, plain, dev, work,
                                  in_row=False, note=note)
+            if timed and tail == "grouped":
+                say(f"  sddmm_grouped      {what}: walk {SD.k12_walk()!r}")
             if timed and tail == "tiles":
                 k11_walk_and_library(checks, tg, xs, xd, H, what, dev,
                                   None if in_row else lib)
@@ -2125,9 +2141,11 @@ def whole_layer_grads(model, init_params, dev) -> None:
 
 
 def tune_cli() -> None:
-    """Phase 8e: ``cli tune --stack`` for GAT on cora on the card (memo and
-    schedule JSON in a temporary directory), then ``cli run`` and ``cli
-    train`` with the schedule it wrote; prints each layer's winner."""
+    """Phase 8e: ``cli tune --stack`` for GAT and for GCN on cora on the
+    card (memo and schedule JSON in a temporary directory), counting the
+    measurements with a stream or densefull block (both must be swept),
+    then ``cli run`` and ``cli train`` with GAT's schedule and ``cli
+    train`` with GCN's; prints each GAT layer's winner."""
     import shutil
     import tempfile
 
@@ -2142,12 +2160,25 @@ def tune_cli() -> None:
         rc = cli.main(["tune", *base, "--stack", "--memo",
                        os.path.join(tmp, "memo.csv"), "--schedule", sched,
                        "--target-s", str(TUNE_TARGET_S)])
-        with open(os.path.join(tmp, "memo.csv")) as f:
-            n_meas = sum(1 for _ in f)
-        say(f"  cli tune --stack: rc {rc}, {n_meas} measurements in "
-            f"{time.perf_counter() - t0:.1f} s")
+        # GCN too: its aggregation is the block the densefull path takes
+        if rc == 0:
+            rc = cli.main(["tune", "--dataset", "cora", "--network", "GCN",
+                           "--json", "--stack", "--memo",
+                           os.path.join(tmp, "memo.csv"), "--schedule",
+                           os.path.join(tmp, "gcn.json"), "--target-s",
+                           str(TUNE_TARGET_S)])
+        with open(os.path.join(tmp, "memo.csv"), newline="") as f:
+            keys = [row[0] for row in csv.reader(f)]
+        paths = {p: sum(f"x{p}" in k for k in keys)
+                 for p in ("stream", "densefull")}
+        say(f"  cli tune --stack: rc {rc}, {len(keys)} measurements in "
+            f"{time.perf_counter() - t0:.1f} s; with a stream block "
+            f"{paths['stream']}, with a densefull block {paths['densefull']}")
         if rc != 0:
             raise AssertionError(f"cli tune exited {rc}")
+        if not all(paths.values()):
+            raise AssertionError(f"cli tune swept no schedule of a path: "
+                                 f"{paths}")
         schedules = cli.load_schedules(sched, 2)
         model = build_model("GAT", 1433, 7, device="cpu")
         for li, (layer, sc) in enumerate(zip(model.layers, schedules)):
@@ -2155,8 +2186,11 @@ def tune_cli() -> None:
                      for b, tc in zip(sc.blocks, sc.tiles)]
             say(f"  layer {li} winner: {sc.key()[-60:]}; kinds {kinds}; "
                 f"gat_layer: {'gat_layer' in kinds}")
+        gcn = ["--dataset", "cora", "--network", "GCN", "--json",
+               "--schedule", os.path.join(tmp, "gcn.json")]
         for cmd in (["run", *base, "--schedule", sched],
-                    ["train", *base, "--schedule", sched, "--epochs", "3"]):
+                    ["train", *base, "--schedule", sched, "--epochs", "3"],
+                    ["train", *gcn, "--epochs", "3"]):
             rc = cli.main(cmd)
             say(f"  cli {cmd[0]} --schedule: rc {rc}")
             if rc != 0:
@@ -2295,6 +2329,175 @@ def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev) -> dict:
     if launches["gat_layer"] <= 0:
         raise AssertionError("kernel gat_layer was not launched in phase 8b")
     return launches
+
+
+# phase 9: the stream path's chunks (tile_edges * 2048 edges: 262,144,
+# and 16,384 for one more timed request) and the densefull graph's nodes
+# (the JAX package's DENSEFULL_MAX_N) and edges per node
+STREAM_TILE_EDGES = (128, 8)
+DENSE_NODES = 65_536
+DENSE_EDGES_PER_NODE = 49
+
+
+def path_schedules(model, tc):
+    """Per-layer schedules of ``model`` with its one aggregation block on
+    ``tc`` (GAT's attention chain, ``pattern_partition``; else the
+    aggregation, ``aggregation_partition``), every other block op by op."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import classify_block
+    out = []
+    for layer in model.layers:
+        part = S.pattern_partition(layer) or S.aggregation_partition(layer)
+        tiles = tuple(tc if classify_block(layer, b, tc)[0] != "xla"
+                      else S.TileConfig(path=S.PATH_XLA) for b in part)
+        if sum(t is tc for t in tiles) != 1:
+            raise AssertionError(f"{layer.name}: no one block on {tc}")
+        out.append(S.Schedule(blocks=part, tiles=tiles))
+    return out
+
+
+def _path_requests(what, model, fns, g, n, dev, reqs, tol) -> None:
+    """Serve ``reqs`` ((dtype name, seed)) through ``fns[dtype name]``
+    under ``torch.inference_mode()``, after one untimed request per dtype,
+    print each request's time, the medians and the peak device memory
+    above what was held before,
+    then hold each answer to the per-op path within ``tol[dtype name]``
+    of max |per-op|."""
+    import torch
+    dtypes = {"bfloat16": torch.bfloat16, "float32": None}
+    outs, lat = {}, {}
+    with torch.inference_mode():
+        for dtn in {d for d, _ in reqs}:      # warm-up, untimed
+            fns[dtn](dict(model.params), g, _request_x(0, n, dev))
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for dtn, seed in reqs:
+            outs[(dtn, seed)], ms = _timed(fns[dtn], dict(model.params), g,
+                                           _request_x(seed, n, dev))
+            lat.setdefault(dtn, []).append(ms)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    say(f"  {what}: requests {[(d, round(t, 3)) for d, ts in lat.items() for t in ts]} ms; "
+        f"median {', '.join(f'{d} {statistics.median(ts):.3f}' for d, ts in lat.items())} ms; "
+        f"peak device memory {peak / 2**30:.3f} GiB above the {held / 2**30:.3f} "
+        "GiB held before")
+    with torch.inference_mode():
+        for (dtn, seed), y in outs.items():
+            ref = model.make_apply(dtypes[dtn])(dict(model.params), g,
+                                                _request_x(seed, n, dev))
+            rel = _rel_err(y, ref)
+            say(f"  {what} {dtn} seed={seed}: relative {rel:.3e} to the "
+                f"per-op path (bound {tol[dtn]:.0e})")
+            if not (y.shape == ref.shape and bool(torch.isfinite(y).all())
+                    and rel <= tol[dtn]):
+                raise AssertionError(f"{what} {dtn} seed={seed}: {rel}")
+            del ref
+
+
+def stream_densefull_phase(models, hg, g, dev) -> None:
+    """Phase 9: the paths that run no kernel of their own, through
+    ``lower_schedule`` (``make_apply(schedules=...)``) on the card.  (a)
+    GCN-2l and GAT-2l on PATH_STREAM (262,144-edge chunks) on the smoke's
+    graph: one float32 and 3 bf16 requests against the per-op path, and
+    one bf16 request at 16,384-edge chunks; (b) GCN-2l on PATH_DENSEFULL
+    on a 65,536-node graph of the smoke's generator (E/N about 50, self
+    loops, symmetric norm): the bf16 adjacency's build time and bytes, 3
+    bf16 requests and one float32 request against the per-op path (the
+    adjacency holds bf16 weights, as the JAX package's, so the float32
+    request is held to the bf16 bound), and d (y . r) / dx in both dtypes
+    against per-op autograd, everything freed after; (c) a
+    densefull schedule on the smoke's graph, past the node cap, lowers its
+    block op by op."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    t_phase = time.perf_counter()
+    dtypes = {"bfloat16": torch.bfloat16, "float32": None}
+    reqs = [("float32", 0)] + [("bfloat16", i) for i in range(REQUESTS)]
+    say("== 9a the stream path")
+    for mname, model in models.items():
+        for te in STREAM_TILE_EDGES:
+            scheds = path_schedules(model, S.TileConfig(tile_edges=te,
+                                                        path=S.PATH_STREAM))
+            fns = {dtn: model.make_apply(dt, schedules=scheds, host_graph=hg,
+                                         device=dev)
+                   for dtn, dt in dtypes.items()}
+            kinds = [p[0] for fn in fns["bfloat16"].layer_fns
+                     for p in fn.plans if p[0] != "xla"]
+            what = f"{mname} stream, {te * 2048}-edge chunks"
+            say(f"  {what}: kinds {kinds}")
+            _path_requests(what, model, fns, g, hg.n_node, dev,
+                           reqs if te == STREAM_TILE_EDGES[0]
+                           else [("bfloat16", 0)], E2E_TOL)
+
+    say("== 9b the densefull path")
+    t0 = time.perf_counter()
+    s, r, _ = synthetic_coo(DENSE_NODES, DENSE_NODES * DENSE_EDGES_PER_NODE,
+                            seed=2, communities=DENSE_NODES * 1000 // N_NODE,
+                            p_in=0.7)
+    hd = G.build_host_graph(s, r, DENSE_NODES, add_self_loops=True,
+                            symmetric_norm=True)
+    del s, r
+    gd = hd.to_device(dev)
+    say(f"  graph: N={hd.n_node} E={hd.n_edge} (E/N {hd.n_edge / hd.n_node:.1f}), "
+        f"host build {time.perf_counter() - t0:.1f} s")
+    gcn = build_model("GCN", F_IN, N_CLASS, hidden=HIDDEN, n_layers=2,
+                      reorder=True, generator=torch.Generator().manual_seed(9),
+                      device=dev)
+    scheds = path_schedules(gcn, S.TileConfig(path=S.PATH_DENSEFULL))
+    fns = {}
+    for dtn, dt in dtypes.items():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fns[dtn] = gcn.make_apply(dt, schedules=scheds, host_graph=hd,
+                                  device=dev)
+        torch.cuda.synchronize(dev)
+        adj = {id(p[2]): p[2] for fn in fns[dtn].layer_fns for p in fn.plans
+               if p[0] == "spmm_densefull"}
+        say(f"  {dtn} lowering {time.perf_counter() - t0:.2f} s; "
+            f"adjacencies {[(tuple(a.shape), str(a.dtype), a.numel() * a.element_size()) for a in adj.values()]} "
+            "(bytes)")
+        if len(adj) != 1:
+            raise AssertionError(f"densefull {dtn}: {len(adj)} adjacencies")
+    _path_requests("GCN-2l densefull", gcn, fns, gd, hd.n_node, dev,
+                   [("bfloat16", i) for i in range(REQUESTS)]
+                   + [("float32", 0)],
+                   {"bfloat16": E2E_TOL["bfloat16"],
+                    "float32": E2E_TOL["bfloat16"]})
+    # the backward (fusion._Densefull: the bf16 forward's torch.mm with
+    # float32 output has no autograd derivative of its own) against
+    # autograd of the per-op path, d (y . r) / dx
+    r = torch.randn((hd.n_node, N_CLASS), generator=torch.Generator(
+        device=dev).manual_seed(10), device=dev)
+    for dtn, dt in dtypes.items():
+        grads = {}
+        for path, fn in (("densefull", fns[dtn]),
+                         ("per-op", gcn.make_apply(dt))):
+            x = _request_x(0, hd.n_node, dev).requires_grad_(True)
+            (fn(dict(gcn.params), gd, x).float() * r).sum().backward()
+            grads[path] = x.grad
+        rel = _rel_err(grads["densefull"], grads["per-op"])
+        say(f"  GCN-2l densefull {dtn} d(y.r)/dx: relative {rel:.3e} to "
+            f"per-op autograd (bound {E2E_TOL['bfloat16']:.0e})")
+        if not (bool(torch.isfinite(grads["densefull"]).all())
+                and rel <= E2E_TOL["bfloat16"]):
+            raise AssertionError(f"densefull {dtn} gradient: {rel}")
+    del fns, adj, gcn, gd, hd, grads, r
+    torch.cuda.empty_cache()
+
+    say("== 9c densefull past the node cap")
+    fn, = models["GCN-2l"].make_apply(
+        torch.bfloat16, schedules=path_schedules(
+            models["GCN-2l"], S.TileConfig(path=S.PATH_DENSEFULL)),
+        host_graph=hg, device=dev).layer_fns[:1]
+    kinds = [p[0] for p in fn.plans]
+    say(f"  {hg.n_node} nodes (cap {G.DENSEFULL_MAX_N}): layer 0 kinds {kinds}")
+    if "spmm_densefull" in kinds or any(p[2] is not None for p in fn.plans):
+        raise AssertionError(f"densefull past the cap lowered to {kinds}")
+    say(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2480,6 +2683,7 @@ def main(argv=None) -> int:
     if launches["gat_dense_panel"] <= 0:
         raise AssertionError("kernel gat_dense_panel was not launched in "
                              "phase 8f")
+    stream_densefull_phase(models, hg, g, dev)
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []

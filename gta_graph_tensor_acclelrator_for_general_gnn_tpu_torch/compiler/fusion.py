@@ -3,12 +3,14 @@ op by op.
 
 Counterpart of the JAX package's ``compiler/fusion.py``.  Classification
 (:func:`classify_block`) is the JAX package's, so both packages agree on
-what each (block, TileConfig) lowers to.  The port lowers the kinds
-``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat``,
+what each (block, TileConfig) lowers to, and the port lowers every kind
+it names: ``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat``,
 ``gat_hybrid``, ``gat_layer`` (the whole layer on K14), ``sddmm`` (the
-attention-logit block on K11) and ``pair_agg`` (the DGN / PNA aggregation
-on K13); every other kind raises ``NotImplementedError`` naming its
-ROADMAP.md item instead of running silently on the per-op path.
+attention-logit block on K11), ``pair_agg`` (the DGN / PNA aggregation on
+K13), ``spmm_stream`` and ``gat_stream`` (the edge-chunk loops of
+``ops/chunked.py``) and ``spmm_densefull`` (one product with the full
+dense adjacency, ``graph.dense_adjacency``; above ``DENSEFULL_MAX_N``
+nodes the block runs op by op, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..graph import (GraphTensor, HostGraph, hybrid_graph, resolve_device,
+from ..graph import (DENSE_ROWS, DENSEFULL_MAX_N, GraphTensor, HostGraph,
+                     dense_adjacency, hybrid_graph, resolve_device,
                      separable_weight_scales, tile_graph, tile_graph_grouped,
                      transpose_host_graph)
+from ..ops import chunked
 from ..ops import dense as dense_mod
 from ..ops import gat as gat_mod
 from ..ops import pairagg as pair_mod
@@ -34,7 +38,7 @@ from .schedule import Schedule, TileConfig
 
 # the port's own kernel version: it keys the tuner's memo
 # (tune/search.py), so a measurement of older kernels never resurfaces
-KERNEL_VERSION = 3
+KERNEL_VERSION = 4
 
 
 @dataclasses.dataclass
@@ -254,13 +258,42 @@ def sddmm_schedules(layers: Sequence[ir.OpGraph], *,
     return out
 
 
-# kinds this slice does not lower yet, with the ROADMAP.md item that ports
-# each of them
-NOT_PORTED = {
-    "spmm_densefull": "Queue 1 item 9 (PATH_DENSEFULL)",
-    "spmm_stream": "Queue 1 item 9 (chunked stream path)",
-    "gat_stream": "Queue 1 item 9 (chunked stream path)",
-}
+class _Densefull(torch.autograd.Function):
+    """y = (A v)[:n] float32 for the bf16 dense adjacency ``a`` [N_pad,
+    N_pad] and v [n, F] (the JAX package's ``jnp.dot(A.astype(v.dtype),
+    v_padded, preferred_element_type=float32)``).  A bf16 v on the card
+    takes one product with float32 output (``torch.mm``'s ``out_dtype``:
+    each bf16 product is exact in float32); otherwise A is widened to
+    float32 ``DENSE_ROWS`` rows at a time (TF32 stays off).  The
+    backward, dv = A[:n, :n]ᵀ ȳ in float32 rounded to v's dtype, widens A
+    the same way: autograd has no derivative for the ``out_dtype``
+    overload, and this one holds A in bf16 only."""
+
+    @staticmethod
+    def forward(ctx, a, v):
+        ctx.save_for_backward(a)
+        ctx.v_dtype = v.dtype
+        n = v.shape[0]
+        if v.is_cuda and v.dtype == torch.bfloat16:
+            vp = torch.nn.functional.pad(v, (0, 0, 0, a.shape[1] - n))
+            return torch.mm(a[:n], vp, out_dtype=torch.float32)
+        vf = v.float()
+        return torch.cat([a[rows, :n].float() @ vf for rows in _row_blocks(n)])
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, = ctx.saved_tensors
+        n = gy.shape[0]
+        gy = gy.float()
+        dv = torch.zeros_like(gy)
+        for rows in _row_blocks(n):
+            dv += a[rows, :n].float().t() @ gy[rows]
+        return None, dv.to(ctx.v_dtype)
+
+
+def _row_blocks(n: int):
+    return [slice(i, min(i + DENSE_ROWS, n))
+            for i in range(0, n, DENSE_ROWS)]
 
 
 def lower_schedule(
@@ -286,7 +319,10 @@ def lower_schedule(
     the set-up and the tilings' device memory.  The ``gat_layer``,
     ``sddmm`` and ``pair_agg`` kinds run forward on their kernels and
     differentiate through their plain per-edge formulations, as in the JAX
-    package."""
+    package; the stream and densefull kinds are plain PyTorch, which
+    autograd differentiates.  ``spmm_stream`` and ``gat_stream`` stream
+    chunks of ``tile_edges * 2048`` edges; ``spmm_densefull`` builds the
+    bf16 adjacency once per weighting (shared through ``tile_cache``)."""
     device = resolve_device(device)
     cache = tile_cache if tile_cache is not None else {}
     tiled: Dict[tuple, object] = cache.setdefault("tiled", {})
@@ -364,10 +400,8 @@ def lower_schedule(
     plans: List[tuple] = []
     for block, tc in zip(schedule.blocks, schedule.tiles):
         kind, plan = classify_block(graph, block, tc)
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"block {block} lowers to {kind!r}, which the port does not "
-                f"run yet: ROADMAP.md {NOT_PORTED[kind]}")
+        if kind == "spmm_densefull" and host_graph.n_node > DENSEFULL_MAX_N:
+            kind, plan = "xla", None
         twin = None
         if kind == "spmm_hybrid":
             args = (tc, not plan.weighted, "spmm")
@@ -391,14 +425,21 @@ def lower_schedule(
             if kind == "pair_agg" and data.src_local.is_cuda:
                 # K13's work list, at set-up rather than in a request
                 pair_mod.pair_work(data, host_graph.n_node)
+        elif kind == "spmm_densefull":
+            key = ("densefull", plan.weighted, str(device))
+            if key not in cache:
+                cache[key] = dense_adjacency(host_graph,
+                                             weighted=plan.weighted,
+                                             device=device)
+            data = cache[key]
         else:
             data = None
         plans.append((kind, block, tc, plan, data, twin))
 
     outputs = list(graph.outputs)
     inv_deg = None
-    if any(p[0] in ("spmm", "spmm_grouped", "spmm_hybrid") and p[3].mean
-           for p in plans):
+    if any(p[0] in ("spmm", "spmm_grouped", "spmm_hybrid", "spmm_stream",
+                    "spmm_densefull") and p[3].mean for p in plans):
         deg = np.bincount(host_graph.receivers,
                           minlength=host_graph.n_node + 1)[: host_graph.n_node]
         inv_deg = torch.as_tensor(1.0 / np.maximum(deg, 1),
@@ -450,6 +491,21 @@ def lower_schedule(
                 vals[plan.out_op] = seg_out(plan, dense_mod.spmm_hybrid(
                     data, g, kin(ref(plan.in_op)), weighted=plan.weighted,
                     hyb_t=twin))
+            elif kind == "spmm_stream":
+                # an unweighted block takes the edge mask as its weights
+                gw = g if plan.weighted else dataclasses.replace(
+                    g, edge_weight=g.edge_mask.float())
+                vals[plan.out_op] = seg_out(plan, chunked.spmm_chunked(
+                    gw, kin(ref(plan.in_op)), chunk=tc.tile_edges * 2048))
+            elif kind == "gat_stream":
+                vals[plan.out_op] = chunked.gat_chunked(
+                    g, kin(ref(plan.h_op)), kin(ref(plan.asrc_op)),
+                    kin(ref(plan.adst_op)),
+                    negative_slope=plan.negative_slope,
+                    chunk=tc.tile_edges * 2048)
+            elif kind == "spmm_densefull":
+                vals[plan.out_op] = seg_out(plan, _Densefull.apply(
+                    data, kin(ref(plan.in_op))))
             elif kind == "sddmm":
                 vals[plan.out_op] = sddmm_mod.sddmm_edges(
                     data, g, kin(ref(plan.src_op)), kin(ref(plan.dst_op)),

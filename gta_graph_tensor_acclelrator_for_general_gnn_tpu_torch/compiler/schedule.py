@@ -390,6 +390,8 @@ PATH_KINDS = {
     PATH_ONEHOT: ("spmm", "gat", "gat_layer", "sddmm", "pair_agg"),
     PATH_HYBRID: ("spmm_hybrid", "gat_hybrid"),
     PATH_GROUPED: ("spmm_grouped",),
+    PATH_STREAM: ("spmm_stream", "gat_stream"),
+    PATH_DENSEFULL: ("spmm_densefull",),
 }
 
 
@@ -514,11 +516,9 @@ def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
                    _dense_bwd_smem(HD, H, dtype_bytes, True))
     if kind == "gat_layer":                         # K14: gat_layer.cu
         return _gat_layer_smem(HD, H, dtype_bytes)
-    if kind == "sddmm":                             # K12: 8 warps (K11: none)
-        return 8 * HD * 4 if HD // H < 32 else 0
     if kind == "spmm_hybrid":                       # K2 (K1: none)
         return _spmm_dense_smem(HD, dtype_bytes)
-    return 0                                        # K1, K9, K13: none
+    return 0                                        # K1, K9, K11-K13: none
 
 
 def smem_bytes(tile: TileConfig, feat_width: int, heads: int = 1,

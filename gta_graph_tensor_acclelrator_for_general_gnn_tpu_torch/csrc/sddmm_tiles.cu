@@ -23,12 +23,10 @@
 // on a dead tile (cb < 0), the warp only writes zeros, by float4 stores, so
 // the wrapper leaves the output unfilled.  Each slot's output is written once, with
 // plain stores: no atomics, and the result is the same on every run.  The
-// walk is picked per launch from (F, heads, dtype, alignment),
-// sddmm_config below: a lane per slot where a row fits one 32-byte sector
-// (gta::sddmm_lane_walk), else lane groups with rows in flight
-// (gta::sddmm_group_walk), both in tile_walk.cuh.
-#include <cstdio>
-
+// walk is picked per launch from (F, heads, dtype, alignment) by
+// gta::sddmm_config, which K12 shares: a lane per slot where a row fits
+// one 32-byte sector (gta::sddmm_lane_walk), else lane groups with rows in
+// flight (gta::sddmm_group_walk), all in tile_walk.cuh.
 #include "tile_walk.cuh"
 
 namespace {
@@ -64,7 +62,7 @@ __global__ void __launch_bounds__(WARPS * 32) sddmm_lane_kernel(const __grid_con
   const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
   int64_t row0, col0;
   if (t >= a.T || !tile_of(a, t, row0, col0)) return;
-  gta::sddmm_lane_walk<XT, FN, LB>(
+  gta::sddmm_lane_walk<XT, FN, LB, false>(
       a.s, a.d, static_cast<int64_t>(t) * a.ET, a.ET, a.R, a.C, row0, col0,
       static_cast<const XT*>(a.xs), static_cast<const XT*>(a.xd), a.out,
       static_cast<int64_t>(a.T) * a.ET, a.F, a.heads, a.n_src, a.n_dst,
@@ -76,7 +74,7 @@ __global__ void __launch_bounds__(WARPS * 32) sddmm_group_kernel(const __grid_co
   const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
   int64_t row0, col0;
   if (t >= a.T || !tile_of(a, t, row0, col0)) return;
-  gta::sddmm_group_walk<XT, VEC, NV, E, HS>(
+  gta::sddmm_group_walk<XT, VEC, NV, E, HS, false>(
       a.s, a.d, static_cast<int64_t>(t) * a.ET, a.ET, a.R, a.C, row0, col0,
       static_cast<const XT*>(a.xs), static_cast<const XT*>(a.xd), a.out,
       static_cast<int64_t>(a.T) * a.ET, a.F, a.heads, a.n_src, a.n_dst,
@@ -86,92 +84,26 @@ __global__ void __launch_bounds__(WARPS * 32) sddmm_group_kernel(const __grid_co
 // The walk of the last launch, in words (gta_sddmm_tiles_walk)
 char last_walk[96] = "";
 
-// Launches the walk sddmm_config picks and names it in last_walk
+// Launches the walk gta::sddmm_config picks
 template <typename XT>
 struct Launch {
   const Args& a;
   unsigned blocks() const { return static_cast<unsigned>((a.T + WARPS - 1) / WARPS); }
   template <int FN, int LB>
   cudaError_t lane() const {
-    if (LB > 0)
-      snprintf(last_walk, sizeof last_walk, "a lane per slot, %d-byte loads", LB);
-    else
-      snprintf(last_walk, sizeof last_walk, "a lane per slot, a feature at a time");
     sddmm_lane_kernel<XT, FN, LB><<<blocks(), WARPS * 32, 0, a.st>>>(a);
     return cudaGetLastError();
   }
   template <int VEC, int NV, int E, gta::SddmmHeads HS>
   cudaError_t group() const {
-    snprintf(last_walk, sizeof last_walk, "lane groups (%s, %d a load), %s",
-             E == 2 ? "half-warps" : "whole warps", VEC,
-             HS == gta::HEADS_SEG   ? "head sums by segmented trees"
-             : HS == gta::HEADS_ANY ? "head sums by a tree a head"
-                                    : "heads within a load");
     sddmm_group_kernel<XT, VEC, NV, E, HS><<<blocks(), WARPS * 32, 0, a.st>>>(a);
     return cudaGetLastError();
   }
-  // the group walk at VEC 4 (bf16 by half-warps, float32 by whole warps)
-  // or 1 (whole warps, two features a pass)
-  template <gta::SddmmHeads HS>
-  cudaError_t group(bool v4) const {
-    if (!v4) return group<1, 2, 1, HS>();
-    if constexpr (sizeof(XT) == 2)
-      return group<4, 2, 2, HS>();
-    else
-      return group<4, 1, 1, HS>();
-  }
 };
 
-// The walk for (F, heads, XT, alignment).
-// - A row of at most 32 bytes (one sector: the ADD form's F = 2 and 8, in
-//   either dtype) goes a lane per slot: the lane reads every byte of the
-//   sector it fetches and needs no other lane, where a lane group would
-//   idle all but F / VEC of its lanes and reduce across them.  A power-of-
-//   two F with both operands aligned loads the row in one or two 4-, 8- or
-//   16-byte loads, else one feature at a time.
-// - A wider row goes by lane groups, spmm_walk's configuration (bf16 by
-//   half-warps, 8-byte loads, two slots a load; float32 by the whole warp,
-//   16-byte loads; where F % 4 == 0 and both operands are aligned, else one
-//   feature a lane, two a pass): a lane per slot would issue tens of
-//   dependent loads a slot.  Up to SDDMM_MAXH heads, the head sums travel
-//   by shuffle to the slot's lane: by segmented trees where a head is Q =
-//   P / VEC lanes, Q a power of two (HEADS_SEG: the GAT tails' 4 heads of
-//   32 take 3 steps a load, not 4 trees of 4), else a tree a head
-//   (HEADS_ANY); more heads, each within one load (P divides VEC: MUL's
-//   heads = F), are written by their lanes (HEADS_OWN); other shapes (more
-//   than SDDMM_MAXH heads that straddle loads) go a lane per slot, one
-//   feature at a time.
 template <typename XT>
-cudaError_t sddmm_config(const Args& a) {
-  const Launch<XT> l{a};
-  const int F = a.F, rb = F * static_cast<int>(sizeof(XT));
-  const uintptr_t al = reinterpret_cast<uintptr_t>(a.xs) | reinterpret_cast<uintptr_t>(a.xd);
-  if (rb <= 32) {
-    const int lb = rb < 16 ? rb : 16;
-    if ((F & (F - 1)) == 0 && rb >= 4 && al % lb == 0) {
-      if constexpr (sizeof(XT) == 2) {
-        if (F == 2) return l.template lane<2, 4>();
-        if (F == 4) return l.template lane<4, 8>();
-        if (F == 8) return l.template lane<8, 16>();
-        return l.template lane<16, 16>();
-      } else {
-        if (F == 1) return l.template lane<1, 4>();
-        if (F == 2) return l.template lane<2, 8>();
-        if (F == 4) return l.template lane<4, 16>();
-        return l.template lane<8, 16>();
-      }
-    }
-    return l.template lane<0, 0>();
-  }
-  const bool v4 = F % 4 == 0 && al % (4 * sizeof(XT)) == 0;
-  const int vec = v4 ? 4 : 1, P = F / a.heads, Q = P / vec;
-  if (a.heads <= gta::SDDMM_MAXH) {
-    if (P % vec == 0 && (Q & (Q - 1)) == 0)
-      return l.template group<gta::HEADS_SEG>(v4);
-    return l.template group<gta::HEADS_ANY>(v4);
-  }
-  if (vec % P == 0) return l.template group<gta::HEADS_OWN>(v4);
-  return l.template lane<0, 0>();
+cudaError_t launch(const Args& a) {
+  return gta::sddmm_config<XT>(Launch<XT>{a}, a.xs, a.xd, a.F, a.heads, last_walk);
 }
 
 }  // namespace
@@ -191,7 +123,7 @@ extern "C" int gta_sddmm_tiles(const void* tile_rb, const void* tile_cb,
                x_src, x_dst, static_cast<float*>(out), T, R, C, ET, F, heads, n_src, n_dst,
                static_cast<cudaStream_t>(stream)};
   const cudaError_t err =
-      x_dtype == gta::BF16 ? sddmm_config<__nv_bfloat16>(a) : sddmm_config<float>(a);
+      x_dtype == gta::BF16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,8 @@
 // Slot walks shared by the edge-tile kernels: K1, K3, K11 and K14 walk one
 // tile of a TiledGraph per warp, the grouped kernels K9, K10 and K12 one
 // sub-tile of a GroupedTiledGraph chunk per warp (K1 and K9 by the one
-// SpMM walk, spmm_walk; K3, K10 and K14 by gat_prefix_walk).  A tile is ET
+// SpMM walk, spmm_walk; K3, K10 and K14 by gat_prefix_walk; K11 and K12
+// by the SDDMM walks, picked by sddmm_config).  A tile is ET
 // slots of (src_local, dst_local[, weight]); slot e holds edge
 // (col0 + src_local[e]) -> (row0 + dst_local[e]), and pad slots carry
 // src == C or dst == R.
@@ -24,6 +25,9 @@
 // few run sums.  The SDDMM walks (K11, K12) write each slot's dots once,
 // with plain stores.
 #pragma once
+#include <cstdio>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace gta {
@@ -345,78 +349,25 @@ cudaError_t gat_walk_config(const void* h, int HD, int H, const Launch& launch) 
   return launch.template run<1, 2, 1>();
 }
 
-// ---- the SDDMM walks: K12's sddmm_walk, K11's sddmm_lane_walk and
-// sddmm_group_walk -----------------------------------------------------------
+// ---- the SDDMM walks of K11 and K12: sddmm_lane_walk, sddmm_group_walk ----
 
-// Per-head edge dots of each live slot of one sub-tile (K12), written once
-// (no atomics):
+// Per-head edge dots of each live slot of one tile (K11) or sub-tile (K12),
+// written once (no atomics):
 //   out[h * plane + base + e] = sum over head h's P = F / heads features f
 //                               of prod(x_src[col0 + s, f], x_dst[row0 + d, f])
-// prod is the float32 product of the two values, rounded to XT first when
-// `round_prod` (the grouped TPU kernel's astype(dt) before its head sum).
-// Pad slots are not written: the caller zero-fills `out`.  The warp takes
-// the live slots one at a time.  P >= 32: each head is a warp reduction of
-// its lanes' partial sums.  P < 32: the warp stages the slot's F products
-// in `prod` (F floats of shared memory) and lane h sums head h's P
-// products.
-template <typename XT>
-__device__ __forceinline__ void sddmm_walk(
-    const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
-    int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
-    const XT* __restrict__ x_src, const XT* __restrict__ x_dst, float* __restrict__ out,
-    int64_t plane, int F, int heads, int64_t n_src, int64_t n_dst, bool round_prod,
-    float* prod, int lane) {
-  const int P = F / heads;
-  for (int e0 = 0; e0 < ET; e0 += 32) {
-    const int e = e0 + lane;
-    int s = C, d = R;
-    if (e < ET) {
-      s = src_local[base + e];
-      d = dst_local[base + e];
-    }
-    const bool real = s >= 0 && s < C && d >= 0 && d < R;
-    if (__ballot_sync(0xffffffffu, real) == 0u) break;  // past the edges
-    const bool live = real && col0 + s < n_src && row0 + d < n_dst;
-    unsigned todo = __ballot_sync(0xffffffffu, live);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const XT* a = x_src + (col0 + __shfl_sync(0xffffffffu, s, j)) * F;
-      const XT* b = x_dst + (row0 + __shfl_sync(0xffffffffu, d, j)) * F;
-      float* o = out + base + e0 + j;
-      if (P >= 32) {
-        for (int hh = 0; hh < heads; ++hh) {
-          float part = 0.f;
-          for (int i = lane; i < P; i += 32) {
-            const int f = hh * P + i;
-            const float p = to_f(a[f]) * to_f(b[f]);
-            part += round_prod ? round_to<XT>(p) : p;
-          }
-          part = warp_sum(part);
-          if (lane == 0) o[hh * plane] = part;
-        }
-      } else {
-        for (int f = lane; f < F; f += 32) {
-          const float p = to_f(a[f]) * to_f(b[f]);
-          prod[f] = round_prod ? round_to<XT>(p) : p;
-        }
-        __syncwarp();
-        for (int hh = lane; hh < heads; hh += 32) {
-          float acc = 0.f;
-          for (int i = 0; i < P; ++i) acc += prod[hh * P + i];
-          o[hh * plane] = acc;
-        }
-        __syncwarp();
-      }
-    }
-  }
-}
+// prod is the float32 product of the two values (__fmul_rn: never
+// contracted into an FMA), rounded to XT first where RP (K12: the grouped
+// TPU kernel's astype(dt) before its head sum; K11 sums the products as
+// they are), summed per head in feature order within a lane.  The walks
+// stop at the tile's edge prefix and write zeros into every slot that
+// holds no live edge, up to ET: the caller need not zero-fill `out`.
 
-// K11's walks compute the same dots as sddmm_walk with round_prod false
-// (the float32 product of the two values, never contracted into an FMA,
-// summed per head in feature order within a lane), stop at the tile's
-// edge prefix, and write zeros into every slot that holds no live edge, up
-// to ET: the caller need not zero-fill `out`.
+// a slot's product of two values
+template <typename XT, bool RP>
+__device__ __forceinline__ float sddmm_prod(float a, float b) {
+  const float p = __fmul_rn(a, b);
+  return RP ? round_to<XT>(p) : p;
+}
 
 // Zeros into slots [e0, ET) of one tile, every head (e0 a multiple of 32):
 // float4 stores where ET % 4 == 0, so that each head's slots start 16-byte
@@ -473,13 +424,13 @@ __device__ __forceinline__ float word_elem(const uint32_t* w, int i) {
     return __uint_as_float(w[i]);
 }
 
-// K11, narrow rows: lane l takes slot e0 + l of each window of 32 slots.
+// Narrow rows: lane l takes slot e0 + l of each window of 32 slots.
 // It gathers its slot's two rows whole (FN > 0: FN = F features, a power of
 // two of at most 32 bytes, in LB-byte loads; FN = 0: F features one at a
 // time), sums each head's products in registers and writes its `heads`
 // floats: per head, the 32 slots of a window are 32 consecutive floats, so
 // the warp's stores coalesce.  No shuffle per edge and no shared memory.
-template <typename XT, int FN, int LB>
+template <typename XT, int FN, int LB, bool RP>
 __device__ __forceinline__ void sddmm_lane_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
     int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
@@ -510,7 +461,7 @@ __device__ __forceinline__ void sddmm_lane_walk(
         load_words<NW, LB>(b, wb);
 #pragma unroll
         for (int f = 0; f < FN; ++f) {
-          acc += __fmul_rn(word_elem<XT>(wa, f), word_elem<XT>(wb, f));
+          acc += sddmm_prod<XT, RP>(word_elem<XT>(wa, f), word_elem<XT>(wb, f));
           if (++n == P) {
             o[hh * plane] = acc;
             ++hh;
@@ -520,7 +471,7 @@ __device__ __forceinline__ void sddmm_lane_walk(
         }
       } else {
         for (int f = 0; f < F; ++f) {
-          acc += __fmul_rn(to_f(a[f]), to_f(b[f]));
+          acc += sddmm_prod<XT, RP>(to_f(a[f]), to_f(b[f]));
           if (++n == P) {
             o[hh * plane] = acc;
             ++hh;
@@ -554,7 +505,7 @@ enum SddmmHeads {
   HEADS_OWN,
 };
 
-// K11, wide rows, with spmm_walk's structure: E lane groups of LG = 32 / E
+// Wide rows, with spmm_walk's structure: E lane groups of LG = 32 / E
 // lanes take their halves of a window's live slots in slot order, each
 // SPMM_PF slots at a time with the loads of all PF pairs of rows issued
 // before the first is used; lane k of a group holds features f0 + (k + LG
@@ -564,7 +515,7 @@ enum SddmmHeads {
 // the slot's own lane (lane j takes slot e0 + j) adds it into its register
 // res[h]; after the window each lane writes its slot's `heads` floats, so
 // a window's outputs leave in one coalesced store per head.
-template <typename XT, int VEC, int NV, int E, SddmmHeads HS>
+template <typename XT, int VEC, int NV, int E, SddmmHeads HS, bool RP>
 __device__ __forceinline__ void sddmm_group_walk(
     const int16_t* __restrict__ src_local, const int16_t* __restrict__ dst_local,
     int64_t base, int ET, int R, int C, int64_t row0, int64_t col0,
@@ -650,7 +601,7 @@ __device__ __forceinline__ void sddmm_group_walk(
           for (int i = 0; i < NV; ++i)
 #pragma unroll
             for (int v = 0; v < VEC; ++v)
-              pr[i][v] = __fmul_rn(unpack(xa[q][i], v), unpack(xb[q][i], v));
+              pr[i][v] = sddmm_prod<XT, RP>(unpack(xa[q][i], v), unpack(xb[q][i], v));
           const bool mine_q = live && step == taken + q;
           if constexpr (HS == HEADS_SEG) {
             float sl[NV];  // the lane's sum of each load
@@ -748,6 +699,83 @@ __device__ __forceinline__ void sddmm_group_walk(
     }
   }
   sddmm_zero_slots(out, base, e0, ET, plane, heads, lane);
+}
+
+// Launches the SDDMM walk for (F, heads, XT, alignment) through `k`, which
+// provides k.template lane<FN, LB>() and k.template group<VEC, NV, E,
+// HS>(), and names the walk in `walk` (the kernels' gta_*_walk, for the
+// smoke's prints).  K11 and K12 pick by this one rule.
+// - A row of at most 32 bytes (one sector: the ADD form's F = 2 and 8, in
+//   either dtype) goes a lane per slot: the lane reads every byte of the
+//   sector it fetches and needs no other lane, where a lane group would
+//   idle all but F / VEC of its lanes and reduce across them.  A power-of-
+//   two F with both operands aligned loads the row in one or two 4-, 8- or
+//   16-byte loads, else one feature at a time.
+// - A wider row goes by lane groups, spmm_walk's configuration (bf16 by
+//   half-warps, 8-byte loads, two slots a load; float32 by the whole warp,
+//   16-byte loads; where F % 4 == 0 and both operands are aligned, else one
+//   feature a lane, two a pass): a lane per slot would issue tens of
+//   dependent loads a slot.  Up to SDDMM_MAXH heads, the head sums travel
+//   by shuffle to the slot's lane: by segmented trees where a head is Q =
+//   P / VEC lanes, Q a power of two (HEADS_SEG: the GAT tails' 4 heads of
+//   32 take 3 steps a load, not 4 trees of 4), else a tree a head
+//   (HEADS_ANY); more heads, each within one load (P divides VEC: MUL's
+//   heads = F), are written by their lanes (HEADS_OWN); other shapes (more
+//   than SDDMM_MAXH heads that straddle loads) go a lane per slot, one
+//   feature at a time.
+template <typename XT, typename K>
+cudaError_t sddmm_config(const K& k, const void* xs, const void* xd, int F, int heads,
+                         char (&walk)[96]) {
+  auto lane = [&](auto fn, auto lb) {
+    constexpr int FN = decltype(fn)::value, LB = decltype(lb)::value;
+    if (LB > 0)
+      snprintf(walk, sizeof walk, "a lane per slot, %d-byte loads", LB);
+    else
+      snprintf(walk, sizeof walk, "a lane per slot, a feature at a time");
+    return k.template lane<FN, LB>();
+  };
+  // the group walk at VEC 4 (bf16 by half-warps, float32 by whole warps)
+  // or 1 (whole warps, two features a pass)
+  auto group = [&](auto hs, bool v4) {
+    constexpr SddmmHeads HS = decltype(hs)::value;
+    constexpr int E4 = sizeof(XT) == 2 ? 2 : 1, NV4 = sizeof(XT) == 2 ? 2 : 1;
+    snprintf(walk, sizeof walk, "lane groups (%s, %d a load), %s",
+             v4 && E4 == 2 ? "half-warps" : "whole warps", v4 ? 4 : 1,
+             HS == HEADS_SEG   ? "head sums by segmented trees"
+             : HS == HEADS_ANY ? "head sums by a tree a head"
+                               : "heads within a load");
+    return v4 ? k.template group<4, NV4, E4, HS>() : k.template group<1, 2, 1, HS>();
+  };
+  using std::integral_constant;
+  using I = int;
+  const int rb = F * static_cast<int>(sizeof(XT));
+  const uintptr_t al = reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(xd);
+  if (rb <= 32) {
+    const int lb = rb < 16 ? rb : 16;
+    if ((F & (F - 1)) == 0 && rb >= 4 && al % lb == 0) {
+      if constexpr (sizeof(XT) == 2) {
+        if (F == 2) return lane(integral_constant<I, 2>{}, integral_constant<I, 4>{});
+        if (F == 4) return lane(integral_constant<I, 4>{}, integral_constant<I, 8>{});
+        if (F == 8) return lane(integral_constant<I, 8>{}, integral_constant<I, 16>{});
+        return lane(integral_constant<I, 16>{}, integral_constant<I, 16>{});
+      } else {
+        if (F == 1) return lane(integral_constant<I, 1>{}, integral_constant<I, 4>{});
+        if (F == 2) return lane(integral_constant<I, 2>{}, integral_constant<I, 8>{});
+        if (F == 4) return lane(integral_constant<I, 4>{}, integral_constant<I, 16>{});
+        return lane(integral_constant<I, 8>{}, integral_constant<I, 16>{});
+      }
+    }
+    return lane(integral_constant<I, 0>{}, integral_constant<I, 0>{});
+  }
+  const bool v4 = F % 4 == 0 && al % (4 * sizeof(XT)) == 0;
+  const int vec = v4 ? 4 : 1, P = F / heads, Q = P / vec;
+  if (heads <= SDDMM_MAXH) {
+    if (P % vec == 0 && (Q & (Q - 1)) == 0)
+      return group(integral_constant<SddmmHeads, HEADS_SEG>{}, v4);
+    return group(integral_constant<SddmmHeads, HEADS_ANY>{}, v4);
+  }
+  if (vec % P == 0) return group(integral_constant<SddmmHeads, HEADS_OWN>{}, v4);
+  return lane(integral_constant<I, 0>{}, integral_constant<I, 0>{});
 }
 
 }  // namespace gta

@@ -14,6 +14,8 @@ hold them equal); the containers then hold torch tensors on an explicit
   sparse tail: the input of the grouped SpMM and GAT kernels.
 * :class:`DenseBlockGraph` / :class:`HybridGraph` — the density split:
   dense adjacency blocks plus the sparse remainder as edge tiles.
+* :func:`dense_adjacency` — the full dense adjacency of a graph of at most
+  ``DENSEFULL_MAX_N`` nodes (the densefull path's operand).
 
 The JAX builders may call a native C++ helper; the port uses the numpy
 formulations, which give identical arrays.
@@ -749,6 +751,55 @@ def hybrid_graph(
     return HybridGraph(dense=dense, tiles=tiles,
                        n_dense_edges=int(in_dense.sum()),
                        n_sparse_edges=g.n_edge - int(in_dense.sum()))
+
+
+# full-densification cap (the JAX package's value): above this node count
+# the densefull block runs op by op and the blocked paths take over
+DENSEFULL_MAX_N = 65536
+# rows of the dense adjacency held in float32 at a time (its build; the
+# densefull product in float32 and its backward)
+DENSE_ROWS = 8192
+
+
+def dense_adjacency(g: HostGraph, *, weighted: bool = True,
+                    pad_multiple: int = 256, dtype=torch.bfloat16,
+                    device=None) -> torch.Tensor:
+    """The full dense adjacency [N_pad, N_pad] (rows = receivers, cols =
+    senders; summed edge weights, or multi-edge counts when unweighted) in
+    ``dtype`` (bf16, as the JAX package's) on ``device`` (default the CUDA
+    card): the medium-N regime's aggregation operand, one ``A @ x``.
+
+    Built ``DENSE_ROWS`` rows at a time: each block's edges are summed into
+    a float32 block on the device, in edge order (the JAX package's
+    ``np.add.at``; on the CUDA card the adds of one cell's multi-edges
+    reorder), and rounded once into the output.  The JAX package fills a
+    float32 [N_pad, N_pad] host buffer first."""
+    if g.n_node > DENSEFULL_MAX_N:
+        raise ValueError(
+            f"dense_adjacency at n={g.n_node} would need "
+            f"{(g.n_node / 1024) ** 2 * 2 / 1024:.1f} GB (cap "
+            f"DENSEFULL_MAX_N = {DENSEFULL_MAX_N}): use the hybrid path")
+    device = resolve_device(device)
+    n_pad = _round_up(g.n_node, pad_multiple)
+    ne = g.n_edge
+    r = g.receivers[:ne]
+    order = np.argsort(r, kind="stable")
+    r = r[order]
+    s = g.senders[:ne][order]
+    w = (g.edge_weight[:ne][order] if weighted
+         else np.ones(ne, np.float32))
+    a = torch.empty((n_pad, n_pad), dtype=dtype, device=device)
+    for i0 in range(0, n_pad, DENSE_ROWS):
+        i1 = min(i0 + DENSE_ROWS, n_pad)
+        e0, e1 = np.searchsorted(r, [i0, i1])
+        blk = torch.zeros((i1 - i0, n_pad), dtype=torch.float32,
+                          device=device)
+        idx = (torch.as_tensor(r[e0:e1].astype(np.int64) - i0, device=device),
+               torch.as_tensor(s[e0:e1].astype(np.int64), device=device))
+        blk.index_put_(idx, torch.as_tensor(w[e0:e1], device=device),
+                       accumulate=True)
+        a[i0:i1] = blk
+    return a
 
 
 def transpose_host_graph(g: HostGraph) -> Tuple[HostGraph, np.ndarray]:

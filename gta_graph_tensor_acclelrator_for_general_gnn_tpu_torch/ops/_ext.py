@@ -73,8 +73,8 @@ _SIGNATURES = {
                         F32, VP],
     "gta_sddmm_tiles": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
                         I32, I32, I64, I64, VP],
-    "gta_sddmm_grouped": [VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32, I32,
-                          I32, I32, I32, I64, I64, VP],
+    "gta_sddmm_grouped": [VP, VP, VP, VP, VP, VP, VP, I32, VP, I32, I32, I32,
+                          I32, I32, I32, I32, I32, I64, I64, VP],
     "gta_pair_agg": [VP, VP, VP, VP, VP, I32, VP, VP, VP, I32, I32, I32, F32,
                      VP],
     "gta_gat_layer": [VP, VP, VP, VP, VP, VP, VP, VP, I32, VP, I64, VP, VP,
@@ -155,8 +155,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.gta_error_string.argtypes = [ctypes.c_int]
     lib.gta_error_string.restype = ctypes.c_char_p
-    lib.gta_sddmm_tiles_walk.argtypes = []
-    lib.gta_sddmm_tiles_walk.restype = ctypes.c_char_p
+    for name in ("gta_sddmm_tiles_walk", "gta_sddmm_grouped_walk"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_char_p
     _lib = lib
     return lib
 

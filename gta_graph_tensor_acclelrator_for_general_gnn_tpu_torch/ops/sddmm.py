@@ -83,8 +83,9 @@ def _sddmm_grouped_reference(tg: GroupedTiledGraph, x_src: torch.Tensor,
 
 def _launch(name: str, tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor,
             heads: int, units: tuple, geometry: tuple) -> torch.Tensor:
-    """Check the inputs of K11 / K12, launch, and return the output: K11
-    writes every slot of it, K12 the live slots of a zero-filled one."""
+    """Check the inputs of K11 / K12, launch, and return the output, which
+    the kernel writes in full; ``units`` names the tiling's int32 arrays
+    the entry point takes first."""
     dev = x_src.device
     _ext.require(x_src, "x_src", dev, (torch.float32, torch.bfloat16), 2)
     _ext.require(x_dst, "x_dst", dev, (x_src.dtype,), 2)
@@ -98,12 +99,8 @@ def _launch(name: str, tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor,
         _ext.require(getattr(tg, k), k, dev, (torch.int32,), 1)
     F = x_src.shape[1]
     _check_heads(F, heads)
-    k11 = name == "sddmm_tiles"
-    if not k11 and F // heads < 32 and 8 * F * 4 > 227 * 1024:
-        raise ValueError(f"F={F} with heads narrower than 32: K12's staging "
-                         "buffer exceeds shared memory")
     n_units, _, per_unit = _geometry(tg)
-    out = (torch.empty if k11 and F else torch.zeros)(
+    out = (torch.empty if F else torch.zeros)(
         (heads, n_units, per_unit), dtype=torch.float32, device=dev)
     if F == 0 or n_units == 0:
         return out
@@ -120,10 +117,16 @@ def _launch(name: str, tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor,
 
 
 def k11_walk() -> str:
-    """The walk of K11's last launch, as ``csrc/sddmm_tiles.cu``
+    """The walk of K11's last launch, as ``csrc/tile_walk.cuh``
     ``sddmm_config`` picked it from (F, heads, dtype, alignment): printed
     by ``chip_smoke.py`` beside K11's times."""
     return _ext.library().gta_sddmm_tiles_walk().decode()
+
+
+def k12_walk() -> str:
+    """The walk of K12's last launch, picked by the same rule as K11's
+    (``k11_walk``)."""
+    return _ext.library().gta_sddmm_grouped_walk().decode()
 
 
 def sddmm_tiles(tg: TiledGraph, x_src: torch.Tensor, x_dst: torch.Tensor,
@@ -148,14 +151,17 @@ sddmm_tiles.launches = 0
 def sddmm_grouped(tg: GroupedTiledGraph, x_src: torch.Tensor,
                   x_dst: torch.Tensor, heads: int = 1) -> torch.Tensor:
     """K12 wrapper: [heads, NC, G*ET] float32.  x_src and x_dst share one
-    dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    dtype.  The kernel walks the sub-tiles of ``tg.live_sub``, each up to
+    its edge prefix, by K11's walks with each product rounded to the input
+    dtype, and writes the zeros of every other slot too, so the output is
+    allocated unfilled.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
     if x_src.device.type == "cpu":
         return _sddmm_grouped_reference(tg, x_src, x_dst, heads)
     out = _launch("sddmm_grouped", tg, x_src, x_dst, heads,
-                  ("chunk_grp", "chunk_cb"),
-                  (tg.n_chunks, tg.group, tg.block_rows, tg.block_cols,
-                   tg.tile_edges))
+                  ("live_sub", "chunk_grp", "chunk_cb"),
+                  (int(tg.live_sub.shape[0]), tg.n_chunks, tg.group,
+                   tg.block_rows, tg.block_cols, tg.tile_edges))
     sddmm_grouped.launches += 1
     return out
 

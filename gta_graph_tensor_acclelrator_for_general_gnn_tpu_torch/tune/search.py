@@ -30,10 +30,6 @@ from ..graph import HostGraph
 from ..utils.benchmark import time_layer_device
 
 # the tile palette swept per kernel block: the JAX package's TILE_PALETTE
-# without the entries of the paths the port does not run yet,
-# PATH_DENSEFULL (one full dense adjacency) and PATH_STREAM (two chunked
-# stream entries); they come back with those paths (ROADMAP.md Queue 1
-# item 9)
 TILE_PALETTE = (
     S.TileConfig(256, 256, 512),
     S.TileConfig(512, 512, 256),
@@ -47,9 +43,12 @@ TILE_PALETTE = (
     S.TileConfig(512, 512, 512, S.PATH_HYBRID),
     S.TileConfig(512, 512, 128, S.PATH_GROUPED),
     S.TileConfig(512, 512, 256, S.PATH_GROUPED),
+    S.TileConfig(path=S.PATH_DENSEFULL),          # full dense A (medium N)
     S.TileConfig(1024, 1024, 512, S.PATH_HYBRID, dense_block=256),
     S.TileConfig(2048, 1024, 128, S.PATH_HYBRID, dense_block=256),
     S.TileConfig(2048, 2048, 128, S.PATH_HYBRID, dense_block=256),
+    S.TileConfig(tile_edges=8, path=S.PATH_STREAM),     # 16k-edge chunks
+    S.TileConfig(tile_edges=128, path=S.PATH_STREAM),   # 256k-edge chunks
 )
 
 DEFAULT_MEMO_DIR = os.path.join(
@@ -191,7 +190,7 @@ def _block_width(graph: ir.OpGraph, kind: str, plan) -> Tuple[int, int]:
     heads for attention, the aggregated width otherwise."""
     if kind == "gat_layer":
         return graph.width_of(plan.out_op), plan.heads
-    if kind in ("gat", "gat_hybrid"):
+    if kind in ("gat", "gat_hybrid", "gat_stream"):
         return graph.width_of(plan.h_op), plan.heads
     if kind == "sddmm":
         return graph.width_of(plan.src_op), 1

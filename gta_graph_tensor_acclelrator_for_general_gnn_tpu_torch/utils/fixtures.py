@@ -544,17 +544,17 @@ def grouped_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
 SDDMM_KERNELS = ("sddmm_tiles", "sddmm_grouped")
 # (heads, per-head width P): MUL's heads = F (P = 1), the ADD augmentation
 # (P = 2) at 4 heads and 1, heads of a warp's width, one head of 128, and a
-# width past a warp that is no multiple of it; P < 32 and P >= 32 take
-# separate code in K12.  K11's walk (csrc/sddmm_tiles.cu sddmm_config) cuts
-# at rows of 32 bytes and at SDDMM_MAXH = 8 heads: 8 heads of 2 (bf16 a lane
-# a slot, float32 lane groups), 3 of 4 (bf16 a lane a slot one feature at a
-# time, float32 lane groups), 9 of 2 (past 8 heads that straddle loads: a
-# lane a slot, one feature at a time), 16 of 4 (past 8 heads, each within a
-# load) and 5 of 1 (a lane a slot, F no power of two)
+# width past a warp that is no multiple of it.  The walk of K11 and K12
+# (csrc/tile_walk.cuh sddmm_config) cuts at rows of 32 bytes and at
+# SDDMM_MAXH = 8 heads: 8 heads of 2 (bf16 a lane a slot, float32 lane
+# groups), 3 of 4 (bf16 a lane a slot one feature at a time, float32 lane
+# groups), 9 of 2 (past 8 heads that straddle loads: a lane a slot, one
+# feature at a time), 16 of 4 (past 8 heads, each within a load) and 5 of
+# 1 (a lane a slot, F no power of two)
 SDDMM_SHAPES = ((128, 1), (4, 2), (1, 2), (4, 32), (1, 128), (2, 41),
                 (8, 2), (3, 4), (9, 2), (16, 4), (5, 1))
-# K11 on rows one element off their allocation's alignment: the narrow
-# rows' whole-row loads and the wide rows' vector loads give way to
+# K11 and K12 on rows one element off their allocation's alignment: the
+# narrow rows' whole-row loads and the wide rows' vector loads give way to
 # narrower ones
 SDDMM_UNALIGNED = ((1, 2), (4, 2), (1, 128), (128, 1))
 
@@ -572,6 +572,17 @@ def _dead_tile(tg, t: int = 1):
     return dataclasses.replace(tg, tile_cb=cb)
 
 
+def _dead_chunk(tg):
+    """(``tg`` with its first chunk that holds an edge marked dead (cb =
+    -1), that chunk): its slots look live, and its sub-tiles stay on the
+    work list (``live_sub`` reads slot 0 only)."""
+    import dataclasses
+    c = int(tg.live_sub[0]) // tg.group
+    cb = tg.chunk_cb.clone()
+    cb[c] = -1
+    return dataclasses.replace(tg, chunk_cb=cb), c
+
+
 def _unaligned(x):
     """``x`` copied into rows that start one element past an aligned
     allocation (contiguous, so the wrappers take it)."""
@@ -584,28 +595,33 @@ def _unaligned(x):
 
 def _over_nan(shape, device, run):
     """``run()``'s output, which it must allocate over a freed block of NaN
-    of its own size: K11 writes every slot of an unfilled output, so a slot
-    it misses reads NaN (which the check rejects), not the zeros of fresh
-    memory or an earlier call's result.  The allocator's pool is as it was
-    before the NaN block, so the output takes that block; raise if not."""
+    of its own size: K11 and K12 write every slot of an unfilled output, so
+    a slot they miss reads NaN (which the check rejects), not the zeros of
+    fresh memory or an earlier call's result.  The allocator's pool is as
+    it was before the NaN block, so the output takes that block; raise if
+    not."""
     import torch
     nan = torch.full(shape, float("nan"), dtype=torch.float32, device=device)
     ptr = nan.data_ptr()
     del nan
     out = run()
     if out.data_ptr() != ptr:
-        raise AssertionError("K11's output did not take the NaN block")
+        raise AssertionError("the kernel's output did not take the NaN block")
     return out
 
 
 def _prefix_cases(tg, ET: int) -> None:
-    """Raise unless ``tg`` holds a full tile (ET live slots) and a tile
-    whose edge prefix ends inside a window of 32 slots."""
-    n = ((tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
-         & (tg.tile_cb >= 0)[:, None]).sum(1)
+    """Raise unless ``tg`` (per-tile or grouped) holds a full tile or
+    sub-tile (ET live slots) and one whose edge prefix ends inside a
+    window of 32 slots."""
+    from ..graph import GroupedTiledGraph
+    alive = (tg.chunk_cb.repeat_interleave(tg.group)
+             if isinstance(tg, GroupedTiledGraph) else tg.tile_cb) >= 0
+    src, dst = tg.src_local.reshape(-1, ET), tg.dst_local.reshape(-1, ET)
+    n = ((src < tg.block_cols) & (dst < tg.block_rows) & alive[:, None]).sum(1)
     if not (bool((n == ET).any()) and bool(((n % 32) != 0).any())):
-        raise AssertionError("K11's fixture tiling lost its full tile or its "
-                             "prefix that ends mid-window")
+        raise AssertionError("the SDDMM fixture tiling lost its full tile or "
+                             "its prefix that ends mid-window")
 
 
 def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
@@ -614,52 +630,64 @@ def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     the whole graph at 128-wide blocks, ET 64, with a dead tile whose slots
     look live (it must read exact zeros), and at ET 50 (no multiple of 4
     or 32: the last window of a tile runs past ET, and the zeros past the
-    edge prefix go a float at a time), both with full tiles and tiles whose
-    prefix ends mid-window; also at ``SDDMM_UNALIGNED`` with rows off the
-    vector loads' alignment.  On the card K11's output lies over NaN
-    (:func:`_over_nan`), so each slot checked is one the kernel wrote.  K12: the grouped tilings at 32-row blocks in
-    groups of 2 (a chunk of padding, mostly empty sub-tiles) and at 128-row
-    blocks in groups of 4.  Each slot is a check row scaled by its heads'
-    sums of |product|, since a dot may cancel."""
+    edge prefix go a float at a time).  K12: grouped tilings at 32-row
+    blocks in groups of 2, ET 32 (a chunk of padding, mostly empty
+    sub-tiles off the work list), at 128-row blocks in groups of 4, ET 64,
+    with a dead chunk whose slots look live (exact zeros), and at 64-wide
+    blocks in groups of 2, ET 50.  Every tiling holds full (sub-)tiles and
+    ones whose prefix ends mid-window (:func:`_prefix_cases`); both
+    kernels also run at ``SDDMM_UNALIGNED`` on their dead-unit tilings,
+    with rows off the vector loads' alignment.  On the card each output
+    lies over NaN (:func:`_over_nan`), so each slot checked is one the
+    kernel wrote.  Each slot is a check row scaled by its heads' sums of
+    |product|, since a dot may cancel."""
     import torch
 
     from .. import graph as G
     from ..ops import sddmm as SD
+    from ..ops.spmm import _geometry
 
     s, r, n, _ = edge_case_graph(seed=seed)
     hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
     tiles = {ET: G.tile_graph(hg, block_rows=128, block_cols=128,
                               tile_edges=ET, unit_weight=True, device=device)
              for ET in (64, 50)}
-    for ET, t in tiles.items():
-        _prefix_cases(t, ET)
-    tg = _dead_tile(tiles[64])
     grouped = {
         "R32 G2": G.tile_graph_grouped(hg, block_rows=32, block_cols=64,
                                        tile_edges=32, group=2, device=device),
         "R128 G4": G.tile_graph_grouped(hg, block_rows=128, block_cols=128,
                                         tile_edges=64, group=4,
                                         device=device),
+        "ET 50 G2": G.tile_graph_grouped(hg, block_rows=64, block_cols=64,
+                                         tile_edges=50, group=2,
+                                         device=device),
     }
-    runs = [("sddmm_tiles", "dead tile", tg, SD.sddmm_tiles,
-             SD._sddmm_reference),
-            ("sddmm_tiles", "ET 50", tiles[50], SD.sddmm_tiles,
-             SD._sddmm_reference)]
-    runs += [("sddmm_grouped", tag, t, SD.sddmm_grouped,
-              SD._sddmm_grouped_reference) for tag, t in grouped.items()]
+    for t in (*tiles.values(), *grouped.values()):
+        _prefix_cases(t, t.tile_edges)
+    tg = _dead_tile(tiles[64])
+    gd, dead_c = _dead_chunk(grouped["R128 G4"])
+    k11 = ("sddmm_tiles", SD.sddmm_tiles, SD._sddmm_reference)
+    k12 = ("sddmm_grouped", SD.sddmm_grouped, SD._sddmm_grouped_reference)
+    # (kernel, wrapper, plain version, tag, tiling, the dead unit or None)
+    runs = [(*k11, "dead tile", tg, 1), (*k11, "ET 50", tiles[50], None),
+            (*k12, "R32 G2", grouped["R32 G2"], None),
+            (*k12, "R128 G4 dead chunk", gd, dead_c),
+            (*k12, "ET 50 G2", grouped["ET 50 G2"], None)]
 
-    def case(kernel, tag, t, kern, plain, xs, xd, H):
-        if kernel == "sddmm_tiles" and xs.device.type == "cuda":
-            out = _over_nan((H, t.n_tiles, t.tile_edges), xs.device,
+    def case(kernel, kern, plain, tag, t, dead, xs, xd, H):
+        if xs.device.type == "cuda":
+            n_units, _, per_unit = _geometry(t)
+            out = _over_nan((H, n_units, per_unit), xs.device,
                             lambda: kern(t, xs, xd, H))
         else:
             out = kern(t, xs, xd, H)
         yield KernelCase(kernel, tag, name, _slots(out),
                          _slots(plain(t, xs, xd, H)),
                          scale=_slots(plain(t, xs.abs(), xd.abs(), H)))
-        if tag.startswith("dead tile"):
-            yield KernelCase(kernel, f"{tag}: dead tile is 0", name,
-                             out[:, 1], torch.zeros_like(out[:, 1]))
+        if dead is not None:
+            what = "tile" if kernel == "sddmm_tiles" else "chunk"
+            yield KernelCase(kernel, f"{tag}: dead {what} is 0", name,
+                             out[:, dead], torch.zeros_like(out[:, dead]))
 
     rng = np.random.default_rng(seed)
     for dt in (torch.float32, torch.bfloat16):
@@ -667,14 +695,16 @@ def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
         for H, P in SDDMM_SHAPES:
             xs, xd = (torch.tensor(rng.standard_normal((n, H * P)), dtype=dt,
                                    device=device) for _ in range(2))
-            for kernel, tag, t, kern, plain in runs:
-                yield from case(kernel, f"{tag} H={H} P={P}", t, kern, plain,
-                                xs, xd, H)
+            for kernel, kern, plain, tag, t, dead in runs:
+                yield from case(kernel, kern, plain, f"{tag} H={H} P={P}", t,
+                                dead, xs, xd, H)
             if (H, P) in SDDMM_UNALIGNED:
-                yield from case("sddmm_tiles", f"dead tile H={H} P={P} "
-                                "unaligned", tg, SD.sddmm_tiles,
-                                SD._sddmm_reference, _unaligned(xs),
-                                _unaligned(xd), H)
+                ua, ub = _unaligned(xs), _unaligned(xd)
+                for kernel, kern, plain, tag, t, dead in runs:
+                    if dead is not None:
+                        yield from case(kernel, kern, plain,
+                                        f"{tag} H={H} P={P} unaligned", t,
+                                        dead, ua, ub, H)
 
 
 PAIR_KERNELS = ("pair_agg",)

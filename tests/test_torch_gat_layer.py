@@ -442,7 +442,14 @@ def test_gat_kind_gradients_match_jax(rng, mode, twin):
 
 
 def test_gat_layer_kind_is_lowered_not_refused():
-    assert "gat_layer" not in TF.NOT_PORTED
+    assert not hasattr(TF, "NOT_PORTED")   # the port refuses no kind
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = TG.build_host_graph(s, r, n, edge_pad_multiple=128)
+    model = T.build_model("GAT", 12, 8, hidden=8, heads=2, device=CPU)
+    scheds = TF.gat_onehot_schedules(model.layers, whole_layer=True,
+                                     tile=TS.TileConfig(128, 128, 64))
+    fn = TF.lower_schedule(model.layers[0], scheds[0], hg, device=CPU)
+    assert [p[0] for p in fn.plans].count("gat_layer") == 1
     assert TF.KERNEL_VERSION >= 1
 
 

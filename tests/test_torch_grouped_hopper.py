@@ -1,4 +1,4 @@
-"""PyTorch port: K10's two forms of a_s, on the CPU.
+"""PyTorch port: K10's two forms of a_s, on the CPU; K12's fixture cases.
 
 K10 (``csrc/gat_grouped.cu``) reads a per-node float32 a_s, as K3 does: the
 wrapper ``ops/gat.gat_grouped`` takes exactly one of ``w_asrc`` (derive
@@ -13,7 +13,19 @@ holds the plain version to JAX by (float32: max |a - b| <= 1e-5 max(1, max
 largest |b|, num and den apart: the two forms differ only in the sum order
 of a_s, and a flip of one rounded p or p h moves a term by at most 2^-8 of
 itself).  ``_gat_hybrid_raw`` on a grouped tail must hand K10 the very
-a_s tensor whose max is its msrc and which K4 reads."""
+a_s tensor whose max is its msrc and which K4 reads.
+
+K12 (``csrc/sddmm_grouped.cu``) walks ``GroupedTiledGraph.live_sub`` by
+K11's walks and writes every slot itself.  ``utils/fixtures.
+sddmm_kernel_cases`` must hold its edge cases (a dead chunk whose slots
+look live, ET 50, sub-tiles whose prefix ends mid-window, rows off the
+vector loads' alignment) at every ``SDDMM_SHAPES`` entry and dtype; on the
+CPU each case is the plain version against itself, so the test holds the
+case list, the dead chunk's zeros, and that a fault in one slot fails the
+check.  On the card (``gpu``) K12's output lies over NaN and each case
+must lie within ``fixtures.kernel_error``'s bound (each slot's scale its
+heads' sums of |product|), and K12 names the walk K11 names for the same
+rows."""
 import numpy as np
 import pytest
 
@@ -23,6 +35,7 @@ torch.set_num_threads(2)
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as TD  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as TSd  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
 CPU = "cpu"     # the port's entry points default to the CUDA card
@@ -132,3 +145,76 @@ def test_gat_hybrid_raw_hands_k10_the_a_s_of_msrc_and_k4(monkeypatch):
     assert w_k10 is None and a_k10 is a_s and a_k4 is a_s
     want = a_s.amax(0, keepdim=True)
     assert torch.equal(ms_k10, want) and torch.equal(ms_k4, want)
+
+
+K12_TAGS = ("R32 G2", "R128 G4 dead chunk", "ET 50 G2")
+
+
+def _k12_cases(device, H=None, P=None):
+    """K12's fixture cases (at one shape where H and P are given)."""
+    return [c for c in fixtures.sddmm_kernel_cases(device)
+            if c.kernel == "sddmm_grouped"
+            and (H is None or f" H={H} P={P}" in c.case)]
+
+
+def test_k12_fixture_cases_hold_the_edge_cases():
+    cases = _k12_cases(CPU)
+    names = {(c.case, c.dtype_name) for c in cases}
+    for dtn in DTYPES:
+        for H, P in fixtures.SDDMM_SHAPES:
+            for tag in K12_TAGS:
+                assert (f"{tag} H={H} P={P}", dtn) in names
+            assert (f"R128 G4 dead chunk H={H} P={P}: dead chunk is 0",
+                    dtn) in names
+            if (H, P) in fixtures.SDDMM_UNALIGNED:
+                assert (f"R128 G4 dead chunk H={H} P={P} unaligned",
+                        dtn) in names
+    for c in cases:
+        fixtures.check_kernel(c)
+        if c.case.endswith("dead chunk is 0"):
+            assert c.out.numel() and not bool(c.out.any())
+    # the dead chunk's slots look live: its sub-tiles are on the work list
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = TG.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tg, c = fixtures._dead_chunk(TG.tile_graph_grouped(
+        hg, block_rows=128, block_cols=128, tile_edges=64, group=4,
+        device=CPU))
+    assert int(tg.chunk_cb[c]) == -1
+    assert bool(((tg.live_sub // tg.group) == c).any())
+    # a fault in one slot's dot fails the check
+    c = next(c for c in cases if "ET 50 G2 H=4 P=32" in c.case)
+    bad = c.out.clone()
+    row = int(c.ref.abs().amax(dim=1).argmax())
+    bad[row, 0] += 0.05 * float(c.ref[row].abs().max())
+    with pytest.raises(AssertionError):
+        fixtures.check_kernel(c._replace(out=bad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,P", fixtures.SDDMM_SHAPES)
+def test_k12_matches_its_plain_version_on_cuda(H, P):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K12 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import _ext
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    cases = _k12_cases(dev, H, P)
+    assert len(cases) == 2 * (len(K12_TAGS) + 1 + 2 * (
+        (H, P) in fixtures.SDDMM_UNALIGNED))
+    for c in cases:
+        assert c.out.device == c.ref.device == dev
+        fixtures.check_kernel(c)
+    torch.cuda.synchronize(dev)
+    # K12 picks its walk by K11's rule
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = TG.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tg = TG.tile_graph(hg, block_rows=128, block_cols=128, tile_edges=64,
+                       device=dev)
+    gg = TG.tile_graph_grouped(hg, block_rows=128, block_cols=128,
+                               tile_edges=64, group=4, device=dev)
+    for dt in DTYPES.values():
+        x = torch.zeros((n, H * P), dtype=dt, device=dev)
+        for rows in (x, fixtures._unaligned(x)):
+            TSd.sddmm_tiles(tg, rows, rows, H)
+            TSd.sddmm_grouped(gg, rows, rows, H)
+            assert TSd.k12_walk() == TSd.k11_walk()

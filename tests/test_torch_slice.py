@@ -24,6 +24,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu.data.datasets import synth
 
 import gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch as T  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import cli as TCLI  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import fusion as TF  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as TS  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as TDn  # noqa: E402
@@ -180,14 +181,19 @@ def test_partitions_and_classification_match_jax(network):
 
 
 def test_unported_kinds_raise(graphs):
+    """What the port does not run yet raises, naming its ROADMAP.md item
+    (tile classes); every lowering kind, densefull included, lowers."""
     _, ht = graphs
     g = T.build_op_graph("GCN", 8, 8)
     part = TS.aggregation_partition(g)
     sched = TS.Schedule(blocks=part, tiles=tuple(
         TS.TileConfig(path=TS.PATH_DENSEFULL) for _ in part))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TF.lower_schedule(g, sched, ht, device=CPU)
+    fn = TF.lower_schedule(g, sched, ht, device=CPU)
+    assert "spmm_densefull" in [p[0] for p in fn.plans]
     assert TS.Schedule.from_key(sched.key()) == sched
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TG.hybrid_graph(ht, block_rows=64, block_cols=64, tile_edges=64,
+                        min_nnz=8, tile_classes=(32, 64), device=CPU)
 
 
 def test_model_init_is_seeded_glorot():

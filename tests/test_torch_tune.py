@@ -58,11 +58,9 @@ def test_partitions_traffic_and_candidates_match_jax(network, reorder):
         if p is not None:
             assert TS.partition_is_legal_with_patterns(gt, p)
             assert JS.partition_is_legal_with_patterns(gj, p)
-    # the port's palette is JAX's without the paths it does not run
-    ported = [t for t in JT.TILE_PALETTE
-              if t.path not in (JS.PATH_DENSEFULL, JS.PATH_STREAM)]
-    assert _palette_keys(TT.TILE_PALETTE) == _palette_keys(ported)
-    cj = JT._candidate_schedules(gj, 64, ported)
+    # the port's palette is JAX's, the stream and densefull entries included
+    assert _palette_keys(TT.TILE_PALETTE) == _palette_keys(JT.TILE_PALETTE)
+    cj = JT._candidate_schedules(gj, 64, JT.TILE_PALETTE)
     ct = TT._candidate_schedules(gt, 64, TT.TILE_PALETTE)
     assert [c.key() for c in ct] == [c.key() for c in cj]
 
@@ -200,7 +198,9 @@ def test_hw_config_file_and_smem_rule(tmp_path, monkeypatch):
         3 * (256 * 144 + 128 * 128 * 2) + 1024)
     assert TS.smem_bytes(hyb, 41, dtype_bytes=4, kind="spmm_hybrid") == 0
     assert not TS.tile_is_feasible(TS.TileConfig(32768, 128, 512), 16)
-    assert not TS.tile_is_feasible(TS.TileConfig(path=TS.PATH_DENSEFULL), 16)
+    # the stream and densefull paths run no kernel of their own
+    assert TS.tile_is_feasible(TS.TileConfig(path=TS.PATH_DENSEFULL), 16)
+    assert TS.smem_bytes(TS.TileConfig(path=TS.PATH_STREAM), 602, 4) == 0
     monkeypatch.setenv("GTA_HW_CONFIG", str(p))
     assert not TS.tile_is_feasible(onehot, 128, heads=4, kind="gat_layer")
 
