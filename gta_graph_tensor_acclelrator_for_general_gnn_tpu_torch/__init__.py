@@ -12,9 +12,11 @@ and numpy, never jax.
 """
 
 from . import ir
-from .graph import (GraphTensor, HostGraph, TiledGraph, build_host_graph,
-                    reorder_nodes, tile_graph)
+from .graph import (GraphTensor, HostGraph, MultiTiledGraph, TiledGraph,
+                    build_graph, build_host_graph, nnz_histogram,
+                    reorder_nodes, tile_graph, tile_graph_classes)
 from .models.builders import NETWORKS, build_op_graph
+from .ops.dense import auto_hybrid
 from .models.zoo import Model, build_model
 from .compiler.lower import init_params, lower, params_from_numpy
 from .compiler.schedule import Schedule, TileConfig, default_schedule

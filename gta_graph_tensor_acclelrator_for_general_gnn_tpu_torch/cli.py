@@ -19,8 +19,23 @@ schedule JSON that ``run`` and ``train`` read:
 schedule, or ``{"layers": [...]}`` per layer).  With a schedule, ``train``
 also splits the transposed graph so that gradients run on the kernels; the
 JAX CLI does that only with ``--compiled``.  ``tune``'s memo and default
-output go under ``build/tune/``.  ``--compiled``, ``tune --ga`` and
-``bench`` are not ported yet and exit with status 2.
+output go under ``build/tune/``.
+
+``bench`` times the edge-tile SpMM (K1) and SDDMM (K11) over the dataset's
+graph, ``--batch`` copies of it block-diagonally (the serving shape), and
+prints their latency, edges per second and each kernel's bound
+(``utils/roofline``) as a share of its time:
+
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli bench \
+        --dataset cora --batch 64 --json [--tile-classes auto] \
+        [--sparse-block 256]
+
+Its default geometry is the argmin of ``graph.tile_time_model_ns`` over
+four block geometries, each at its ``best_tile_capacity``;
+``--tile-classes`` tiles with capacity classes (a list, or ``auto``: 128,
+256, 512, 1024) at ``--sparse-block`` (default 256).  A CPU run
+(``--device cpu``) times with the host clock and prints only that.
+``--compiled`` and ``tune --ga`` are not ported yet and exit with status 2.
 """
 from __future__ import annotations
 
@@ -172,6 +187,101 @@ def _tune(args, ds, dtype, device) -> int:
     return 0
 
 
+# ``bench``'s candidate geometries (block rows, block cols), the JAX CLI's
+BENCH_GEOMETRIES = ((256, 256), (512, 512), (1024, 512), (1024, 1024))
+AUTO_CLASSES = (128, 256, 512, 1024)
+
+
+def bench_tiling(hg, args, device):
+    """(tiling, geometry keys) of ``bench``: capacity classes, one fixed
+    block size, or the modelled argmin geometry (the JAX CLI's pick)."""
+    from .graph import (best_tile_capacity, run_nnz_hist, tile_graph,
+                        tile_graph_classes, tile_time_model_ns)
+    if args.tile_classes:
+        sb = args.sparse_block or 256
+        classes = (AUTO_CLASSES if args.tile_classes == "auto" else
+                   tuple(int(c) for c in args.tile_classes.split(",")))
+        return (tile_graph_classes(hg, block_rows=sb, block_cols=sb,
+                                   tile_classes=classes, device=device),
+                dict(tile_classes=list(classes), sparse_block=sb))
+    if args.sparse_block:
+        sb = args.sparse_block
+        return (tile_graph(hg, block_rows=sb, block_cols=sb, device=device),
+                dict(sparse_block=sb))
+    best = None
+    for tr, tc in BENCH_GEOMETRIES:
+        nnz = run_nnz_hist(hg, tr, tc)
+        if not len(nnz):
+            best = (0.0, 256, 256, 512)
+            break
+        et = best_tile_capacity(nnz, tr, tc, feat_width=args.hidden)
+        t = tile_time_model_ns(nnz, et, tr, tc, feat_width=args.hidden)
+        if best is None or t < best[0]:
+            best = (t, tr, tc, et)
+    _, tr, tc, et = best
+    return (tile_graph(hg, block_rows=tr, block_cols=tc, tile_edges=et,
+                       device=device),
+            dict(sparse_block=[tr, tc], tile_edges=et))
+
+
+def _bench(args, ds, device) -> int:
+    """``bench``: K1's SpMM and K11's one-head SDDMM over the (batched)
+    dataset graph, each timed by ``utils/benchmark.time_layer_device``;
+    on the card also edges per second and the bound's share of the time."""
+    import math
+
+    import torch
+
+    from .ops import sddmm as sddmm_mod
+    from .ops import spmm as spmm_mod
+    from .utils import roofline
+    from .utils.benchmark import time_layer_device
+
+    hg = ds.host_graph
+    out = dict(dataset=args.dataset, device=str(device),
+               dtype="bfloat16" if args.bf16 else "float32")
+    if args.batch > 1:
+        from .data.batching import batch_graphs
+        hg, _ = batch_graphs([hg] * args.batch)
+        out["batch"] = args.batch
+    tg, geo = bench_tiling(hg, args, device)
+    out.update(geo)
+    slots = sum(p.n_tiles * p.tile_edges for p in spmm_mod.parts_of(tg))
+    out.update(n_node=hg.n_node, n_edge=hg.n_edge, slots=slots,
+               fill=hg.n_edge / max(slots, 1))
+    x = torch.randn((hg.n_node, args.hidden),
+                    generator=torch.Generator().manual_seed(1)).to(
+        device, torch.bfloat16 if args.bf16 else torch.float32)
+    cuda = device.type == "cuda"
+    kw = dict(iters=args.iters, target_s=args.target_s or None)
+    with torch.inference_mode():
+        finite = bool(torch.isfinite(spmm_mod.spmm(tg, x)).all())
+    calls = (
+        ("spmm", lambda p, t, v: spmm_mod.spmm(t, v),
+         lambda: roofline.spmm_tail(
+             tg, x, max(p.weight.element_size()
+                        for p in spmm_mod.parts_of(tg)))),
+        ("sddmm", lambda p, t, v: sddmm_mod.sddmm(t, v, v, heads=1),
+         lambda: roofline.sddmm_tail(tg, x, x, 1)))
+    for name, fn, work in calls:
+        sec = time_layer_device(fn, None, tg, x, device=device, **kw)
+        if not cuda:
+            out[f"{name}_host_us"] = sec * 1e6
+            continue
+        w = work()
+        out.update({f"{name}_latency_us": sec * 1e6,
+                    f"{name}_edges_per_s": hg.n_edge / sec,
+                    f"{name}_bound_us": w.bound_ms * 1e3,
+                    f"{name}_bound_by": w.bound_by,
+                    f"{name}_bound_share": w.bound_ms / 1e3 / sec})
+    out["finite"] = finite
+    if cuda:
+        out["device_name"] = torch.cuda.get_device_name(device)
+    _print(out, args.json)
+    times = [v for k, v in out.items() if k.endswith("_us")]
+    return 0 if finite and all(math.isfinite(t) for t in times) else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="gta-torch",
@@ -219,17 +329,26 @@ def main(argv=None) -> int:
                    help="tune over the palette derived from the maximal "
                         "feasible tile at the layer's input width")
     p.add_argument("--target-s", type=float, default=0.2,
-                   help="tune: size each measurement's loop to about this "
-                        "many seconds (0: --iters applications)")
+                   help="tune and bench: size each measurement's loop to "
+                        "about this many seconds (0: --iters applications)")
+    p.add_argument("--batch", type=int, default=1,
+                   help="bench: this many copies of the dataset's graph, "
+                        "block-diagonally (the serving shape)")
+    p.add_argument("--tile-classes", default=None,
+                   help="bench: tile capacity classes, a comma list (e.g. "
+                        "64,128,512) or 'auto' (128,256,512,1024)")
+    p.add_argument("--sparse-block", type=int, default=None,
+                   help="bench: block rows and cols of the edge tiles "
+                        "(default: the modelled geometry; 256 with "
+                        "--tile-classes)")
     args = p.parse_args(argv)
 
-    if args.command == "bench" or args.compiled or args.ga:
-        what = ("--compiled" if args.compiled else "tune --ga" if args.ga
-                else args.command)
-        item = ("item 10 (compiler/latency.py)" if args.compiled
-                else "item 10 (tune/genetic.py)" if args.ga else "item 6")
+    if args.compiled or args.ga:
+        what = "--compiled" if args.compiled else "tune --ga"
+        item = ("compiler/latency.py" if args.compiled
+                else "tune/genetic.py")
         print(f"gta-torch {what}: not yet ported (ROADMAP.md Queue 1 "
-              f"{item})", file=sys.stderr)
+              f"item 10, {item})", file=sys.stderr)
         return 2
     if args.hw_config:
         os.environ["GTA_HW_CONFIG"] = args.hw_config
@@ -238,7 +357,7 @@ def main(argv=None) -> int:
     import torch
 
     from .data.datasets import load_dataset
-    from .graph import reorder_nodes
+    from .graph import reorder_nodes, resolve_device
     from .models.zoo import build_model
 
     device = torch.device(args.device)
@@ -254,6 +373,8 @@ def main(argv=None) -> int:
             train_mask=ds.train_mask[perm], val_mask=ds.val_mask[perm],
             test_mask=ds.test_mask[perm])
     hg, x_np = ds.host_graph, ds.x
+    if args.command == "bench":
+        return _bench(args, ds, resolve_device(args.device))
     if args.command == "tune":
         return _tune(args, ds, dtype, device)
     model = build_model(args.network, x_np.shape[1], ds.n_class,

@@ -31,6 +31,7 @@ from ..ops import gat as gat_mod
 from ..ops import pairagg as pair_mod
 from ..ops import primitives as P
 from ..ops import sddmm as sddmm_mod
+from ..ops import sinput as sinput_mod
 from ..ops import spmm as spmm_mod
 from . import schedule as S
 from .lower import _eval_op
@@ -303,6 +304,7 @@ def lower_schedule(
     compute_dtype: Optional[torch.dtype] = None,
     *,
     device=None,
+    x_host: Optional[np.ndarray] = None,
     build_transpose: bool = False,
     tile_cache: Optional[Dict] = None,
 ) -> Callable[[Dict[str, torch.Tensor], GraphTensor, torch.Tensor],
@@ -311,7 +313,12 @@ def lower_schedule(
 
     Host side, once: builds the tilings and hybrid splits the matched
     blocks need, on ``device`` (default the CUDA card).  ``tile_cache``
-    shares them across the layers of a model.  ``build_transpose`` also
+    shares them across the layers of a model.  ``x_host``: the dataset's
+    features (numpy); when their density is below
+    ``sinput.SPARSITY_THRESHOLD`` and the graph has an MM of the input
+    features, that MM runs ``sinput.sparse_input_mm`` over X's nonzeros
+    (K1 and K2 over the bipartite feature graph, built here once).  X is
+    baked: ``apply`` must then be called with those features.  ``build_transpose`` also
     tiles or splits the TRANSPOSED graph (kept in
     ``tile_cache["transpose"]``) for every SpMM, attention and hybrid
     block, so its gradient runs the kernels (dx = Aᵀ ȳ, and the attention
@@ -395,6 +402,14 @@ def lower_schedule(
                     col_scale=torch.as_tensor(scales[1], device=device))
             hybrids[key] = hyb
         return hybrids[key]
+
+    fg = None
+    if x_host is not None:
+        xh = np.asarray(x_host)
+        if (sinput_mod.density(xh) < sinput_mod.SPARSITY_THRESHOLD
+                and any(op.compute == ir.MM and op.inputs == [ir.X_INPUT]
+                        for op in graph.ops)):
+            fg = sinput_mod.feature_graph(xh, device=device)
 
     # (kind, block, tc, plan, graph data, transposed twin or None)
     plans: List[tuple] = []
@@ -544,8 +559,15 @@ def lower_schedule(
                         kin(ref(plan.adst_op)), hyb_t=twin, **kw)
             else:
                 for oid in block:
-                    vals[oid] = _eval_op(graph.by_id[oid], vals, params, g,
-                                         x, compute_dtype)
+                    op = graph.by_id[oid]
+                    if (fg is not None and op.compute == ir.MM
+                            and op.inputs == [ir.X_INPUT]):
+                        vals[oid] = sinput_mod.sparse_input_mm(
+                            fg, params[op.extra["weight"][0]],
+                            compute_dtype=compute_dtype)
+                        continue
+                    vals[oid] = _eval_op(op, vals, params, g, x,
+                                         compute_dtype)
         if len(outputs) == 1:
             return vals[outputs[0]]
         return {o: vals[o] for o in outputs}
@@ -553,4 +575,5 @@ def lower_schedule(
     # (kind, block, graph data, transposed twin) per block, for inspection
     # and kernel checks; a ``gat`` block's twin is (tiling, perm)
     apply.plans = [(p[0], p[1], p[4], p[5]) for p in plans]
+    apply.feature_graph = fg
     return apply

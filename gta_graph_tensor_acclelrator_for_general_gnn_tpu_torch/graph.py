@@ -12,6 +12,8 @@ hold them equal); the containers then hold torch tensors on an explicit
   SpMM and GAT kernels.
 * :class:`GroupedTiledGraph` — the stripe-group chunked tiling of the
   sparse tail: the input of the grouped SpMM and GAT kernels.
+* :class:`MultiTiledGraph` — per-run tile capacity classes: one
+  :class:`TiledGraph` per class, whose kernel partials add.
 * :class:`DenseBlockGraph` / :class:`HybridGraph` — the density split:
   dense adjacency blocks plus the sparse remainder as edge tiles.
 * :func:`dense_adjacency` — the full dense adjacency of a graph of at most
@@ -148,6 +150,12 @@ def build_host_graph(
 
     return HostGraph(senders=senders, receivers=receivers, edge_mask=mask,
                      edge_weight=edge_weight, n_node=n_node, n_edge=n_edge)
+
+
+def build_graph(*args, device=None, **kwargs) -> GraphTensor:
+    """Device variant of :func:`build_host_graph` (same arguments), on
+    ``device`` (default the CUDA card)."""
+    return build_host_graph(*args, **kwargs).to_device(device)
 
 
 # dense blocks per unit of dense-kernel work (see DenseBlockGraph.segments)
@@ -326,6 +334,168 @@ def tile_graph(
         n_row_blocks=a["n_row_blocks"],
         n_col_blocks=a["n_col_blocks"],
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiTiledGraph:
+    """Edge tiling with per-run capacity classes (see the JAX
+    ``graph.MultiTiledGraph``): each (rb, cb) run is packed at the tile
+    capacity that minimises its modelled kernel time, and the runs of one
+    class share one :class:`TiledGraph` (``parts``, one per class that won
+    a run, ascending capacity).  All parts share the block geometry and
+    ``n_node``; their ``edge_id`` index the parent graph's edges, so
+    per-class kernel outputs add and per-edge values reach every part."""
+
+    parts: Tuple[TiledGraph, ...]
+
+    @property
+    def n_node(self) -> int:
+        return self.parts[0].n_node
+
+    @property
+    def n_tiles(self) -> int:
+        return sum(p.n_tiles for p in self.parts)
+
+    @property
+    def total_slots(self) -> int:
+        return sum(p.n_tiles * p.tile_edges for p in self.parts)
+
+
+# The tile-time model below and its constants are the JAX package's, fitted
+# to its TPU kernels; the port keeps them so that both packages pick the
+# same geometry and capacities, until the port's own timings refit them.
+
+
+def grid_ramp_ns(n_runs: int, n_tiles: float,
+                 feat_width: int = 128) -> float:
+    """Short-grid ramp of :func:`tile_time_model_ns`: a per-call cost per
+    run (scaled by the feature width up to 128) and per tile that fades
+    hyperbolically with the tile count, so large grids keep the per-tile
+    constant.  A per-call cost: chains of passes must not scale it."""
+    per_run = 700.0 * min(max(feat_width, 1), 128) / 128.0
+    return (n_runs * per_run + n_tiles * 120.0) / (1.0 + n_tiles / 1024.0)
+
+
+def tile_time_model_ns(run_nnz: np.ndarray, tile_edges: int,
+                       block_rows: int, block_cols: int,
+                       *, feat_width: int = 128, x_bytes: int = 2,
+                       grid_const_ns: float = 314.0,
+                       slot_ns: float = 2.77,
+                       include_ramp: bool = True) -> float:
+    """Modelled edge-tile kernel time for packing the (rb, cb) run-size
+    distribution ``run_nnz`` at one tile capacity:
+
+        time = runs * panel + tiles * (grid_const + max(0, compute - panel))
+        panel = C * F * x_bytes / 819        (x column panel, once a run)
+        compute = ET * slot_ns * (R + C) / 2048 * F / 128
+
+    plus a per-tile surcharge past 65,536 tiles and the short-grid ramp
+    (:func:`grid_ramp_ns`).  Used to choose a capacity and a geometry, not
+    to predict a time on the card."""
+    panel = block_cols * feat_width * x_bytes / 819.0
+    compute = tile_edges * slot_ns * (block_rows + block_cols) / 2048.0
+    compute *= feat_width / 128.0
+    tiles = np.ceil(run_nnz / tile_edges)
+    per_tile = grid_const_ns + max(0.0, compute - panel)
+    n_tiles = float(tiles.sum())
+    if n_tiles > 65536:
+        per_tile += 200.0
+    ramp = (grid_ramp_ns(len(run_nnz), n_tiles, feat_width)
+            if include_ramp else 0.0)
+    return float(len(run_nnz) * panel + n_tiles * per_tile + ramp)
+
+
+def best_tile_capacity(run_nnz: np.ndarray, block_rows: int, block_cols: int,
+                       *, candidates: Sequence[int] = tuple(
+                           range(128, 1025, 128)),
+                       feat_width: int = 128, x_bytes: int = 2) -> int:
+    """The tile capacity among ``candidates`` that minimises
+    :func:`tile_time_model_ns` for a run-size distribution (ties: the
+    smaller)."""
+    return min(candidates,
+               key=lambda et: (tile_time_model_ns(
+                   run_nnz, et, block_rows, block_cols,
+                   feat_width=feat_width, x_bytes=x_bytes), et))
+
+
+def run_nnz_hist(g: HostGraph, block_rows: int,
+                 block_cols: int) -> np.ndarray:
+    """nnz of each nonzero (rb, cb) adjacency block: the run-size
+    distribution the capacity model reads."""
+    ncb = max(_round_up(g.n_node, block_cols) // block_cols, 1)
+    key = ((g.receivers[: g.n_edge] // block_rows).astype(np.int64) * ncb
+           + g.senders[: g.n_edge] // block_cols)
+    cnt = np.bincount(key)
+    return cnt[cnt > 0]
+
+
+def tile_graph_classes(
+    g: HostGraph,
+    *,
+    block_rows: int = 1024,
+    block_cols: int = 1024,
+    tile_classes: Sequence[int] = (64, 128, 256, 512, 1024),
+    unit_weight: bool = False,
+    fixed_slots: int = 80,
+    device=None,
+) -> MultiTiledGraph:
+    """Multi-capacity tiling on ``device`` (the arrays of the JAX
+    ``tile_graph_classes``): each (rb, cb) run takes the class ET that
+    minimises ``ceil(len / ET) * (ET * (R + C) / 2048 + fixed_slots)``
+    (``fixed_slots``: the per-tile fixed cost in slots, the JAX package's
+    fitted value); each class that wins a run tiles its edges as a
+    :class:`TiledGraph` whose ``edge_id`` is remapped into the parent's
+    edge space on the device (pad slots alias ``e_pad - 1``).  An edge-less
+    graph keeps one empty part at the largest class.  ``unit_weight``
+    parts store their weights in bfloat16, as a one-class unit-weight
+    tiling does (both values exact)."""
+    device = resolve_device(device)
+    ne = g.n_edge
+    s = g.senders[:ne]
+    r = g.receivers[:ne]
+    w = np.ones(ne, np.float32) if unit_weight else g.edge_weight[:ne]
+    tile_classes = sorted(set(int(c) for c in tile_classes))
+    ncb = max(_round_up(g.n_node, block_cols) // block_cols, 1)
+
+    key = (r // block_rows).astype(np.int64) * ncb + (s // block_cols)
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    starts = (np.flatnonzero(np.concatenate([[True], ks[1:] != ks[:-1]]))
+              if ne else np.zeros(0, np.int64))
+    run_len = np.diff(np.concatenate([starts, [ne]]))
+    scale = (block_rows + block_cols) / 2048.0
+    cost = np.stack([np.ceil(run_len / et) * (et * scale + fixed_slots)
+                     for et in tile_classes], axis=0)
+    choice = cost.argmin(axis=0) if ne else np.zeros(0, np.int64)
+    edge_class = np.repeat(choice, run_len)        # aligned with `order`
+    geo = dict(block_rows=block_rows, block_cols=block_cols,
+               unit_weight=unit_weight, device=device)
+
+    parts = []
+    for ci, et in enumerate(tile_classes):
+        eidx = order[edge_class == ci]             # parent edge ids
+        k = len(eidx)
+        if k == 0:
+            continue
+        sub_ep = max(_round_up(k, 128), 128)
+        pad = sub_ep - k
+        sub = HostGraph(
+            senders=np.concatenate([s[eidx], np.full(pad, g.n_node,
+                                                     np.int32)]),
+            receivers=np.concatenate([r[eidx], np.full(pad, g.n_node,
+                                                       np.int32)]),
+            edge_mask=np.concatenate([np.ones(k, bool), np.zeros(pad, bool)]),
+            edge_weight=np.concatenate([w[eidx], np.zeros(pad, np.float32)]),
+            n_node=g.n_node, n_edge=k)
+        tg = tile_graph(sub, tile_edges=et, **geo)
+        remap = torch.as_tensor(np.concatenate(
+            [eidx.astype(np.int32),
+             np.full(pad, max(g.e_pad - 1, 0), np.int32)]), device=device)
+        parts.append(dataclasses.replace(
+            tg, edge_id=remap[tg.edge_id.long()].contiguous()))
+    if not parts:
+        parts = [tile_graph(g, tile_edges=tile_classes[-1], **geo)]
+    return MultiTiledGraph(parts=tuple(parts))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -552,7 +722,7 @@ class HybridGraph:
     col_scale[s]."""
 
     dense: Optional[DenseBlockGraph]
-    tiles: Union[TiledGraph, GroupedTiledGraph]
+    tiles: Union[TiledGraph, GroupedTiledGraph, MultiTiledGraph]
     n_dense_edges: int
     n_sparse_edges: int
     row_scale: Optional[torch.Tensor] = None
@@ -590,26 +760,25 @@ def hybrid_graph(
     """Split the adjacency by per-block density (see the JAX
     ``graph.hybrid_graph``): blocks with ``nnz >= min_nnz`` become dense
     value matrices, the rest stays edge-tiled.  ``values_dtype`` is
-    ``np.float32`` (summed weights) or an integer type (edge counts; copies
-    of one pair beyond the type's maximum merge into one tail slot whose
-    weight is their summed weight).  ``tail_format="grouped"`` tiles the
-    remainder as a :class:`GroupedTiledGraph` of ``tail_group`` sub-tiles
-    per chunk; tile classes (``MultiTiledGraph``) are not ported and
-    raise."""
+    ``np.float32`` (summed weights), ``torch.bfloat16`` (the same sums in
+    float32, rounded once to bf16: half the bytes) or an integer type
+    (edge counts; copies of one pair beyond the type's maximum merge into
+    one tail slot whose weight is their summed weight).
+    ``tail_format="grouped"`` tiles the remainder as a
+    :class:`GroupedTiledGraph` of ``tail_group`` sub-tiles per chunk and
+    takes precedence over ``tile_classes``, which tile it as a
+    :class:`MultiTiledGraph` of those capacities."""
     if tail_format not in ("tiles", "grouped"):
         raise ValueError(f"bad tail_format {tail_format!r}")
-    if tile_classes and tail_format != "grouped":
-        raise NotImplementedError(
-            "tile classes (MultiTiledGraph) are not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
     if block_layout not in ("rc", "cr"):
         raise ValueError(f"bad block_layout {block_layout!r}")
-    vdt = np.dtype(values_dtype)
+    bf16_vals = values_dtype is torch.bfloat16
+    vdt = np.dtype(np.float32 if bf16_vals else values_dtype)
     integral_vals = np.issubdtype(vdt, np.integer)
     if not integral_vals and vdt != np.float32:
         raise NotImplementedError(
-            f"dense values dtype {vdt}: the port stores float32 or integer "
-            "counts")
+            f"dense values dtype {vdt}: the port stores float32, bfloat16 "
+            "or integer counts")
     s = g.senders[: g.n_edge]
     r = g.receivers[: g.n_edge]
     w = (np.ones(g.n_edge, np.float32) if unit_weight
@@ -625,6 +794,10 @@ def hybrid_graph(
             return tile_graph_grouped(
                 hg, block_rows=sbr, block_cols=sbc, tile_edges=tile_edges,
                 group=tail_group, unit_weight=unit, device=device)
+        if tile_classes:
+            return tile_graph_classes(
+                hg, block_rows=sbr, block_cols=sbc,
+                tile_classes=tile_classes, unit_weight=unit, device=device)
         return tile_graph(hg, block_rows=sbr, block_cols=sbc,
                           tile_edges=tile_edges, unit_weight=unit,
                           device=device)
@@ -695,12 +868,13 @@ def hybrid_graph(
     if block_layout == "cr":
         i_r, i_c = i_c, i_r
     B = len(dense_ids)
-    if vdt == np.float32:
+    if vdt == np.float32 and not bf16_vals:
         values = np.zeros((B,) + blk_shape, np.float32)
         np.add.at(values, (e_slot[in_dense], i_r, i_c), wd[in_dense])
     else:
         # accumulate f32 in chunks of blocks, cast per chunk
-        values = np.zeros((B,) + blk_shape, vdt)
+        values = (torch.zeros((B,) + blk_shape, dtype=torch.bfloat16)
+                  if bf16_vals else np.zeros((B,) + blk_shape, vdt))
         es, rs, cs, ws = e_slot[in_dense], i_r, i_c, wd[in_dense]
         eorder = np.argsort(es, kind="stable")
         es, rs, cs, ws = es[eorder], rs[eorder], cs[eorder], ws[eorder]
@@ -711,7 +885,8 @@ def hybrid_graph(
             buf = np.zeros((nb,) + blk_shape, np.float32)
             lo, hi = starts[i], starts[i + 1]
             np.add.at(buf, (es[lo:hi] - b0, rs[lo:hi], cs[lo:hi]), ws[lo:hi])
-            values[b0:b0 + nb] = buf.astype(vdt)
+            values[b0:b0 + nb] = (torch.from_numpy(buf) if bf16_vals
+                                  else buf.astype(vdt))
 
     row_mask = np.zeros(rbn, bool)
     row_mask[d_rb] = True
@@ -802,6 +977,48 @@ def dense_adjacency(g: HostGraph, *, weighted: bool = True,
     return a
 
 
+def batch_host_graph(g: HostGraph, batch: int, *,
+                     copy_stride: Optional[int] = None) -> HostGraph:
+    """Block-diagonal batching of ``batch`` copies of one graph (the serving
+    shape; the JAX ``graph.batch_host_graph``), each copy's node range
+    padded to ``copy_stride`` (default: the next multiple of 1024).  With
+    the stride a multiple of the block, no adjacency block straddles two
+    copies, so the batched tiling keeps the one-copy tiling's fill.
+    Features go in the padded layout of :func:`pad_batch_features`."""
+    stride = copy_stride or _round_up(g.n_node, 1024)
+    ne = g.n_edge
+    off = np.arange(batch, dtype=np.int64)[:, None] * stride
+    s = (g.senders[:ne][None, :] + off).reshape(-1)
+    r = (g.receivers[:ne][None, :] + off).reshape(-1)
+    w = np.tile(g.edge_weight[:ne], batch)
+    n_tot = batch * stride
+    e_tot = batch * ne
+    e_pad = _round_up(e_tot, 512)
+    return HostGraph(
+        senders=np.concatenate(
+            [s, np.full(e_pad - e_tot, n_tot, np.int64)]).astype(np.int32),
+        receivers=np.concatenate(
+            [r, np.full(e_pad - e_tot, n_tot, np.int64)]).astype(np.int32),
+        edge_mask=np.concatenate(
+            [np.ones(e_tot, bool), np.zeros(e_pad - e_tot, bool)]),
+        edge_weight=np.concatenate(
+            [w, np.zeros(e_pad - e_tot, np.float32)]).astype(np.float32),
+        n_node=n_tot,
+        n_edge=e_tot,
+    )
+
+
+def pad_batch_features(x: np.ndarray, batch: int, n_node: int,
+                       copy_stride: Optional[int] = None) -> np.ndarray:
+    """[batch, n_node, F] (or [batch * n_node, F]) features in the padded
+    [batch * stride, F] layout that :func:`batch_host_graph` numbers."""
+    stride = copy_stride or _round_up(n_node, 1024)
+    x = np.asarray(x).reshape(batch, n_node, -1)
+    out = np.zeros((batch, stride, x.shape[-1]), x.dtype)
+    out[:, :n_node] = x
+    return out.reshape(batch * stride, -1)
+
+
 def transpose_host_graph(g: HostGraph) -> Tuple[HostGraph, np.ndarray]:
     """The transposed graph Aᵀ (senders and receivers swapped, weights
     kept, edges sorted by their new receiver) and ``perm``: edge i of the
@@ -890,3 +1107,12 @@ def reorder_nodes(g: HostGraph, method: str = "degree", labels=None,
         edge_pad_multiple=g.e_pad,
     )
     return out, perm
+
+
+def nnz_histogram(g: HostGraph, tile_rows: int) -> np.ndarray:
+    """nnz per ``tile_rows``-row stripe of the adjacency (int64), the
+    autotuner feature of the JAX package's preprocessing."""
+    receivers = g.receivers[: g.n_edge]
+    n_stripes = _round_up(g.n_node, tile_rows) // tile_rows
+    return np.bincount(receivers // tile_rows,
+                       minlength=n_stripes).astype(np.int64)

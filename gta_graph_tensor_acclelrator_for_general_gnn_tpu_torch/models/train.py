@@ -126,19 +126,20 @@ def train_node_classifier(
     remat: bool = False,
     model: Optional[Model] = None,
     schedules=None,
+    sinput: bool = True,
     build_transpose: bool = False,
     verbose: bool = False,
     device=None,
 ) -> Tuple[TrainState, FitResult]:
     """Full-batch training of ``network`` on ``ds`` (one step per epoch);
     returns the final state and metrics.  ``schedules`` route layers
-    through the kernels; ``build_transpose`` (with schedules) also splits
+    through the kernels; ``sinput`` (with schedules) runs the first
+    layer's MM of X on the sparse-input product over X's nonzeros when X
+    is below half density (the features are fixed for the run, so baking
+    them is sound); ``build_transpose`` (with schedules) also splits
     the transposed graph so that the gradients run the kernel backward
     instead of autograd of the full-graph formulation.  ``device`` defaults
-    to the CUDA card.  The JAX trainer's
-    ``sinput`` (a sparse-input first-layer product) is not ported yet
-    (ROADMAP.md Queue 1 item 9): the first layer's dense product computes
-    the same values."""
+    to the CUDA card."""
     dev = resolve_device(device)
     model = model or build_model(
         network, ds.x.shape[1], ds.n_class, hidden=hidden,
@@ -146,6 +147,7 @@ def train_node_classifier(
         generator=torch.Generator().manual_seed(seed), device=dev)
     apply = model.make_apply(compute_dtype, schedules=schedules,
                              host_graph=ds.host_graph if schedules else None,
+                             x_host=ds.x if (schedules and sinput) else None,
                              device=dev, build_transpose=build_transpose)
     state = TrainState(model.params,
                        adamw(model.params, lr, weight_decay))

@@ -45,7 +45,7 @@ class Model(nn.Module):
     def make_apply(self, compute_dtype: Optional[torch.dtype] = None,
                    schedules: Union[None, Schedule, Sequence[Schedule]] = None,
                    host_graph: Optional[HostGraph] = None, *,
-                   device=None, build_transpose: bool = False):
+                   device=None, x_host=None, build_transpose: bool = False):
         """Forward over the layer stack: ``apply(params, g, x)``.
 
         Without ``schedules`` every layer runs op by op (the oracle path).
@@ -54,6 +54,10 @@ class Model(nn.Module):
         run on the Hopper kernels; that needs ``host_graph`` to build the
         tilings on ``device`` (default the CUDA card; shared across the
         stack's layers).
+        ``x_host``: the dataset's features (numpy), passed to the first
+        layer only (the one that reads X): below half density its MM of X
+        runs on the sparse-input product over X's nonzeros, which bakes X
+        (training, fixed-feature serving).
         ``build_transpose`` also splits the transposed graph so that
         gradients run on the kernels (training)."""
         if schedules is None:
@@ -67,9 +71,10 @@ class Model(nn.Module):
             shared_cache: dict = {}
             fns = [lower_schedule(g, s, host_graph, compute_dtype,
                                   device=device,
+                                  x_host=x_host if i == 0 else None,
                                   build_transpose=build_transpose,
                                   tile_cache=shared_cache)
-                   for g, s in zip(self.layers, schedules)]
+                   for i, (g, s) in enumerate(zip(self.layers, schedules))]
 
         def apply(params: Mapping[str, torch.Tensor], g: GraphTensor,
                   x: torch.Tensor) -> torch.Tensor:

@@ -816,13 +816,13 @@ class _SpmmHybrid(torch.autograd.Function):
 def spmm_hybrid(hyb: HybridGraph, g: Optional[GraphTensor], x: torch.Tensor,
                 *, weighted: bool = True,
                 hyb_t: Optional[HybridGraph] = None) -> torch.Tensor:
-    """Density-split SpMM, [N, F] float32: the edge tail on K1 (K9 for a
-    grouped tail) plus the dense blocks on K2 (with the separable scales
-    when the blocks hold counts).  Differentiable in ``x``: with ``hyb_t``,
-    the split of the transposed graph built the same way, the gradient dx
-    = Aᵀ ȳ runs the same kernels over it; without, autograd of the
-    full-graph formulation over
-    ``g`` (``weighted`` edge weights), which holds [E, F] edge tensors."""
+    """Density-split SpMM, [N, F] float32: the edge tail on K1 (once per
+    class of a MultiTiledGraph tail; K9 for a grouped tail) plus the dense
+    blocks on K2 (with the separable scales when the blocks hold counts).
+    Differentiable in ``x``: with ``hyb_t``, the split of the transposed
+    graph built the same way, the gradient dx = Aᵀ ȳ runs the same kernels
+    over it; without, autograd of the full-graph formulation over ``g``
+    (``weighted`` edge weights), which holds [E, F] edge tensors."""
     return _SpmmHybrid.apply(x, hyb, hyb_t, g, weighted)
 
 
@@ -855,8 +855,8 @@ class _GatHybrid(torch.autograd.Function):
     (:func:`gat_dense_bwd`), both from the combined den and output, added
     in float32.  Each split covers every edge once, so the forward split
     gives dad and the twin (dh, das) whichever of them has dense blocks.
-    Without a twin, or with grouped tails (the tail backward kernels read
-    per-tile tilings; JAX's ``kernel_bwd`` rule, dense.py:965-970), autograd
+    Without a twin, or with grouped or class tails (the tail backward
+    kernels read per-tile tilings; JAX's ``kernel_bwd`` rule), autograd
     of the full-graph formulation, unweighted as the attention kernels
     are."""
 
@@ -926,8 +926,9 @@ def gat_hybrid(hyb: HybridGraph, g: Optional[GraphTensor],
                a_dst: torch.Tensor, *, negative_slope: float = 0.2,
                w_asrc: Optional[torch.Tensor] = None,
                hyb_t: Optional[HybridGraph] = None) -> torch.Tensor:
-    """Density-split GAT attention, [N, HD] float32.  The tail (K3, or K10
-    for a grouped tail, which needs ``w_asrc``) and the dense blocks (K4)
+    """Density-split GAT attention, [N, HD] float32.  The tail (K3, once
+    per class of a MultiTiledGraph tail, or K10 for a grouped tail, which
+    needs ``w_asrc``) and the dense blocks (K4)
     accumulate raw [num | den] under ONE shift bound (the global per-head
     max of a_src), so the combine is one add and divide.  ``w_asrc`` [HD,
     H] replaces ``a_src`` when a_src is a linear map of h: the tail derives
@@ -939,3 +940,99 @@ def gat_hybrid(hyb: HybridGraph, g: Optional[GraphTensor],
     wmode = w_asrc is not None
     return _GatHybrid.apply(h_src, w_asrc if wmode else a_src, a_dst, hyb,
                             hyb_t, g, negative_slope, wmode)
+
+
+def auto_hybrid_plan(hg, *, kind: str = "spmm", feat_width: int = 128,
+                     heads: int = 4, head_dim: int = 32, values_dtype=None,
+                     dense_budget: int = 5 << 30, dense_block: int = 256,
+                     tail_geometries=None) -> dict:
+    """The knobs :func:`auto_hybrid` picks for the host graph ``hg``, by the
+    JAX package's cost models (its ``ops.dense.auto_hybrid``): ``min_nnz``,
+    the dense threshold (the balance rule per kind, ``spmm``: count blocks
+    at fudge 0.5 when the values take one byte; ``gat``: the transposed
+    'cr' rule; raised until the dense values fit ``dense_budget`` bytes),
+    and the tail geometry (``sparse_block_rows``, ``sparse_block_cols``)
+    and ``tile_edges``: the argmin of :func:`~..graph.tile_time_model_ns`
+    at :func:`~..graph.best_tile_capacity` over ``tail_geometries``."""
+    from ..graph import best_tile_capacity, tile_time_model_ns
+    if kind not in ("spmm", "gat"):
+        raise ValueError(f"auto_hybrid kind {kind!r}: spmm or gat")
+    if values_dtype is None:
+        values_dtype = np.int8
+    vb = (2 if values_dtype is torch.bfloat16
+          else np.dtype(values_dtype).itemsize)
+    rb = cb = dense_block
+    bn = block_nnz(hg, rb, cb).reshape(-1)
+    bn_sorted = np.sort(bn)[::-1]
+    max_blocks = max(dense_budget // (rb * cb * vb), 1)
+    if kind == "spmm":
+        thr = spmm_dense_threshold(rb, cb, fudge=0.5 if vb == 1 else 1.0)
+    else:
+        thr = gat_dense_threshold_t(rb, cb, heads, head_dim)
+    if len(bn_sorted) > max_blocks:
+        thr = max(thr, int(bn_sorted[max_blocks - 1]) + 1)
+
+    if tail_geometries is None:
+        # the transposed attention kernels' tail rows are multiples of 128
+        tail_geometries = (((1024, 1024), (2048, 1024), (1024, 512),
+                            (2048, 512)) if kind == "spmm" else
+                           ((512, 1024), (1024, 1024), (2048, 1024)))
+    ncb = int(np.ceil(hg.n_node / cb))
+    key = ((hg.receivers[: hg.n_edge] // rb).astype(np.int64) * ncb
+           + hg.senders[: hg.n_edge] // cb)
+    m = bn[key] < thr
+    st = hg.senders[: hg.n_edge][m]
+    rt = hg.receivers[: hg.n_edge][m]
+    best = None
+    for tr, tc in tail_geometries:
+        tcn = int(np.ceil(hg.n_node / tc))
+        nnz = np.bincount((rt // tr).astype(np.int64) * tcn + (st // tc))
+        nnz = nnz[nnz > 0]
+        if not len(nnz):
+            best = (0.0, tail_geometries[0][0], tail_geometries[0][1], 512)
+            break
+        et = best_tile_capacity(nnz, tr, tc, feat_width=feat_width)
+        t = tile_time_model_ns(nnz, et, tr, tc, feat_width=feat_width)
+        if best is None or t < best[0]:
+            best = (t, tr, tc, et)
+    _, sr, sc, et = best
+    return dict(min_nnz=thr, sparse_block_rows=sr, sparse_block_cols=sc,
+                tile_edges=et)
+
+
+def auto_hybrid(
+    hg,
+    *,
+    kind: str = "spmm",
+    feat_width: int = 128,
+    heads: int = 4,
+    head_dim: int = 32,
+    values_dtype=None,
+    dense_budget: int = 5 << 30,
+    dense_block: int = 256,
+    supergroup: int = 16,
+    tail_geometries=None,
+    tile_classes=None,
+    device=None,
+) -> HybridGraph:
+    """A :class:`~..graph.HybridGraph` of the host graph ``hg`` on
+    ``device`` (default the CUDA card) with every knob chosen by
+    :func:`auto_hybrid_plan`.  ``values_dtype``: int8 counts by default,
+    np.float32 or ``torch.bfloat16`` values.  ``kind="gat"`` builds
+    unit-weight 'cr' blocks (pair with :func:`gat_hybrid`); ``kind="spmm"``
+    pairs with :func:`spmm_hybrid` (int8 counts need the separable
+    scales).  ``tile_classes`` tiles the tail as a MultiTiledGraph."""
+    from ..graph import hybrid_graph
+    plan = auto_hybrid_plan(hg, kind=kind, feat_width=feat_width,
+                            heads=heads, head_dim=head_dim,
+                            values_dtype=values_dtype,
+                            dense_budget=dense_budget,
+                            dense_block=dense_block,
+                            tail_geometries=tail_geometries)
+    return hybrid_graph(
+        hg, block_rows=dense_block, block_cols=dense_block,
+        unit_weight=(kind == "gat"),
+        block_layout=("cr" if kind == "gat" else "rc"),
+        supergroup=(supergroup if kind == "spmm" else 0),
+        values_dtype=np.int8 if values_dtype is None else values_dtype,
+        tile_classes=tile_classes, device=device, **plan)

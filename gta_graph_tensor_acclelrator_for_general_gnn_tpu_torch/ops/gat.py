@@ -33,7 +33,8 @@ import torch
 
 from .. import ir
 from ..compiler.schedule import _gat_layer_smem, _gat_wgmma_width
-from ..graph import GraphTensor, GroupedTiledGraph, TiledGraph
+from ..graph import (GraphTensor, GroupedTiledGraph, MultiTiledGraph,
+                     TiledGraph)
 from . import _ext
 from .primitives import exp_f64
 from .spmm import Tiling, _geometry, _live_slots, _require_slots, _unit_steps
@@ -111,22 +112,28 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
               w_asrc: Optional[torch.Tensor] = None,
               a_src: Optional[torch.Tensor] = None,
               negative_slope: float = 0.2,
-              normalize: bool = True) -> torch.Tensor:
-    """K3 wrapper: [n_node, HD] normalized, or raw [n_node, HD + H]
-    [num | den].  Exactly one of ``w_asrc`` [HD, H] in h's dtype (derive
-    mode: the kernel's entry point forms a_s = h @ w_asrc per node in
-    float32 first) and ``a_src`` [N, H], float32 per-node logits read as
-    they are or the values mode's in h's dtype, which the kernel reads
-    widened to float32 (exact).  ``a_dst`` [N, H] and
-    ``msrc`` [1, H] are float32.  The kernel walks each tile's edge prefix
-    (the builders' slot order).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+              normalize: bool = True,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 wrapper: [n_node, HD] normalized, or raw [n_node, HD + H] [num |
+    den]; raw, ``out`` ([n_node, HD + H] float32) takes the kernel's adds
+    and is returned in place of a zeroed output of its own (the classes of
+    a MultiTiledGraph share one).  Exactly one of ``w_asrc`` [HD, H] in h's
+    dtype (derive mode: the kernel's entry point forms a_s = h @ w_asrc per
+    node in float32 first) and ``a_src`` [N, H], float32 per-node logits
+    read as they are or the values mode's in h's dtype, which the kernel
+    reads widened to float32 (exact).  ``a_dst`` [N, H] and ``msrc`` [1, H]
+    are float32.  The kernel walks each tile's edge prefix (the builders'
+    slot order).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
     if (w_asrc is None) == (a_src is None):
         raise ValueError("give exactly one of w_asrc and a_src")
+    if out is not None and normalize:
+        raise ValueError("out= takes the raw [num | den] (normalize=False)")
     if h.device.type == "cpu":
-        return _gat_tiles_reference(tg, h, mult, a_dst, msrc, w_asrc=w_asrc,
-                                    a_src=a_src, negative_slope=negative_slope,
-                                    normalize=normalize)
+        y = _gat_tiles_reference(tg, h, mult, a_dst, msrc, w_asrc=w_asrc,
+                                 a_src=a_src, negative_slope=negative_slope,
+                                 normalize=normalize)
+        return y if out is None else out.add_(y)
     dev = h.device
     H = a_dst.shape[1]
     HD = h.shape[1]
@@ -158,7 +165,15 @@ def gat_tiles(tg: TiledGraph, h: torch.Tensor, mult: torch.Tensor,
         raise ValueError(f"w_asrc shape {tuple(w_asrc.shape)} != {(HD, H)}")
     # raw [num | den]: the kernel adds into it with atomics, so rows without
     # edges stay 0; a second launch normalizes into ``out``
-    acc = torch.zeros((tg.n_node, HD + H), dtype=torch.float32, device=dev)
+    if out is None:
+        acc = torch.zeros((tg.n_node, HD + H), dtype=torch.float32,
+                          device=dev)
+    else:
+        _ext.require(out, "out", dev, (torch.float32,), 2)
+        if tuple(out.shape) != (tg.n_node, HD + H):
+            raise ValueError(f"out shape {tuple(out.shape)} != "
+                             f"{(tg.n_node, HD + H)}")
+        acc = out
     out = (torch.empty((tg.n_node, HD), dtype=torch.float32, device=dev)
            if normalize else None)
     if tg.n_tiles == 0 or tg.n_node == 0:
@@ -291,6 +306,7 @@ def _gat_forward(
     negative_slope: float = 0.2,
     normalize: bool = True,
     msrc: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Edge-tile attention: [N, HD] normalized or raw [N, HD + H].
 
@@ -302,11 +318,26 @@ def _gat_forward(
     to h's dtype first (values mode).  ``msrc`` [1, H]: the shift bound;
     hybrid callers pass theirs so that every partial shares it.  A grouped
     tiling runs K10, which takes the hybrid partial path only, as in the
-    JAX package: raw output, ``msrc`` given, and ``a_s`` or ``w_asrc``."""
+    JAX package: raw output, ``msrc`` given, and ``a_s`` or ``w_asrc``.  A
+    MultiTiledGraph (tile capacity classes) runs K3 once per class under
+    the one shift bound ``msrc``, which it needs, as raw output; each
+    class adds its [num | den] into the first class's output.  ``out``:
+    see :func:`gat_tiles` (per-tile tilings, raw)."""
     H = a_dst.shape[1]
     HD = h_src.shape[1]
     if HD % H:
         raise ValueError(f"HD={HD} is not a multiple of H={H}")
+    if isinstance(tg, MultiTiledGraph):
+        if normalize or msrc is None:
+            raise ValueError("a MultiTiledGraph needs normalize=False and an "
+                             "explicit msrc, so that the classes' partial "
+                             "softmax sums share one shift")
+        acc = None
+        for part in tg.parts:
+            acc = _gat_forward(part, h_src, a_src, a_dst, w_asrc=w_asrc,
+                               a_s=a_s, negative_slope=negative_slope,
+                               normalize=False, msrc=msrc, out=acc)
+        return acc
     dt = h_src.dtype
     if isinstance(tg, GroupedTiledGraph):
         if normalize or msrc is None or (a_s is None and w_asrc is None):
@@ -334,7 +365,8 @@ def _gat_forward(
     return gat_tiles(tg, h_src.contiguous(), tg.weight,
                      a_dst.float().contiguous(),
                      msrc.float().reshape(1, H).contiguous(),
-                     negative_slope=negative_slope, normalize=normalize, **kw)
+                     negative_slope=negative_slope, normalize=normalize,
+                     out=out, **kw)
 
 
 # ---------------------------------------------------------------------------

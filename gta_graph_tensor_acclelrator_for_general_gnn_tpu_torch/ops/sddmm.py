@@ -21,6 +21,8 @@ the CPU and launch the kernel for a CUDA tensor (or raise).
 
 :func:`sddmm_edges` is the edge-domain scatter(C) + scatter(R) +
 apply_edge(ADD|MUL) block of the ``sddmm`` lowering kind, differentiable.
+Over a :class:`~..graph.MultiTiledGraph` (tile capacity classes) K11 runs
+once per class and the layouts are per-class tuples.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ from typing import Union
 
 import torch
 
-from ..graph import GraphTensor, GroupedTiledGraph, TiledGraph
+from ..graph import (GraphTensor, GroupedTiledGraph, MultiTiledGraph,
+                     TiledGraph)
 from . import _ext
-from .spmm import _geometry, _live_slots, _unit_steps
+from .spmm import _geometry, _live_slots, _unit_steps, parts_of
 
 Tiling = Union[TiledGraph, GroupedTiledGraph]
 
@@ -180,37 +183,47 @@ def _sddmm_grouped(tg: GroupedTiledGraph, x_src: torch.Tensor,
 def sddmm(tg: Tiling, x_src: torch.Tensor, x_dst: torch.Tensor, *,
           heads: int = 1) -> torch.Tensor:
     """Per-edge, per-head dots in tile layout, float32: [heads, T, ET] for a
-    TiledGraph (K11), [heads, NC, G*ET] for a GroupedTiledGraph (K12).
-    Map them to edge order with :func:`tiles_to_edges`.  On a per-tile
-    tiling operands of two dtypes both widen to float32 (exact, as the TPU
-    kernel's float32 gathers are)."""
+    TiledGraph (K11), [heads, NC, G*ET] for a GroupedTiledGraph (K12), and
+    for a MultiTiledGraph the tuple of its classes' [heads, T, ET] (K11
+    once per class).  Map them to edge order with :func:`tiles_to_edges`.
+    On a per-tile tiling operands of two dtypes both widen to float32
+    (exact, as the TPU kernel's float32 gathers are)."""
+    if isinstance(tg, MultiTiledGraph):
+        return tuple(sddmm(p, x_src, x_dst, heads=heads) for p in tg.parts)
     if isinstance(tg, GroupedTiledGraph):
         return _sddmm_grouped(tg, x_src, x_dst, heads=heads)
     if not isinstance(tg, TiledGraph):
-        raise NotImplementedError(
-            "tile classes (MultiTiledGraph) are not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
+        raise TypeError(f"sddmm takes a TiledGraph, GroupedTiledGraph or "
+                        f"MultiTiledGraph, not {type(tg).__name__}")
     if x_src.dtype != x_dst.dtype:
         x_src, x_dst = x_src.float(), x_dst.float()
     return sddmm_tiles(tg, x_src.contiguous(), x_dst.contiguous(), heads)
 
 
-def tiles_to_edges(tg: Tiling, vals: torch.Tensor,
-                   e_pad: int) -> torch.Tensor:
+def tiles_to_edges(tg: Tiling, vals, e_pad: int) -> torch.Tensor:
     """Tile-layout values [heads, units, slots] to edge order [e_pad,
-    heads].  Each real edge holds exactly one slot, so only the real slots
-    are written; pad slots (which alias the last edge id) are left out."""
-    H = vals.shape[0]
-    real = ((tg.src_local < tg.block_cols)
-            & (tg.dst_local < tg.block_rows)).reshape(-1)
-    out = torch.zeros((e_pad, H), dtype=vals.dtype, device=vals.device)
-    out[tg.edge_id.reshape(-1)[real].long()] = vals.reshape(H, -1)[:, real].t()
+    heads] (a MultiTiledGraph: the per-class tuple of :func:`sddmm`).  The
+    real slots' values add into the edges (each real edge holds exactly one
+    slot, of one class); pad slots, which alias the last edge id, are left
+    out."""
+    parts = parts_of(tg)
+    vals = vals if isinstance(tg, MultiTiledGraph) else (vals,)
+    H = vals[0].shape[0]
+    out = torch.zeros((e_pad, H), dtype=vals[0].dtype, device=vals[0].device)
+    for p, v in zip(parts, vals, strict=True):
+        real = ((p.src_local < p.block_cols)
+                & (p.dst_local < p.block_rows)).reshape(-1)
+        out.index_add_(0, p.edge_id.reshape(-1)[real].long(),
+                       v.reshape(H, -1)[:, real].t())
     return out
 
 
-def edges_to_tiles(tg: Tiling, vals: torch.Tensor) -> torch.Tensor:
+def edges_to_tiles(tg: Tiling, vals: torch.Tensor):
     """Per-edge values [e_pad, ...] gathered into the tile layout
-    ``tg.edge_id.shape + vals.shape[1:]``."""
+    ``tg.edge_id.shape + vals.shape[1:]`` (a MultiTiledGraph: the tuple of
+    its classes' layouts)."""
+    if isinstance(tg, MultiTiledGraph):
+        return tuple(edges_to_tiles(p, vals) for p in tg.parts)
     return vals[tg.edge_id.long()]
 
 

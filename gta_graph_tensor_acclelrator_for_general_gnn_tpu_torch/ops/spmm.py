@@ -10,7 +10,8 @@ same arrays.  The wrappers :func:`spmm_tiles` and :func:`spmm_grouped`
 take the plain version for a tensor on the CPU and launch the kernel for a
 CUDA tensor (or raise).  :func:`spmm` dispatches on the tiling and is
 differentiable: with ``tg_t``, a tiling of the transposed graph, dx = Aᵀȳ
-runs the same kernel over it.
+runs the same kernel over it.  A :class:`~..graph.MultiTiledGraph` (tile
+capacity classes) runs K1 once per class, all adding into one output.
 """
 from __future__ import annotations
 
@@ -18,13 +19,19 @@ from typing import Optional, Union
 
 import torch
 
-from ..graph import GroupedTiledGraph, TiledGraph
+from ..graph import GroupedTiledGraph, MultiTiledGraph, TiledGraph
 from . import _ext
 
 # f32 elements per chunk of the plain versions' per-slot temporaries
 _PLAIN_CHUNK = 1 << 26
 
 Tiling = Union[TiledGraph, GroupedTiledGraph]
+
+
+def parts_of(tg) -> tuple:
+    """The single tilings of ``tg``: a MultiTiledGraph's class parts, else
+    ``tg`` alone."""
+    return tg.parts if isinstance(tg, MultiTiledGraph) else (tg,)
 
 
 def _geometry(tg: Tiling):
@@ -74,8 +81,9 @@ def _tile_weight(tg: Tiling, edge_vals: Optional[torch.Tensor]):
 def _spmm_reference(tg: Tiling, x: torch.Tensor,
                     edge_vals: Optional[torch.Tensor] = None, *,
                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K1 (per-tile tilings) and K9 (grouped tilings)
-    over the same arrays: [n_node, F] float32.
+    """Plain version of K1 (per-tile tilings and each class of a
+    MultiTiledGraph) and K9 (grouped tilings) over the same arrays:
+    [n_node, F] float32.
 
     It computes what the TPU kernels compute: dead tiles (cb < 0) and pad
     slots add nothing, and each w*x[s] rounds to x's dtype before the f32
@@ -84,8 +92,21 @@ def _spmm_reference(tg: Tiling, x: torch.Tensor,
     The rounded terms are summed in float64 and the sum rounded once to
     float32, so a check against this version measures the kernel's own
     sum-order error: a multigraph row that repeats one term hundreds of
-    times drifts by ~n/4 ulps in a float32 sum of any order."""
+    times drifts by ~n/4 ulps in a float32 sum of any order.  Over a
+    MultiTiledGraph the classes' terms go into one float64 sum."""
+    if isinstance(tg, MultiTiledGraph):
+        if weight is not None:
+            raise ValueError("weight= names one tiling's slots; a "
+                             "MultiTiledGraph takes edge_vals")
+        y = sum(_spmm_f64(p, x, _tile_weight(p, edge_vals))
+                for p in tg.parts)
+        return y.float()
     w = _tile_weight(tg, edge_vals) if weight is None else weight
+    return _spmm_f64(tg, x, w).float()
+
+
+def _spmm_f64(tg: Tiling, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The rounded terms of one tiling summed in float64, [n_node, F]."""
     F = x.shape[1]
     y = torch.zeros((_geometry(tg)[1], F), dtype=torch.float64,
                     device=x.device)
@@ -95,7 +116,7 @@ def _spmm_reference(tg: Tiling, x: torch.Tensor,
         if x.dtype != torch.float32:
             msg = msg.to(x.dtype).float()
         y.index_add_(0, dst, msg.double())
-    return y[: tg.n_node].float()
+    return y[: tg.n_node]
 
 
 # K9's plain version: the same formulation over the grouped arrays
@@ -110,13 +131,17 @@ def _require_slots(tg: Tiling, dev: torch.device, units: tuple) -> None:
         _ext.require(getattr(tg, name), name, dev, (torch.int32,), 1)
 
 
-def spmm_tiles(tg: TiledGraph, x: torch.Tensor,
-               weight: torch.Tensor) -> torch.Tensor:
+def spmm_tiles(tg: TiledGraph, x: torch.Tensor, weight: torch.Tensor, *,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1 wrapper: [n_node, F] float32.  CPU tensors take the plain
     version; CUDA tensors launch the kernel, which reads ``weight``
-    ([T, ET] float32 or bfloat16) in place of ``tg.weight``."""
+    ([T, ET] float32 or bfloat16) in place of ``tg.weight``.  ``out``
+    ([n_node, F] float32): the kernel adds into it, and it is returned,
+    in place of a zeroed output of its own (the classes of a
+    MultiTiledGraph share one)."""
     if x.device.type == "cpu":
-        return _spmm_reference(tg, x, weight=weight)
+        y = _spmm_reference(tg, x, weight=weight)
+        return y if out is None else out.add_(y)
     dev = x.device
     _ext.require(x, "x", dev, (torch.float32, torch.bfloat16), 2)
     _ext.require(weight, "weight", dev, (torch.float32, torch.bfloat16), 2)
@@ -126,7 +151,14 @@ def spmm_tiles(tg: TiledGraph, x: torch.Tensor,
                          f"{(tg.n_tiles, tg.tile_edges)}")
     F = x.shape[1]
     # the kernel adds into y with atomics: rows without edges stay 0
-    y = torch.zeros((tg.n_node, F), dtype=torch.float32, device=dev)
+    if out is None:
+        y = torch.zeros((tg.n_node, F), dtype=torch.float32, device=dev)
+    else:
+        _ext.require(out, "out", dev, (torch.float32,), 2)
+        if tuple(out.shape) != (tg.n_node, F):
+            raise ValueError(f"out shape {tuple(out.shape)} != "
+                             f"{(tg.n_node, F)}")
+        y = out
     if F == 0 or tg.n_tiles == 0:
         return y
     lib = _ext.library()
@@ -194,8 +226,15 @@ def _spmm_raw(tg: Tiling, x: torch.Tensor,
               edge_vals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward on the tiling's kernel (the JAX ``_spmm_raw``); a
     grouped tiling whose real edges all weigh 1 runs without the weight
-    stream unless ``edge_vals`` are given."""
+    stream unless ``edge_vals`` are given; a MultiTiledGraph runs K1 once
+    per class, each adding into the first class's output."""
     x = x.contiguous()
+    if isinstance(tg, MultiTiledGraph):
+        y = None
+        for p in tg.parts:
+            y = spmm_tiles(p, x, _tile_weight(p, edge_vals).contiguous(),
+                           out=y)
+        return y
     if isinstance(tg, GroupedTiledGraph):
         unit = edge_vals is None and tg.weight_all_unit
         return spmm_grouped(tg, x, None if unit else
@@ -212,21 +251,22 @@ def _spmm_plain_vjp(tg: Tiling, x: torch.Tensor, gy: torch.Tensor,
     weight times <x[s], ȳ[r]>."""
     if not (need_x or need_ev):
         return None, None
-    w = _tile_weight(tg, edge_vals)
     gf = gy.float()
     dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
         if need_x else None
     dev = torch.zeros(edge_vals.shape, dtype=torch.float32,
                       device=x.device) if need_ev else None
-    for u0, u1 in _unit_steps(tg, x.shape[1]):
-        mask, src, dst = _live_slots(tg, u0, u1)
-        g = gf.index_select(0, dst)
-        if need_x:
-            dx.index_add_(0, src, g * w[u0:u1].float()[mask][:, None])
-        if need_ev:
-            t = (x.index_select(0, src).float() * g).sum(1)
-            dev.index_add_(0, tg.edge_id[u0:u1][mask].long(),
-                           tg.weight[u0:u1].float()[mask] * t)
+    for part in parts_of(tg):
+        w = _tile_weight(part, edge_vals)
+        for u0, u1 in _unit_steps(part, x.shape[1]):
+            mask, src, dst = _live_slots(part, u0, u1)
+            g = gf.index_select(0, dst)
+            if need_x:
+                dx.index_add_(0, src, g * w[u0:u1].float()[mask][:, None])
+            if need_ev:
+                t = (x.index_select(0, src).float() * g).sum(1)
+                dev.index_add_(0, part.edge_id[u0:u1][mask].long(),
+                               part.weight[u0:u1].float()[mask] * t)
     return (None if dx is None else dx.to(x.dtype),
             None if dev is None else dev.to(edge_vals.dtype))
 
@@ -266,8 +306,8 @@ def spmm(tg: Tiling, x: torch.Tensor,
          ev_perm_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Block-sparse SpMM, ``y`` [n_node, F] float32, differentiable in
     ``x`` and ``edge_vals`` ([e_pad] per-edge multipliers of the slot
-    weights).  K1 runs per-tile tilings, K9 grouped ones.  ``tg_t``: the
-    same kind of tiling over the transposed graph
+    weights).  K1 runs per-tile tilings (once per class of a
+    MultiTiledGraph), K9 grouped ones.  ``tg_t``: the same kind of tiling over the transposed graph
     (:func:`~..graph.transpose_host_graph`), so that dx = Aᵀȳ runs the
     kernel too; ``ev_perm_t`` (that function's ``perm``) routes
     ``edge_vals`` into it.  Without ``tg_t`` the gradient comes from the

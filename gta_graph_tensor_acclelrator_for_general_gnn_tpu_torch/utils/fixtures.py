@@ -1098,3 +1098,176 @@ def layer_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                              gap=False)
             yield panel_case(f"blocks per row block {SEG_COUNTS} cr", seg_cr,
                              H, HD, dt, name, gap=False)
+
+
+CLASS_KERNELS = ("spmm_tiles", "gat_tiles", "sddmm_tiles")
+# the class cases' capacities at 64-wide blocks: 32 takes the scattered
+# runs of at most 32 edges, 128 runs of 33-128, 512 runs of 129-512 (the
+# community blocks, the heavy run); 2048 would take runs of 513-2048, and
+# there are none: a class without a part
+CLASSES = (32, 128, 512, 2048)
+HEAVY_RUN = 480           # edges planted into one 64 x 64 block
+MEDIUM_RUN = 100          # edges planted into a block of the sparse rows
+
+
+def class_tilings(device, seed: int = 0) -> Dict[str, Any]:
+    """name -> MultiTiledGraph, the tilings K1, K3 and K11 are checked on
+    per class: the edge-case graph plus a heavy run of ``HEAVY_RUN`` edges
+    in one 64 x 64 block and a run of ``MEDIUM_RUN`` into the sparse rows,
+    at 64-wide blocks and ``CLASSES``, with
+    symmetric-norm weights (K1) and unit weights (the GAT tiling, bf16
+    slot weights; the merged copies of the hot pair are no tail here, so
+    its run is a heavy one of ``HOT_COPIES``); and an edge-less graph,
+    whose one part has no edge (every row reads 0).  Raises unless the
+    weighted tiling has a part for each of 32, 128 and 512 and none for
+    2048."""
+    from .. import graph as G
+    s, r, n, _ = edge_case_graph(seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    s = np.concatenate([s, 64 + rng.integers(0, 64, HEAVY_RUN),
+                        rng.integers(0, 64, MEDIUM_RUN)])
+    r = np.concatenate([r, 192 + rng.integers(0, 64, HEAVY_RUN),
+                        512 + rng.integers(0, 64, MEDIUM_RUN)])
+    geo = dict(block_rows=64, block_cols=64, tile_classes=CLASSES,
+               device=device)
+    hg = G.build_host_graph(s, r, n, symmetric_norm=True,
+                            edge_pad_multiple=128)
+    hg_u = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    empty = G.build_host_graph(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                               n, edge_pad_multiple=128)
+    tilings = {
+        "weighted classes": G.tile_graph_classes(hg, **geo),
+        "unit classes": G.tile_graph_classes(hg_u, unit_weight=True, **geo),
+        "edge-less": G.tile_graph_classes(empty, **geo),
+    }
+    got = [p.tile_edges for p in tilings["weighted classes"].parts]
+    if got != [32, 128, 512]:
+        raise AssertionError(f"class fixture parts {got} != [32, 128, 512]")
+    return tilings
+
+
+def class_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K1, K3 and K11 on every part of :func:`class_tilings`, in float32
+    and bfloat16, against their plain versions, and the classes' sums
+    (``spmm``, ``_gat_forward``) against the plain versions summed: K1 at
+    F = 41 and 128, K3 at 4 heads of 32 and 1 of 41 in both forms of a_s
+    (the float32 per-node array of the hybrid path and derive mode) over
+    the unit classes under one shift bound, K11 at 4 heads of 32 and 2 of
+    41 (its two walks); on the card K11's outputs lie over NaN."""
+    import torch
+
+    from ..ops import gat as A
+    from ..ops import sddmm as SD
+    from ..ops import spmm as SP
+
+    tilings = class_tilings(device, seed)
+    rng = np.random.default_rng(seed)
+    K = KernelCase
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for tag, m in tilings.items():
+            n = m.n_node
+            for F in (41, 128):
+                x = torch.tensor(rng.standard_normal((n, F)), dtype=dt,
+                                 device=device)
+                for p in m.parts:
+                    yield K("spmm_tiles", f"{tag} ET={p.tile_edges} F={F}",
+                            name, SP.spmm_tiles(p, x, p.weight),
+                            SP._spmm_reference(p, x), terms=row_terms(p))
+                yield K("spmm_tiles", f"{tag} summed F={F}", name,
+                        SP.spmm(m, x), SP._spmm_reference(m, x))
+            for H, P in ((4, 32), (2, 41)):
+                xs, xd = (torch.tensor(rng.standard_normal((n, H * P)),
+                                       dtype=dt, device=device)
+                          for _ in range(2))
+                for p in m.parts:
+                    if xs.device.type == "cuda":
+                        out = _over_nan((H, p.n_tiles, p.tile_edges),
+                                        xs.device,
+                                        lambda: SD.sddmm_tiles(p, xs, xd, H))
+                    else:
+                        out = SD.sddmm_tiles(p, xs, xd, H)
+                    yield K("sddmm_tiles",
+                            f"{tag} ET={p.tile_edges} H={H} P={P}", name,
+                            _slots(out),
+                            _slots(SD._sddmm_reference(p, xs, xd, H)),
+                            scale=_slots(SD._sddmm_reference(
+                                p, xs.abs(), xd.abs(), H)))
+            if tag == "weighted classes":
+                continue
+            for H, HD in ((4, 128), (1, 41)):
+                h = torch.tensor(rng.standard_normal((n, HD)), dtype=dt,
+                                 device=device)
+                w = torch.tensor(rng.standard_normal((HD, H)) / np.sqrt(HD),
+                                 dtype=dt, device=device)
+                a_s = h.float() @ w.float()
+                a_d = torch.tensor(rng.standard_normal((n, H)),
+                                   dtype=torch.float32, device=device)
+                ms = a_s.amax(0, keepdim=True)
+                for form, kw in (("a_s f32", dict(a_src=a_s)),
+                                 ("derive", dict(w_asrc=w))):
+                    refs = []
+                    for p in m.parts:
+                        ref = A._gat_tiles_reference(
+                            p, h, p.weight, a_d, ms, normalize=False, **kw)
+                        refs.append(ref)
+                        yield K("gat_tiles", f"{form} {tag} ET="
+                                f"{p.tile_edges} H={H} HD={HD}", name,
+                                A.gat_tiles(p, h, p.weight, a_d, ms,
+                                            normalize=False, **kw), ref, HD)
+                    fkw = dict(a_s=a_s) if "a_src" in kw else dict(w_asrc=w)
+                    yield K("gat_tiles", f"{form} {tag} summed H={H} "
+                            f"HD={HD}", name,
+                            A._gat_forward(m, h, None, a_d, normalize=False,
+                                           msrc=ms, **fkw),
+                            sum(refs), HD)
+
+
+def zipf_features(n: int, n_feat: int, density: float = 0.0127,
+                  seed: int = 0) -> np.ndarray:
+    """A seeded bag-of-words X [n, n_feat] float32 of 0/1 at about
+    ``density``: each draw picks a node uniformly and a word from a Zipf
+    law of exponent 1 over the words (word k with weight 1 / (k + 1)),
+    duplicates merged, so frequent words fill dense column blocks and rare
+    ones stay sparse."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_feat + 1)
+    draws = int(round(n * n_feat * density))
+    docs = rng.integers(0, n, draws)
+    words = rng.choice(n_feat, size=draws, p=p / p.sum())
+    x = np.zeros((n, n_feat), np.float32)
+    x[docs, words] = 1.0
+    return x
+
+
+def sinput_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
+    """K1 and K2 on the feature graph of a Zipf bag-of-words X (600 nodes,
+    300 words, 64-wide blocks: the frequent words' blocks go dense) in
+    both directions of ``sinput_mm``, float32 and bfloat16, against their
+    plain versions: the forward with W [300, 41] and the backward with ḡ
+    [600, 41], each in the square space of max(N, F_in) rows."""
+    import torch
+
+    from ..ops import dense as D
+    from ..ops import sinput as SI
+    from ..ops import spmm as SP
+
+    x = zipf_features(N_NODE, 300, seed=seed)
+    fg = SI.feature_graph(x, block=64, tile_edges=64, device=device)
+    if fg.fwd.dense is None or fg.bwd.dense is None:
+        raise AssertionError("the sparse-input fixture lost its dense blocks")
+    rng = np.random.default_rng(seed)
+    nsq = max(fg.n_node, fg.n_feat)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for tag, hyb in (("forward", fg.fwd), ("backward", fg.bwd)):
+            v = torch.tensor(rng.standard_normal((nsq, 41)), dtype=dt,
+                             device=device)
+            tg, bg = hyb.tiles, hyb.dense
+            yield KernelCase("spmm_tiles", f"sinput {tag} tail", name,
+                             SP.spmm_tiles(tg, v, tg.weight),
+                             SP._spmm_reference(tg, v))
+            vals = bg.values.to(dt)
+            yield KernelCase("spmm_dense_blocks", f"sinput {tag} blocks",
+                             name, D.spmm_dense_blocks(bg, v, vals),
+                             D._spmm_dense_reference(bg, v, vals))

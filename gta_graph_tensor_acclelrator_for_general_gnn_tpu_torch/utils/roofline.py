@@ -6,8 +6,9 @@ memory rate, and the operations it does on these inputs over the card's
 peak rate for their type.  Where the work depends on the data, this counts
 what the data needs: the live slots of a tiling (pad slots and dead tiles
 excluded) and the nonzero cells of dense blocks, not the padded shapes the
-kernels walk.  An operation is a multiply, an add, a comparison or an
-exponential of one element.
+kernels walk; over a MultiTiledGraph the counts sum over its classes,
+so a bound counts the same work whatever the tiling.  An operation is a
+multiply, an add, a comparison or an exponential of one element.
 
 Rates (NVIDIA's data sheet, H100 SXM, dense, at the full 700 W power
 limit): 3.35 TB/s of HBM3; 989 TFLOP/s bf16 on the tensor cores; 67
@@ -19,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..ops.spmm import parts_of
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -66,11 +69,25 @@ def _rate(dtype) -> float:
 
 
 def live_slots(tg) -> int:
-    """Slots of a TiledGraph or GroupedTiledGraph that hold an edge."""
-    live = (tg.src_local < tg.block_cols) & (tg.dst_local < tg.block_rows)
-    if hasattr(tg, "tile_cb"):
-        live &= (tg.tile_cb >= 0)[:, None]
-    return int(live.sum())
+    """Slots of a TiledGraph, GroupedTiledGraph or MultiTiledGraph that
+    hold an edge."""
+    n = 0
+    for p in parts_of(tg):
+        live = (p.src_local < p.block_cols) & (p.dst_local < p.block_rows)
+        if hasattr(p, "tile_cb"):
+            live &= (p.tile_cb >= 0)[:, None]
+        n += int(live.sum())
+    return n
+
+
+def _units(tg) -> int:
+    """Tiles (or chunks) of a tiling, summed over its classes."""
+    return sum((p.tile_rb if hasattr(p, "tile_rb") else p.chunk_grp).numel()
+               for p in parts_of(tg))
+
+
+def _all_slots(tg) -> int:
+    return sum(p.src_local.numel() for p in parts_of(tg))
 
 
 def nonzero_cells(bg) -> int:
@@ -83,8 +100,7 @@ def spmm_tail(tg, x: torch.Tensor, weight_bytes: int) -> Work:
     multiply and one add per feature; x read once, y [n_node, F] float32
     written once."""
     live, F = live_slots(tg), x.shape[1]
-    units = tg.tile_rb if hasattr(tg, "tile_rb") else tg.chunk_grp
-    return Work(bytes=live * (4 + weight_bytes) + 8 * units.numel()
+    return Work(bytes=live * (4 + weight_bytes) + 8 * _units(tg)
                 + _nbytes(x) + 4 * tg.n_node * F,
                 ops=2.0 * live * F, ops_per_s=_rate(x.dtype))
 
@@ -270,9 +286,8 @@ def sddmm_tail(tg, x_src: torch.Tensor, x_dst: torch.Tensor,
     returned [heads, slots] float32 written once, over every slot of the
     layout (pad slots hold zeros the function must write too)."""
     live, F = live_slots(tg), x_src.shape[1]
-    units = tg.tile_rb if hasattr(tg, "tile_rb") else tg.chunk_grp
-    return Work(bytes=live * 4 + 8 * units.numel() + _nbytes(x_src)
-                + _nbytes(x_dst) + 4 * heads * tg.src_local.numel(),
+    return Work(bytes=live * 4 + 8 * _units(tg) + _nbytes(x_src)
+                + _nbytes(x_dst) + 4 * heads * _all_slots(tg),
                 ops=2.0 * live * F, ops_per_s=_rate(x_src.dtype))
 
 
@@ -304,9 +319,10 @@ def csr_of(graph, dtype, n_cols: int) -> torch.Tensor:
         n_rows = graph.n_row_blocks * R
     else:
         parts = []
-        for u0, u1 in _unit_steps(graph, 8):
-            mask, src, dst = _live_slots(graph, u0, u1)
-            parts.append((dst, src, graph.weight[u0:u1][mask]))
+        for t in parts_of(graph):
+            for u0, u1 in _unit_steps(t, 8):
+                mask, src, dst = _live_slots(t, u0, u1)
+                parts.append((dst, src, t.weight[u0:u1][mask]))
         rows, cols, vals = (torch.cat(p) for p in zip(*parts))
         n_rows = graph.n_node
     coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals.to(dtype),

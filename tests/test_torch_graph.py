@@ -165,7 +165,7 @@ def test_hybrid_graph_without_dense_blocks():
 def test_unported_builder_options_raise():
     _, ht = _host_pair()
     with pytest.raises(NotImplementedError):
-        TG.hybrid_graph(ht, min_nnz=64, tile_classes=(64, 128), device=CPU)
+        TG.hybrid_graph(ht, min_nnz=64, values_dtype=np.float16, device=CPU)
     with pytest.raises(NotImplementedError):
         TG.reorder_nodes(ht, "cluster")
 

@@ -293,7 +293,7 @@ def test_sddmm_rejects_what_it_cannot_run():
     x = torch.zeros((hj.n_node, 6))
     with pytest.raises(ValueError, match="heads"):
         TSd.sddmm(tt, x, x, heads=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="MultiTiledGraph"):
         TSd.sddmm((tt,), x, x)
     with pytest.raises(ValueError, match="MUL or ADD"):
         TSd.sddmm_edges(tt, None, x, x, "SUB")

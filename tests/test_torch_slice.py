@@ -182,7 +182,8 @@ def test_partitions_and_classification_match_jax(network):
 
 def test_unported_kinds_raise(graphs):
     """What the port does not run yet raises, naming its ROADMAP.md item
-    (tile classes); every lowering kind, densefull included, lowers."""
+    (label-propagation clustering); every lowering kind, densefull
+    included, lowers, and a tail with tile classes builds."""
     _, ht = graphs
     g = T.build_op_graph("GCN", 8, 8)
     part = TS.aggregation_partition(g)
@@ -192,8 +193,10 @@ def test_unported_kinds_raise(graphs):
     assert "spmm_densefull" in [p[0] for p in fn.plans]
     assert TS.Schedule.from_key(sched.key()) == sched
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TG.hybrid_graph(ht, block_rows=64, block_cols=64, tile_edges=64,
-                        min_nnz=8, tile_classes=(32, 64), device=CPU)
+        TG.reorder_nodes(ht, "cluster")
+    hy = TG.hybrid_graph(ht, block_rows=64, block_cols=64, tile_edges=64,
+                         min_nnz=8, tile_classes=(32, 64), device=CPU)
+    assert isinstance(hy.tiles, TG.MultiTiledGraph)
 
 
 def test_model_init_is_seeded_glorot():
@@ -225,4 +228,4 @@ def test_cli_run_on_cpu(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["finite"] and out["out_shape"] == [200, 4]
     assert "latency_ms_median" not in out    # no device time from a CPU run
-    assert TCLI.main(["bench"]) == 2
+    assert TCLI.main(["tune", "--ga", "--device", "cpu"]) == 2

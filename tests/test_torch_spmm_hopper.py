@@ -348,3 +348,63 @@ def test_spmm_grouped_plain_matches_jax_on_deep_spills(F, unit):
     yj = JS._spmm_grouped_raw(tj, jnp.asarray(x), None, interpret=True)
     _close(TS.spmm_grouped(tt, torch.from_numpy(x),
                            None if unit else tt.weight), yj)
+
+
+def test_class_parts_plain_matches_jax():
+    """K1's plain version on each class of the class fixture's weighted
+    tiling (scattered runs at ET 32, medium ones at 128, community blocks
+    and a heavy run at 512) against the TPU kernel over the JAX package's
+    classes, part by part, at a ragged width."""
+    s, r, n, _ = fixtures.edge_case_graph(seed=0)
+    rng = np.random.default_rng(7)
+    s = np.concatenate([s, 64 + rng.integers(0, 64, fixtures.HEAVY_RUN),
+                        rng.integers(0, 64, fixtures.MEDIUM_RUN)])
+    r = np.concatenate([r, 192 + rng.integers(0, 64, fixtures.HEAVY_RUN),
+                        512 + rng.integers(0, 64, fixtures.MEDIUM_RUN)])
+    kw = dict(symmetric_norm=True, edge_pad_multiple=128)
+    mj = JG.tile_graph_classes(J.build_host_graph(s, r, n, **kw),
+                               block_rows=64, block_cols=64,
+                               tile_classes=fixtures.CLASSES)
+    mt = fixtures.class_tilings(CPU)["weighted classes"]
+    x = np.random.default_rng(41).standard_normal((n, 41)).astype(np.float32)
+    for pj, pt in zip(mj.parts, mt.parts, strict=True):
+        yj = JS.spmm(pj, jnp.asarray(x), interpret=True)
+        _close(TS.spmm_tiles(pt, torch.from_numpy(x), pt.weight), yj)
+
+
+@pytest.mark.parametrize("which", ["classes", "sinput"])
+def test_class_and_sinput_cases_run_on_cpu(which):
+    """The class fixture's K1, K3 and K11 cases and the sparse-input
+    cases of K1 and K2 in both directions run on the CPU, where every
+    wrapper takes its plain version, and cover each kernel in both
+    dtypes."""
+    gen = (fixtures.class_kernel_cases if which == "classes"
+           else fixtures.sinput_kernel_cases)
+    seen = set()
+    for c in gen(CPU):
+        fixtures.check_kernel(c)
+        seen.add((c.kernel, c.dtype_name))
+    kernels = (fixtures.CLASS_KERNELS if which == "classes"
+               else ("spmm_tiles", "spmm_dense_blocks"))
+    assert seen == {(k, d) for k in kernels for d in fixtures.KERNEL_TOL}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["classes", "sinput"])
+def test_class_and_sinput_kernels_match_plain_versions_on_cuda(which):
+    """K1, K3 and K11 on every part of the class fixtures, and K1 and K2
+    on the sparse-input feature graph in both directions, against their
+    plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1, K2, K3 and K11 have no CPU "
+                    "mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import _ext
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _ext.library()
+    gen = (fixtures.class_kernel_cases if which == "classes"
+           else fixtures.sinput_kernel_cases)
+    for c in gen(dev):
+        assert c.out.device == dev
+        fixtures.check_kernel(c)
+    torch.cuda.synchronize(dev)

@@ -259,7 +259,7 @@ def test_cli_tune_single_layer_and_the_unported_options(tmp_path, capsys):
     assert rc == 0 and out["n_trials"] >= 2 and out["pareto"]
     TS.Schedule.from_key(out["best_schedule"])
     assert TCLI.main(["tune", "--ga", "--device", "cpu"]) == 2
-    assert TCLI.main(["bench", "--device", "cpu"]) == 2
+    assert TCLI.main(["run", "--compiled", "--device", "cpu"]) == 2
 
 
 def test_default_memo_path_stays_out_of_the_sources():
