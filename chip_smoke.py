@@ -145,6 +145,27 @@ Reddit's node count, and checks every hand-written kernel on the way:
      product; (e) ``cli.py bench`` on cora at ``--batch 64``: the default
      geometry, ``--tile-classes auto`` and ``--sparse-block 256``.  K1,
      K2, K3, K4 and K11 must launch on these paths (``phase10_launches``).
+ 11. the compile-only pick (``compiler/latency.py`` with the card's fitted
+     constants): (a) each layer's pick for GCN-2l, GAT-2l, DGN-2l and
+     PNA-2l on the smoke's graph, every candidate's modelled ms and the
+     host seconds per pick; (b) each pick lowered per dtype and served (3
+     bf16 and 1 float32 requests, phase 4's seeds, every kernel's count
+     set to 0 first: at least one of K1-K15 must launch): GCN-2l and
+     GAT-2l (at their seeded initial parameters) against phase 4c's
+     per-op answers, DGN-2l and PNA-2l against phase 7b's served answers
+     (E2E_TOL of max |answer|), and on phase 7b's reduced graph picked
+     again and held row by row to the per-op path (float32 to float64);
+     (c) GCN-2l's and GAT-2l's whole 2-layer schedules that the phases
+     serve on this graph (hybrid, grouped or the ``gat_layer`` and ``gat``
+     kinds, stream, per-op) and the pick, modelled against measured (the
+     phases' bf16 request medians; 3 requests here for 6c's and 8c's
+     schedules): Spearman's rho >= 0.8 and the pick's measured time
+     within 1.2x of the fastest; (d) 4 bf16 AdamW steps of GCN-2l and
+     GAT-2l on their picks with the transposed twins (``train
+     --compiled``'s lowering): losses finite and falling, step times,
+     peak memory; (e) on cora, ``cli run --compiled``, ``cli train
+     --compiled --epochs 3`` and ``cli tune --ga --stack`` for GCN and
+     GAT, the GA's best against 8e's ``autotune`` best.
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -1238,7 +1259,7 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
                     lambda: RL.pair_agg(tg, u, want_max))
 
 
-def pair_agg_models(checks: Checks, hg, g, dev) -> int:
+def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
     """Phase 7b: DGN-2l and PNA-2l ('original' PNA) at 602/128/41 with
     their pair chains on K13 (``pair_agg_partition``, the chain on
     1024²/ET512 ``onehot``, the rest op by op), lowered once per dtype;
@@ -1252,8 +1273,9 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
     same-signed terms drift by more than the bound, which is printed),
     row by row, each row's error over its own max |answer|, since hub rows
     run orders of magnitude above the rest; and float32 losses and
-    gradients against float64 per-op autograd.  Returns K13's launches
-    during the served requests."""
+    gradients against float64 per-op autograd.  The models and their
+    served answers go into ``measured`` (phase 11 holds its picks to
+    them).  Returns K13's launches during the served requests."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
@@ -1271,6 +1293,7 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
               for net in ("DGN", "PNA")}
     scheds = {m: pair_agg_schedules(model.layers, tile=tc)
               for m, model in models.items()}
+    measured["pair models"] = models
     dtypes = (("bfloat16", torch.bfloat16), ("float32", None))
     fwd = {}
     for mname, model in models.items():
@@ -1320,6 +1343,7 @@ def pair_agg_models(checks: Checks, hg, g, dev) -> int:
                         torch.isfinite(y).all()):
                     raise AssertionError(f"{mname} {dtn}: bad output")
                 lat.setdefault((mname, dtn), []).append(ms)
+                measured.setdefault((mname, "answers"), {})[(dtn, seed)] = y
                 say(f"  {mname} {dtn} request seed={seed}: {ms:.2f} ms")
     launches = PA.pair_agg.launches
     say(f"  K13 launches during the requests: {launches}")
@@ -1617,7 +1641,7 @@ def hybrid_sddmm(checks: Checks, recipes, hg, dev) -> dict:
 
 
 def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
-                     dev) -> dict:
+                     dev, measured) -> dict:
     """Phase 7; returns K11's, K12's and K13's launches on its main-path
     runs (7b's and 7c's requests, 7d's hybrid SDDMM requests)."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
@@ -1627,7 +1651,7 @@ def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
               *fixtures.pair_agg_kernel_cases(dev)):
         checks.compare(c)
     say("== 7b DGN-2l and PNA-2l on the pair-aggregate kernel")
-    launches = {"pair_agg": pair_agg_models(checks, hg, g, dev)}
+    launches = {"pair_agg": pair_agg_models(checks, hg, g, dev, measured)}
     say("== 7c GAT-2l with its logit blocks on the sddmm kind")
     launches["sddmm_tiles"] = sddmm_gat(checks, gat_model, hg, g, dev)
     say("== 7d the hybrid SDDMM on the bench recipes' splits")
@@ -1849,7 +1873,7 @@ def _median_calls(fn, dev) -> float:
     return median_ms(fn, device=dev, warmup=1, repeats=REPEATS, calls=CALLS)
 
 
-def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
+def whole_layer_gat(checks: Checks, model, hg, g, dev, measured) -> int:
     """Phase 8b: GAT-2l with every layer on the ``gat_layer`` kind (K14)
     over 512x1024x512 ``onehot`` tiles, lowered once per dtype.  K14 held
     to its plain version stage by stage at both layers' shapes (the
@@ -1857,7 +1881,8 @@ def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
     kernel path's layer-0 output), in bf16 and float32, and timed in bf16
     (the projection also beside ``torch.matmul`` of the same product); the
     static-shift domain of both layers' logits; 3 bf16 and 1 float32
-    requests against the per-op path.  Returns K14's launches during the
+    requests against the per-op path (their bf16 median into
+    ``measured``, for phase 11).  Returns K14's launches during the
     requests."""
     import torch
 
@@ -1936,6 +1961,7 @@ def whole_layer_gat(checks: Checks, model, hg, g, dev) -> int:
         say(f"latency GAT-2l {dtn} gat_layer kind: median "
             f"{statistics.median(v):.3f} ms over {len(v)} requests "
             f"{['%.3f' % t for t in v]}")
+    measured[("GAT-2l", "gat_layer")] = statistics.median(lat["bfloat16"])
     with torch.inference_mode():
         for dtn, seed in reqs:
             ref = model.make_apply(dict(dtypes)[dtn])(
@@ -2166,12 +2192,13 @@ def whole_layer_grads(model, init_params, dev) -> None:
                           fn, init_params, gr, x, labels, mask)
 
 
-def tune_cli() -> None:
+def tune_cli(measured) -> None:
     """Phase 8e: ``cli tune --stack`` for GAT and for GCN on cora on the
     card (memo and schedule JSON in a temporary directory), counting the
     measurements with a stream or densefull block (both must be swept),
     then ``cli run`` and ``cli train`` with GAT's schedule and ``cli
-    train`` with GCN's; prints each GAT layer's winner."""
+    train`` with GCN's; prints each GAT layer's winner.  Each model's
+    tuned stack latency goes into ``measured`` (phase 11e's yardstick)."""
     import shutil
     import tempfile
 
@@ -2205,6 +2232,11 @@ def tune_cli() -> None:
         if not all(paths.values()):
             raise AssertionError(f"cli tune swept no schedule of a path: "
                                  f"{paths}")
+        for net, path in (("GAT", sched), ("GCN", os.path.join(tmp,
+                                                               "gcn.json"))):
+            with open(path) as f:
+                measured[("tune", net)] = sum(
+                    sp["latency_us"] for sp in json.load(f)["layers"])
         schedules = cli.load_schedules(sched, 2)
         model = build_model("GAT", 1433, 7, device="cpu")
         for li, (layer, sc) in enumerate(zip(model.layers, schedules)):
@@ -2329,7 +2361,8 @@ def _restore(model, params) -> None:
             p.copy_(params[k])
 
 
-def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev) -> dict:
+def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev,
+                measured) -> dict:
     """Phase 8a-8e; returns K14's launches on 8b's requests.  8c and 8d
     compare gradients at the parameters the earlier phases left and at the
     model's seeded initial parameters (``init_params``, as 5c does): the
@@ -2343,13 +2376,14 @@ def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev) -> dict:
     for c in fixtures.layer_kernel_cases(dev):
         checks.compare(c)
     say("== 8b GAT-2l on the whole-layer kind")
-    launches = {"gat_layer": whole_layer_gat(checks, gat_model, hg, g, dev)}
+    launches = {"gat_layer": whole_layer_gat(checks, gat_model, hg, g, dev,
+                                             measured)}
     say("== 8c GAT-2l training on the gat kind with its transposed twin")
     gat_kind_training(gat_model, init_params, hg, g, dev)
     say("== 8d whole-layer kind gradients on the reduced graph")
     whole_layer_grads(gat_model, init_params, dev)
     say("== 8e cli tune --stack, run and train --schedule")
-    tune_cli()
+    tune_cli(measured)
     say(f"launches of K14 in phase 8: {launches}; phase 8a-8e took "
         f"{time.perf_counter() - t0:.1f} s")
     if launches["gat_layer"] <= 0:
@@ -2382,13 +2416,13 @@ def path_schedules(model, tc):
     return out
 
 
-def _path_requests(what, model, fns, g, n, dev, reqs, tol) -> None:
+def _path_requests(what, model, fns, g, n, dev, reqs, tol) -> dict:
     """Serve ``reqs`` ((dtype name, seed)) through ``fns[dtype name]``
     under ``torch.inference_mode()``, after one untimed request per dtype,
     print each request's time, the medians and the peak device memory
     above what was held before,
     then hold each answer to the per-op path within ``tol[dtype name]``
-    of max |per-op|."""
+    of max |per-op|; returns the median ms per dtype."""
     import torch
     dtypes = {"bfloat16": torch.bfloat16, "float32": None}
     outs, lat = {}, {}
@@ -2418,9 +2452,10 @@ def _path_requests(what, model, fns, g, n, dev, reqs, tol) -> None:
                     and rel <= tol[dtn]):
                 raise AssertionError(f"{what} {dtn} seed={seed}: {rel}")
             del ref
+    return {d: statistics.median(ts) for d, ts in lat.items()}
 
 
-def stream_densefull_phase(models, hg, g, dev) -> None:
+def stream_densefull_phase(models, hg, g, dev, measured) -> None:
     """Phase 9: the paths that run no kernel of their own, through
     ``lower_schedule`` (``make_apply(schedules=...)``) on the card.  (a)
     GCN-2l and GAT-2l on PATH_STREAM (262,144-edge chunks) on the smoke's
@@ -2433,7 +2468,8 @@ def stream_densefull_phase(models, hg, g, dev) -> None:
     request is held to the bf16 bound), and d (y . r) / dx in both dtypes
     against per-op autograd, everything freed after; (c) a
     densefull schedule on the smoke's graph, past the node cap, lowers its
-    block op by op."""
+    block op by op.  (a)'s bf16 medians at 262,144-edge chunks go into
+    ``measured`` for phase 11."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
@@ -2455,9 +2491,11 @@ def stream_densefull_phase(models, hg, g, dev) -> None:
                      for p in fn.plans if p[0] != "xla"]
             what = f"{mname} stream, {te * 2048}-edge chunks"
             say(f"  {what}: kinds {kinds}")
-            _path_requests(what, model, fns, g, hg.n_node, dev,
-                           reqs if te == STREAM_TILE_EDGES[0]
-                           else [("bfloat16", 0)], E2E_TOL)
+            med = _path_requests(what, model, fns, g, hg.n_node, dev,
+                                 reqs if te == STREAM_TILE_EDGES[0]
+                                 else [("bfloat16", 0)], E2E_TOL)
+            if te == STREAM_TILE_EDGES[0]:
+                measured[(mname, "stream")] = med["bfloat16"]
 
     say("== 9b the densefull path")
     t0 = time.perf_counter()
@@ -3050,6 +3088,361 @@ def classes_sinput_phase(checks: Checks, models, hybs, hg, g,
     return counts.total
 
 
+# phase 11: the compile-only pick.  The GA's measurements per candidate
+# (``cli tune --ga``'s ``--target-s``) are phase 8e's
+PICK_BOUND = {"spearman": 0.8, "argmin_regret": 1.20}
+
+
+def _all_counted():
+    """Every kernel's wrapper, by the kernels line's names."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as SD
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
+    return {"spmm_tiles": SP.spmm_tiles,
+            "spmm_dense_blocks": D.spmm_dense_blocks,
+            "gat_tiles": A.gat_tiles, "gat_dense_blocks": D.gat_dense_blocks,
+            "gat_bwd_tiles_dad": A.gat_bwd_tiles_dad,
+            "gat_bwd_tiles_src": A.gat_bwd_tiles_src,
+            "gat_dense_bwd_dad": D.gat_dense_bwd_dad,
+            "gat_dense_bwd_src": D.gat_dense_bwd_src,
+            "spmm_grouped": SP.spmm_grouped, "gat_grouped": A.gat_grouped,
+            "sddmm_tiles": SD.sddmm_tiles, "sddmm_grouped": SD.sddmm_grouped,
+            "pair_agg": PA.pair_agg, "gat_layer": A.gat_layer_tiles,
+            "gat_dense_panel": D.gat_dense_panel_blocks}
+
+
+@contextlib.contextmanager
+def _launch_window(what: str):
+    """Sets every kernel's count to 0, yields, then prints the kernels that
+    launched and fails if none did."""
+    counted = _all_counted()
+    for f in counted.values():
+        f.launches = 0
+    yield
+    launched = {k: f.launches for k, f in counted.items() if f.launches}
+    say(f"  {what}: launches {launched}")
+    if not launched:
+        raise AssertionError(f"{what}: no kernel K1-K15 launched")
+
+
+def _kinds(layer, sc):
+    """The kinds of a layer schedule's kernel blocks."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import classify_block
+    return [classify_block(layer, b, tc)[0]
+            for b, tc in zip(sc.blocks, sc.tiles) if tc.kernel]
+
+
+def _tiles(sc) -> str:
+    return ";".join("x".join(map(str, t.key())) for t in sc.tiles
+                    if t.kernel) or "per-op"
+
+
+def compile_picks(models, hg, cost) -> dict:
+    """11a: each layer's compile-only pick at its own input width, every
+    candidate's modelled ms printed, and the host seconds per pick."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.latency import priced_candidates
+    picks = {}
+    for mname, model in models.items():
+        scheds, total = [], 0.0
+        for li, layer in enumerate(model.layers):
+            t0 = time.perf_counter()
+            priced = priced_candidates(layer, hg, cost=cost)
+            best, t_ns = min(priced, key=lambda p: p[1])
+            secs = time.perf_counter() - t0
+            scheds.append(best)
+            total += t_ns
+            say(f"  {mname} layer {li} (F={layer.in_width}): pick "
+                f"{_kinds(layer, best)} {_tiles(best)}, "
+                f"modelled {t_ns / 1e6:.3f} ms; {len(priced)} candidates "
+                f"priced in {secs:.2f} s")
+            for cand, t in sorted(priced, key=lambda p: p[1]):
+                say(f"    {t / 1e6:10.3f} ms  {_kinds(layer, cand)} "
+                    f"{_tiles(cand)}")
+        picks[mname] = (scheds, total / 1e6)
+    return picks
+
+
+def _lower_both(model, scheds, hg, dev):
+    """The stack under ``scheds`` per dtype, over one tile cache."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import lower_schedule
+    cache: dict = {}
+    out = {}
+    for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
+        fns = [lower_schedule(layer, sc, hg, dt, device=dev,
+                              tile_cache=cache)
+               for layer, sc in zip(model.layers, scheds)]
+
+        def apply(params, g, x, fns=fns):
+            for fn in fns:
+                x = fn(params, g, x)
+            return x
+        out[dtn] = apply
+    return out
+
+
+def _serve(what, fns, params, g, n, dev) -> tuple:
+    """3 bf16 and 1 float32 requests through ``fns`` (phase 4's seeds), in
+    one launch window: (answers, bf16 median ms)."""
+    import torch
+    reqs = [("bfloat16", i) for i in range(REQUESTS)] + [("float32", 0)]
+    outs, lat = {}, []
+    with torch.inference_mode(), _launch_window(what):
+        for dtn, seed in reqs:
+            y, ms = _timed(fns[dtn], params, g, _request_x(seed, n, dev))
+            outs[(dtn, seed)] = y
+            if dtn == "bfloat16":
+                lat.append(ms)
+    say(f"  {what}: bf16 requests {['%.3f' % t for t in lat]} ms, median "
+        f"{statistics.median(lat):.3f}")
+    return outs, statistics.median(lat)
+
+
+def _hold_answers(what, outs, refs, rows: bool = False) -> None:
+    """Each answer within E2E_TOL of its reference (of max |ref|, or per
+    row of the row's own max)."""
+    import torch
+    for (dtn, seed), y in outs.items():
+        ref = refs[(dtn, seed)]
+        rel = float(_row_rel(y, ref).max()) if rows else _rel_err(y, ref)
+        say(f"  {what} {dtn} seed={seed}: relative {rel:.3e} "
+            f"{'(worst row) ' if rows else ''}to the reference (bound "
+            f"{E2E_TOL[dtn]:.0e})")
+        if not (y.shape == ref.shape and bool(torch.isfinite(y).all())
+                and rel <= E2E_TOL[dtn]):
+            raise AssertionError(f"{what} {dtn} seed={seed}: {rel}")
+
+
+def _time_requests(what, model, scheds, hg, g, dev) -> float:
+    """Median ms of 3 bf16 requests under ``scheds`` (after a warm-up)."""
+    import torch
+    fn = model.make_apply(torch.bfloat16, schedules=scheds, host_graph=hg,
+                          device=dev)
+    params = dict(model.params)
+    lat = []
+    with torch.inference_mode():
+        fn(params, g, _request_x(0, hg.n_node, dev))
+        for seed in range(REQUESTS):
+            lat.append(_timed(fn, params, g,
+                              _request_x(seed, hg.n_node, dev))[1])
+    say(f"  {what}: bf16 requests {['%.3f' % t for t in lat]} ms")
+    return statistics.median(lat)
+
+
+def rank_on_card(mname, model, pick, measured, hg, g, dev, cost) -> dict:
+    """11c: modelled against measured whole 2-layer schedules: the ones
+    the smoke serves on this graph and the pick."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
+        gat_onehot_schedules, hybrid_schedules)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.latency import (
+        rank_stats, schedule_ns)
+    per_op = [S.Schedule(blocks=S.singleton_partition(layer),
+                         tiles=tuple(S.TileConfig(path=S.PATH_XLA)
+                                     for _ in layer.ops))
+              for layer in model.layers]
+    stream = path_schedules(model, S.TileConfig(
+        tile_edges=STREAM_TILE_EDGES[0], path=S.PATH_STREAM))
+    rows = [("hybrid (phase 4)", hybrid_schedules(model.layers),
+             measured[(mname, "hybrid")]),
+            ("stream (phase 9)", stream, measured[(mname, "stream")]),
+            ("per-op (phase 4c)", per_op, measured[(mname, "per-op")])]
+    if mname == "GCN-2l":
+        tc = S.TileConfig(512, 512, 128, S.PATH_GROUPED)
+        grouped = path_schedules(model, tc)
+        rows.insert(1, ("grouped (6c)", grouped, _time_requests(
+            f"{mname} grouped (6c's schedule)", model, grouped, hg, g,
+            dev)))
+    else:
+        tile = S.TileConfig(*LAYER_TILE)
+        rows.insert(1, ("gat_layer kind (8b)",
+                        gat_onehot_schedules(model.layers, whole_layer=True,
+                                             tile=tile),
+                        measured[(mname, "gat_layer")]))
+        gat = gat_onehot_schedules(model.layers, whole_layer=False,
+                                   tile=tile)
+        rows.insert(2, ("gat kind (8c)", gat, _time_requests(
+            f"{mname} gat kind (8c's schedule)", model, gat, hg, g, dev)))
+    rows.append(("pick (11b)", pick, measured[(mname, "pick")]))
+    mod = [sum(schedule_ns(layer, sc, cost) for layer, sc in
+               zip(model.layers, scheds)) / 1e6 for _, scheds, _ in rows]
+    meas = [r[2] for r in rows]
+    st = rank_stats(meas, mod)
+    for (what, _, m), t in zip(rows, mod):
+        say(f"  {mname} {what:22s} measured {m:9.3f} ms, modelled "
+            f"{t:9.3f} ms")
+    say(f"  {mname}: Spearman's rho {st['spearman']:.3f} (bound >= "
+        f"{PICK_BOUND['spearman']}), argmin regret {st['argmin_regret']:.3f}"
+        f" (the pick's measured time over the fastest; bound <= "
+        f"{PICK_BOUND['argmin_regret']})")
+    if not (st["spearman"] >= PICK_BOUND["spearman"]
+            and st["argmin_regret"] <= PICK_BOUND["argmin_regret"]):
+        raise AssertionError(f"{mname}: rank check {st}")
+    return st
+
+
+def compiled_training(mname, model, scheds, hg, g, dev) -> None:
+    """11d: 4 bf16 AdamW steps on the pick with its transposed twins
+    (``train --compiled``'s lowering): losses finite and falling."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    t0 = time.perf_counter()
+    fn = model.make_apply(torch.bfloat16, schedules=scheds, host_graph=hg,
+                          device=dev, build_transpose=True)
+    say(f"  {mname} lowering with twins {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(14)
+    x = torch.tensor(rng.standard_normal((hg.n_node, F_IN),
+                                         dtype=np.float32), device=dev)
+    wy = torch.tensor(rng.standard_normal((F_IN, N_CLASS), dtype=np.float32),
+                      device=dev)
+    labels = (x @ wy).argmax(dim=1)
+    mask = torch.ones(hg.n_node, dtype=torch.bool, device=dev)
+    state = TT.TrainState(model.params, TT.adamw(model.params, LR))
+    step = TT.make_train_step(fn)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    with _launch_window(f"{mname} train --compiled steps"):
+        for _ in range(TRAIN_STEPS):
+            (state, loss), ms = _timed(step, state, g, x, labels, mask)
+            losses.append(float(loss))
+            times.append(ms)
+    say(f"  {mname} train --compiled: losses {['%.5f' % v for v in losses]}"
+        f", step ms {['%.2f' % t for t in times]}, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{mname} train --compiled: losses {losses}")
+    model.zero_grad(set_to_none=True)
+
+
+def _cli_json(argv) -> tuple:
+    """(exit code, last JSON line) of ``cli.main(argv)``."""
+    import io
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return rc, json.loads(lines[-1]) if lines else {}
+
+
+def cora_rank_check(net, memo) -> None:
+    """The model's ranking at cora's size against the GA's memo
+    (``latency.rank_check``), per layer of the CLI's model; printed, not
+    bound: at this size a request's time is the host's."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.latency import rank_check
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import load_dataset
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    ds = load_dataset("cora")
+    model = build_model(net, ds.x.shape[1], ds.n_class, device="cpu")
+    for li, layer in enumerate(model.layers):
+        r = rank_check(memo, layer.name, layer, ds.host_graph)
+        if r is not None:
+            say(f"  {net} on cora layer {li}: rank_check over the GA's "
+                f"{len(r['rows'])} measurements: rho {r['spearman']:.3f}, "
+                f"argmin regret {r['argmin_regret']:.3f}")
+
+
+def compiled_cli(measured) -> None:
+    """11e: on cora through ``cli.main``, for GCN and GAT: ``run
+    --compiled``, ``train --compiled --epochs 3`` and ``tune --ga --stack``
+    at phase 8e's seconds per measurement; the GA's best against 8e's
+    ``autotune`` best, and the model's rank check over the GA's memo."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="gta_ga_")
+    try:
+        for net in ("GCN", "GAT"):
+            base = ["--dataset", "cora", "--network", net, "--json"]
+            runs = (("run", ["run", *base, "--compiled"]),
+                    ("train", ["train", *base, "--compiled", "--epochs",
+                               "3"]),
+                    ("tune --ga", ["tune", *base, "--ga", "--stack",
+                                   "--target-s", str(TUNE_TARGET_S),
+                                   "--memo", os.path.join(tmp, "memo.csv"),
+                                   "--schedule",
+                                   os.path.join(tmp, f"{net}.json")]))
+            for what, argv in runs:
+                t0 = time.perf_counter()
+                rc, out = _cli_json(argv)
+                keys = {k: out.get(k) for k in (
+                    "modelled_us", "latency_ms_median", "train_loss",
+                    "stack_latency_us", "schedule") if k in out}
+                say(f"  cli {what} {net}: rc {rc} in "
+                    f"{time.perf_counter() - t0:.1f} s; {keys}")
+                if rc != 0:
+                    raise AssertionError(f"cli {what} {net} exited {rc}")
+            ga, at = out["stack_latency_us"], measured[("tune", net)]
+            say(f"  {net} on cora: GA best {ga:.1f} us against 8e's autotune "
+                f"best {at:.1f} us ({ga / at:.3f}x)")
+            cora_rank_check(net, os.path.join(tmp, "memo.csv"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def compiled_phase(models, init_params, measured, hg, g, dev) -> None:
+    """Phase 11: the compile-only pick on the card (see the module
+    docstring)."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.latency import GraphCost
+    t_phase = time.perf_counter()
+    say("== 11a compile-only picks (the card's LatencyConstants)")
+    every = dict(models)
+    every.update(measured["pair models"])
+    for mname, model in models.items():
+        _restore(model, init_params[mname])
+    picks = compile_picks(every, hg, GraphCost(hg))
+
+    say("== 11b serving the picks")
+    for mname, model in every.items():
+        scheds = picks[mname][0]
+        t0 = time.perf_counter()
+        fns = _lower_both(model, scheds, hg, dev)
+        say(f"  {mname} pick lowered in {time.perf_counter() - t0:.1f} s")
+        outs, measured[(mname, "pick")] = _serve(
+            f"{mname} pick", fns, dict(model.params), g, hg.n_node, dev)
+        _hold_answers(f"{mname} pick", outs, measured[(mname, "answers")])
+        del fns, outs
+    hr, gr = reduced_graph(dev)
+    rpicks = compile_picks(measured["pair models"], hr, GraphCost(hr))
+    for mname, model in measured["pair models"].items():
+        fns = _lower_both(model, rpicks[mname][0], hr, dev)
+        x = _request_x(21, hr.n_node, dev)
+        params = dict(model.params)
+        p64 = {k: p.detach().double() for k, p in model.params.items()}
+        with torch.inference_mode():
+            outs = {(dtn, 0): fns[dtn](params, gr, x)
+                    for dtn in ("bfloat16", "float32")}
+            refs = {("bfloat16", 0): model.make_apply(torch.bfloat16)(
+                params, gr, x),
+                ("float32", 0): model.make_apply(None)(p64, gr, x.double())}
+        _hold_answers(f"{mname} reduced-graph pick (bf16: per-op bf16; float32: "
+              "per-op float64)", outs, refs, rows=True)
+        del fns, outs, refs
+    del hr, gr
+
+    say("== 11c rank check on the card: whole 2-layer schedules")
+    cost = GraphCost(hg)
+    for mname in ("GCN-2l", "GAT-2l"):
+        rank_on_card(mname, models[mname], picks[mname][0], measured, hg, g,
+                     dev, cost)
+
+    say("== 11d train --compiled on the smoke's graph")
+    for mname in ("GCN-2l", "GAT-2l"):
+        compiled_training(mname, models[mname], picks[mname][0], hg, g, dev)
+        _restore(models[mname], init_params[mname])
+
+    say("== 11e cli run / train --compiled and tune --ga on cora")
+    compiled_cli(measured)
+    say(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--edges", type=int, default=11_461_589,
@@ -3186,6 +3579,9 @@ def main(argv=None) -> int:
                                  "serving path")
 
     say("== 4c per-op path and comparison")
+    # what phase 11 compares its picks with: the per-op answers and the
+    # medians of the schedules the phases serve
+    measured = {}
     with torch.inference_mode():
         for mname, model in models.items():
             params = dict(model.params)
@@ -3209,10 +3605,15 @@ def main(argv=None) -> int:
                 if not rel <= E2E_TOL[dtn]:
                     raise AssertionError(f"{mname} {dtn}: relative error "
                                          f"{rel} > {E2E_TOL[dtn]}")
-                del ref
+                measured.setdefault((mname, "answers"), {})[(dtn, seed)] = ref
     for (mname, dtn, path), v in sorted(lat.items()):
         say(f"latency {mname} {dtn} {path}: median {statistics.median(v):.3f}"
             f" ms over {len(v)} requests {['%.3f' % t for t in v]}")
+    for mname in models:
+        measured[(mname, "hybrid")] = statistics.median(
+            lat[(mname, "bfloat16", "kernel")])
+        measured[(mname, "per-op")] = statistics.median(
+            lat[(mname, "bfloat16", "per-op")])
 
     # 8f before phase 5, which drops the float32 forwards it differentiates
     say("== 8f exp panels on phase 4's lowered GAT-2l forward")
@@ -3226,15 +3627,16 @@ def main(argv=None) -> int:
                                               g, dev)
     launches.update(grouped_launches)
     launches.update(sddmm_pair_phase(checks, models["GAT-2l"], recipes, hg,
-                                     g, dev))
+                                     g, dev, measured))
     del recipes
     launches.update(layer_phase(checks, models["GAT-2l"],
-                                init_params["GAT-2l"], hg, g, dev))
+                                init_params["GAT-2l"], hg, g, dev, measured))
     if launches["gat_dense_panel"] <= 0:
         raise AssertionError("kernel gat_dense_panel was not launched in "
                              "phase 8f")
-    stream_densefull_phase(models, hg, g, dev)
+    stream_densefull_phase(models, hg, g, dev, measured)
     p10_launches = classes_sinput_phase(checks, models, hybs, hg, g, dev)
+    compiled_phase(models, init_params, measured, hg, g, dev)
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []

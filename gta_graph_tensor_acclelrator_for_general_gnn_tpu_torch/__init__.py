@@ -11,7 +11,7 @@ the kernels over the transposed graph's split.  The package imports torch
 and numpy, never jax.
 """
 
-from . import ir
+from . import ir, ir_io
 from .graph import (GraphTensor, HostGraph, MultiTiledGraph, TiledGraph,
                     build_graph, build_host_graph, nnz_histogram,
                     reorder_nodes, tile_graph, tile_graph_classes)

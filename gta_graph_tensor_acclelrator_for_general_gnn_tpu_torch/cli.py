@@ -35,7 +35,19 @@ four block geometries, each at its ``best_tile_capacity``;
 ``--tile-classes`` tiles with capacity classes (a list, or ``auto``: 128,
 256, 512, 1024) at ``--sparse-block`` (default 256).  A CPU run
 (``--device cpu``) times with the host clock and prints only that.
-``--compiled`` and ``tune --ga`` are not ported yet and exit with status 2.
+
+``--compiled`` (``run`` and ``train``, without ``--schedule``) picks each
+layer's schedule without measuring: the argmin of the latency model
+(``compiler/latency.min_latency_schedule``, constants fitted on the card);
+``run`` also reports the modelled time (``modelled_us``) and ``train``
+splits the transposed graph as with ``--schedule``.  ``tune --ga`` searches
+with the genetic tuner (``tune/genetic.GeneticTuner``) in place of the
+enumeration:
+
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli run \
+        --dataset cora --network GAT --compiled --device cuda
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.cli tune \
+        --dataset cora --network GAT --ga --stack --target-s 0.01
 """
 from __future__ import annotations
 
@@ -70,6 +82,21 @@ def load_schedules(path, n_layers):
     if "layers" in spec:
         return [one(sp) for sp in spec["layers"]]
     return [one(spec)] * n_layers
+
+
+def compiled_schedules(model, hg, dtype_bytes: int):
+    """(per-layer schedules, modelled ns of the stack): each layer's
+    compile-only pick at its own input width, over one cost oracle of
+    ``hg``."""
+    from .compiler.latency import GraphCost, min_latency_schedule
+    cost = GraphCost(hg)
+    sched, total = [], 0.0
+    for graph in model.layers:
+        sc, t_ns = min_latency_schedule(graph, hg, dtype_bytes=dtype_bytes,
+                                        cost=cost)
+        sched.append(sc)
+        total += t_ns
+    return sched, total
 
 
 def _print(out, as_json: bool) -> None:
@@ -118,6 +145,7 @@ def _tune(args, ds, dtype, device) -> int:
     from .hwconfig import load_hw_config
     from .models.builders import build_op_graph
     from .models.zoo import build_model
+    from .tune.genetic import GeneticTuner
     from .tune.search import autotune, default_memo_path
 
     hg = ds.host_graph
@@ -125,11 +153,19 @@ def _tune(args, ds, dtype, device) -> int:
     memo = args.memo or default_memo_path(args.network, args.dataset)
     dtype_bytes = 2 if dtype is not None else 4
 
-    def tune_one(graph, in_w):
+    def tune_one(graph, in_w, warm=()):
         params = init_params(graph, torch.Generator().manual_seed(args.seed),
                              device=device)
         x = torch.randn((hg.n_node, in_w),
                         generator=torch.Generator().manual_seed(1)).to(device)
+        if args.ga:
+            tuner = GeneticTuner(graph, hg, compute_dtype=dtype,
+                                 memo_path=memo, iters=args.iters,
+                                 warm_start=warm,
+                                 derive_palette=args.derive_palette,
+                                 target_s=args.target_s or None,
+                                 seed=args.seed, device=device)
+            return tuner.search(params, g, x, verbose=not args.json)
         palette = (load_hw_config().derived_palette(in_w, dtype_bytes)
                    if args.derive_palette else None)
         return autotune(graph, hg, params, g, x, compute_dtype=dtype,
@@ -140,7 +176,8 @@ def _tune(args, ds, dtype, device) -> int:
     out = dict(dataset=args.dataset, network=args.network,
                synthetic_data=ds.synthetic,
                dtype="bfloat16" if args.bf16 else "float32",
-               device=str(device), memo=memo)
+               device=str(device), memo=memo,
+               search="genetic" if args.ga else "enumerative")
     if device.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(device)
     if args.stack:
@@ -151,8 +188,10 @@ def _tune(args, ds, dtype, device) -> int:
                             device=device)
         specs, total = [], 0.0
         w = ds.x.shape[1]
+        prev = ()        # the genetic tuner starts from the last layer's best
         for li, graph in enumerate(model.layers):
-            res = tune_one(graph, w)
+            res = tune_one(graph, w, warm=prev)
+            prev = (res.best,)
             total += res.latency_s
             specs.append(dict(blocks=[list(b) for b in res.best.blocks],
                               tiles=[list(t.key()) for t in res.best.tiles],
@@ -313,9 +352,11 @@ def main(argv=None) -> int:
     p.add_argument("--ckpt", default=None,
                    help="checkpoint dir: train saves its final state here")
     p.add_argument("--compiled", action="store_true",
-                   help="schedule picked by the latency model (not ported)")
+                   help="run/train without --schedule: each layer's "
+                        "schedule picked by the latency model "
+                        "(compiler/latency.py), without measuring")
     p.add_argument("--ga", action="store_true",
-                   help="tune: genetic search (not ported)")
+                   help="tune: genetic search (tune/genetic.py)")
     p.add_argument("--stack", action="store_true",
                    help="tune each layer of the model stack and write the "
                         "per-layer schedule JSON (--schedule path) that "
@@ -343,13 +384,6 @@ def main(argv=None) -> int:
                         "--tile-classes)")
     args = p.parse_args(argv)
 
-    if args.compiled or args.ga:
-        what = "--compiled" if args.compiled else "tune --ga"
-        item = ("compiler/latency.py" if args.compiled
-                else "tune/genetic.py")
-        print(f"gta-torch {what}: not yet ported (ROADMAP.md Queue 1 "
-              f"item 10, {item})", file=sys.stderr)
-        return 2
     if args.hw_config:
         os.environ["GTA_HW_CONFIG"] = args.hw_config
 
@@ -384,6 +418,10 @@ def main(argv=None) -> int:
                         device=device)
     sched = (load_schedules(args.schedule, args.layers)
              if args.schedule else None)
+    modelled_ns = None
+    if sched is None and args.compiled:
+        sched, modelled_ns = compiled_schedules(model, hg,
+                                                2 if args.bf16 else 4)
     if args.command == "train":
         return _train(args, ds, model, sched, dtype, device)
     fwd = model.make_apply(dtype, schedules=sched,
@@ -400,6 +438,8 @@ def main(argv=None) -> int:
                    finite=bool(torch.isfinite(y).all()))
         if sched:
             out["schedule"] = [s.key() for s in sched]
+        if modelled_ns is not None:
+            out["modelled_us"] = modelled_ns / 1e3
         if device.type == "cuda":
             from .utils.benchmark import cuda_time_ms
             times = cuda_time_ms(lambda: fwd(params, g, x), device=device,

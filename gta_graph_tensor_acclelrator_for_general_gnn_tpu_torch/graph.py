@@ -106,6 +106,22 @@ class GraphTensor:
         return int(self.senders.shape[0])
 
 
+def _as_host(g) -> HostGraph:
+    """:class:`HostGraph` view of either graph type: a host graph as it is,
+    a :class:`GraphTensor` read back from its device (int32 indices, as
+    :func:`build_host_graph` makes them)."""
+    if isinstance(g, HostGraph):
+        return g
+    return HostGraph(
+        senders=g.senders.cpu().numpy().astype(np.int32),
+        receivers=g.receivers.cpu().numpy().astype(np.int32),
+        edge_mask=g.edge_mask.cpu().numpy(),
+        edge_weight=g.edge_weight.cpu().numpy(),
+        n_node=g.n_node,
+        n_edge=g.n_edge,
+    )
+
+
 def build_host_graph(
     senders: np.ndarray,
     receivers: np.ndarray,
@@ -361,19 +377,24 @@ class MultiTiledGraph:
         return sum(p.n_tiles * p.tile_edges for p in self.parts)
 
 
-# The tile-time model below and its constants are the JAX package's, fitted
-# to its TPU kernels; the port keeps them so that both packages pick the
-# same geometry and capacities, until the port's own timings refit them.
+# The tile-time model below is the JAX package's, and its defaults are the
+# JAX package's constants, fitted to its TPU kernels: with them both
+# packages pick the same geometry and capacities.  Its constants are
+# keywords, so that ``compiler/latency.py`` prices the port's kernels with
+# the card's own fit (``compiler/latency_fit.py``).
 
 
-def grid_ramp_ns(n_runs: int, n_tiles: float,
-                 feat_width: int = 128) -> float:
+def grid_ramp_ns(n_runs: int, n_tiles: float, feat_width: int = 128, *,
+                 run_ns: float = 700.0, tile_ns: float = 120.0,
+                 call_ns: float = 0.0) -> float:
     """Short-grid ramp of :func:`tile_time_model_ns`: a per-call cost per
-    run (scaled by the feature width up to 128) and per tile that fades
-    hyperbolically with the tile count, so large grids keep the per-tile
-    constant.  A per-call cost: chains of passes must not scale it."""
-    per_run = 700.0 * min(max(feat_width, 1), 128) / 128.0
-    return (n_runs * per_run + n_tiles * 120.0) / (1.0 + n_tiles / 1024.0)
+    run (``run_ns``, scaled by the feature width up to 128) and per tile
+    (``tile_ns``) that fades hyperbolically with the tile count, so large
+    grids keep the per-tile constant, plus ``call_ns`` once.  A per-call
+    cost: chains of passes must not scale it."""
+    per_run = run_ns * min(max(feat_width, 1), 128) / 128.0
+    return ((n_runs * per_run + n_tiles * tile_ns) / (1.0 + n_tiles / 1024.0)
+            + call_ns)
 
 
 def tile_time_model_ns(run_nnz: np.ndarray, tile_edges: int,
@@ -381,28 +402,43 @@ def tile_time_model_ns(run_nnz: np.ndarray, tile_edges: int,
                        *, feat_width: int = 128, x_bytes: int = 2,
                        grid_const_ns: float = 314.0,
                        slot_ns: float = 2.77,
+                       panel_gbps: float = 819.0,
+                       surcharge_ns: float = 200.0,
+                       edge_ns: float = 0.0,
+                       edge_byte_ns: float = 0.0,
+                       ramp_run_ns: float = 700.0,
+                       ramp_tile_ns: float = 120.0,
+                       call_ns: float = 0.0,
                        include_ramp: bool = True) -> float:
     """Modelled edge-tile kernel time for packing the (rb, cb) run-size
     distribution ``run_nnz`` at one tile capacity:
 
         time = runs * panel + tiles * (grid_const + max(0, compute - panel))
-        panel = C * F * x_bytes / 819        (x column panel, once a run)
+               + edges * (edge_ns + edge_byte_ns * F * x_bytes)
+        panel = C * F * x_bytes / panel_gbps   (x column panel, once a run)
         compute = ET * slot_ns * (R + C) / 2048 * F / 128
 
-    plus a per-tile surcharge past 65,536 tiles and the short-grid ramp
-    (:func:`grid_ramp_ns`).  Used to choose a capacity and a geometry, not
-    to predict a time on the card."""
-    panel = block_cols * feat_width * x_bytes / 819.0
+    plus ``surcharge_ns`` per tile past 65,536 tiles and the short-grid
+    ramp (:func:`grid_ramp_ns`).  ``edges`` are the live edges,
+    ``run_nnz.sum()``: the port's kernels walk each tile's edge prefix, so
+    the card's fit prices edges where the TPU's prices slots.  With the
+    defaults (``edge_ns`` and ``edge_byte_ns`` 0) it chooses a capacity and
+    a geometry as the JAX package does, and is not a time on the card."""
+    panel = block_cols * feat_width * x_bytes / panel_gbps
     compute = tile_edges * slot_ns * (block_rows + block_cols) / 2048.0
     compute *= feat_width / 128.0
     tiles = np.ceil(run_nnz / tile_edges)
     per_tile = grid_const_ns + max(0.0, compute - panel)
     n_tiles = float(tiles.sum())
     if n_tiles > 65536:
-        per_tile += 200.0
-    ramp = (grid_ramp_ns(len(run_nnz), n_tiles, feat_width)
+        per_tile += surcharge_ns
+    ramp = (grid_ramp_ns(len(run_nnz), n_tiles, feat_width,
+                         run_ns=ramp_run_ns, tile_ns=ramp_tile_ns,
+                         call_ns=call_ns)
             if include_ramp else 0.0)
-    return float(len(run_nnz) * panel + n_tiles * per_tile + ramp)
+    edges = float(run_nnz.sum()) * (edge_ns
+                                     + edge_byte_ns * feat_width * x_bytes)
+    return float(len(run_nnz) * panel + n_tiles * per_tile + ramp) + edges
 
 
 def best_tile_capacity(run_nnz: np.ndarray, block_rows: int, block_cols: int,

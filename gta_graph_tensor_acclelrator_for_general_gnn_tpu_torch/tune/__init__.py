@@ -1,5 +1,6 @@
-"""Schedule autotuning on the card (``search.autotune``); the genetic
-tuner of the JAX package (``tune/genetic.py``) is not ported yet
-(ROADMAP.md Queue 1 item 10)."""
+"""Schedule tuning on the card: the enumerative ``search.autotune`` and
+the genetic ``genetic.GeneticTuner``, both measuring candidates with CUDA
+events (``utils/benchmark.time_layer_device``)."""
+from .genetic import GeneticTuner, Genome  # noqa: F401
 from .search import (TILE_PALETTE, Measurement, Memo, TuneResult,  # noqa: F401
                      autotune)

@@ -228,4 +228,10 @@ def test_cli_run_on_cpu(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["finite"] and out["out_shape"] == [200, 4]
     assert "latency_ms_median" not in out    # no device time from a CPU run
-    assert TCLI.main(["tune", "--ga", "--device", "cpu"]) == 2
+    # the compile-only pick: each layer's schedule from the latency model
+    rc = TCLI.main(["run", "--dataset", "tiny", "--network", "GCN",
+                    "--reorder", "--hidden", "16", "--f32", "--device", "cpu",
+                    "--compiled", "--json"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["finite"] and out["out_shape"] == [200, 4]
+    assert len(out["schedule"]) == 2 and out["modelled_us"] > 0

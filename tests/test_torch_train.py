@@ -167,7 +167,13 @@ def test_cli_train_schedule_prints_jax_keys(tmp_path, capsys):
         assert k in out, k
     assert out["ckpt_step"] == 3 and np.isfinite(out["train_loss"])
     assert out["epoch_time_s"] is None    # a CPU run has no device time
-    assert TCLI.main(["train", "--compiled", "--device", "cpu"]) == 2
+    # the compile-only pick trains through its twins too
+    rc = TCLI.main(["train", "--dataset", "tiny", "--network", "GAT",
+                    "--hidden", "16", "--f32", "--device", "cpu", "--epochs",
+                    "3", "--compiled", "--json"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and np.isfinite(out["train_loss"])
+    assert len(out["schedule"]) == 2
 
 
 def test_non_hybrid_kernel_blocks_refuse_a_gradient():

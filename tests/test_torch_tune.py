@@ -258,8 +258,19 @@ def test_cli_tune_single_layer_and_the_unported_options(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["n_trials"] >= 2 and out["pareto"]
     TS.Schedule.from_key(out["best_schedule"])
-    assert TCLI.main(["tune", "--ga", "--device", "cpu"]) == 2
-    assert TCLI.main(["run", "--compiled", "--device", "cpu"]) == 2
+    # the options that exited 2 until they were ported: the genetic tuner
+    # on the same layer, and the compile-only pick
+    rc = TCLI.main(["tune", "--dataset", "tiny", "--network", "GCN", "--ga",
+                    "--hidden", "8", "--f32", "--device", "cpu", "--memo",
+                    str(tmp_path / "m.csv"), "--target-s", "0", "--iters",
+                    "1", "--json"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["search"] == "genetic" and out["n_trials"] >= 2
+    TS.Schedule.from_key(out["best_schedule"])
+    rc = TCLI.main(["run", "--compiled", "--dataset", "tiny", "--hidden", "8",
+                    "--device", "cpu", "--json"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["finite"] and out["modelled_us"] > 0
 
 
 def test_default_memo_path_stays_out_of_the_sources():
