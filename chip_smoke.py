@@ -166,6 +166,27 @@ Reddit's node count, and checks every hand-written kernel on the way:
      peak memory; (e) on cora, ``cli run --compiled``, ``cli train
      --compiled --epochs 3`` and ``cli tune --ga --stack`` for GCN and
      GAT, the GA's best against 8e's ``autotune`` best.
+ 12. neighbour-sampled training, float32, on the per-op path (no kernel
+     of K1-K15 may launch): (a) the native host library builds on the
+     card's host (the phase fails otherwise); on the smoke's graph its
+     receiver sort, degrees, ``build_host_graph`` and 256²/ET512 tiling
+     equal numpy's (both timed), ``cluster_labels`` and
+     ``reorder_nodes("cluster")`` (a permutation; the dense share of a
+     256² int8 split after it beside ``hubs+labels`` with the planted
+     labels); (b) Flickr at the published counts, GraphSAGE, fanouts
+     (10, 10), batch 512, hidden 128, 3 epochs (BASELINE.json's sampled
+     configuration): ``train_sampled_scan(measure_device_epoch=True)``
+     (wall and device epoch, ``sample_s``, ``h2d_dispatch_s``, Medge/s,
+     epoch losses, which must fall) and ``train_sampled`` (prefetch 2,
+     full-graph accuracies); (c) Reddit at its full 114,615,892 edges:
+     the host build, the same scan run and peak device memory, one epoch
+     of ``train_sampled``; (d) on one seeded Reddit epoch, the captured
+     graph's replays against the eager loop (the first 8 losses within
+     1e-4 relative; epoch wall times: per-step dispatch against the
+     captured graph), batch 0's float32 loss and gradients on the card
+     against the port on the CPU (E2E_TOL, GRAD_TOL), the native
+     sampler's repeat, and the device-epoch measurement's restore of the
+     parameters and AdamW state, bit for bit.
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -3443,6 +3464,326 @@ def compiled_phase(models, init_params, measured, hg, g, dev) -> None:
     say(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 12: neighbour-sampled training, float32 (TF32 off), the per-op
+# path (no kernel of K1-K15 launches there).  Flickr is BASELINE.json's
+# sampled configuration (scripts/baseline_configs.py:66-79), Reddit at its
+# full edge count the north star's epoch (scripts/reddit_epoch.py:52-56).
+SAMPLED = dict(fanouts=(10, 10), batch_size=512, hidden=128, epochs=3)
+REDDIT_EDGES = 114_615_892
+CAPTURE_STEPS = 8      # 12d: 3 eager warm-up steps, then 5 replays
+# 12d.1: captured replays against the eager loop, relative per loss: the
+# two run the same kernels, but index_add_'s float atomics reorder sums
+CAPTURE_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def _numpy_host_path():
+    """The host builders' numpy formulations (``native.HAVE_NATIVE``
+    off) inside the block."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import native
+    was, native.HAVE_NATIVE = native.HAVE_NATIVE, False
+    try:
+        yield
+    finally:
+        native.HAVE_NATIVE = was
+
+
+def _equal_arrays(what, a, b) -> None:
+    for k in a:
+        if not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def native_phase(edges: int, dev) -> None:
+    """12a: the native host library on the smoke's graph: its sort,
+    degrees and tiling against numpy's, ``build_host_graph`` both ways,
+    ``cluster_labels`` and the cluster reorder's dense share."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import native
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
+
+    say("== 12a native host library")
+    if not native.HAVE_NATIVE:
+        raise AssertionError("the native host library did not build on the "
+                             f"card's host: {native.BUILD_ERROR}")
+    say(f"  built and self-tested (g++ {native.build_seconds or 0:.1f} s "
+        "in this process)")
+    s, r, labels = synthetic_coo(N_NODE, edges, seed=1, communities=1000,
+                                 p_in=0.7)
+    order = native.sort_by_receiver_native(r, N_NODE)
+    if not np.array_equal(order, np.argsort(r, kind="stable")):
+        raise AssertionError("sort_by_receiver_native differs from numpy")
+    out_deg, in_deg = native.degrees_native(s, r, N_NODE)
+    if not (np.array_equal(in_deg, np.bincount(r, minlength=N_NODE))
+            and np.array_equal(out_deg, np.bincount(s, minlength=N_NODE))):
+        raise AssertionError("degrees_native differs from numpy")
+    kw = dict(add_self_loops=True, symmetric_norm=True)
+    t0 = time.perf_counter()
+    hg = G.build_host_graph(s, r, N_NODE, **kw)
+    t_nat = time.perf_counter() - t0
+    with _numpy_host_path():
+        t0 = time.perf_counter()
+        hg_np = G.build_host_graph(s, r, N_NODE, **kw)
+        t_np = time.perf_counter() - t0
+    _equal_arrays("build_host_graph", vars(hg), vars(hg_np))
+    say(f"  build_host_graph ({hg.n_edge} edges): native {t_nat:.2f} s, "
+        f"numpy {t_np:.2f} s, arrays equal; sort and degrees equal numpy's")
+    del hg_np, order, s, r
+    geo = dict(block_rows=256, block_cols=256, tile_edges=512, device="cpu")
+    t0 = time.perf_counter()
+    tg = G.tile_graph(hg, **geo)
+    t_nat = time.perf_counter() - t0
+    with _numpy_host_path():
+        t0 = time.perf_counter()
+        tg_np = G.tile_graph(hg, **geo)
+        t_np = time.perf_counter() - t0
+    for f in ("tile_rb", "tile_cb", "src_local", "dst_local", "edge_id",
+              "weight", "row_first_tile"):
+        if not torch.equal(getattr(tg, f), getattr(tg_np, f)):
+            raise AssertionError(f"tile_graph: {f} differs")
+    say(f"  tile_graph 256x256 ET512 ({tg.n_tiles} tiles): native "
+        f"{t_nat:.2f} s, numpy {t_np:.2f} s, arrays equal")
+    del tg, tg_np
+
+    t0 = time.perf_counter()
+    found = G.cluster_labels(hg)
+    t_lab = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hc, perm = G.reorder_nodes(hg, "cluster")
+    t_re = time.perf_counter() - t0
+    if not np.array_equal(np.sort(perm), np.arange(N_NODE)):
+        raise AssertionError("reorder_nodes('cluster') is not a permutation")
+    hl, _ = G.reorder_nodes(hg, "hubs+labels", labels=labels)
+    say(f"  cluster_labels: {int(found.max()) + 1} communities (1000 "
+        f"planted) in {t_lab:.2f} s; reorder_nodes('cluster') "
+        f"{t_re:.2f} s, a permutation")
+    for what, g2 in (("cluster", hc), ("hubs+labels (planted)", hl)):
+        h = G.hybrid_graph(g2, block_rows=256, block_cols=256,
+                           tile_edges=512, min_nnz=64, unit_weight=True,
+                           values_dtype=np.int8, device=dev)
+        share = h.n_dense_edges / max(h.n_dense_edges + h.n_sparse_edges, 1)
+        say(f"  256² int8 hybrid split (thr 64) after {what}: dense share "
+            f"{share:.4f} ({h.n_dense_edges} edges)")
+        del h
+
+
+def _say_sampled(what, res, bd) -> None:
+    say(f"  {what}: wall epoch {res.epoch_time_s:.4f} s, device epoch "
+        f"{bd.get('device_epoch_s', float('nan')):.4f} s, sample_s "
+        f"{bd['sample_s']:.4f}, h2d_dispatch_s {bd['h2d_dispatch_s']:.4f}, "
+        f"{bd['steps_per_epoch']} steps an epoch, sampler {bd['sampler']}, "
+        f"{res.edges_per_s / 1e6:.2f} Medge/s sampled; epoch mean losses "
+        f"{['%.4f' % v for v in bd['epoch_losses']]}, last {res.train_loss:.4f}")
+    if not bd["epoch_losses"][-1] < bd["epoch_losses"][0]:
+        raise AssertionError(f"{what}: losses did not fall")
+    if bd["sampler"] != "native":
+        raise AssertionError(f"{what}: sampled with {bd['sampler']}")
+
+
+def _seeded_sage(ds, dev):
+    """GraphSAGE at SAMPLED's widths, parameters from seed 0."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    return build_model("GraphSAGE", ds.x.shape[1], ds.n_class,
+                       hidden=SAMPLED["hidden"],
+                       generator=torch.Generator().manual_seed(0),
+                       device=dev)
+
+
+def _sampled_runner(ds, dev, capture: bool, cap_n: int, e_pad: int):
+    """A seeded GraphSAGE, its capturable AdamW state and an EpochRunner
+    over it."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    model = _seeded_sage(ds, dev)
+    state = TT.TrainState(model.params, TT.adamw(model.params, LR,
+                                                 capturable=True))
+    update = TT.make_sampled_update(
+        model.make_apply(), state, cap_n, e_pad,
+        torch.as_tensor(ds.x, device=dev),
+        torch.as_tensor(ds.y.astype(np.int64), device=dev))
+    return state, TT.EpochRunner(update, capture=capture)
+
+
+def _wall_epoch(runner, stacked, n) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run(stacked, n)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def sampled_card_checks(ds, dev) -> None:
+    """12d on Reddit: captured replays against the eager loop (losses and
+    epoch times: per-step dispatch against the captured graph), one
+    batch's loss and gradients on the card against the port on the CPU,
+    the native sampler's repeat, and the device-epoch measurement's
+    restore."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import native
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.sampling import NeighborSampler
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.graph import GraphTensor
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+
+    say("== 12d sampled training on the card: checks")
+    b = SAMPLED["batch_size"]
+    sampler = NeighborSampler(ds.host_graph, SAMPLED["fanouts"], b, seed=0)
+    perm = sampler.rng.permutation(np.flatnonzero(ds.train_mask))
+    n = len(perm) // b
+    args = (sampler.row_ptr, sampler.senders, perm[: n * b],
+            SAMPLED["fanouts"], b, sampler.cap_nodes, sampler.e_pad, 12)
+    t0 = time.perf_counter()
+    stacked_np = native.sample_epoch_native(*args)
+    t_s = time.perf_counter() - t0
+    _equal_arrays("sample_epoch_native repeat", stacked_np,
+                  native.sample_epoch_native(*args))
+    say(f"  12d.3 sample_epoch_native: {n} batches in {t_s:.3f} s; a second "
+        "call with the seed gives the same arrays")
+    stacked = TT.batch_to_device(stacked_np, dev)
+    cap_n, e_pad = sampler.cap_nodes, sampler.e_pad
+
+    losses, walls, runners = {}, {}, {}
+    for mode, capture in (("captured", True), ("eager", False)):
+        state, runner = _sampled_runner(ds, dev, capture, cap_n, e_pad)
+        lv = torch.zeros(n, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(stacked, n, lv)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        walls[mode] = [first] + [_wall_epoch(runner, stacked, n)
+                                 for _ in range(2)]
+        losses[mode] = lv.cpu()
+        runners[mode] = (runner, state)
+        say(f"  {mode}: one epoch of {n} steps, wall {walls[mode][0]:.4f} s "
+            f"(first, {runner.eager_steps} eager steps, "
+            f"{runner.replays} replays), then "
+            f"{walls[mode][1]:.4f} / {walls[mode][2]:.4f} s")
+    k = min(CAPTURE_STEPS, n)
+    rel = float(((losses["captured"][:k] - losses["eager"][:k]).abs()
+                 / losses["eager"][:k].abs()).max())
+    say(f"  12d.1 first {k} losses (3 warm-up, 5 replays), captured "
+        f"{['%.6f' % v for v in losses['captured'][:k].tolist()]} vs eager: "
+        f"max relative {rel:.2e} (bound {CAPTURE_TOL:g})")
+    if not rel <= CAPTURE_TOL:
+        raise AssertionError(f"captured vs eager losses: {rel}")
+    say(f"  per-step dispatch (eager loop) {min(walls['eager'][1:]):.4f} s "
+        f"an epoch against the captured graph's "
+        f"{min(walls['captured'][1:]):.4f} s")
+
+    runner, state = runners["captured"]
+    snap = TT.snapshot(state)
+    sec = TT.device_epoch_seconds(runner, state, stacked, n)
+    same = all(torch.equal(a, c) for a, c in zip(TT.snapshot(state), snap,
+                                                 strict=True))
+    say(f"  12d.4 device epoch {sec:.4f} s; parameters and AdamW state after "
+        f"the measurement equal the snapshot bit for bit: {same}")
+    if not same:
+        raise AssertionError("device_epoch_seconds did not restore the state")
+    del runners, runner, state
+
+    # 12d.2: batch 0, card against the port on the CPU, seeded parameters
+    out = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = _seeded_sage(ds, where)
+        bt = {key: v[0].to(where) for key, v in stacked.items()}
+        g = GraphTensor(senders=bt["senders"], receivers=bt["receivers"],
+                        edge_mask=bt["mask"], edge_weight=bt["weight"],
+                        n_node=cap_n, n_edge=e_pad)
+        xb, yb = TT.gather_rows(torch.as_tensor(ds.x, device=where),
+                                torch.as_tensor(ds.y.astype(np.int64),
+                                                device=where), bt["ids"])
+        params = dict(model.params)
+        loss = TT.masked_cross_entropy(model.make_apply()(params, g, xb), yb,
+                                       bt["seed"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[side] = (float(loss.detach()), [gr.cpu() for gr in grads],
+                     list(params))
+    (lc, gc, names), (lh, gh, _) = out["card"], out["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    say(f"  12d.2 Reddit batch 0: loss card {lc:.6f} cpu {lh:.6f}, "
+        f"relative {rel:.2e} (bound {E2E_TOL['float32']:g})")
+    if not rel <= E2E_TOL["float32"]:
+        raise AssertionError(f"batch loss card vs cpu: {rel}")
+    for name, a, c in zip(names, gc, gh):
+        err = float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+        say(f"    grad {name}: max |card - cpu| / max |cpu| {err:.2e} "
+            f"(bound {GRAD_TOL['grad']:g})")
+        if not err <= GRAD_TOL["grad"]:
+            raise AssertionError(f"grad {name} card vs cpu: {err}")
+
+
+def sampled_phase(dev, smoke_edges: int) -> None:
+    """Phase 12: the native host library, then sampled training on Flickr
+    and on Reddit at its full edge count, float32 with TF32 off; no kernel
+    of K1-K15 may launch (the sampled path runs per op, as in JAX)."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import load_dataset
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+
+    t_phase = time.perf_counter()
+    counted = _all_counted()
+    for f in counted.values():
+        f.launches = 0
+    native_phase(smoke_edges, dev)
+
+    say("== 12b Flickr (BASELINE.json: GraphSAGE, fanouts 10,10, batch 512)")
+    ds = load_dataset("flickr")
+    say(f"  flickr: N={ds.host_graph.n_node} E={ds.host_graph.n_edge} "
+        f"F={ds.x.shape[1]} C={ds.n_class}, train "
+        f"{int(ds.train_mask.sum())} nodes")
+    _, res, bd = TT.train_sampled_scan(ds, measure_device_epoch=True,
+                                       device=dev, **SAMPLED)
+    _say_sampled("flickr train_sampled_scan", res, bd)
+    _, res = TT.train_sampled(ds, prefetch=2, eval_full=True, device=dev,
+                              **SAMPLED)
+    say(f"  flickr train_sampled (prefetch 2): epoch {res.epoch_time_s:.4f} s "
+        f"(CUDA events), {res.edges_per_s / 1e6:.2f} Medge/s sampled, loss "
+        f"{res.train_loss:.4f}, accuracy train {res.train_acc:.4f} val "
+        f"{res.val_acc:.4f} test {res.test_acc:.4f}")
+    if not (res.train_loss < np.log(ds.n_class) and res.val_acc > 0.5):
+        raise AssertionError(f"flickr train_sampled did not learn: {res}")
+    del ds
+
+    say(f"== 12c Reddit at its full edge count ({REDDIT_EDGES} edges)")
+    t0 = time.perf_counter()
+    ds = load_dataset("reddit")
+    say(f"  reddit: N={ds.host_graph.n_node} E={ds.host_graph.n_edge} "
+        f"F={ds.x.shape[1]} C={ds.n_class}, train "
+        f"{int(ds.train_mask.sum())} nodes; host build "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, res, bd = TT.train_sampled_scan(ds, measure_device_epoch=True,
+                                       device=dev, **SAMPLED)
+    _say_sampled("reddit train_sampled_scan", res, bd)
+    say(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+        " GiB")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kw = dict(SAMPLED, epochs=1)
+    _, res = TT.train_sampled(ds, prefetch=2, device=dev, **kw)
+    say(f"  reddit train_sampled, one epoch (per-step dispatch, numpy "
+        f"sampler, prefetch 2): epoch {res.epoch_time_s:.4f} s (CUDA events),"
+        f" {res.edges_per_s / 1e6:.2f} Medge/s sampled, loss "
+        f"{res.train_loss:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    sampled_card_checks(ds, dev)
+    del ds
+
+    launched = {k: f.launches for k, f in counted.items() if f.launches}
+    if launched:
+        raise AssertionError(f"phase 12 launched kernels {launched}: the "
+                             "sampled path runs per op")
+    say(f"launches of K1-K15 in phase 12: none (the per-op path); phase 12 "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--edges", type=int, default=11_461_589,
@@ -3637,6 +3978,8 @@ def main(argv=None) -> int:
     stream_densefull_phase(models, hg, g, dev, measured)
     p10_launches = classes_sinput_phase(checks, models, hybs, hg, g, dev)
     compiled_phase(models, init_params, measured, hg, g, dev)
+    del models, init_params, measured, hybs, g, hg
+    sampled_phase(dev, args.edges)
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []

@@ -13,8 +13,9 @@ and numpy, never jax.
 
 from . import ir, ir_io
 from .graph import (GraphTensor, HostGraph, MultiTiledGraph, TiledGraph,
-                    build_graph, build_host_graph, nnz_histogram,
-                    reorder_nodes, tile_graph, tile_graph_classes)
+                    build_graph, build_host_graph, cluster_labels,
+                    nnz_histogram, reorder_nodes, tile_graph,
+                    tile_graph_classes)
 from .models.builders import NETWORKS, build_op_graph
 from .ops.dense import auto_hybrid
 from .models.zoo import Model, build_model

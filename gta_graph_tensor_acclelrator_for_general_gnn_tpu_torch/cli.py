@@ -334,8 +334,11 @@ def main(argv=None) -> int:
     p.add_argument("--reorder", action="store_true",
                    help="use the algebraically reordered (trans) op graph")
     p.add_argument("--node-reorder", default="none",
-                   choices=["none", "degree"],
-                   help="relabel nodes degree-descending before execution")
+                   choices=["none", "degree", "cluster"],
+                   help="relabel nodes to densify adjacency blocks before "
+                        "execution (cluster = label-propagation communities, "
+                        "the label-free preprocessing real graphs need for "
+                        "the hybrid density-split path)")
     p.add_argument("--schedule", default=None,
                    help="schedule JSON to execute with (the JAX CLI's "
                         "format); default: every op on the per-op path")

@@ -19,8 +19,12 @@ hold them equal); the containers then hold torch tensors on an explicit
 * :func:`dense_adjacency` — the full dense adjacency of a graph of at most
   ``DENSEFULL_MAX_N`` nodes (the densefull path's operand).
 
-The JAX builders may call a native C++ helper; the port uses the numpy
-formulations, which give identical arrays.
+Where the native host library builds (``native/``), the receiver sort
+and degrees of :func:`build_host_graph`, the tiling of :func:`tile_graph`
+and the label propagation of :func:`cluster_labels` run in C++, exactly
+where the JAX builders call it; the numpy formulations remain as the
+fallback and give identical arrays (label propagation excepted: the
+native sweeps are asynchronous, the numpy ones synchronous).
 
 Every entry point that places tensors takes ``device=None``, which means
 the CUDA card (:func:`resolve_device`); the CPU is used only when asked
@@ -144,14 +148,24 @@ def build_host_graph(
         )
     n_edge = int(senders.shape[0])
 
-    order = np.argsort(receivers, kind="stable")
+    from . import native
+    order = (native.sort_by_receiver_native(receivers, n_node)
+             if native.HAVE_NATIVE else None)
+    if order is None:
+        order = np.argsort(receivers, kind="stable")
     senders, receivers = senders[order], receivers[order]
     if edge_weight is not None:
         edge_weight = np.asarray(edge_weight, np.float32)[order]
 
     if symmetric_norm:
-        deg = np.bincount(receivers, minlength=n_node).astype(np.float64)
-        out_deg = np.bincount(senders, minlength=n_node).astype(np.float64)
+        degs = (native.degrees_native(senders, receivers, n_node)
+                if native.HAVE_NATIVE else None)
+        if degs is not None:
+            out_deg, deg = degs
+        else:
+            deg = np.bincount(receivers, minlength=n_node).astype(np.float64)
+            out_deg = np.bincount(senders, minlength=n_node).astype(
+                np.float64)
         inv = 1.0 / np.sqrt(np.maximum(deg[receivers] * out_deg[senders], 1.0))
         edge_weight = inv.astype(np.float32)
     if edge_weight is None:
@@ -239,7 +253,9 @@ class TiledGraph:
 
 def _tile_arrays(g: HostGraph, block_rows: int, block_cols: int,
                  tile_edges: int, unit_weight: bool):
-    """numpy tile arrays, exactly as the JAX builder emits them."""
+    """The tile arrays (numpy), exactly as the JAX builder emits them:
+    the data tiles from the native tiler or its numpy formulation, then
+    one empty tile for each row block without an edge."""
     senders = g.senders[: g.n_edge]
     receivers = g.receivers[: g.n_edge]
     weight = (np.ones(g.n_edge, np.float32) if unit_weight
@@ -250,13 +266,55 @@ def _tile_arrays(g: HostGraph, block_rows: int, block_cols: int,
     n_row_blocks = max(_round_up(n, block_rows) // block_rows, 1)
     n_col_blocks = max(_round_up(n, block_cols) // block_cols, 1)
 
+    from . import native
+    nat = native.tile_edges_native(
+        senders, receivers, weight, n_row_blocks, n_col_blocks,
+        block_rows, block_cols, tile_edges, g.e_pad) \
+        if native.HAVE_NATIVE else None
+    if nat is not None:
+        data_rb, data_cb, src_l, dst_l, eid, w = nat
+    else:
+        data_rb, data_cb, src_l, dst_l, eid, w = _tile_arrays_numpy(
+            senders, receivers, weight, rb, cb, n_col_blocks, block_rows,
+            block_cols, tile_edges, g.e_pad)
+
+    # every row block owns >= 1 tile, so kernels write every output stripe
+    missing = np.setdiff1d(np.arange(n_row_blocks, dtype=np.int32),
+                           np.unique(data_rb))
+    tile_rb, tile_cb = data_rb, data_cb
+    pad_eid = max(g.e_pad - 1, 0)
+    if len(missing):
+        m = len(missing)
+        src_l = np.concatenate(
+            [src_l, np.full((m, tile_edges), block_cols, np.int32)])
+        dst_l = np.concatenate(
+            [dst_l, np.full((m, tile_edges), block_rows, np.int32)])
+        eid = np.concatenate([eid, np.full((m, tile_edges), pad_eid, np.int32)])
+        w = np.concatenate([w, np.zeros((m, tile_edges), np.float32)])
+        tile_rb = np.concatenate([data_rb, missing])
+        tile_cb = np.concatenate([data_cb, np.zeros(m, np.int32)])
+        torder = np.argsort(tile_rb, kind="stable")
+        tile_rb, tile_cb = tile_rb[torder], tile_cb[torder]
+        src_l, dst_l, eid, w = src_l[torder], dst_l[torder], eid[torder], w[torder]
+    row_first = np.searchsorted(tile_rb, np.arange(n_row_blocks + 1)
+                                ).astype(np.int32)
+    return dict(tile_rb=tile_rb, tile_cb=tile_cb, src_local=src_l,
+                dst_local=dst_l, edge_id=eid, weight=w,
+                row_first_tile=row_first, n_row_blocks=n_row_blocks,
+                n_col_blocks=n_col_blocks)
+
+
+def _tile_arrays_numpy(senders, receivers, weight, rb, cb, n_col_blocks,
+                       block_rows, block_cols, tile_edges, e_pad):
+    """The data tiles (row-block sorted) in numpy: what
+    ``native.tile_edges_native`` returns, array for array."""
     # sort edges by (row block, col block); each edge's tile and slot follow
     # from its offset within its (rb, cb) run
     key = rb.astype(np.int64) * n_col_blocks + cb
     order = np.argsort(key, kind="stable")
     senders, receivers, weight, key = (
         senders[order], receivers[order], weight[order], key[order])
-    edge_ids = np.arange(g.n_edge, dtype=np.int32)[order]
+    edge_ids = np.arange(len(key), dtype=np.int32)[order]
     ne = len(key)
     if ne:
         starts = np.flatnonzero(np.concatenate([[True], key[1:] != key[:-1]]))
@@ -278,16 +336,16 @@ def _tile_arrays(g: HostGraph, block_rows: int, block_cols: int,
         tile_of_edge = slot = np.zeros(0, np.int64)
         data_rb = data_cb = np.zeros(0, np.int32)
 
-    pad_eid = max(g.e_pad - 1, 0)
     src_l = np.full((T_data, tile_edges), block_cols, np.int32)
     dst_l = np.full((T_data, tile_edges), block_rows, np.int32)
-    eid = np.full((T_data, tile_edges), pad_eid, np.int32)
+    eid = np.full((T_data, tile_edges), max(e_pad - 1, 0), np.int32)
     w = np.zeros((T_data, tile_edges), np.float32)
     if ne:
         src_l[tile_of_edge, slot] = senders - data_cb[tile_of_edge] * block_cols
         dst_l[tile_of_edge, slot] = receivers - data_rb[tile_of_edge] * block_rows
         eid[tile_of_edge, slot] = edge_ids
         w[tile_of_edge, slot] = weight
+    return data_rb, data_cb, src_l, dst_l, eid, w
 
     # every row block owns >= 1 tile, so kernels write every output stripe
     missing = np.setdiff1d(np.arange(n_row_blocks, dtype=np.int32),
@@ -1099,6 +1157,79 @@ def separable_weight_scales(g: HostGraph
     return None
 
 
+def _label_prop_numpy(row_ptr: np.ndarray, nbrs: np.ndarray, n: int,
+                      max_iter: int) -> np.ndarray:
+    """Vectorised label propagation, the numpy fallback of
+    :func:`cluster_labels` (the JAX package's, step for step).
+
+    Per sweep the winning neighbour label is computed for every node at
+    once, but applied in two parity half-steps (even ids, then odd): the
+    two-colour schedule breaks the synchronous-update oscillations that
+    plain parallel LPA is prone to (label-swapping node pairs)."""
+    labels = np.arange(n, dtype=np.int64)
+    owner = np.repeat(np.arange(n, dtype=np.int64), np.diff(row_ptr))
+
+    def winners(lab):
+        key = owner * n + lab[nbrs]
+        uniq, cnt = np.unique(key, return_counts=True)
+        own_u, lab_u = uniq // n, uniq % n
+        # max count per owner, ties toward the smaller label id
+        sel = np.lexsort((lab_u, -cnt, own_u))
+        own_s = own_u[sel]
+        first = np.concatenate([[True], own_s[1:] != own_s[:-1]])
+        win = lab.copy()
+        win[own_s[first]] = lab_u[sel][first]
+        return win
+
+    for _ in range(max_iter):
+        changed = 0
+        for parity in (0, 1):
+            win = winners(labels)
+            mask = (np.arange(n) % 2) == parity
+            upd = mask & (win != labels)
+            labels = np.where(upd, win, labels)
+            changed += int(upd.sum())
+        if changed * 1000 < n:
+            break
+    return labels
+
+
+def cluster_labels(g: HostGraph, max_iter: int = 20, seed: int = 0
+                   ) -> np.ndarray:
+    """Community assignment by label propagation, from the graph alone (no
+    ground-truth labels): the clustering pass a real graph takes before
+    the hybrid density split, which earns its dense blocks from community
+    locality.
+
+    Native asynchronous sweeps (``native/cluster.cpp``: seeded visit
+    order, deterministic) where the library builds, else the synchronous
+    numpy sweeps of :func:`_label_prop_numpy`; the two give different
+    labellings.  Returns compact int32 community ids in [0, k)."""
+    from . import native
+
+    s = g.senders[: g.n_edge].astype(np.int64)
+    r = g.receivers[: g.n_edge].astype(np.int64)
+    n = g.n_node
+    keep = s != r  # self loops carry no community information
+    u = np.concatenate([s[keep], r[keep]]).astype(np.int32)
+    v = np.concatenate([r[keep], s[keep]]).astype(np.int32)
+    lab = None
+    if native.HAVE_NATIVE:
+        order = native.sort_by_receiver_native(u, n)  # O(E) counting sort
+    else:
+        order = np.argsort(u, kind="stable")
+    nbrs = v[order]
+    deg = np.bincount(u, minlength=n)
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    if native.HAVE_NATIVE:
+        lab = native.label_prop_native(row_ptr, nbrs, n,
+                                       max_iter=max_iter, seed=seed)
+    if lab is None:
+        lab = _label_prop_numpy(row_ptr, nbrs, n, max_iter)
+    _, compact = np.unique(lab, return_inverse=True)
+    return compact.astype(np.int32)
+
+
 def reorder_nodes(g: HostGraph, method: str = "degree", labels=None,
                   perm=None):
     """Relabel nodes to densify adjacency blocks; returns (HostGraph, perm)
@@ -1106,8 +1237,9 @@ def reorder_nodes(g: HostGraph, method: str = "degree", labels=None,
 
     ``degree``: degree-descending.  ``labels``: grouped by cluster label,
     degree-descending within.  ``hubs+labels``: the top 2% by degree first,
-    then label-grouped.  ``none`` and ``perm`` (caller-supplied) too; the
-    label-propagation ``cluster`` method is not ported yet."""
+    then label-grouped.  ``cluster``: ``hubs+labels`` over the communities
+    that :func:`cluster_labels` finds (the label-free path of a real
+    graph).  ``none`` and ``perm`` (caller-supplied) too."""
     s = g.senders[: g.n_edge]
     r = g.receivers[: g.n_edge]
     deg = np.bincount(r, minlength=g.n_node) + np.bincount(
@@ -1130,9 +1262,7 @@ def reorder_nodes(g: HostGraph, method: str = "degree", labels=None,
             raise ValueError("'perm' needs a permutation of the nodes")
         perm = np.asarray(perm, np.int64)
     elif method == "cluster":
-        raise NotImplementedError(
-            "label-propagation clustering is not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
+        return reorder_nodes(g, "hubs+labels", labels=cluster_labels(g))
     else:
         raise ValueError(f"unknown reorder method {method!r}")
     inv = np.empty_like(perm)

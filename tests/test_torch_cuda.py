@@ -6,7 +6,11 @@ grouped-tail kernels K9 and K10), ``utils/fixtures.sddmm_kernel_cases``
 (the SDDMM kernels K11 and K12), ``utils/fixtures.pair_agg_kernel_cases``
 (the pair aggregation K13) and ``utils/fixtures.layer_kernel_cases`` (the
 whole GAT layer K14, stage by stage, and the exp-panel dense partial
-K15), and the walk K11 picks at the cuts between its paths.
+K15), and the walk K11 picks at the cuts between its paths.  Also the
+sampled trainer's captured CUDA graph against its eager loop on one
+seeded stacked epoch (``models/train.EpochRunner``; the losses within
+CAPTURE_TOL relative: index_add_'s float atomics reorder sums) and the
+device-epoch measurement's restore of the state, bit for bit.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed.  On a machine with a CUDA device:
@@ -385,3 +389,63 @@ def test_layer_kernels_match_plain_versions_on_cuda():
     torch.cuda.synchronize(dev)
     assert A.gat_layer_tiles.launches > 0
     assert D.gat_dense_panel_blocks.launches > 0
+
+
+CAPTURE_TOL = 1e-4
+
+
+def _sampled_epoch_losses(dev, capture: bool, n_steps: int = 8):
+    """Losses of ``n_steps`` GraphSAGE steps on one seeded stacked epoch
+    of the tiny dataset (the native sampler), from seeded parameters and
+    a fresh capturable AdamW; returns (losses, runner, state, stacked)."""
+    import numpy as np
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import native
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import load_dataset
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.sampling import NeighborSampler
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+
+    assert native.HAVE_NATIVE, native.BUILD_ERROR
+    ds = load_dataset("tiny")           # 80 train nodes: 10 batches of 8
+    sampler = NeighborSampler(ds.host_graph, (5, 5), 8, seed=0)
+    perm = sampler.rng.permutation(np.flatnonzero(ds.train_mask))
+    stacked = TT.batch_to_device(native.sample_epoch_native(
+        sampler.row_ptr, sampler.senders, perm[: n_steps * 8], (5, 5), 8,
+        sampler.cap_nodes, sampler.e_pad, 1), dev)
+    model = build_model("GraphSAGE", ds.x.shape[1], ds.n_class, hidden=32,
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev)
+    state = TT.TrainState(model.params, TT.adamw(model.params, 1e-2,
+                                                 capturable=True))
+    update = TT.make_sampled_update(
+        model.make_apply(), state, sampler.cap_nodes, sampler.e_pad,
+        torch.as_tensor(ds.x, device=dev),
+        torch.as_tensor(ds.y.astype(np.int64), device=dev))
+    runner = TT.EpochRunner(update, capture=capture)
+    losses = torch.zeros(n_steps, device=dev)
+    runner.run(stacked, n_steps, losses)
+    return losses.cpu(), runner, state, stacked
+
+
+@pytest.mark.gpu
+def test_captured_sampled_epoch_matches_eager_loop():
+    """3 eager warm-up steps then 5 replays of the captured step, against
+    8 eager steps from the same state on the same batches; then the
+    device-epoch measurement restores parameters and AdamW state exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cap, runner, state, stacked = _sampled_epoch_losses(dev, True)
+    eager, _, _, _ = _sampled_epoch_losses(dev, False)
+    assert runner.graph is not None and runner.replays == 5
+    rel = ((cap - eager).abs() / eager.abs()).max().item()
+    assert rel <= CAPTURE_TOL, (cap.tolist(), eager.tolist())
+    snap = TT.snapshot(state)
+    sec = TT.device_epoch_seconds(runner, state, stacked, 8)
+    assert sec > 0
+    for a, b in zip(TT.snapshot(state), snap, strict=True):
+        assert torch.equal(a, b)

@@ -166,8 +166,11 @@ def test_unported_builder_options_raise():
     _, ht = _host_pair()
     with pytest.raises(NotImplementedError):
         TG.hybrid_graph(ht, min_nnz=64, values_dtype=np.float16, device=CPU)
-    with pytest.raises(NotImplementedError):
-        TG.reorder_nodes(ht, "cluster")
+    # the "cluster" reorder is ported since label propagation is
+    # (tests/test_torch_native.py holds it to JAX's): it no longer raises
+    g2, perm = TG.reorder_nodes(ht, "cluster")
+    np.testing.assert_array_equal(np.sort(perm), np.arange(ht.n_node))
+    assert g2.n_edge == ht.n_edge
 
 
 @pytest.mark.parametrize("communities", [0, 7])

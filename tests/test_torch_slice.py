@@ -182,8 +182,9 @@ def test_partitions_and_classification_match_jax(network):
 
 def test_unported_kinds_raise(graphs):
     """What the port does not run yet raises, naming its ROADMAP.md item
-    (label-propagation clustering); every lowering kind, densefull
-    included, lowers, and a tail with tile classes builds."""
+    (data-parallel training; label-propagation clustering is ported
+    now); every lowering kind, densefull included, lowers, and a tail
+    with tile classes builds."""
     _, ht = graphs
     g = T.build_op_graph("GCN", 8, 8)
     part = TS.aggregation_partition(g)
@@ -192,8 +193,11 @@ def test_unported_kinds_raise(graphs):
     fn = TF.lower_schedule(g, sched, ht, device=CPU)
     assert "spmm_densefull" in [p[0] for p in fn.plans]
     assert TS.Schedule.from_key(sched.key()) == sched
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TG.reorder_nodes(ht, "cluster")
+        TT.make_train_step(lambda p, g, x: x, pmean_axis="data")
+    _, perm = TG.reorder_nodes(ht, "cluster")
+    np.testing.assert_array_equal(np.sort(perm), np.arange(ht.n_node))
     hy = TG.hybrid_graph(ht, block_rows=64, block_cols=64, tile_edges=64,
                          min_nnz=8, tile_classes=(32, 64), device=CPU)
     assert isinstance(hy.tiles, TG.MultiTiledGraph)
