@@ -187,6 +187,27 @@ Reddit's node count, and checks every hand-written kernel on the way:
      against the port on the CPU (E2E_TOL, GRAD_TOL), the native
      sampler's repeat, and the device-epoch measurement's restore of the
      parameters and AdamW state, bit for bit.
+ 13. the sharded path (``parallel/``, phase 12's graph kept from phase 4):
+     GCN-2l and GAT-2l at the smoke's widths, the graph partitioned into 4
+     shards (each shard's comm_report at F = 128, bf16); (a) four gloo
+     ranks on cuda:0 (``parallel.launch``; their exchanges staged through
+     pinned host memory), ``use_kernels=True``: per rank K1 and K3 against
+     their plain versions at its shapes (timed in turns), one bf16 and one
+     float32 request per model against the single-card per-op answers
+     (E2E_TOL), one float32 sharded step's loss and gradients against
+     per-op autograd (GRAD_TOL), two bf16 steps (falling), GAT-2l with
+     ``quantize_halo`` (5% of the exact answer and loss, JAX's quantized
+     step bound), one layer's exchange time, K1's and K3's launches on
+     every rank, and one traced step for ``overlap_report``; (b) the 2 x 2
+     mesh over the same ranks: a GCN-2l request and float32 step; (c) a
+     world of one over NCCL: GCN-2l through ``make_dist_apply`` and
+     ``make_sharded_train_step`` against the single-card hybrid kernel
+     path, then one Flickr epoch of ``train_sampled_scan(mesh=world)``
+     (the all-reduce in the captured graph) against ``mesh=None``; (d)
+     ``predicted_scaling`` at D = 4 and 8 from 13a's per-shard rate (a
+     rank's layer-0 aggregation, local K1 plus the per-op remote half,
+     over its edges), the vendor's NVLink and NIC rates, at overlap 0 and
+     1 (the traced gloo fraction is printed as the artefact it is).
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -3784,6 +3805,324 @@ def sampled_phase(dev, smoke_edges: int) -> None:
         f"took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 13: the sharded path (parallel/) on the card.  Four gloo ranks share
+# the one card (NCCL refuses two ranks of a communicator on one device);
+# their exchanges run on the host.  Each rank's local edges run K1 and K3
+# on its own tiling of this geometry (parallel/dist.py's defaults)
+SHARDS = 4
+SHARD_TILE = (256, 256, 512)
+# 13a: a GAT-2l answer with quantize_halo against the exact one, and its
+# loss: the bound of JAX's tests/test_qcomm.py for a quantized step (5%)
+QUANT_TOL = 0.05
+
+
+def _gather_rows(res, key, n):
+    return np.concatenate([r["answers"][key] for r in res])[:n]
+
+
+def _hold_answer(what, y, ref, tol) -> float:
+    if not np.isfinite(y).all():
+        raise AssertionError(f"{what}: non-finite output")
+    if y.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {y.shape} != {ref.shape}")
+    rel = float(np.abs(y - ref).max()) / max(1.0, float(np.abs(ref).max()))
+    say(f"  {what}: relative error {rel:.3e} (bound {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"{what}: {rel} > {tol}")
+    return rel
+
+
+def _hold_grads(what, loss, grads, ref_loss, ref_grads) -> None:
+    rel = abs(loss - ref_loss) / max(1.0, abs(ref_loss))
+    say(f"  {what}: loss {loss:.6f} against {ref_loss:.6f}, relative "
+        f"{rel:.2e} (bound {GRAD_TOL['loss']:g})")
+    if not rel <= GRAD_TOL["loss"]:
+        raise AssertionError(f"{what}: loss {rel}")
+    for k, g in ref_grads.items():
+        err = float(np.abs(grads[k] - g).max()) / max(float(np.abs(g).max()),
+                                                      1e-30)
+        say(f"    grad {k}: {err:.2e} of max |reference| (bound "
+            f"{GRAD_TOL['grad']:g})")
+        if not err <= GRAD_TOL["grad"]:
+            raise AssertionError(f"{what}: grad {k} {err}")
+
+
+def _shard_report(part, F: int = HIDDEN) -> None:
+    """The plan's comm_report at F and bf16, and each shard's edges,
+    halo rows and exchange bytes a layer (what it sends)."""
+    rep = part.comm_report(F, 2)
+    say(f"  plan D={part.n_shards}: halo width {rep['halo_width']}, hub cap "
+        f"{rep['hub_cap']}, local-edge share {rep['local_edges_frac']:.4f}, "
+        f"exchange {(rep['halo_bytes'] + rep['hub_bytes']) / 2**20:.1f} MiB "
+        "a layer (all ranks, bf16, F=128)")
+    D, H, Kh = part.n_shards, part.halo, part.hub_cap
+    for d in range(D):
+        el, er = int(part.el_mask[d].sum()), int(part.er_mask[d].sum())
+        sent = (D * H + (D - 1) * Kh) * F * 2
+        say(f"    shard {d}: {el} local + {er} remote edges (local share "
+            f"{el / max(el + er, 1):.4f}), halo rows sent "
+            f"{int(part.send_mask[d].sum())} of {D * H} slots, hub rows "
+            f"{int(part.hub_mask[d].sum())} of {Kh}; sends "
+            f"{sent / 2**20:.1f} MiB a layer")
+
+
+def _sharded_refs(models, specs, hg, dev, x, labels) -> dict:
+    """The single-card references: per-op answers (bf16, float32) and
+    float32 loss and gradients of both models; the hybrid kernel path's
+    GCN-2l answers and float32 loss and gradients (13c's yardstick)."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import hybrid_schedules
+    g = hg.to_device(dev)
+    xt = torch.tensor(x, device=dev)
+    y = torch.tensor(labels, device=dev)
+    mask = torch.ones(hg.n_node, dtype=torch.bool, device=dev)
+    refs = {}
+    for mname, model in models.items():
+        paths = {"per-op": {"bfloat16": model.make_apply(torch.bfloat16),
+                            "float32": model.make_apply(None)}}
+        if mname == "GCN-2l":
+            sched = hybrid_schedules(model.layers)
+            paths["kernel"] = {dtn: model.make_apply(
+                dt, schedules=sched, host_graph=hg, device=dev)
+                for dtn, dt in (("bfloat16", torch.bfloat16),
+                                ("float32", None))}
+        for path, fns in paths.items():
+            with torch.inference_mode():
+                for dtn, fn in fns.items():
+                    refs[(mname, path, dtn)] = fn(dict(model.params), g,
+                                                  xt).float().cpu().numpy()
+            loss, grads, sec = _loss_and_grads(model, fns["float32"], g, xt,
+                                               y, mask)
+            refs[(mname, path, "grads")] = (
+                loss, {k: v.cpu().numpy() for k, v in grads.items()})
+    del g, xt, y, mask
+    torch.cuda.empty_cache()
+    return refs
+
+
+def sharded_phase(hg, dev) -> dict:
+    """Phase 13: the sharded path over four gloo ranks on the card (13a
+    the 1-D plan, 13b the 2 x 2 mesh), a world of one over NCCL (13c) and
+    the predicted scaling (13d).  Returns K1's and K3's launches per rank
+    on the sharded path (13a's requests and steps)."""
+    import tempfile
+
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.parallel import (
+        launch, overlap_fraction, partition_graph, partition_graph_2d,
+        predicted_scaling)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import shard_smoke as SS
+
+    t_phase = time.perf_counter()
+    n = hg.n_node
+    say(f"== 13 the sharded path (parallel/): {SHARDS} gloo ranks on "
+        f"cuda:0, K1 and K3 on each rank's local edges")
+    gen = torch.Generator().manual_seed(0)      # phase 4's seeded models
+    models = {
+        "GCN-2l": build_model("GCN", F_IN, N_CLASS, hidden=HIDDEN,
+                              n_layers=2, reorder=True, generator=gen,
+                              device=dev),
+        "GAT-2l": build_model("GAT", F_IN, N_CLASS, hidden=HIDDEN,
+                              n_layers=2, heads=HEADS, generator=gen,
+                              device=dev),
+    }
+    specs = {m: dict(network=m.split("-")[0], f_in=F_IN, n_class=N_CLASS,
+                     hidden=HIDDEN, heads=HEADS, reorder=m == "GCN-2l",
+                     params={k: v.detach().cpu().numpy()
+                             for k, v in model.params.items()})
+             for m, model in models.items()}
+    x = SS.request_x(0, n, F_IN)
+    wy = np.random.default_rng(7).standard_normal((F_IN, N_CLASS),
+                                                  dtype=np.float32)
+    labels = (x @ wy).argmax(1)       # learnable: a linear probe of x
+    t0 = time.perf_counter()
+    refs = _sharded_refs(models, specs, hg, dev, x, labels)
+    say(f"  single-card references (per-op answers and float32 gradients, "
+        f"GCN-2l's hybrid kernel path) {time.perf_counter() - t0:.1f} s")
+    del models
+
+    t0 = time.perf_counter()
+    parts = {4: partition_graph(hg, SHARDS)}
+    part2d = partition_graph_2d(hg, 2, 2)
+    parts[1] = partition_graph(hg, 1)
+    parts[8] = partition_graph(hg, 8)
+    say(f"  partitions D=4, 2x2, 1, 8 on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _shard_report(parts[4])
+    rep2 = part2d.comm_report(HIDDEN, 2)
+    say(f"  plan 2x2: intra-node {rep2['ici_bytes'] / 2**20:.1f} MiB, "
+        f"inter-node {rep2['dcn_bytes'] / 2**20:.1f} MiB a layer (bf16, "
+        f"F=128), halo_in {rep2['halo_in']}, halo_out {rep2['halo_out']}")
+
+    tmp = tempfile.mkdtemp(prefix="gta_sharded_")
+    for name, p in (("p4", parts[4]), ("p22", part2d), ("p1", parts[1])):
+        SS.save_partition(p, os.path.join(tmp, name))
+    spec = dict(part_dir=os.path.join(tmp, "p4"),
+                part2d_dir=os.path.join(tmp, "p22"), models=specs,
+                n_node=n, f_in=F_IN, seed=0, labels=labels,
+                tile=SHARD_TILE, lr=LR, trace_dir=tmp)
+
+    say("== 13a four gloo ranks, the 1-D plan (13b: the 2 x 2 mesh)")
+    t0 = time.perf_counter()
+    res = launch(SS.gloo_rank, SHARDS, backend="gloo", args=(spec,),
+                 threads=2)
+    say(f"  world of {SHARDS} (spawn, partition load, tilings, 13a, 13b) "
+        f"{time.perf_counter() - t0:.1f} s")
+    card = None
+    rates = []
+    for r, rr in enumerate(res):
+        say(f"  rank {r}: {rr['local_edges']} local, {rr['remote_edges']} "
+            f"remote edges; tilings {rr['n_tiles']} / {rr['n_tiles_unit']} "
+            f"tiles (weighted / unit) in {rr['tiling_s']:.1f} s; 13a "
+            f"{rr['phase_a_s']:.1f} s, 13b {rr['phase_b_s']:.1f} s")
+        for k, rows in rr["kernels"].items():
+            for row in rows:
+                times = ("   (not timed: no card)" if "ms" not in row else
+                         f"   kernel {row['ms']:.4f} ms   plain "
+                         f"{row['plain_ms']:.4f} ms   bound "
+                         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                say(f"    {k:10s} l{row['layer']} {row['dtype']:8s} F="
+                    f"{row['F']:<3d} max_abs_err={row['err']:.3e} "
+                    f"({row['share']:.3f} of its bound){times}")
+        if "aggregation_ms" in rr:
+            rates.append((rr["local_edges"] + rr["remote_edges"])
+                         / (rr["aggregation_ms"] / 1e3))
+            say(f"    layer-0 aggregation without the exchange (K1 on the "
+                f"local edges + the per-op remote half, bf16 F=128): "
+                f"{rr['aggregation_ms']:.4f} ms, {rates[-1]:.3e} edges/s")
+        st = rr["staged"]
+        say(f"    exchange of one layer ([n_local, 128] bf16, halo "
+            f"all-to-all and hub all-gather): {rr['exchange_ms']:.2f} ms, "
+            "staged through the host (gloo); on the main path "
+            f"{st['calls']} collectives staged through pinned host memory, "
+            f"{st['bytes'] / 2**20:.1f} MiB")
+        say(f"    launches on the sharded path (1 bf16 + 1 float32 request "
+            f"per model, 1 float32 + 2 bf16 steps per model): "
+            f"{rr['launches']}")
+        for k, v in rr["launches"].items():
+            # (a CPU rehearsal takes the plain versions: nothing launches)
+            if v <= 0 and dev.type == "cuda":
+                raise AssertionError(f"rank {r}: kernel {k} was not launched"
+                                     " on the sharded path")
+        if card is None:
+            card = rr
+    for mname in ("GCN-2l", "GAT-2l"):
+        for dtn in ("bfloat16", "float32"):
+            _hold_answer(f"13a {mname} {dtn} request, 4 ranks against the "
+                         "single-card per-op path",
+                         _gather_rows(res, (mname, dtn), n),
+                         refs[(mname, "per-op", dtn)], E2E_TOL[dtn])
+        loss = card["losses"][(mname, "float32")][0]
+        _hold_grads(f"13a {mname} float32 step, 4 ranks against single-card "
+                    "per-op autograd", loss, card["grads"][mname],
+                    *refs[(mname, "per-op", "grads")])
+        for r, rr in enumerate(res):
+            if rr["grads"][mname].keys() != card["grads"][mname].keys() or \
+                    any(not np.array_equal(rr["grads"][mname][k], v)
+                        for k, v in card["grads"][mname].items()):
+                raise AssertionError(f"rank {r}: {mname} gradients differ "
+                                     "from rank 0's")
+        bl = card["losses"][(mname, "bfloat16")]
+        say(f"  13a {mname} bf16 steps: losses {['%.5f' % v for v in bl]}")
+        if not (np.isfinite(bl).all() and bl[-1] < bl[0]):
+            raise AssertionError(f"{mname} bf16 sharded losses {bl}")
+    exact = _gather_rows(res, ("GAT-2l", "float32"), n)
+    quant = _gather_rows(res, ("GAT-2l", "float32/quantized"), n)
+    qrel = float(np.abs(quant - exact).max()) / float(np.abs(exact).max())
+    ce = [float(torch.nn.functional.cross_entropy(torch.from_numpy(a),
+                                                  torch.from_numpy(labels)))
+          for a in (exact, quant)]
+    say(f"  13a GAT-2l float32 with quantize_halo (int8 payloads and "
+        f"per-row scales): {qrel:.3e} of max |exact answer|, loss "
+        f"{ce[1]:.6f} against {ce[0]:.6f} (bounds {QUANT_TOL:g}, JAX's "
+        "quantized-step bound)")
+    if not (qrel <= QUANT_TOL
+            and abs(ce[1] - ce[0]) <= QUANT_TOL * abs(ce[0]) + 1e-3):
+        raise AssertionError(f"quantized halo: {qrel}, losses {ce}")
+
+    say("== 13b the 2 x 2 mesh over the same four gloo ranks")
+    _hold_answer("13b GCN-2l float32 request against the single-card per-op "
+                 "path", _gather_rows(res, ("GCN-2l", "float32/2x2"), n),
+                 refs[("GCN-2l", "per-op", "float32")], E2E_TOL["float32"])
+    _hold_grads("13b GCN-2l float32 step against single-card per-op "
+                "autograd", card["losses"][("GCN-2l", "float32/2x2")][0],
+                card["grads"]["GCN-2l/2x2"],
+                *refs[("GCN-2l", "per-op", "grads")])
+
+    say("== 13c a world of one over NCCL")
+    spec1 = dict(spec, part_dir=os.path.join(tmp, "p1"),
+                 sampled=dict(SAMPLED, epochs=1))
+    t0 = time.perf_counter()
+    one = launch(SS.nccl_rank, 1, backend="nccl", args=(spec1,),
+                 threads=4)[0]
+    say(f"  world of one (spawn, tiling, requests, step, a Flickr epoch "
+        f"with and without the group) {time.perf_counter() - t0:.1f} s; "
+        f"K1 launches "
+        f"{one['launches']}")
+    if one["launches"] <= 0 and dev.type == "cuda":
+        raise AssertionError("13c: K1 was not launched")
+    for dtn in ("bfloat16", "float32"):
+        _hold_answer(f"13c GCN-2l {dtn} request against the single-card "
+                     "hybrid kernel path", one["answers"][dtn][:n],
+                     refs[("GCN-2l", "kernel", dtn)], E2E_TOL[dtn])
+    _hold_grads("13c GCN-2l float32 step against the single-card kernel "
+                "path's autograd", one["loss"], one["grads"],
+                *refs[("GCN-2l", "kernel", "grads")])
+    sm, sn = one["sampled"]["mesh"], one["sampled"]["none"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        sm["epoch_losses"] + [sm["train_loss"]],
+        sn["epoch_losses"] + [sn["train_loss"]]))
+    say(f"  13c Flickr, one epoch of train_sampled_scan ({sm['steps']} "
+        f"steps): mesh=world (NCCL all-reduce in the captured graph) loss "
+        f"{sm['train_loss']:.6f}, mean {sm['epoch_losses'][0]:.6f}, "
+        f"{sm['seconds']:.1f} s; mesh=None {sn['train_loss']:.6f}, mean "
+        f"{sn['epoch_losses'][0]:.6f}, {sn['seconds']:.1f} s; relative "
+        f"{rel:.2e} (bound {CAPTURE_TOL:g})")
+    if not rel <= CAPTURE_TOL:
+        raise AssertionError(f"13c captured data-parallel epoch: {rel}")
+
+    say("== 13d predicted scaling (a prediction: one card, no link measured)")
+    ov = [overlap_fraction(rr["overlap"]) for rr in res]
+    say(f"  overlap_report of one traced bf16 GCN-2l step per rank: "
+        f"windows {[rr['overlap']['n_windows'] for rr in res]}, window "
+        f"{[round(rr['overlap']['window_us']) for rr in res]} us, compute "
+        f"inside {[round(rr['overlap']['hidden_us']) for rr in res]} us; "
+        f"fraction {['%.3f' % v for v in ov]}: a gloo-loopback artefact "
+        "(host-staged windows about 100x the device work inside them), "
+        "not an NVLink overlap; the prediction is read at its bounds 0 "
+        "and 1")
+    if not rates:
+        raise AssertionError("13d needs 13a's aggregation times (a card)")
+    rate = min(rates)
+    say(f"  per-shard rate: a rank's whole layer-0 aggregation (local K1 "
+        f"plus the remote per-op half) over its edges, "
+        f"{['%.3e' % v for v in rates]} edges/s; the slowest, {rate:.3e}")
+    for D in (4, 8):
+        p = parts[D]
+        counts = p.el_mask.sum(1) + p.er_mask.sum(1)
+        plan = dict(p.comm_report(HIDDEN, 2), n_shards=D,
+                    edge_balance=float(counts.max() / counts.mean()))
+        pr = predicted_scaling(plan, edges_per_s_chip=rate,
+                               n_edge=hg.n_edge, overlap=float(np.mean(ov)))
+        say(f"  prediction D={D} (edge balance {plan['edge_balance']:.3f}, "
+            f"the largest shard's edges over the mean): NVLink "
+            f"{pr['t_ici_s'] * 1e3:.3f} ms, compute "
+            f"{pr['t_comp_s'] * 1e3:.3f} ms a layer; efficiency "
+            f"{pr['efficiency_no_overlap']:.3f} without overlap, "
+            f"{pr['efficiency_full_overlap']:.3f} with full overlap "
+            f"(at most 1 / edge balance = {1 / plan['edge_balance']:.3f} "
+            f"by construction), comm-bound {pr['comm_bound']} "
+            "(NVLink 450 GB/s and NIC 50 GB/s: the vendor's spec)")
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: [rr["launches"][k] for rr in res]
+            for k in ("spmm_tiles", "gat_tiles")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--edges", type=int, default=11_461_589,
@@ -3978,8 +4317,10 @@ def main(argv=None) -> int:
     stream_densefull_phase(models, hg, g, dev, measured)
     p10_launches = classes_sinput_phase(checks, models, hybs, hg, g, dev)
     compiled_phase(models, init_params, measured, hg, g, dev)
-    del models, init_params, measured, hybs, g, hg
+    del models, init_params, measured, hybs, g
     sampled_phase(dev, args.edges)
+    sharded_launches = sharded_phase(hg, dev)
+    del hg
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []
@@ -4006,6 +4347,8 @@ def main(argv=None) -> int:
             row["serving_launches"] = serving_launches[k]
         if k in p10_launches:
             row["phase10_launches"] = p10_launches[k]
+        if k in sharded_launches:
+            row["phase13_launches_per_rank"] = sharded_launches[k]
         kernels.append(row)
     say(json.dumps({"kernels": kernels}))
     say(card_line)

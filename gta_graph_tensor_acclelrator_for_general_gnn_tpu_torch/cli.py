@@ -136,6 +136,28 @@ def _train(args, ds, model, sched, dtype, device) -> int:
     return 0 if math.isfinite(res.train_loss) else 1
 
 
+def _train_multihost(args, ds, dtype) -> int:
+    """``train --multihost``: :func:`~.parallel.multihost.train_multihost`
+    on this rank, the JAX CLI's output keys."""
+    import math
+
+    import torch.distributed as dist
+
+    from .parallel.multihost import train_multihost
+    loss, losses = train_multihost(
+        ds, args.network, hidden=args.hidden, n_layers=args.layers,
+        heads=args.heads, epochs=args.epochs, lr=args.lr,
+        compute_dtype=dtype, seed=args.seed, verbose=not args.json,
+        device="cpu" if args.device == "cpu" else None)
+    out = dict(dataset=args.dataset, network=args.network,
+               synthetic_data=ds.synthetic, node_reorder=args.node_reorder,
+               train_loss=loss, epoch_losses=losses, multihost=True,
+               processes=dist.get_world_size() if dist.is_initialized()
+               else 1)
+    _print(out, args.json)
+    return 0 if math.isfinite(loss) else 1
+
+
 def _tune(args, ds, dtype, device) -> int:
     """``tune``: the JAX CLI's tune over ``tune/search.autotune``; with
     ``--stack`` per layer of the model, writing the schedule JSON."""
@@ -385,10 +407,28 @@ def main(argv=None) -> int:
                    help="bench: block rows and cols of the edge tiles "
                         "(default: the modelled geometry; 256 with "
                         "--tile-classes)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a torch.distributed process group and train "
+                        "full-batch over the (nodes x cards) mesh; run one "
+                        "process per card (parallel/multihost.py)")
+    p.add_argument("--coordinator", default=None,
+                   help="multihost rendezvous address host:port (default: "
+                        "the env:// variables, as torchrun sets them)")
+    p.add_argument("--nprocs", type=int, default=None,
+                   help="multihost process count (with --coordinator)")
+    p.add_argument("--procid", type=int, default=None,
+                   help="this process's rank (with --coordinator)")
     args = p.parse_args(argv)
 
     if args.hw_config:
         os.environ["GTA_HW_CONFIG"] = args.hw_config
+    if args.multihost:
+        # before any device use: join (or start) the process group
+        from .parallel.multihost import init_multihost
+        backend = "gloo" if args.device == "cpu" else None
+        pid, pcount = init_multihost(args.coordinator, args.nprocs,
+                                     args.procid, backend=backend)
+        print(f"multihost: process {pid}/{pcount}", flush=True)
 
     import numpy as np
     import torch
@@ -410,6 +450,8 @@ def main(argv=None) -> int:
             train_mask=ds.train_mask[perm], val_mask=ds.val_mask[perm],
             test_mask=ds.test_mask[perm])
     hg, x_np = ds.host_graph, ds.x
+    if args.command == "train" and args.multihost:
+        return _train_multihost(args, ds, dtype)
     if args.command == "bench":
         return _bench(args, ds, resolve_device(args.device))
     if args.command == "tune":

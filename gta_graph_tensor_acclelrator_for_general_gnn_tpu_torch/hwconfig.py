@@ -11,6 +11,14 @@ overrides the built-in defaults, which are those of one NVIDIA H100
     tile_palette:       list of [block_rows, block_cols, tile_edges, path
                         (, "d<dense_block>")] entries swept by the tuner
     hbm_gbps:           device-memory rate used by analytic cost reports
+    nvlink_gbps:        GB/s one card sends to the other cards of its node
+                        (NVLink 4 on the H100 SXM: 450 GB/s per direction)
+    nic_gbps:           GB/s one card sends to other nodes (one 400 Gb/s
+                        NDR InfiniBand NIC per GPU: 50 GB/s)
+
+The two interconnect defaults are NVIDIA's published H100 SXM figures,
+not measurements: ``parallel/scaling.py`` predicts multi-card scaling
+from them.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ class HwConfig:
     smem_budget_bytes: int = 232_448
     tile_palette: Optional[Tuple[tuple, ...]] = None   # None = built-in
     hbm_gbps: float = 3350.0
+    nvlink_gbps: float = 450.0
+    nic_gbps: float = 50.0
 
     def palette(self):
         """The tuner's tile palette: the config's, else the built-in
@@ -113,6 +123,7 @@ def _load_hw_config_cached(path: str) -> HwConfig:
         kw["smem_budget_bytes"] = int(data["smem_budget_bytes"])
     if "tile_palette" in data:
         kw["tile_palette"] = tuple(tuple(e) for e in data["tile_palette"])
-    if "hbm_gbps" in data:
-        kw["hbm_gbps"] = float(data["hbm_gbps"])
+    for key in ("hbm_gbps", "nvlink_gbps", "nic_gbps"):
+        if key in data:
+            kw[key] = float(data[key])
     return HwConfig(**kw)

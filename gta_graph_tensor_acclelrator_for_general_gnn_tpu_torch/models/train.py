@@ -81,8 +81,18 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
     return (hit * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+def _process_group(group, what: str):
+    """``group`` when it is a ``torch.distributed`` process group, else a
+    TypeError naming ``what``."""
+    import torch.distributed as dist
+    if not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"{what} takes a torch.distributed process group "
+                        f"(e.g. dist.group.WORLD), not {group!r}")
+    return group
+
+
 def make_train_step(apply: Callable, *, remat: bool = False,
-                    pmean_axis: Optional[str] = None):
+                    pmean_axis=None):
     """Build ``step(state, g, x, y, mask) -> (state, loss)``: one forward,
     backward and optimizer update of ``state.params`` in place.
     ``step.update(state, g, x, y, mask) -> loss`` is the same work without
@@ -91,11 +101,12 @@ def make_train_step(apply: Callable, *, remat: bool = False,
 
     ``remat=True`` recomputes the forward in the backward
     (``torch.utils.checkpoint``), trading work for activation memory.
-    ``pmean_axis`` (data-parallel gradient averaging) is not ported yet."""
-    if pmean_axis is not None:
-        raise NotImplementedError(
-            "data-parallel training (pmean_axis) is not ported yet: "
-            "ROADMAP.md Queue 1 item 12")
+    ``pmean_axis``: a process group (where JAX names a mesh axis) over
+    which the step is data-parallel: the gradients and the reported loss
+    are averaged over the group before the update, so every rank applies
+    the same update."""
+    group = (None if pmean_axis is None
+             else _process_group(pmean_axis, "pmean_axis"))
 
     def update(state: TrainState, g: GraphTensor, x: torch.Tensor,
                y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -107,8 +118,17 @@ def make_train_step(apply: Callable, *, remat: bool = False,
             logits = apply(params, g, x)
         loss = masked_cross_entropy(logits, y, mask)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            from ..parallel.qcomm import all_reduce_, group_size
+            inv = 1.0 / group_size(group)
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                all_reduce_(p.grad, group).mul_(inv)
+            loss = all_reduce_(loss.reshape(1).clone(), group)[0] * inv
         state.optimizer.step()
-        return loss.detach()
+        return loss
 
     def step(state: TrainState, g: GraphTensor, x: torch.Tensor,
              y: torch.Tensor, mask: torch.Tensor):
@@ -229,14 +249,17 @@ def gather_rows(xfull: torch.Tensor, yfull: torch.Tensor, ids: torch.Tensor):
 
 def make_sampled_update(apply: Callable, state: TrainState, cap_nodes: int,
                         e_pad: int, xfull: Optional[torch.Tensor] = None,
-                        yfull: Optional[torch.Tensor] = None):
+                        yfull: Optional[torch.Tensor] = None,
+                        pmean_axis=None):
     """``update(b) -> loss``: one train step of ``state`` on one sampled
     batch ``b`` (a dict of device tensors: ``senders``, ``receivers``
     (int64), ``mask``, ``weight``, ``seed`` and either ``x`` and ``y`` or
     ``ids``, whose rows it gathers from ``xfull`` and ``yfull``).  The
     subgraph's ``n_edge`` is pinned to ``e_pad``; the update queues device
-    work only, so :class:`EpochRunner` can capture it."""
-    base = make_train_step(apply).update
+    work only, so :class:`EpochRunner` can capture it.  ``pmean_axis``: a
+    process group to average the gradients and loss over
+    (:func:`make_train_step`)."""
+    base = make_train_step(apply, pmean_axis=pmean_axis).update
 
     def update(b: Mapping[str, torch.Tensor]) -> torch.Tensor:
         g = GraphTensor(senders=b["senders"], receivers=b["receivers"],
@@ -598,15 +621,33 @@ def train_sampled_scan(
     over the first epoch's batches; the state is restored after).
     ``epoch_time_s`` is host wall time per timed epoch, ending in a sync.
 
-    ``mesh`` (data parallelism over ``dp_axis``) is not ported yet."""
+    ``mesh``: a process group (where JAX names a mesh and its
+    ``dp_axis``, which the port ignores) over which training is
+    synchronously data-parallel: every rank samples the same epoch,
+    global step i feeds rank d its batch i * D + d, and the step averages
+    the gradients and the loss over the group before the update
+    (:func:`make_train_step`'s ``pmean_axis``).  The epoch is cut to a
+    multiple of D batches; fewer than D batches raise.  On a CUDA device
+    the all-reduce is captured in the CUDA graph with the step, which
+    needs NCCL: a gloo group there raises (gloo's collectives run on the
+    host and cannot be captured).  ``steps_per_epoch`` in the breakdown
+    counts the epoch's batches over the group."""
     from .. import native
     from ..data.sampling import NeighborSampler
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel sampled training (mesh) is not ported yet: "
-            "ROADMAP.md Queue 1 item 12")
+    group = None if mesh is None else _process_group(mesh, "mesh")
     dev = resolve_device(device)
+    n_dp, me = 1, 0
+    if group is not None:
+        import torch.distributed as dist
+        if dev.type == "cuda" and dist.get_backend(group) != "nccl":
+            raise ValueError(
+                "train_sampled_scan(mesh=...) on a CUDA device captures the "
+                "step, its all-reduce included, in a CUDA graph; a "
+                f"{dist.get_backend(group)} group's collectives cannot be "
+                "captured: use an NCCL group (one card per rank), or the CPU")
+        n_dp = dist.get_world_size(group)
+        me = dist.get_group_rank(group, dist.get_rank())
     if measure_device_epoch and dev.type != "cuda":
         raise ValueError("measure_device_epoch needs a CUDA device")
     model = _sampled_model(ds, network, hidden, fanouts, seed, dev, model)
@@ -658,7 +699,8 @@ def train_sampled_scan(
         ), len(gs)
 
     runner = EpochRunner(
-        make_sampled_update(apply, state, cap_n, e_pad, xfull, yfull),
+        make_sampled_update(apply, state, cap_n, e_pad, xfull, yfull,
+                            pmean_axis=group),
         capture=dev.type == "cuda")
     epoch_losses = []            # per epoch, the steps' losses (device)
 
@@ -669,9 +711,21 @@ def train_sampled_scan(
         return loss
 
     first_np, n_steps = stack_epoch()
-    first = batch_to_device(first_np, dev)
+    if n_steps < n_dp:
+        raise ValueError(
+            f"data parallelism over {n_dp} ranks needs at least {n_dp} "
+            f"batches an epoch, got {n_steps} (shrink batch_size or the "
+            "group)")
+    n_steps = n_steps // n_dp * n_dp
+
+    def own(stacked):
+        """This rank's batches of a stacked epoch: me, me + D, ..."""
+        return {k: v[me:n_steps:n_dp] for k, v in stacked.items()}
+
+    n_own = n_steps // n_dp
+    first = batch_to_device(own(first_np), dev)
     del first_np
-    loss = run_epoch(first, n_steps)
+    loss = run_epoch(first, n_own)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -679,10 +733,10 @@ def train_sampled_scan(
     t_all = time.perf_counter()
     for _ in range(max(epochs - 1, 0)):
         t0 = time.perf_counter()
-        stacked, n = stack_epoch()
+        stacked, _ = stack_epoch()
         sample_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        loss = run_epoch(batch_to_device(stacked, dev), n)
+        loss = run_epoch(batch_to_device(own(stacked), dev), n_own)
         h2d_s.append(time.perf_counter() - t0)
     train_loss = float(loss)          # waits for the device queue
     total = time.perf_counter() - t_all
@@ -697,7 +751,7 @@ def train_sampled_scan(
     )
     if measure_device_epoch:
         breakdown["device_epoch_s"] = device_epoch_seconds(
-            runner, state, first, n_steps)
+            runner, state, first, n_own)
     res = FitResult(
         train_loss=train_loss, train_acc=float("nan"),
         val_acc=float("nan"), test_acc=float("nan"), epochs=epochs,

@@ -181,9 +181,9 @@ def test_partitions_and_classification_match_jax(network):
 
 
 def test_unported_kinds_raise(graphs):
-    """What the port does not run yet raises, naming its ROADMAP.md item
-    (data-parallel training; label-propagation clustering is ported
-    now); every lowering kind, densefull included, lowers, and a tail
+    """``make_train_step`` refuses a ``pmean_axis`` that is not a process
+    group (data-parallel training and label-propagation clustering are
+    ported now); every lowering kind, densefull included, lowers, and a tail
     with tile classes builds."""
     _, ht = graphs
     g = T.build_op_graph("GCN", 8, 8)
@@ -194,7 +194,7 @@ def test_unported_kinds_raise(graphs):
     assert "spmm_densefull" in [p[0] for p in fn.plans]
     assert TS.Schedule.from_key(sched.key()) == sched
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="process group"):
         TT.make_train_step(lambda p, g, x: x, pmean_axis="data")
     _, perm = TG.reorder_nodes(ht, "cluster")
     np.testing.assert_array_equal(np.sort(perm), np.arange(ht.n_node))
