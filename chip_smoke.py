@@ -7,12 +7,16 @@ hidden 128, 41 classes, GAT 4 heads) over a synthetic community graph of
 Reddit's node count, and checks every hand-written kernel on the way:
 
   1. environment: versions, card name and power limit, TF32 off;
-  2. build: compiles the kernels from ``csrc/`` (seconds printed);
+  2. build: compiles the kernels from ``csrc/`` in a thread of nvcc
+     processes while the main thread builds the host graphs that need no
+     kernel (phase 4's graph, phase 12c's Reddit dataset; seconds of
+     each printed);
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
      on the edge cases of ``utils/fixtures.kernel_cases``;
-  4. slice: builds the graph, lowers each model once per dtype with the
-     hybrid splits and their transposed twins
-     (``make_apply(build_transpose=True)``), checks K1-K4 again at
+  4. slice: lowers each model once per dtype with the hybrid splits and
+     their transposed twins (``make_apply(build_transpose=True)``, one tile
+     cache for both models and dtypes, kept for 10d and 11d), checks
+     K1-K4 again at
      every shape the slice gives them, both layers' (error and time beside
      the plain version; each row's error within its bound, see
      ``fixtures.kernel_error``; K3 in both forms of a_s: the float32
@@ -178,8 +182,9 @@ Reddit's node count, and checks every hand-written kernel on the way:
      configuration): ``train_sampled_scan(measure_device_epoch=True)``
      (wall and device epoch, ``sample_s``, ``h2d_dispatch_s``, Medge/s,
      epoch losses, which must fall) and ``train_sampled`` (prefetch 2,
-     full-graph accuracies); (c) Reddit at its full 114,615,892 edges:
-     the host build, the same scan run and peak device memory, one epoch
+     full-graph accuracies); (c) Reddit at its full 114,615,892 edges
+     (its host build during phase 2): the same scan run and peak device
+     memory, one epoch
      of ``train_sampled``; (d) on one seeded Reddit epoch, the captured
      graph's replays against the eager loop (the first 8 losses within
      1e-4 relative; epoch wall times: per-step dispatch against the
@@ -208,6 +213,29 @@ Reddit's node count, and checks every hand-written kernel on the way:
      rank's layer-0 aggregation, local K1 plus the per-op remote half,
      over its edges), the vendor's NVLink and NIC rates, at overlap 0 and
      1 (the traced gloo fraction is printed as the artefact it is).
+ 14. the measurement layer and the remainders, run right after phase 4
+     on its lowered bf16 forwards (as 8f is): (a) one GCN-2l and one
+     GAT-2l request traced with ``utils/profile.trace``, its
+     ``measured_report`` printed, and each of K1-K4 whose launch count
+     rose during the request found in ``trace_events`` under its CUDA
+     symbol (``KERNEL_SYMBOL``) as many times; (b) ``schedule_report`` of
+     both models' layer schedules at bf16 with the phase-4b median as
+     ``measured_s``; (c) ``time_fn`` and ``time_fn_pipelined`` on a GCN-2l
+     request beside the CUDA-event median (``time_fn``'s median at least
+     ``TIMER_FLOOR`` of it); (d) ``gat_attention(guard_shift=True)``: JAX's
+     adversarial logits (tests/test_value_domain.py:41-70; K3 unguarded
+     off by more than 0.1, guarded within 1e-4 of ``_gat_reference``),
+     benign logits on a graph of in-degree <= 2 (guarded equal to
+     unguarded bit for bit, K3 launched), the guard's cost and
+     ``gat_shift_gap``'s host read on the smoke's graph; (e) karate and
+     digits from the port's own ``data/fixtures/``: GCN trained on the
+     card to JAX's accuracy bars (tests/test_real_data.py:20-41), GCN-2l
+     and GAT-2l on hybrid schedules against the per-op path (E2E_TOL),
+     some of K1-K4 launched; (f) the port bench's cora line with
+     ``vs_baseline``, ``mfu_pct`` and ``hbm_pct``, each share in (0, 100].
+
+Every phase prints its seconds, and a line before the kernels' line
+lists them all.
 
 Prints one JSON line of kernel results (per kernel its launches on the main
 path, its worst error at the slice's shapes, and summed over its timed
@@ -236,6 +264,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -320,8 +349,22 @@ TUNE_TARGET_S = 0.01   # phase 8e: seconds per candidate measurement
 HUB_TOL = 2e-5
 
 
+T_START = time.perf_counter()
+PHASE_S = {}       # phase -> its seconds, printed together at the end
+
+
 def say(msg: str) -> None:
+    """Print a line; a section heading (``== ...``) carries the seconds
+    since the script started."""
+    if msg.startswith("== "):
+        msg = f"{msg}  [t={time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
+
+
+def _took(phase: str, t0: float) -> float:
+    """Record and return the seconds of ``phase`` since ``t0``."""
+    PHASE_S[phase] = time.perf_counter() - t0
+    return PHASE_S[phase]
 
 
 def say_ptxas(log: str) -> None:
@@ -524,7 +567,7 @@ def _profile(what: str, name: str, fn, dev) -> None:
     wall and busy time, idle share and device time per kernel."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import profile
     profile.OUT_DIR.mkdir(parents=True, exist_ok=True)
-    profile.trace(what, profile.OUT_DIR / f"trace_{name}.json", fn, dev)
+    profile.trace_call(what, profile.OUT_DIR / f"trace_{name}.json", fn, dev)
 
 
 def _edge_note(tg):
@@ -1230,7 +1273,7 @@ def grouped_phase(checks: Checks, model, hg, g, dev) -> tuple:
     launches["spmm_grouped"] += grouped_gcn(checks, model, hg, g, dev)
     checks.csr.clear()
     say(f"launches of K9, K10 in phase 6: {launches}; phase 6 took "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{_took('6', t0):.1f} s")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched in phase 6")
@@ -1702,7 +1745,7 @@ def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
     launches["sddmm_grouped"] = d["sddmm_grouped"]
     checks.csr.clear()
     say(f"launches of K11-K13 in phase 7: {launches}; phase 7 took "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{_took('7', t0):.1f} s")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched in phase 7")
@@ -2427,7 +2470,7 @@ def layer_phase(checks: Checks, gat_model, init_params, hg, g, dev,
     say("== 8e cli tune --stack, run and train --schedule")
     tune_cli(measured)
     say(f"launches of K14 in phase 8: {launches}; phase 8a-8e took "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{_took('8a-8e', t0):.1f} s")
     if launches["gat_layer"] <= 0:
         raise AssertionError("kernel gat_layer was not launched in phase 8b")
     return launches
@@ -2603,7 +2646,7 @@ def stream_densefull_phase(models, hg, g, dev, measured) -> None:
     say(f"  {hg.n_node} nodes (cap {G.DENSEFULL_MAX_N}): layer 0 kinds {kinds}")
     if "spmm_densefull" in kinds or any(p[2] is not None for p in fn.plans):
         raise AssertionError(f"densefull past the cap lowered to {kinds}")
-    say(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    say(f"phase 9 took {_took('9', t_phase):.1f} s")
 
 
 # phase 10: the capacity classes of the JAX bench's ``auto`` list; the
@@ -2914,13 +2957,15 @@ def auto_hybrid_phase(hg, g, dev, counts: _PathLaunches) -> None:
 
 
 def sparse_input_phase(checks: Checks, model, hg, g, dev,
-                       counts: _PathLaunches) -> None:
+                       counts: _PathLaunches, tile_cache) -> None:
     """10d: GCN-2l (602, 128, 41) lowered with ``x_host`` = a seeded Zipf
     bag of words on the smoke's graph: the feature graph, its first layer
     against the dense x W, one bf16 request against the per-op path and
     one float32 request against it in float64, the float32 loss and W0's
     gradient against per-op autograd, and 1 warm-up and 2 timed bf16 AdamW steps in which K1 and
-    K2 run in both directions of the sparse-input product."""
+    K2 run in both directions of the sparse-input product.  The lowering
+    takes phase 4's splits, twins and transposed graph from ``tile_cache``
+    (the same hybrid schedules on the same graph)."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir
@@ -2936,14 +2981,14 @@ def sparse_input_phase(checks: Checks, model, hg, g, dev,
     say(f"  X: {n} x {F_IN}, density {SI.density(X):.5f}, made in "
         f"{time.perf_counter() - t0:.1f} s")
     sched = fusion.hybrid_schedules(model.layers)
-    cache, fns = {}, {}
+    cache, fns = _cache_from(tile_cache), {}
     t0 = time.perf_counter()
     for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
         fns[dtn] = [fusion.lower_schedule(
             lg, s, hg, dt, device=dev, x_host=X if i == 0 else None,
             build_transpose=True, tile_cache=cache)
             for i, (lg, s) in enumerate(zip(model.layers, sched))]
-    say(f"  lowered with x_host (both dtypes, twins) in "
+    say(f"  lowered with x_host (both dtypes, twins; phase 4's splits) in "
         f"{time.perf_counter() - t0:.1f} s")
 
     def apply_of(fl):
@@ -3098,9 +3143,10 @@ def cli_bench_phase(counts: _PathLaunches) -> None:
             raise AssertionError(f"cli bench {tag}: rc {rc}, {out}")
 
 
-def classes_sinput_phase(checks: Checks, models, hybs, hg, g,
-                         dev) -> dict:
-    """Phase 10; returns the launches of its kernels on its paths."""
+def classes_sinput_phase(checks: Checks, models, hybs, hg, g, dev,
+                         tile_cache) -> dict:
+    """Phase 10; returns the launches of its kernels on its paths
+    (``tile_cache``: phase 4's, for 10d)."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
@@ -3117,13 +3163,14 @@ def classes_sinput_phase(checks: Checks, models, hybs, hg, g,
     auto_hybrid_phase(hg, g, dev, counts)
     torch.cuda.empty_cache()
     say("== 10d sparse input: GCN-2l with x_host")
-    sparse_input_phase(checks, models["GCN-2l"], hg, g, dev, counts)
+    sparse_input_phase(checks, models["GCN-2l"], hg, g, dev, counts,
+                       tile_cache)
     torch.cuda.empty_cache()
     say("== 10e cli bench, cora x 64")
     cli_bench_phase(counts)
     torch.cuda.empty_cache()
     say(f"launches on phase 10's paths: {counts.total}; phase 10 took "
-        f"{time.perf_counter() - t_phase:.1f} s")
+        f"{_took('10', t_phase):.1f} s")
     for k, v in counts.total.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched in phase 10")
@@ -3206,12 +3253,27 @@ def compile_picks(models, hg, cost) -> dict:
     return picks
 
 
-def _lower_both(model, scheds, hg, dev):
-    """The stack under ``scheds`` per dtype, over one tile cache."""
+def _cache_from(*caches) -> dict:
+    """A tile cache (``lower_schedule``'s) holding the entries of
+    ``caches``, their nested dicts merged; what a lowering adds to it stays
+    out of theirs."""
+    out = {}
+    for c in caches:
+        for k, v in c.items():
+            if isinstance(v, dict):
+                out.setdefault(k, {}).update(v)
+            else:
+                out[k] = v
+    return out
+
+
+def _lower_both(model, scheds, hg, dev, cache=None):
+    """The stack under ``scheds`` per dtype, over one tile cache
+    (``cache``, default a fresh one)."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import lower_schedule
-    cache: dict = {}
+    cache = {} if cache is None else cache
     out = {}
     for dtn, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
         fns = [lower_schedule(layer, sc, hg, dt, device=dev,
@@ -3326,16 +3388,19 @@ def rank_on_card(mname, model, pick, measured, hg, g, dev, cost) -> dict:
     return st
 
 
-def compiled_training(mname, model, scheds, hg, g, dev) -> None:
+def compiled_training(mname, model, scheds, hg, g, dev, cache) -> None:
     """11d: 4 bf16 AdamW steps on the pick with its transposed twins
-    (``train --compiled``'s lowering): losses finite and falling."""
+    (``train --compiled``'s lowering, over ``cache``: 11b's splits of the
+    pick and phase 4's transposed graph and twins): losses finite and
+    falling."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
     t0 = time.perf_counter()
     fn = model.make_apply(torch.bfloat16, schedules=scheds, host_graph=hg,
-                          device=dev, build_transpose=True)
-    say(f"  {mname} lowering with twins {time.perf_counter() - t0:.1f} s")
+                          device=dev, build_transpose=True, tile_cache=cache)
+    say(f"  {mname} lowering with twins (11b's splits and phase 4's "
+        f"transposed graph reused) {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(14)
     x = torch.tensor(rng.standard_normal((hg.n_node, F_IN),
                                          dtype=np.float32), device=dev)
@@ -3427,9 +3492,11 @@ def compiled_cli(measured) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def compiled_phase(models, init_params, measured, hg, g, dev) -> None:
+def compiled_phase(models, init_params, measured, hg, g, dev,
+                   tile_cache) -> None:
     """Phase 11: the compile-only pick on the card (see the module
-    docstring)."""
+    docstring); ``tile_cache``: phase 4's, whose transposed graph and twins
+    11d's lowerings share."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.latency import GraphCost
@@ -3442,10 +3509,14 @@ def compiled_phase(models, init_params, measured, hg, g, dev) -> None:
     picks = compile_picks(every, hg, GraphCost(hg))
 
     say("== 11b serving the picks")
+    caches = {}      # GCN-2l's and GAT-2l's pick splits, for 11d
     for mname, model in every.items():
         scheds = picks[mname][0]
         t0 = time.perf_counter()
-        fns = _lower_both(model, scheds, hg, dev)
+        cache = {}
+        if mname in models:
+            caches[mname] = cache
+        fns = _lower_both(model, scheds, hg, dev, cache)
         say(f"  {mname} pick lowered in {time.perf_counter() - t0:.1f} s")
         outs, measured[(mname, "pick")] = _serve(
             f"{mname} pick", fns, dict(model.params), g, hg.n_node, dev)
@@ -3477,12 +3548,13 @@ def compiled_phase(models, init_params, measured, hg, g, dev) -> None:
 
     say("== 11d train --compiled on the smoke's graph")
     for mname in ("GCN-2l", "GAT-2l"):
-        compiled_training(mname, models[mname], picks[mname][0], hg, g, dev)
+        compiled_training(mname, models[mname], picks[mname][0], hg, g, dev,
+                          _cache_from(tile_cache, caches.pop(mname)))
         _restore(models[mname], init_params[mname])
 
     say("== 11e cli run / train --compiled and tune --ga on cora")
     compiled_cli(measured)
-    say(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    say(f"phase 11 took {_took('11', t_phase):.1f} s")
 
 
 # phase 12: neighbour-sampled training, float32 (TF32 off), the per-op
@@ -3515,15 +3587,15 @@ def _equal_arrays(what, a, b) -> None:
             raise AssertionError(f"{what}: {k} differs")
 
 
-def native_phase(edges: int, dev) -> None:
-    """12a: the native host library on the smoke's graph: its sort,
-    degrees and tiling against numpy's, ``build_host_graph`` both ways,
+def native_phase(smoke_coo, dev) -> None:
+    """12a: the native host library on the smoke's graph (``smoke_coo``:
+    phase 4's senders, receivers and planted labels): its sort, degrees
+    and tiling against numpy's, ``build_host_graph`` both ways,
     ``cluster_labels`` and the cluster reorder's dense share."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import native
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
 
     say("== 12a native host library")
     if not native.HAVE_NATIVE:
@@ -3531,8 +3603,7 @@ def native_phase(edges: int, dev) -> None:
                              f"card's host: {native.BUILD_ERROR}")
     say(f"  built and self-tested (g++ {native.build_seconds or 0:.1f} s "
         "in this process)")
-    s, r, labels = synthetic_coo(N_NODE, edges, seed=1, communities=1000,
-                                 p_in=0.7)
+    s, r, labels = smoke_coo
     order = native.sort_by_receiver_native(r, N_NODE)
     if not np.array_equal(order, np.argsort(r, kind="stable")):
         raise AssertionError("sort_by_receiver_native differs from numpy")
@@ -3740,10 +3811,12 @@ def sampled_card_checks(ds, dev) -> None:
             raise AssertionError(f"grad {name} card vs cpu: {err}")
 
 
-def sampled_phase(dev, smoke_edges: int) -> None:
-    """Phase 12: the native host library, then sampled training on Flickr
-    and on Reddit at its full edge count, float32 with TF32 off; no kernel
-    of K1-K15 may launch (the sampled path runs per op, as in JAX)."""
+def sampled_phase(dev, smoke_coo, reddit) -> None:
+    """Phase 12: the native host library on ``smoke_coo`` (phase 4's COO),
+    then sampled training on Flickr and on Reddit at its full edge count
+    (``reddit``: ``load_dataset("reddit")``, built on the host during phase
+    2), float32 with TF32 off; no kernel of K1-K15 may launch (the sampled
+    path runs per op, as in JAX)."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import load_dataset
@@ -3753,7 +3826,7 @@ def sampled_phase(dev, smoke_edges: int) -> None:
     counted = _all_counted()
     for f in counted.values():
         f.launches = 0
-    native_phase(smoke_edges, dev)
+    native_phase(smoke_coo, dev)
 
     say("== 12b Flickr (BASELINE.json: GraphSAGE, fanouts 10,10, batch 512)")
     ds = load_dataset("flickr")
@@ -3774,12 +3847,10 @@ def sampled_phase(dev, smoke_edges: int) -> None:
     del ds
 
     say(f"== 12c Reddit at its full edge count ({REDDIT_EDGES} edges)")
-    t0 = time.perf_counter()
-    ds = load_dataset("reddit")
+    ds = reddit
     say(f"  reddit: N={ds.host_graph.n_node} E={ds.host_graph.n_edge} "
         f"F={ds.x.shape[1]} C={ds.n_class}, train "
-        f"{int(ds.train_mask.sum())} nodes; host build "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{int(ds.train_mask.sum())} nodes; host build during phase 2")
     torch.cuda.reset_peak_memory_stats(dev)
     _, res, bd = TT.train_sampled_scan(ds, measure_device_epoch=True,
                                        device=dev, **SAMPLED)
@@ -3802,7 +3873,7 @@ def sampled_phase(dev, smoke_edges: int) -> None:
         raise AssertionError(f"phase 12 launched kernels {launched}: the "
                              "sampled path runs per op")
     say(f"launches of K1-K15 in phase 12: none (the per-op path); phase 12 "
-        f"took {time.perf_counter() - t_phase:.1f} s")
+        f"took {_took('12', t_phase):.1f} s")
 
 
 # phase 13: the sharded path (parallel/) on the card.  Four gloo ranks share
@@ -4118,9 +4189,286 @@ def sharded_phase(hg, dev) -> dict:
             "(NVLink 450 GB/s and NIC 50 GB/s: the vendor's spec)")
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
-    say(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    say(f"phase 13 took {_took('13', t_phase):.1f} s")
     return {k: [rr["launches"][k] for rr in res]
             for k in ("spmm_tiles", "gat_tiles")}
+
+
+# phase 14: the measurement layer and the remainders.  The CUDA symbol of
+# the kernel each counted wrapper launches once a call (14a)
+KERNEL_SYMBOL = {
+    "spmm_tiles": r"\bspmm_tiles_kernel<",
+    "spmm_dense_blocks": r"\bspmm_dense_(wgmma|fma)_kernel<",
+    "gat_tiles": r"\bgat_tiles_kernel<",
+    "gat_dense_blocks": r"\bgat_dense_(wgmma_)?kernel<",
+}
+TIMER_ITERS = 20
+
+
+def _serving_counted():
+    """The wrappers of K1-K4, the kernels of a hybrid request."""
+    return {k: f for k, f in _all_counted().items() if k in KERNEL_SYMBOL}
+
+# 14c: time_fn's median (host wall, synchronised) against the CUDA-event
+# median of the same request: the wall holds the device time and more,
+# less the two clocks' noise
+TIMER_FLOOR = 0.95
+# 14d: JAX's value-domain graph and tiling (tests/test_value_domain.py:18-21,
+# :58-60) and its bounds there: the unguarded kernel off by more than
+# COLLAPSE, the guarded call within GUARD_TOL of the exact reference
+GUARD_N, GUARD_E, GUARD_TILE = 300, 2000, (128, 128, 64)
+COLLAPSE, GUARD_TOL = 0.1, 1e-4
+# the benign graph: a random in-edge and a self loop a node, so that each
+# output value is at most two float atomics into zero, which commute: K3's
+# result is then the same bits in every launch
+BENIGN_N = 4096
+# 14e: JAX's real-graph bars (tests/test_real_data.py:20-41): hidden width
+# and test accuracy after 120 epochs at lr 1e-2
+REAL = (("karate", 16, 0.9), ("digits", 64, 0.93))
+
+
+def trace_and_count(what: str, fn, outdir) -> dict:
+    """14a: one call of ``fn`` under ``utils/profile.trace``; prints
+    ``measured_report`` and holds each of K1-K4's launch-count rise during
+    the call to its CUDA symbol's count in ``trace_events``."""
+    import re
+    import shutil
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import profile as PR
+    counted = _serving_counted()
+    shutil.rmtree(outdir, ignore_errors=True)
+    before = {k: f.launches for k, f in counted.items()}
+    with PR.trace(str(outdir)):
+        fn()
+    rose = {k: f.launches - before[k] for k, f in counted.items()}
+    say(f"  {what}:\n{PR.measured_report(str(outdir), top=12)}")
+    evs = PR.trace_events(str(outdir))
+    for k, n in rose.items():
+        if n == 0:
+            continue
+        pat = re.compile(KERNEL_SYMBOL[k])
+        hits = [m for m in evs if pat.search(m.name)]
+        seen = sum(m.count for m in hits)
+        us = sum(m.total_us for m in hits)
+        say(f"    {k}: counter rose {n}, trace holds {seen} "
+            f"{KERNEL_SYMBOL[k]} events, {us:.1f} us")
+        if seen != n:
+            raise AssertionError(f"{what}: {k} launched {n} times, the trace "
+                                 f"holds {seen}")
+    if not any(rose.values()):
+        raise AssertionError(f"{what}: no kernel of K1-K4 launched")
+    return rose
+
+
+def guard_shift_checks(g_smoke, dev) -> None:
+    """14d: ``gat_attention(guard_shift=True)`` on JAX's adversarial logits
+    and on benign ones, and the cost of its host read."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import median_ms, time_fn
+    br, bc, et = GUARD_TILE
+
+    def tiled(hg):
+        return G.tile_graph(hg, block_rows=br, block_cols=bc, tile_edges=et,
+                            unit_weight=True, device=dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    # JAX's construction, its rng draws in its order (rng fixture seed 0)
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, GUARD_N, GUARD_E).astype(np.int32)
+    r = rng.integers(0, GUARD_N, GUARD_E).astype(np.int32)
+    hg = G.build_host_graph(s, r, GUARD_N, add_self_loops=True)
+    g, tg = hg.to_device(dev), tiled(hg)
+    h = t(rng.standard_normal((GUARD_N, 8)))
+    a_s = rng.standard_normal((GUARD_N, 2)) - 100.0
+    a_s[0, :] = 100.0
+    a_s, a_d = t(a_s), t(rng.standard_normal((GUARD_N, 2)))
+    gap = float(A.gat_shift_gap(g, a_s))
+    exact = A._gat_reference(tg, h, a_s, a_d, 0.2)
+    k0 = A.gat_tiles.launches
+    raw = A.gat_attention(tg, h, a_s, a_d, heads=2)
+    guarded = A.gat_attention(tg, h, a_s, a_d, heads=2, g=g,
+                              guard_shift=True)
+    err_raw = float((raw - exact).abs().max())
+    err_g = float((guarded - exact).abs().max())
+    say(f"  adversarial (a_src spread 200, JAX's construction): gap "
+        f"{gap:.2f} (safe below {A.SHIFT_GAP_SAFE:g}); K3 unguarded off the "
+        f"exact result by {err_raw:.3e} (must exceed {COLLAPSE:g}), guarded "
+        f"{err_g:.3e} (bound {GUARD_TOL:g}); K3 launches "
+        f"{A.gat_tiles.launches - k0} (the guard took the reference)")
+    if not (gap > A.SHIFT_GAP_SAFE and err_raw > COLLAPSE
+            and err_g <= GUARD_TOL):
+        raise AssertionError("guard_shift on adversarial logits: gap "
+                             f"{gap}, unguarded {err_raw}, guarded {err_g}")
+    if A.gat_tiles.launches - k0 != 1:
+        raise AssertionError("the guarded adversarial call launched K3")
+
+    s = rng.integers(0, BENIGN_N, BENIGN_N).astype(np.int32)
+    hb = G.build_host_graph(s, np.arange(BENIGN_N, dtype=np.int32),
+                            BENIGN_N, add_self_loops=True,
+                            symmetric_norm=False)
+    gb, tb = hb.to_device(dev), tiled(hb)
+    h = t(rng.standard_normal((BENIGN_N, 8)))
+    a_s, a_d = (t(rng.standard_normal((BENIGN_N, 2))) for _ in range(2))
+    raw = A.gat_attention(tb, h, a_s, a_d, heads=2)
+    k0 = A.gat_tiles.launches
+    guarded = A.gat_attention(tb, h, a_s, a_d, heads=2, g=gb,
+                              guard_shift=True)
+    launched = A.gat_tiles.launches - k0
+    same = torch.equal(raw, guarded)
+    say(f"  benign (N={BENIGN_N}, in-degree <= 2): gap "
+        f"{float(A.gat_shift_gap(gb, a_s)):.2f}; guarded equals unguarded "
+        f"bit for bit: {same}; K3 launched {launched}")
+    if not (same and launched == 1):
+        raise AssertionError("guard_shift on benign logits: equal "
+                             f"{same}, K3 launches {launched}")
+    med_g, _ = time_fn(A.gat_attention, tb, h, a_s, a_d, heads=2, g=gb,
+                       guard_shift=True, iters=TIMER_ITERS)
+    med_u, _ = time_fn(A.gat_attention, tb, h, a_s, a_d, heads=2,
+                       iters=TIMER_ITERS)
+    say(f"  time_fn on the benign graph: guarded {med_g * 1e3:.3f} ms, "
+        f"unguarded {med_u * 1e3:.3f} ms a call (host wall)")
+
+    # the check's own cost at the smoke's size, 4 heads
+    a_big = torch.randn((g_smoke.n_node, HEADS), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+    dev_ms = median_ms(lambda: A.gat_shift_gap(g_smoke, a_big), device=dev,
+                       warmup=1, repeats=10)
+    read_s, _ = time_fn(lambda: float(A.gat_shift_gap(g_smoke, a_big)),
+                        iters=TIMER_ITERS, device=dev)
+    say(f"  gat_shift_gap on the smoke's graph ({g_smoke.n_edge} edge "
+        f"slots, 4 heads): device {dev_ms:.3f} ms (CUDA events); with the "
+        f"host read, {read_s * 1e3:.3f} ms host wall a check")
+
+
+def real_graph_checks(dev) -> None:
+    """14e: the karate and digits fixtures from the port's own directory:
+    GCN trained on the card to JAX's bars, GCN-2l and GAT-2l served on
+    hybrid schedules against the per-op path."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import hybrid_schedules
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data import datasets as DS
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    counted = _serving_counted()
+    say(f"  fixtures from {DS.FIXTURES_DIR}")
+    if "_torch" not in os.path.basename(os.path.dirname(os.path.dirname(
+            DS.FIXTURES_DIR))):
+        raise AssertionError("the fixtures are not the port's own")
+    for name, hidden, bar in REAL:
+        ds = DS.load_dataset(name)
+        hg = ds.host_graph
+        if ds.synthetic:
+            raise AssertionError(f"{name}: not loaded from its fixture")
+        t0 = time.perf_counter()
+        _, res = TT.train_node_classifier(ds, "GCN", hidden=hidden,
+                                          epochs=120, lr=1e-2, device=dev)
+        say(f"  {name} (N={hg.n_node} E={hg.n_edge} F={ds.x.shape[1]} "
+            f"C={ds.n_class}): GCN hidden {hidden}, 120 epochs, test "
+            f"accuracy {res.test_acc:.4f} (JAX's bar {bar}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not res.test_acc >= bar:
+            raise AssertionError(f"{name}: test accuracy {res.test_acc}")
+        g = hg.to_device(dev)
+        x = torch.as_tensor(ds.x, device=dev)
+        for net in ("GCN", "GAT"):
+            model = build_model(net, ds.x.shape[1], ds.n_class,
+                                hidden=hidden, n_layers=2,
+                                reorder=net == "GCN", heads=HEADS,
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+            params = dict(model.params)
+            sched = hybrid_schedules(model.layers)
+            for f in counted.values():
+                f.launches = 0
+            with torch.inference_mode():
+                for dtn, dt in (("bfloat16", torch.bfloat16),
+                                ("float32", None)):
+                    y = model.make_apply(dt, schedules=sched, host_graph=hg,
+                                         device=dev)(params, g, x)
+                    ref = model.make_apply(dt)(params, g, x)
+                    rel = _rel_err(y, ref)
+                    say(f"    {net}-2l {dtn} hybrid against per-op: "
+                        f"relative {rel:.3e} (bound {E2E_TOL[dtn]:g})")
+                    if not (bool(torch.isfinite(y).all())
+                            and rel <= E2E_TOL[dtn]):
+                        raise AssertionError(f"{name} {net}-2l {dtn}: {rel}")
+            launched = {k: f.launches for k, f in counted.items()
+                        if f.launches}
+            say(f"    {net}-2l launches: {launched}")
+            if not launched:
+                raise AssertionError(f"{name} {net}-2l: no kernel launched")
+
+
+def measurement_phase(models, fwd, measured, hg, g, dev) -> None:
+    """Phase 14 on phase 4's lowered bf16 forwards (see the module
+    docstring)."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import bench as B
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import hybrid_schedules
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import profile as PR
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.benchmark import (
+        median_ms, time_fn, time_fn_pipelined)
+
+    t_phase = time.perf_counter()
+    say("== 14a traced requests: measured_report, kernels by CUDA symbol")
+    x = _request_x(0, hg.n_node, dev)
+    requests = {mname: (lambda f=fwd[mname]["bfloat16"],
+                        p=dict(model.params): f(p, g, x))
+                for mname, model in models.items()}
+    with torch.inference_mode():
+        for mname, fn in requests.items():
+            trace_and_count(f"{mname} bf16 request", fn,
+                            PR.OUT_DIR / f"phase14_{mname}")
+
+    say("== 14b schedule_report of the layer schedules (bf16, the request's "
+        "phase-4b median as measured_s)")
+    stats = S.GraphStats(hg.n_node, hg.n_edge, hg.e_pad)
+    for mname, model in models.items():
+        sec = measured[(mname, "hybrid")] / 1e3
+        for li, (layer, sc) in enumerate(zip(
+                model.layers, hybrid_schedules(model.layers))):
+            say(f"  {mname} layer {li}, with the 2-layer request's "
+                f"{sec * 1e3:.3f} ms:")
+            say(PR.schedule_report(layer, sc, stats, measured_s=sec,
+                                   dtype_bytes=2))
+
+    say("== 14c wall-clock timers on a GCN-2l bf16 request")
+    fn = requests["GCN-2l"]
+    with torch.inference_mode():
+        ev_ms = median_ms(fn, device=dev, warmup=2, repeats=TIMER_ITERS)
+        med_s, best_s = time_fn(fn, iters=TIMER_ITERS)
+        pipe_s = time_fn_pipelined(fn, iters=TIMER_ITERS, reps=3)
+    say(f"  time_fn median {med_s * 1e3:.3f} ms, best {best_s * 1e3:.3f} ms;"
+        f" time_fn_pipelined {pipe_s * 1e3:.3f} ms; CUDA-event median "
+        f"{ev_ms:.3f} ms (time_fn / events {med_s * 1e3 / ev_ms:.3f}, floor "
+        f"{TIMER_FLOOR})")
+    if not med_s * 1e3 >= TIMER_FLOOR * ev_ms:
+        raise AssertionError(f"time_fn {med_s * 1e3} ms below the CUDA-event"
+                             f" median {ev_ms} ms")
+    del requests, fn, x
+
+    say("== 14d gat_attention(guard_shift=True) on the card")
+    guard_shift_checks(g, dev)
+
+    say("== 14e karate and digits, the port's own fixtures")
+    real_graph_checks(dev)
+
+    say("== 14f the port bench's cora line")
+    line = B.gat_cora_layer3_latency(dev)
+    for k in ("vs_baseline", "mfu_pct", "hbm_pct"):
+        v = line.get(k)
+        if v is None or not v > 0 or (k != "vs_baseline" and v > 100):
+            raise AssertionError(f"bench cora line: {k} = {v}")
+    torch.cuda.empty_cache()
+    say(f"phase 14 took {_took('14', t_phase):.1f} s")
 
 
 def main(argv=None) -> int:
@@ -4131,6 +4479,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+    t_phase = time.perf_counter()
     say("== 1 environment")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -4148,39 +4497,64 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import hybrid_schedules
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import load_dataset, synthetic_coo
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import _ext
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    say(f"phase 1 took {_took('1', t_phase):.1f} s")
 
-    say("== 2 build")
-    t0 = time.perf_counter()
-    _ext.library()
-    say(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_ext.build_seconds if _ext.build_seconds is not None else 0:.1f} s)")
-    say_ptxas(_ext.build_log)
+    # the kernels build in nvcc processes while this thread builds the host
+    # graphs that need no kernel: phase 4's graph and phase 12c's Reddit
+    # dataset at its full edge count
+    say("== 2 build (phase 4's graph and phase 12c's Reddit dataset built "
+        "on the host meanwhile)")
+    t_phase = time.perf_counter()
+    built = {}
 
-    checks = Checks()
-    say("== 3 kernels: edge cases")
-    say(f"bound per row: {fixtures.KERNEL_TOL} times the row's max |plain| "
-        "(num and den columns apart); a float32 row that sums n > 1,759 "
-        f"terms gets {fixtures.SUM_ORDER:g} sqrt(n) 2^-24 instead, since "
-        "reordering an f32 sum moves it by about sqrt(n) ulps")
-    edge_case_checks(checks, dev)
-
-    say("== 4 slice")
+    def build():
+        try:
+            _ext.library()
+        except BaseException as e:      # re-raised below, in this thread
+            built["error"] = e
+        built["s"] = time.perf_counter() - t_phase
+    builder = threading.Thread(target=build, name="nvcc")
+    builder.start()
     t0 = time.perf_counter()
     s, r, labels = synthetic_coo(N_NODE, args.edges, seed=1,
                                  communities=1000, p_in=0.7)
     hg = G.build_host_graph(s, r, N_NODE, add_self_loops=True,
                             symmetric_norm=True)
     hg, _ = G.reorder_nodes(hg, "hubs+labels", labels=labels)
+    smoke_coo = (s, r, labels)      # phase 12a builds from the same COO
     del s, r, labels
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reddit = load_dataset("reddit")
+    reddit_s = time.perf_counter() - t0
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    say(f"kernels built and loaded in {built['s']:.1f} s "
+        f"(nvcc {_ext.build_seconds if _ext.build_seconds is not None else 0:.1f} s); "
+        f"meanwhile phase 4's graph {graph_s:.1f} s and the Reddit "
+        f"dataset {reddit_s:.1f} s on the host")
+    say_ptxas(_ext.build_log)
+    say(f"phase 2 took {_took('2', t_phase):.1f} s")
+
+    checks = Checks()
+    t_phase = time.perf_counter()
+    say("== 3 kernels: edge cases")
+    say(f"bound per row: {fixtures.KERNEL_TOL} times the row's max |plain| "
+        "(num and den columns apart); a float32 row that sums n > 1,759 "
+        f"terms gets {fixtures.SUM_ORDER:g} sqrt(n) 2^-24 instead, since "
+        "reordering an f32 sum moves it by about sqrt(n) ulps")
+    edge_case_checks(checks, dev)
+    say(f"phase 3 took {_took('3', t_phase):.1f} s")
+
+    t_phase = time.perf_counter()
+    say("== 4 slice")
     say(f"graph: N={hg.n_node} E={hg.n_edge} (self loops included), host "
-        f"build {time.perf_counter() - t0:.1f} s")
+        f"build {graph_s:.1f} s (during phase 2)")
 
     gen = torch.Generator().manual_seed(0)
     models = {
@@ -4196,6 +4570,11 @@ def main(argv=None) -> int:
                    for mname, model in models.items()}
     fwd = {}         # per model and dtype: the kernel path, with twins
     hybs = {}
+    # one tile cache for both models and dtypes: the splits depend on
+    # neither the compute dtype nor the model beyond their schedules, and
+    # phases 10d and 11d lower the same splits and the same transposed
+    # graph again
+    tile_cache = {}
     for mname, model in models.items():
         sched = hybrid_schedules(model.layers)
         say(f"{mname}: schedules {[sc.key()[:48] for sc in sched]}")
@@ -4204,9 +4583,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             fwd[mname][dtn] = model.make_apply(
                 dt, schedules=sched, host_graph=hg, device=dev,
-                build_transpose=True)
+                build_transpose=True, tile_cache=tile_cache)
             say(f"  {dtn} lowering (forward splits, transposed graph and "
-                f"twins) {time.perf_counter() - t0:.1f} s")
+                f"twins; the tile cache shared) "
+                f"{time.perf_counter() - t0:.1f} s")
         for li, fn in enumerate(fwd[mname]["bfloat16"].layer_fns):
             for kind, _, data, _ in fn.plans:
                 if kind.endswith("_hybrid"):
@@ -4227,9 +4607,7 @@ def main(argv=None) -> int:
                         hg.n_node)
 
     say("== 4b requests (kernel path)")
-    counted = {"spmm_tiles": SP.spmm_tiles,
-               "spmm_dense_blocks": D.spmm_dense_blocks,
-               "gat_tiles": A.gat_tiles, "gat_dense_blocks": D.gat_dense_blocks}
+    counted = _serving_counted()
     reqs = [("bfloat16", i) for i in range(REQUESTS)] + [("float32", 0)]
     outs, lat = {}, {}
     for fn in counted.values():
@@ -4294,12 +4672,20 @@ def main(argv=None) -> int:
             lat[(mname, "bfloat16", "kernel")])
         measured[(mname, "per-op")] = statistics.median(
             lat[(mname, "bfloat16", "per-op")])
+    say(f"phase 4 took {_took('4', t_phase):.1f} s")
+
+    # phase 14 on phase 4's lowered forwards, before phase 5 drops them
+    measurement_phase(models, fwd, measured, hg, g, dev)
 
     # 8f before phase 5, which drops the float32 forwards it differentiates
+    t_phase = time.perf_counter()
     say("== 8f exp panels on phase 4's lowered GAT-2l forward")
     panel_launches = exp_panel_phase(
         checks, fwd["GAT-2l"], hybs["GAT-2l"], models["GAT-2l"], hg, g, dev)
+    say(f"phase 8f took {_took('8f', t_phase):.1f} s")
+    t_phase = time.perf_counter()
     launches = training_phase(checks, models, fwd, hg, g, dev)
+    say(f"phase 5 took {_took('5', t_phase):.1f} s")
     launches["gat_dense_panel"] = panel_launches
     checks.csr.clear()
     del fwd
@@ -4315,12 +4701,17 @@ def main(argv=None) -> int:
         raise AssertionError("kernel gat_dense_panel was not launched in "
                              "phase 8f")
     stream_densefull_phase(models, hg, g, dev, measured)
-    p10_launches = classes_sinput_phase(checks, models, hybs, hg, g, dev)
-    compiled_phase(models, init_params, measured, hg, g, dev)
-    del models, init_params, measured, hybs, g
-    sampled_phase(dev, args.edges)
+    p10_launches = classes_sinput_phase(checks, models, hybs, hg, g, dev,
+                                        tile_cache)
+    compiled_phase(models, init_params, measured, hg, g, dev, tile_cache)
+    del models, init_params, measured, hybs, g, tile_cache
+    sampled_phase(dev, smoke_coo, reddit)
+    del smoke_coo, reddit
     sharded_launches = sharded_phase(hg, dev)
     del hg
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in PHASE_S.items())
+        + f"; in all {time.perf_counter() - T_START:.1f} s")
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.roofline import bound_of
     kernels = []

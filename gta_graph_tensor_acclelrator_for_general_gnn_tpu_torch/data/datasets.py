@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``data/datasets.py``: the same published
 dataset profiles, the same power-law / community generator (same numpy
 random stream, so the same seed gives the same graph), and the same
-``.npz`` format.  The checked-in real-graph fixtures are read by file path
-from the JAX package's ``data/fixtures/`` directory.
+``.npz`` format.  The checked-in real-graph fixtures (Zachary's karate
+club and the handwritten-digits 8-NN graph) live in this package's own
+``data/fixtures/``, byte for byte the JAX package's copies.
 """
 from __future__ import annotations
 
@@ -27,10 +28,8 @@ DATASET_STATS = {
     "tiny": (200, 900, 32, 4),
 }
 
-FIXTURES_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))),
-    "gta_graph_tensor_acclelrator_for_general_gnn_tpu", "data", "fixtures")
+FIXTURES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
 
 
 @dataclasses.dataclass

@@ -45,7 +45,8 @@ class Model(nn.Module):
     def make_apply(self, compute_dtype: Optional[torch.dtype] = None,
                    schedules: Union[None, Schedule, Sequence[Schedule]] = None,
                    host_graph: Optional[HostGraph] = None, *,
-                   device=None, x_host=None, build_transpose: bool = False):
+                   device=None, x_host=None, build_transpose: bool = False,
+                   tile_cache: Optional[dict] = None):
         """Forward over the layer stack: ``apply(params, g, x)``.
 
         Without ``schedules`` every layer runs op by op (the oracle path).
@@ -59,7 +60,10 @@ class Model(nn.Module):
         runs on the sparse-input product over X's nonzeros, which bakes X
         (training, fixed-feature serving).
         ``build_transpose`` also splits the transposed graph so that
-        gradients run on the kernels (training)."""
+        gradients run on the kernels (training).  ``tile_cache``: a dict
+        the tilings and splits are kept in (``lower_schedule``'s), to share
+        them with another lowering on the same host graph (another dtype or
+        model); default a fresh one."""
         if schedules is None:
             fns = [L.lower(g, compute_dtype) for g in self.layers]
         else:
@@ -68,7 +72,7 @@ class Model(nn.Module):
                 schedules = [schedules] * len(self.layers)
             if host_graph is None:
                 raise ValueError("schedules need host_graph")
-            shared_cache: dict = {}
+            shared_cache = tile_cache if tile_cache is not None else {}
             fns = [lower_schedule(g, s, host_graph, compute_dtype,
                                   device=device,
                                   x_host=x_host if i == 0 else None,

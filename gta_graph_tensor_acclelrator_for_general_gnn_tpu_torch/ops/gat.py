@@ -699,6 +699,7 @@ def gat_attention(
     g: Optional[GraphTensor] = None,
     tg_t: Optional[TiledGraph] = None,
     ev_perm_t: Optional[torch.Tensor] = None,
+    guard_shift: bool = False,
 ) -> torch.Tensor:
     """Fused multi-head GAT edge-softmax + aggregation, [N, HD] float32,
     differentiable in h, a_src (or ``w_asrc``) and a_dst.  Pass ``w_asrc``
@@ -711,11 +712,28 @@ def gat_attention(
     formulation over ``tg`` (exact, but [E, HD] edge tensors).  Where JAX
     would take its superseded ``_gat_bwd_scalable`` (those three given, a
     tiling not per-tile) the port takes that reference route: the same
-    gradient by another route."""
+    gradient by another route.
+
+    ``guard_shift`` (needs ``g``): check the shift bound's domain at run
+    time.  :func:`gat_shift_gap` of a_s (in ``w_asrc`` mode a_s = h w in
+    float32) is read to the host once; below ``SHIFT_GAP_SAFE`` the call
+    takes K3's route, else the exact per-row-max :func:`_gat_reference`
+    (the adversarial-logit regime where the kernels' bound underflows).
+    The guard turns the fused K5/K6 backward off, as in JAX, so both
+    routes differentiate the edge formulation.  The branch is a host
+    decision after a device-to-host read, PyTorch's counterpart of JAX's
+    ``lax.cond``: it synchronises with the card and cannot run under CUDA
+    graph capture; at Reddit scale check the gap offline instead.
+    Without the guard the route is exactly the unguarded one."""
+    assert not guard_shift or g is not None, "guard_shift needs g"
     scalable = g is not None and tg_t is not None and ev_perm_t is not None
-    fused = (scalable and type(tg) is TiledGraph
+    fused = (scalable and not guard_shift and type(tg) is TiledGraph
              and type(tg_t) is TiledGraph)
     wmode = w_asrc is not None
+    if guard_shift:
+        a_s = h_src.float() @ w_asrc.float() if wmode else a_src
+        if not float(gat_shift_gap(g, a_s.detach())) < SHIFT_GAP_SAFE:
+            return _gat_reference(tg, h_src, a_s, a_dst, negative_slope)
     return _GatAttention.apply(h_src, w_asrc if wmode else a_src, a_dst, tg,
                                tg_t if fused else None, float(negative_slope),
                                wmode, fused)

@@ -1,4 +1,4 @@
-"""Device timing with CUDA events.
+"""Device timing with CUDA events, and wall-clock timers.
 
 PyTorch returns before the card finishes, so a call (or a run of calls in
 a row, divided by their count) is bracketed by two CUDA events on the
@@ -6,15 +6,82 @@ current stream, after warm-up calls, and the median over repeats is
 reported (:func:`cuda_time_ms`).  A device time comes only from
 a CUDA device: :func:`cuda_time_ms` raises on any other.
 :func:`time_layer_device` is the tuner's fitness.
+
+:func:`time_fn` and :func:`time_fn_pipelined` are the JAX package's
+wall-clock timers under their names: host seconds with the card
+synchronised, dispatch included (it is part of a served request's
+latency), on the device of the first tensor argument unless ``device``
+says otherwise.
 """
 from __future__ import annotations
 
 import contextlib
 import statistics
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
+
+
+def _timer_device(args, kwargs, device) -> torch.device:
+    """``device``; else the device of the first tensor among ``args`` and
+    ``kwargs``; else the CUDA card (``graph.resolve_device``, which
+    raises without one)."""
+    if device is not None:
+        return torch.device(device)
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            return a.device
+    from ..graph import resolve_device
+    return resolve_device(None)
+
+
+def _syncer(dev: torch.device) -> Callable[[], None]:
+    if dev.type == "cuda":
+        return lambda: torch.cuda.synchronize(dev)
+    return lambda: None
+
+
+def time_fn(fn: Callable, *args, iters: int = 50, warmup: int = 2,
+            device=None, **kwargs) -> Tuple[float, float]:
+    """Median and best wall-clock seconds per call of ``fn(*args,
+    **kwargs)``.  ``warmup`` calls are discarded; each timed call is
+    followed by ``torch.cuda.synchronize`` on a CUDA device, so it holds
+    the host's dispatch as well as the card's work (``device``: see the
+    module docstring; the CPU only when asked for or when the arguments
+    lie there, and then a host time, never a device metric)."""
+    sync = _syncer(_timer_device(args, kwargs, device))
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        sync()
+        times.append(time.perf_counter() - t0)
+    return float(statistics.median(times)), float(min(times))
+
+
+def time_fn_pipelined(fn: Callable, *args, iters: int = 100,
+                      warmup: int = 5, reps: int = 5, device=None,
+                      **kwargs) -> float:
+    """Wall-clock seconds per call with launches pipelined: ``iters``
+    calls in a row, one synchronise at the end, divided by ``iters``; the
+    best of ``reps`` such runs after ``warmup`` calls.  The host's
+    dispatch of a call hides behind the card's work on the one before."""
+    sync = _syncer(_timer_device(args, kwargs, device))
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    sync()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args, **kwargs)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / iters)
+    return best
 
 
 def cuda_time_ms(fn: Callable[[], object], *, device="cuda", warmup: int = 2,

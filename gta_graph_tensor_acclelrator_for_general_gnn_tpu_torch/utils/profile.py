@@ -1,7 +1,23 @@
 """Where the device time of one served request, or one training step,
-goes.
+goes; and the per-op cost reports of the JAX package's ``utils/profile``.
 
-Builds the slice of ``chip_smoke.py`` (GCN-2l and GAT-2l at the Reddit
+The library half, under the JAX package's names:
+
+- :func:`op_report` / :func:`schedule_report`: analytic per-op FLOPs and
+  device-memory bytes of one forward under a fusion partition (MM 2 rows
+  in out, gather n_edge w, elementwise rows w; bytes only for values that
+  leave their block), the same accounting and the same text as JAX's;
+- :func:`trace`: a ``torch.profiler`` capture around a block (CPU activity
+  always, CUDA activity where a card is present), written as a Chrome
+  trace into ``outdir``; it runs on the CPU too, since a trace is not a
+  device metric;
+- :func:`trace_events` / :func:`measured_report`: the trace's complete
+  (``"ph": "X"``) events summed by name into count and total
+  microseconds, heaviest first, from every ``.json`` and ``.json.gz``
+  under ``outdir``.
+
+The script half (``main``) builds the slice of ``chip_smoke.py`` (GCN-2l
+and GAT-2l at the Reddit
 widths on a 232,965-node synthetic community graph), serves three warm-up
 bf16 requests per model, then traces one more with ``torch.profiler``;
 with ``--train`` it also splits the transposed graph, takes one warm-up
@@ -15,7 +31,7 @@ DGN-2l and PNA-2l with their pair chains on K13
 K11 (``fusion.sddmm_schedules``), the rest op by op.  ``--layer`` traces
 one bf16 request of GAT-2l with every layer on the ``gat_layer`` kind (the
 whole layer on K14, 512x1024x512 ``onehot`` tiles,
-``fusion.gat_onehot_schedules``).  For each it prints:
+``fusion.gat_onehot_schedules``).  For each it prints (:func:`trace_call`):
 
 - the host wall time, synchronised before and after;
 - the device's busy time: the union of the trace's kernel, memcpy and
@@ -24,9 +40,13 @@ whole layer on K14, 512x1024x512 ``onehot`` tiles,
 - the idle share, 1 - busy / wall;
 - device time and call count per kernel name.
 
+``--report`` instead prints, per model, the measured report of one traced
+bf16 request (:func:`measured_report`) and the analytic report of each
+layer's schedule with that request's time (:func:`schedule_report`).
+
 Needs one CUDA device::
 
-    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped | --pair | --layer]
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.profile [--train | --grouped | --pair | --layer | --report]
 
 Chrome traces go to ``build/profile/`` at the repository root (or
 ``--out``).
@@ -35,18 +55,191 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
+import gzip
 import json
+import os
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import ir
+from ..compiler import schedule as S
 
 N_NODE, N_EDGE = 232_965, 11_461_589     # the smoke's graph
 F_IN, HIDDEN, N_CLASS, HEADS = 602, 128, 41, 4
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
+TRACE_DIR = str(OUT_DIR / "trace")
+
+
+# ---------------------------------------------------------------------------
+# analytic per-op costs (the JAX package's op_report / schedule_report)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class OpCost:
+    op_id: int
+    kind: str
+    compute: str
+    rows: int
+    width: int
+    flops: int
+    hbm_bytes: int
+    fused: bool          # True if the value never leaves its block
+
+
+def op_report(
+    graph: ir.OpGraph,
+    blocks: Sequence[Sequence[int]],
+    stats: S.GraphStats,
+    dtype_bytes: int = 4,
+) -> List[OpCost]:
+    """Per-op FLOPs and device-memory bytes under a fusion partition: an
+    MM counts 2 rows in out, a gather n_edge w, an elementwise op rows w;
+    a value that leaves its block (or is an output) is written once and
+    read by each consuming block, one that stays counts no bytes."""
+    block_of = {o: i for i, b in enumerate(blocks) for o in b}
+    consumers: Dict[int, set] = {}
+    for u, v in graph.edges():
+        if block_of[u] != block_of[v]:
+            consumers.setdefault(u, set()).add(block_of[v])
+
+    out = []
+    for oid in graph.topo_order():
+        op = graph.by_id[oid]
+        rows = stats.n_node if op.out_domain == ir.NODE else stats.e_pad
+        w = max(op.out_width, 1)
+        if op.compute == ir.MM:
+            _, iw, ow = op.extra["weight"]
+            in_rows = stats.n_node if op.in_domain == ir.NODE else stats.e_pad
+            flops = 2 * in_rows * iw * ow
+        elif op.kind == ir.GATHER:
+            flops = stats.n_edge * w
+        elif op.compute in (ir.ADD, ir.MUL, ir.SUB, ir.DIV, ir.SF):
+            flops = rows * w
+        else:
+            flops = 0
+        outside = consumers.get(oid, set())
+        materialised = bool(outside) or oid in graph.outputs
+        hbm = rows * w * dtype_bytes * (1 + len(outside)) if materialised else 0
+        out.append(OpCost(oid, op.kind, op.compute, rows, w, flops, hbm,
+                          fused=not materialised))
+    return out
+
+
+def schedule_report(
+    graph: ir.OpGraph,
+    sched: S.Schedule,
+    stats: S.GraphStats,
+    measured_s: Optional[float] = None,
+    dtype_bytes: int = 4,
+) -> str:
+    """The cost table of one forward under ``sched``: per op its rows,
+    width, MFLOP and KB of device memory (``*``: fused, no bytes), the
+    totals (``S.traffic_bytes``), and with ``measured_s`` the rates they
+    imply.  The same text as the JAX package's for the same inputs."""
+    costs = op_report(graph, sched.blocks, stats, dtype_bytes)
+    total_f = sum(c.flops for c in costs)
+    total_b = S.traffic_bytes(graph, sched.blocks, stats, dtype_bytes)
+    lines = [f"schedule report: {graph.name}  blocks={len(sched.blocks)}",
+             f"{'op':>4} {'kind':<11} {'comp':<5} {'rows':>9} {'w':>5} "
+             f"{'MFLOP':>9} {'KB-hbm':>9}  fused"]
+    for c in costs:
+        lines.append(f"{c.op_id:>4} {c.kind:<11} {c.compute:<5} {c.rows:>9} "
+                     f"{c.width:>5} {c.flops/1e6:>9.2f} {c.hbm_bytes/1024:>9.1f}"
+                     f"  {'*' if c.fused else ''}")
+    lines.append(f"total: {total_f/1e9:.3f} GFLOP, {total_b/2**20:.2f} MiB HBM "
+                 f"(modelled)")
+    if measured_s:
+        lines.append(
+            f"measured: {measured_s*1e6:.1f} us -> "
+            f"{total_f/measured_s/1e12:.2f} TFLOP/s, "
+            f"{total_b/measured_s/2**30:.1f} GiB/s effective")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# measured per-op times from a profiler trace
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def trace(outdir: str = TRACE_DIR):
+    """Capture a ``torch.profiler`` trace around the block: ``with
+    trace('dir'): fn(...)``.  CPU activity always, CUDA activity when a
+    CUDA device is present (the card is synchronised before the capture
+    stops); the Chrome trace lands in ``outdir`` as
+    ``trace_<pid>_<ns>.json``.  Yields ``outdir``."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    Path(outdir).mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield outdir
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            outdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@dataclasses.dataclass
+class MeasuredOp:
+    name: str
+    count: int
+    total_us: float
+
+
+def _trace_files(outdir: str) -> List[Path]:
+    root = Path(outdir)
+    return sorted(p for p in root.rglob("*")
+                  if p.is_file() and p.name.endswith((".json", ".json.gz")))
+
+
+def trace_events(outdir: str) -> List[MeasuredOp]:
+    """Per-name measured time from the Chrome traces under ``outdir``
+    (every ``.json`` and ``.json.gz``, recursively): complete (``"ph":
+    "X"``) events summed by name into count and total microseconds,
+    heaviest first (ties in the order first seen)."""
+    agg: Dict[str, List[float]] = {}
+    for p in _trace_files(outdir):
+        opener = gzip.open if p.name.endswith(".gz") else open
+        with opener(p, "rt") as f:
+            data = json.load(f)
+        for ev in data.get("traceEvents", []):
+            if ev.get("ph") != "X":
+                continue
+            name = ev.get("name", "?")
+            agg.setdefault(name, [0, 0.0])
+            agg[name][0] += 1
+            agg[name][1] += float(ev.get("dur", 0.0))
+    out = [MeasuredOp(k, int(v[0]), v[1]) for k, v in agg.items()]
+    out.sort(key=lambda m: -m.total_us)
+    return out
+
+
+def measured_report(outdir: str, top: int = 25) -> str:
+    """Text table of the ``top`` heaviest names of :func:`trace_events`."""
+    evs = trace_events(outdir)
+    lines = [f"measured trace report ({outdir}):",
+             f"{'total_us':>12} {'count':>7}  name"]
+    for m in evs[:top]:
+        lines.append(f"{m.total_us:>12.1f} {m.count:>7}  {m.name[:80]}")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the script: one traced request or step at the smoke's size
+# ---------------------------------------------------------------------------
 
 
 def busy_us(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -97,6 +290,9 @@ def main(argv=None) -> int:
                          "GAT-2l on the sddmm kind instead")
     ap.add_argument("--layer", action="store_true",
                     help="trace GAT-2l on the whole-layer kind instead")
+    ap.add_argument("--report", action="store_true",
+                    help="print the measured and the analytic report of "
+                         "one bf16 request per model instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -129,8 +325,9 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 for _ in range(3):
                     rc.run()
-                trace(f"bench {name} recipe bf16 request",
-                       args.out / f"trace_bench_{name}.json", rc.run, dev)
+                trace_call(f"bench {name} recipe bf16 request",
+                           args.out / f"trace_bench_{name}.json", rc.run,
+                           dev)
         return 0
     if args.layer:
         from ..compiler.fusion import gat_onehot_schedules
@@ -143,9 +340,9 @@ def main(argv=None) -> int:
         with torch.inference_mode():
             for _ in range(3):
                 fwd(params, g, x)
-            trace("GAT-2l bf16 request (gat_layer kind)",
-                   args.out / "trace_GAT_layer.json",
-                   lambda: fwd(params, g, x), dev)
+            trace_call("GAT-2l bf16 request (gat_layer kind)",
+                       args.out / "trace_GAT_layer.json",
+                       lambda: fwd(params, g, x), dev)
         return 0
     if args.pair:
         from ..compiler.fusion import pair_agg_schedules, sddmm_schedules
@@ -162,9 +359,9 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 for _ in range(3):
                     fwd(params, g, x)
-                trace(f"{net}-2l bf16 request ({make.__name__})",
-                       args.out / f"trace_{net}_pair.json",
-                       lambda: fwd(params, g, x), dev)
+                trace_call(f"{net}-2l bf16 request ({make.__name__})",
+                           args.out / f"trace_{net}_pair.json",
+                           lambda: fwd(params, g, x), dev)
         return 0
     # learnable labels for the training step: a linear probe of x
     wy = torch.tensor(np.random.default_rng(1).standard_normal(
@@ -175,28 +372,55 @@ def main(argv=None) -> int:
         model = build_model(net, F_IN, N_CLASS, hidden=HIDDEN, n_layers=2,
                             reorder=net == "GCN", heads=HEADS,
                             generator=gen, device=dev)
-        fwd = model.make_apply(torch.bfloat16,
-                               schedules=hybrid_schedules(model.layers),
+        scheds = hybrid_schedules(model.layers)
+        fwd = model.make_apply(torch.bfloat16, schedules=scheds,
                                host_graph=hg, device=dev,
                                build_transpose=args.train)
         params = dict(model.params)
         with torch.inference_mode():
             for _ in range(3):
                 fwd(params, g, x)
-            trace(f"{net}-2l bf16 request", args.out / f"trace_{net}.json",
-                   lambda: fwd(params, g, x), dev)
+            if args.report:
+                print_reports(f"{net}-2l bf16 request", model.layers, scheds,
+                              hg, lambda: fwd(params, g, x), dev,
+                              args.out / f"report_{net}")
+                continue
+            trace_call(f"{net}-2l bf16 request",
+                       args.out / f"trace_{net}.json",
+                       lambda: fwd(params, g, x), dev)
         if args.train:
             state = TT.TrainState(model.params,
                                   TT.adamw(model.params, 1e-2))
             step = TT.make_train_step(fwd)
             step(state, g, x, y, mask)
-            trace(f"{net}-2l bf16 training step",
-                   args.out / f"trace_{net}_train.json",
-                   lambda: step(state, g, x, y, mask), dev)
+            trace_call(f"{net}-2l bf16 training step",
+                       args.out / f"trace_{net}_train.json",
+                       lambda: step(state, g, x, y, mask), dev)
     return 0
 
 
-def trace(what: str, path: Path, fn, dev) -> None:
+def print_reports(what: str, layers, schedules, hg, fn, dev,
+                  outdir: Path) -> None:
+    """Print the measured report of one traced call of ``fn`` (a bf16
+    request of the model whose layers run ``schedules`` on ``hg``) and
+    each layer's analytic report (``dtype_bytes=2``) beside the request's
+    median CUDA-event time."""
+    import shutil
+
+    from .benchmark import median_ms
+    ms = median_ms(fn, device=dev, warmup=1, repeats=10)
+    shutil.rmtree(outdir, ignore_errors=True)
+    with trace(str(outdir)):
+        fn()
+    print(f"{what}: median {ms:.3f} ms\n{measured_report(str(outdir))}",
+          flush=True)
+    stats = S.GraphStats(hg.n_node, hg.n_edge, hg.e_pad)
+    for li, (layer, sc) in enumerate(zip(layers, schedules)):
+        print(f"layer {li} (the request's time):\n"
+              f"{schedule_report(layer, sc, stats, ms / 1e3, 2)}", flush=True)
+
+
+def trace_call(what: str, path: Path, fn, dev) -> None:
     """Trace one synchronised call of ``fn`` and print its summary."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
