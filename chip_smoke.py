@@ -231,8 +231,8 @@ Reddit's node count, and checks every hand-written kernel on the way:
      digits from the port's own ``data/fixtures/``: GCN trained on the
      card to JAX's accuracy bars (tests/test_real_data.py:20-41), GCN-2l
      and GAT-2l on hybrid schedules against the per-op path (E2E_TOL),
-     some of K1-K4 launched; (f) the port bench's cora line with
-     ``vs_baseline``, ``mfu_pct`` and ``hbm_pct``, each share in (0, 100].
+     some of K1-K4 launched; (f) the port bench's cora line, its
+     microseconds positive.
 
 Every phase prints its seconds, and a line before the kernels' line
 lists them all.
@@ -4463,10 +4463,8 @@ def measurement_phase(models, fwd, measured, hg, g, dev) -> None:
 
     say("== 14f the port bench's cora line")
     line = B.gat_cora_layer3_latency(dev)
-    for k in ("vs_baseline", "mfu_pct", "hbm_pct"):
-        v = line.get(k)
-        if v is None or not v > 0 or (k != "vs_baseline" and v > 100):
-            raise AssertionError(f"bench cora line: {k} = {v}")
+    if line["value"] is None or not line["value"] > 0:
+        raise AssertionError(f"bench cora line: value = {line['value']}")
     torch.cuda.empty_cache()
     say(f"phase 14 took {_took('14', t_phase):.1f} s")
 

@@ -1,0 +1,10 @@
+"""Device milliseconds of a step's forward phase: per step of the traced
+window, the union of the device intervals of the ops queued under the
+port's ``train.forward`` span (``gnnbench/spans.py``), averaged."""
+
+
+def read(record):
+    a = record.get("span_trace")
+    if not a or a["device_s"] <= 0 or "train.forward" not in a["phase_s"]:
+        return None
+    return a["phase_s"]["train.forward"] / a["units"] * 1e3

@@ -5,15 +5,7 @@ CUDA events (``utils/benchmark.py``, median over repeats after warm-up).
 - ``gat_cora_layer3_latency`` (us): one GAT layer at the reference's
   layer-3 shape (64 in, 16 heads of 1) on Cora, lowered with the tuned
   schedule ``results/best_gat_cora_l3.json`` (the ``gat`` kind on K3),
-  bf16.  Beside it: ``vs_baseline``, the GTA reference simulator's
-  81.66 us (81,660 cycles at 1 GHz, vTCAD/code/genetic_algorithm.py:749,
-  a simulated accelerator, not a TPU) over the measured us; ``mfu_pct``,
-  the ``utils/profile.op_report`` FLOPs of the lowered schedule's blocks
-  (``dtype_bytes=2``) over the measured time against the card's bf16
-  dense peak (``utils/roofline.PEAK_OPS_PER_S``); ``hbm_pct``,
-  ``compiler/schedule.traffic_bytes`` of the same blocks over the time
-  against ``roofline.HBM_BYTES_PER_S``.  A share above 100% is a counting
-  error and raises.
+  bf16.
 - ``reddit_spmm_throughput`` (Gedge/s): the root script's SpMM recipe
   (bench.py:158-183): 'rc' int8 256² dense blocks in supergroup-16 order
   with the symmetric-norm scales, plus a grouped 512²/ET128/G16 tail, F =
@@ -27,12 +19,11 @@ Both Reddit lines run on ``synthetic_coo(232965, E, seed=1,
 communities=1000, p_in=0.7)`` with self loops, symmetric normalisation and
 the hubs+labels reorder, as the root script builds it; E defaults to
 Reddit's 114,615,892.  The host build of the graph and the splits is
-set-up and is printed apart.  The two Reddit lines carry no
-``vs_baseline``: the root script's baselines there (bench.py:142, :215)
-are records of its TPU runs, not of this card.  ``mfu_pct`` takes the
-place of the root script's ``mxu_pct`` (the TPU's matrix unit).  On a
-device other than CUDA each function runs its work once and prints
-``"value": null`` (and null shares): a CPU run gives no device time.
+set-up and is printed apart.  No line carries the root script's
+``vs_baseline``: its baselines are a simulator's cycles (cora) and
+records of its TPU runs (Reddit, bench.py:142, :215), not of this card.
+On a device other than CUDA each function runs its work once and prints
+``"value": null``: a CPU run gives no device time.
 
     python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.bench [--edges N]
 """
@@ -51,27 +42,22 @@ import torch
 from . import graph as G
 from .compiler.fusion import lower_schedule
 from .compiler.lower import init_params
-from .compiler.schedule import GraphStats, Schedule, TileConfig, traffic_bytes
+from .compiler.schedule import Schedule, TileConfig
 from .data.datasets import load_dataset, synthetic_coo
 from .models.builders import build_op_graph
 from .ops import dense as D
 from .ops.spmm import spmm
-from .utils import roofline
 from .utils.benchmark import median_ms
-from .utils.profile import op_report
 
 REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
-# the GTA reference simulator's best GAT-Cora layer-3 schedule: 81,660
-# cycles at 1 GHz (vTCAD/code/genetic_algorithm.py:749)
-BASELINE_US = 81.66
 BEST_SCHEDULE = (Path(__file__).resolve().parents[1] / "results"
                  / "best_gat_cora_l3.json")
 F_SPMM, HEADS, HD = 128, 4, 128
 
 
 def _line(metric: str, unit: str, value: Optional[float],
-          detail: str, **extra) -> Dict:
-    out = dict(metric=metric, value=value, unit=unit, **extra, detail=detail)
+          detail: str) -> Dict:
+    out = dict(metric=metric, value=value, unit=unit, detail=detail)
     print(json.dumps(out), flush=True)
     return out
 
@@ -107,38 +93,10 @@ def gat_cora_layer3_latency(device=None, repeats: int = 50) -> Dict:
     with torch.inference_mode():
         ms = _time_ms(lambda: fn(params, g, x), dev, repeats)
     hg = ds.host_graph
-    shares = roofline_shares(og, sched.blocks,
-                             GraphStats(hg.n_node, hg.n_edge, hg.e_pad),
-                             None if ms is None else ms / 1e3)
     return _line("gat_cora_layer3_latency", "us",
                  None if ms is None else ms * 1e3,
                  f"{_ms_text(ms)}: GAT 64->16, 16 heads, Cora "
-                 f"N={hg.n_node} E={hg.n_edge}, bf16, kernel blocks {kinds}",
-                 vs_baseline=None if ms is None else BASELINE_US / (ms * 1e3),
-                 **shares)
-
-
-def roofline_shares(og, blocks, stats: GraphStats,
-                    seconds: Optional[float]) -> Dict:
-    """``mfu_pct`` and ``hbm_pct`` of one bf16 forward of ``og`` under
-    ``blocks`` that took ``seconds``: the ``op_report`` FLOPs against the
-    card's bf16 dense peak and ``traffic_bytes`` against its memory rate
-    (both at ``dtype_bytes=2``); None without a time.  A share outside
-    (0, 100] is a counting error and raises."""
-    if seconds is None:
-        return dict(mfu_pct=None, hbm_pct=None)
-    flops = sum(c.flops for c in op_report(og, blocks, stats, 2))
-    nbytes = traffic_bytes(og, blocks, stats, 2)
-    out = dict(
-        mfu_pct=100.0 * flops / seconds
-        / roofline.PEAK_OPS_PER_S[torch.bfloat16],
-        hbm_pct=100.0 * nbytes / seconds / roofline.HBM_BYTES_PER_S)
-    for k, v in out.items():
-        if not 0.0 < v <= 100.0:
-            raise ValueError(f"{k} = {v}: outside (0, 100], a counting "
-                             f"error ({flops} FLOP, {nbytes} bytes in "
-                             f"{seconds} s)")
-    return out
+                 f"N={hg.n_node} E={hg.n_edge}, bf16, kernel blocks {kinds}")
 
 
 def reddit_graph(n_edge: int = REDDIT_EDGES,

@@ -33,6 +33,7 @@ from ..ops import primitives as P
 from ..ops import sddmm as sddmm_mod
 from ..ops import sinput as sinput_mod
 from ..ops import spmm as spmm_mod
+from ..utils.spans import count, span, spanned
 from . import schedule as S
 from .lower import _eval_op
 from .schedule import Schedule, TileConfig
@@ -297,6 +298,7 @@ def _row_blocks(n: int):
             for i in range(0, n, DENSE_ROWS)]
 
 
+@spanned("lower.layer")
 def lower_schedule(
     graph: ir.OpGraph,
     schedule: Schedule,
@@ -337,7 +339,8 @@ def lower_schedule(
     host_graph_t = None
     if build_transpose:
         if "transpose" not in cache:
-            cache["transpose"] = transpose_host_graph(host_graph)
+            with span("lower.transpose"):
+                cache["transpose"] = transpose_host_graph(host_graph)
         host_graph_t = cache["transpose"][0]
 
     def get_perm_t():
@@ -379,23 +382,35 @@ def lower_schedule(
         key = (id(hg), str(device), tc.key(), unit_weight, kind,
                heads, head_dim)
         if key not in hybrids:
-            scales = (None if (unit_weight or kind == "gat")
-                      else separable_weight_scales(hg))
+            scales = None
+            if not (unit_weight or kind == "gat"):
+                with span("lower.scales"):
+                    scales = separable_weight_scales(hg)
             int8 = unit_weight or kind == "gat" or scales is not None
             drows = tc.dense_block or tc.block_rows
             dcols = tc.dense_block or tc.block_cols
-            thr = dense_mod.hybrid_threshold(
-                hg, kind, heads=heads, head_dim=head_dim,
-                value_bytes=1 if int8 else 4, dense_rows=drows,
-                dense_cols=dcols)
-            hyb = hybrid_graph(
-                hg, block_rows=drows, block_cols=dcols,
-                sparse_block_rows=tc.block_rows,
-                sparse_block_cols=tc.block_cols, tile_edges=tc.tile_edges,
-                min_nnz=thr, unit_weight=unit_weight,
-                block_layout="cr" if kind == "gat" else "rc",
-                supergroup=0 if kind == "gat" else 16,
-                values_dtype=np.int8 if int8 else np.float32, device=device)
+            with span("lower.threshold"):
+                thr = dense_mod.hybrid_threshold(
+                    hg, kind, heads=heads, head_dim=head_dim,
+                    value_bytes=1 if int8 else 4, dense_rows=drows,
+                    dense_cols=dcols)
+            with span("lower.split"):
+                hyb = hybrid_graph(
+                    hg, block_rows=drows, block_cols=dcols,
+                    sparse_block_rows=tc.block_rows,
+                    sparse_block_cols=tc.block_cols,
+                    tile_edges=tc.tile_edges, min_nnz=thr,
+                    unit_weight=unit_weight,
+                    block_layout="cr" if kind == "gat" else "rc",
+                    supergroup=0 if kind == "gat" else 16,
+                    values_dtype=np.int8 if int8 else np.float32,
+                    device=device)
+                count("dense_blocks",
+                      0 if hyb.dense is None else hyb.dense.n_blocks)
+                count("dense_edges", hyb.n_dense_edges)
+                count("tail_edges", hyb.n_sparse_edges)
+                count("tail_tiles", hyb.tiles.n_tiles)
+                count("tail_slots", hyb.tiles.total_slots)
             if scales is not None and hyb.dense is not None:
                 hyb = dataclasses.replace(
                     hyb, row_scale=torch.as_tensor(scales[0], device=device),
@@ -452,6 +467,8 @@ def lower_schedule(
         plans.append((kind, block, tc, plan, data, twin))
 
     outputs = list(graph.outputs)
+    block_spans = ["block.op" if p[0] == "xla" else f"block.{p[0]}"
+                   for p in plans]
     inv_deg = None
     if any(p[0] in ("spmm", "spmm_grouped", "spmm_hybrid", "spmm_stream",
                     "spmm_densefull") and p[3].mean for p in plans):
@@ -498,7 +515,7 @@ def lower_schedule(
                 return params[prod.extra["weight"][0]]
             return None
 
-        for kind, block, tc, plan, data, twin in plans:
+        def run_block(kind, block, tc, plan, data, twin):
             if kind in ("spmm", "spmm_grouped"):
                 vals[plan.out_op] = seg_out(plan, spmm_mod.spmm(
                     data, kin(ref(plan.in_op)), tg_t=twin))
@@ -568,6 +585,10 @@ def lower_schedule(
                         continue
                     vals[oid] = _eval_op(op, vals, params, g, x,
                                          compute_dtype)
+
+        for p, name in zip(plans, block_spans):
+            with span(name):
+                run_block(*p)
         if len(outputs) == 1:
             return vals[outputs[0]]
         return {o: vals[o] for o in outputs}

@@ -38,6 +38,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .utils.spans import spanned
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device``, or the CUDA card when
@@ -72,6 +74,7 @@ class HostGraph:
     def e_pad(self) -> int:
         return int(self.senders.shape[0])
 
+    @spanned("graph.to_device")
     def to_device(self, device=None) -> "GraphTensor":
         device = resolve_device(device)
         return GraphTensor(
@@ -126,6 +129,7 @@ def _as_host(g) -> HostGraph:
     )
 
 
+@spanned("graph.build_host_graph")
 def build_host_graph(
     senders: np.ndarray,
     receivers: np.ndarray,
@@ -249,6 +253,10 @@ class TiledGraph:
     @property
     def n_tiles(self) -> int:
         return int(self.tile_rb.shape[0])
+
+    @property
+    def total_slots(self) -> int:
+        return self.n_tiles * self.tile_edges
 
 
 def _tile_arrays(g: HostGraph, block_rows: int, block_cols: int,
@@ -1230,6 +1238,7 @@ def cluster_labels(g: HostGraph, max_iter: int = 20, seed: int = 0
     return compact.astype(np.int32)
 
 
+@spanned("graph.reorder_nodes")
 def reorder_nodes(g: HostGraph, method: str = "degree", labels=None,
                   perm=None):
     """Relabel nodes to densify adjacency blocks; returns (HostGraph, perm)

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.datasets import Dataset
 from ..graph import GraphTensor, resolve_device
+from ..utils.spans import span
 from .zoo import Model, build_model
 
 
@@ -61,9 +62,11 @@ def adamw(params: Mapping[str, torch.Tensor], lr: float,
     0.9 / 0.999, eps 1e-8 outside the square root).  ``capturable`` keeps
     the step count and bias correction on the device, so that the update
     can be captured in a CUDA graph."""
-    return torch.optim.AdamW(list(params.values()), lr=lr,
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay, capturable=capturable)
+    with span("train.adamw_init"):
+        return torch.optim.AdamW(list(params.values()), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay,
+                                 capturable=capturable)
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -110,24 +113,31 @@ def make_train_step(apply: Callable, *, remat: bool = False,
 
     def update(state: TrainState, g: GraphTensor, x: torch.Tensor,
                y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        state.optimizer.zero_grad(set_to_none=True)
-        params = dict(state.params)
-        if remat:
-            logits = checkpoint(apply, params, g, x, use_reentrant=False)
-        else:
-            logits = apply(params, g, x)
-        loss = masked_cross_entropy(logits, y, mask)
-        loss.backward()
-        loss = loss.detach()
-        if group is not None:
-            from ..parallel.qcomm import all_reduce_, group_size
-            inv = 1.0 / group_size(group)
-            for p in params.values():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                all_reduce_(p.grad, group).mul_(inv)
-            loss = all_reduce_(loss.reshape(1).clone(), group)[0] * inv
-        state.optimizer.step()
+        with span("train.step"):
+            # set_to_none queues no device work; the gradients are cleared
+            # here, before the forward, so they stay readable after a step
+            state.optimizer.zero_grad(set_to_none=True)
+            params = dict(state.params)
+            with span("train.forward"):
+                if remat:
+                    logits = checkpoint(apply, params, g, x,
+                                        use_reentrant=False)
+                else:
+                    logits = apply(params, g, x)
+                loss = masked_cross_entropy(logits, y, mask)
+            with span("train.backward"):
+                loss.backward()
+                loss = loss.detach()
+                if group is not None:
+                    from ..parallel.qcomm import all_reduce_, group_size
+                    inv = 1.0 / group_size(group)
+                    for p in params.values():
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                        all_reduce_(p.grad, group).mul_(inv)
+                    loss = all_reduce_(loss.reshape(1).clone(), group)[0] * inv
+            with span("train.optimizer"):
+                state.optimizer.step()
         return loss
 
     def step(state: TrainState, g: GraphTensor, x: torch.Tensor,

@@ -16,6 +16,7 @@ from .. import ir
 from ..compiler import lower as L
 from ..compiler.schedule import Schedule
 from ..graph import GraphTensor, HostGraph, resolve_device
+from ..utils.spans import span
 from .builders import NETWORKS, build_op_graph
 
 
@@ -80,11 +81,15 @@ class Model(nn.Module):
                                   tile_cache=shared_cache)
                    for i, (g, s) in enumerate(zip(self.layers, schedules))]
 
+        names = [f"model.layer{i}" for i in range(len(fns))]
+
         def apply(params: Mapping[str, torch.Tensor], g: GraphTensor,
                   x: torch.Tensor) -> torch.Tensor:
             h = x
-            for fn in fns:
-                h = fn(params, g, h)
+            with span("model.forward"):
+                for name, fn in zip(names, fns):
+                    with span(name):
+                        h = fn(params, g, h)
             return h
 
         apply.layer_fns = fns

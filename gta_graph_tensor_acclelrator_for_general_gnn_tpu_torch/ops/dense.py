@@ -34,6 +34,7 @@ from ..compiler.schedule import (_dense_attention_smem, _dense_bwd_smem,
                                  _gat_wgmma_width, _spmm_dense_smem)
 from ..graph import (DENSE_SEGMENT, DENSE_WIDE_SEGMENT, DenseBlockGraph,
                      GraphTensor, HybridGraph, TiledGraph, block_nnz)
+from ..utils.spans import spanned
 from . import _ext
 from .gat import _edge_grad, _gat_forward, _leaky
 from .primitives import exp_f64
@@ -799,6 +800,7 @@ class _SpmmHybrid(torch.autograd.Function):
         return _spmm_hybrid_run(hyb, x)
 
     @staticmethod
+    @spanned("bwd.spmm_hybrid")
     def backward(ctx, gbar):
         (x,) = ctx.saved_tensors
         if ctx.hyb_t is not None:
@@ -879,6 +881,7 @@ class _GatHybrid(torch.autograd.Function):
         return y
 
     @staticmethod
+    @spanned("bwd.gat_hybrid")
     def backward(ctx, gbar):
         from .gat import _gat_bwd_fused
         none = (None,) * 5

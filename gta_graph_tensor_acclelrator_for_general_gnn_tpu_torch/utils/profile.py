@@ -69,6 +69,7 @@ import torch
 
 from .. import ir
 from ..compiler import schedule as S
+from . import spans
 
 N_NODE, N_EDGE = 232_965, 11_461_589     # the smoke's graph
 F_IN, HIDDEN, N_CLASS, HEADS = 602, 128, 41, 4
@@ -175,7 +176,9 @@ def trace(outdir: str = TRACE_DIR):
     trace('dir'): fn(...)``.  CPU activity always, CUDA activity when a
     CUDA device is present (the card is synchronised before the capture
     stops); the Chrome trace lands in ``outdir`` as
-    ``trace_<pid>_<ns>.json``.  Yields ``outdir``."""
+    ``trace_<pid>_<ns>.json``.  The port's spans (``utils/spans``) are
+    recorded for the block, so they land in the trace as
+    ``user_annotation`` events.  Yields ``outdir``."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -183,7 +186,8 @@ def trace(outdir: str = TRACE_DIR):
     prof = profile(activities=acts)
     prof.start()
     try:
-        yield outdir
+        with spans.recording():
+            yield outdir
     finally:
         if cuda:
             torch.cuda.synchronize()
