@@ -12,7 +12,10 @@ Reddit's node count, and checks every hand-written kernel on the way:
      kernel (phase 4's graph, phase 12c's Reddit dataset; seconds of
      each printed);
   3. kernels: each of K1-K4 against its plain PyTorch version on the card,
-     on the edge cases of ``utils/fixtures.kernel_cases``;
+     on the edge cases of ``utils/fixtures.kernel_cases``; (b) K16 (x W)
+     against its plain version at the main path's shapes and ragged ones,
+     x̂ bit for bit, its layer-0 and layer-1 products timed (its launches
+     are counted in 4b's requests and 5d's steps);
   4. slice: lowers each model once per dtype with the hybrid splits and
      their transposed twins (``make_apply(build_transpose=True)``, one tile
      cache for both models and dtypes, kept for 10d and 11d), checks
@@ -312,6 +315,9 @@ KERNELS = {
                       replaces=f"{JAX_PKG}/ops/gat.py:1691"),
     "gat_dense_panel": dict(source=f"{PKG}/csrc/gat_dense_blocks.cu",
                             replaces=f"{JAX_PKG}/ops/dense.py:317"),
+    "dense_xw": dict(source=f"{PKG}/csrc/dense_xw.cu",
+                     replaces="none: XLA's dot of bf16 operands with "
+                              "preferred_element_type=float32"),
 }
 # kernel path vs per-op path: the per-op path rounds only the matmul
 # operands to bf16, the kernels also their gathered rows and products
@@ -604,6 +610,72 @@ def edge_case_checks(checks: Checks, dev) -> None:
         checks.compare(c)
 
 
+def dense_xw_checks(checks: Checks, dev) -> None:
+    """K16 (``ops/primitives.dense_mm``'s x W) against its plain version at
+    the main path's shapes (232,965 rows: 602 -> 128, 128 -> 41, 4, 1) and
+    ragged ones (rows off the 64-row tile, strided and unaligned rows, K
+    odd, K past one k-segment, N past one column tile, bf16 x); x̂ bit for
+    bit.  A row's scale is its sum of |term| (|x̂| |Ŵ|).  The layer-0 and
+    layer-1 products are timed beside their bound, the plain version and
+    ``torch.mm`` of bf16 operands with a float32 result, the cast
+    included; layer 0 also with x̂ (a training forward), printed only."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def inputs(m, k, n, x_dtype=torch.float32, width=None, off=0):
+        x = torch.randn((m, width or k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        return x[:, off:off + k].to(x_dtype), w
+
+    cases = [("l0 602->128", inputs(N_NODE, F_IN, HIDDEN), "layer 0"),
+             ("l1 128->41", inputs(N_NODE, HIDDEN, N_CLASS), "layer 1"),
+             ("a_s 128->4", inputs(N_NODE, HIDDEN, HEADS), None),
+             ("a_s 128->1", inputs(N_NODE, HIDDEN, 1), None),
+             ("bf16 x 602->128", inputs(N_NODE, F_IN, HIDDEN, torch.bfloat16),
+              None),
+             ("1000 rows", inputs(1000, F_IN, HIDDEN), None),
+             ("strided rows", inputs(1000, F_IN, N_CLASS, width=640), None),
+             ("unaligned rows", inputs(999, F_IN, HIDDEN, width=611, off=3),
+              None),
+             ("K odd", inputs(1000, 43, N_CLASS), None),
+             ("two k-segments", inputs(777, 1500, HIDDEN), None),
+             ("two column tiles", inputs(300, F_IN, 200), None)]
+    for name, (x, w), timed in cases:
+        y, xh = P._xw_kernel(x, w, True)
+        ref, ref_h = P.dense_xw_plain(x, w, True)
+        if not torch.equal(xh, ref_h):
+            raise AssertionError(f"dense_xw {name}: x̂ differs from "
+                                 "x.to(bf16).float()")
+        scale = ref_h.abs() @ w.to(torch.bfloat16).float().abs()
+        terms = torch.full((x.shape[0],), x.shape[1], device=dev)
+        checks.compare(KernelCase("dense_xw", name, "float32", y, ref,
+                                  terms=terms, scale=scale),
+                       slice_shape=True)
+        del y, xh, ref, ref_h, scale
+        if timed is None:
+            continue
+
+        def library(x=x, w=w):
+            return torch.mm(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                            out_dtype=torch.float32)
+        library.label = "torch.mm(bf16, bf16 -> f32) with the cast"
+        checks.time_call("dense_xw", timed,
+                         lambda x=x, w=w: P._xw_kernel(x, w, False),
+                         lambda x=x, w=w: P.dense_xw_plain(x, w, False),
+                         dev, lambda x=x, w=w: RL.dense_xw(x, w), library)
+        if timed == "layer 0":
+            checks.time_call("dense_xw", "layer 0 +x̂",
+                             lambda x=x, w=w: P._xw_kernel(x, w, True),
+                             lambda x=x, w=w: P.dense_xw_plain(x, w, True),
+                             dev, lambda x=x, w=w: RL.dense_xw(x, w, True),
+                             in_row=False)
+    torch.cuda.empty_cache()
+
+
 def slice_kernel_checks(checks: Checks, gcn_hybs, gat_hybs, dev,
                         n: int) -> None:
     """K1-K4 at every shape the slice gives them, layer by layer (layer 0:
@@ -803,6 +875,7 @@ def training_phase(checks: Checks, models, fwd, hg, g, dev):
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
 
@@ -883,7 +956,8 @@ def training_phase(checks: Checks, models, fwd, hg, g, dev):
                "gat_bwd_tiles_dad": A.gat_bwd_tiles_dad,
                "gat_bwd_tiles_src": A.gat_bwd_tiles_src,
                "gat_dense_bwd_dad": D.gat_dense_bwd_dad,
-               "gat_dense_bwd_src": D.gat_dense_bwd_src}
+               "gat_dense_bwd_src": D.gat_dense_bwd_src,
+               "dense_xw": P.dense_mm}     # K16: the forwards' products, x̂
     step_ms = {}
 
     def steps(mname, model, path, fn, n_steps):
@@ -4547,6 +4621,8 @@ def main(argv=None) -> int:
         f"terms gets {fixtures.SUM_ORDER:g} sqrt(n) 2^-24 instead, since "
         "reordering an f32 sum moves it by about sqrt(n) ulps")
     edge_case_checks(checks, dev)
+    say("== 3b K16 (x W) at the main path's shapes and ragged ones")
+    dense_xw_checks(checks, dev)
     say(f"phase 3 took {_took('3', t_phase):.1f} s")
 
     t_phase = time.perf_counter()
@@ -4610,6 +4686,8 @@ def main(argv=None) -> int:
     outs, lat = {}, {}
     for fn in counted.values():
         fn.launches = 0
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
+    xw_before = P.dense_mm.launches
     with torch.inference_mode():
         for mname, model in models.items():
             params = dict(model.params)
@@ -4620,6 +4698,7 @@ def main(argv=None) -> int:
                 lat.setdefault((mname, dtn, "kernel"), []).append(ms)
                 say(f"  {mname} {dtn} request seed={seed}: {ms:.2f} ms")
         launches = {k: fn.launches for k, fn in counted.items()}
+        launches["dense_xw"] = P.dense_mm.launches - xw_before
         say(f"launches during the requests: {launches}")
         # one more GAT-2l request under the profiler, after the counts are
         # read: utils/profile.py's breakdown of the request
@@ -4721,7 +4800,9 @@ def main(argv=None) -> int:
         # K11 GAT-2l's one-head logit block plus the hybrid SDDMM's per-tile
         # tail, K12 its grouped tail; K13 one DGN-2l and one PNA-2l request;
         # K14 one GAT-2l request on the gat_layer kind (both layers); K15
-        # both layers' dense splits of one GAT-2l hybrid request
+        # both layers' dense splits of one GAT-2l hybrid request; K16 a
+        # GCN-2l forward's two products (602 -> 128, 128 -> 41); its
+        # launches are phase 5d's, as K1-K8's
         calls = list(checks.times[k].values())
         bound_ms, bound_by = bound_of(c[2] for c in calls)
         libs = [c[3] for c in calls]

@@ -55,7 +55,7 @@ class LatencyConstants:
 
     # elementwise bytes (apply_edge / apply_node) and per-op X W
     hbm_gbps: float = 3599.0
-    mxu_tflops_bf16: float = 23.9       # dense_mm: float32 products
+    mxu_tflops_bf16: float = 23.9       # dense_mm: fitted to f32 products, not K16
     mxu_tflops_f32: float = 23.9
     # dense blocks (K2, K4), in-kernel projections (K14), densefull
     dense_tflops_bf16: float = 363.2

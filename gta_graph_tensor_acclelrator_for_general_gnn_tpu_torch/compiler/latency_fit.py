@@ -11,7 +11,7 @@ with CUDA events:
    last layer (F in {1, 4, 41} at E in {1,048,576; 4,194,304}), two points
    past the L2 (N = 232,965) for the residency cliff, and one elementwise
    op for the byte rate;
-2. the per-op X W (``primitives.dense_mm``, a float32 product) and
+2. the per-op X W (``primitives.dense_mm`` with bf16 operands: K16) and
    ``torch.mm`` in bf16 and float32 (the dense-block and densefull rate);
 3. on the smoke's graph (``chip_smoke.py``'s generator, self loops,
    symmetric norm, the ``hubs+labels`` reorder), every candidate of the

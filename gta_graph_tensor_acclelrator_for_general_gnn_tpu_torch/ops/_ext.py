@@ -83,6 +83,8 @@ _SIGNATURES = {
     "gta_gat_dense_panel": [VP, VP, VP, VP, I32, I32, VP, I32, VP, I64, VP,
                             VP, VP, VP, I32, I32, I32, I32, I32, I32, I64,
                             I64, I64, I64, I64, I64, VP],
+    "gta_dense_xw": [VP, I64, I32, VP, I64, I32, VP, I64, VP, I64, I64, I32,
+                     I32, I32, I64, VP],
 }
 
 

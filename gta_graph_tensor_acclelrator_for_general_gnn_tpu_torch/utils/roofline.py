@@ -243,6 +243,17 @@ def gat_layer_projection(x: torch.Tensor, HD: int, H: int) -> Work:
                 ops_per_s=_rate(x.dtype))
 
 
+def dense_xw(x: torch.Tensor, w: torch.Tensor, xhat: bool = False) -> Work:
+    """K16: x read once in its dtype, W once, y [n, N] float32 written once
+    (and x̂ [n, F] float32 with ``xhat``); 2 n F N operations at the bf16
+    rate."""
+    n, F = x.shape
+    N = w.shape[1]
+    return Work(bytes=_nbytes(x) + _nbytes(w) + 4 * n * N
+                + (4 * n * F if xhat else 0),
+                ops=2.0 * n * F * N, ops_per_s=_rate(torch.bfloat16))
+
+
 def _bwd_edge_ops(HD: int, H: int, src_mode: bool) -> int:
     """Per edge of the backward: te (a multiply-add per feature), alpha and
     dz (~10 per head), the dad add; with ``src_mode`` also das and dh

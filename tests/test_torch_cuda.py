@@ -1,4 +1,4 @@
-"""PyTorch port: the hand-written CUDA kernels K1-K15 against their plain
+"""PyTorch port: the hand-written CUDA kernels K1-K16 against their plain
 PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases`` (the
 forward kernels K1-K4), ``utils/fixtures.bwd_kernel_cases`` (the GAT
 backward kernels K5-K8), ``utils/fixtures.grouped_kernel_cases`` (the
@@ -6,7 +6,9 @@ grouped-tail kernels K9 and K10), ``utils/fixtures.sddmm_kernel_cases``
 (the SDDMM kernels K11 and K12), ``utils/fixtures.pair_agg_kernel_cases``
 (the pair aggregation K13) and ``utils/fixtures.layer_kernel_cases`` (the
 whole GAT layer K14, stage by stage, and the exp-panel dense partial
-K15), and the walk K11 picks at the cuts between its paths.  Also the
+K15), K16 (x W, ``ops/primitives.dense_mm``) at the main path's shapes and
+ragged ones, with its gradients and its launches per forward, and the
+walk K11 picks at the cuts between its paths.  Also the
 sampled trainer's captured CUDA graph against its eager loop on one
 seeded stacked epoch (``models/train.EpochRunner``; the losses within
 CAPTURE_TOL relative: index_add_'s float atomics reorder sums) and the
@@ -449,3 +451,178 @@ def test_captured_sampled_epoch_matches_eager_loop():
     assert sec > 0
     for a, b in zip(TT.snapshot(state), snap, strict=True):
         assert torch.equal(a, b)
+
+
+# K16 (ops/primitives.dense_mm): (M, K, N, x dtype, w dtype, how x is laid
+# out).  The main path's shapes first (layer 0, layer 1 and the one- and
+# four-column a_src / a_dst products), then ragged ones: M off the 64-row
+# tile, x's rows strided (aligned and not), K odd, K past one k-segment, N
+# past one column tile, bf16 weights, one row.
+K16_CASES = [
+    (232965, 602, 128, "float32", "float32", "contiguous"),
+    (232965, 128, 41, "float32", "float32", "contiguous"),
+    (232965, 128, 4, "float32", "float32", "contiguous"),
+    (232965, 128, 1, "float32", "float32", "contiguous"),
+    (232965, 602, 128, "bfloat16", "float32", "contiguous"),
+    (1000, 602, 128, "float32", "float32", "contiguous"),
+    (1000, 602, 41, "float32", "float32", "strided 640"),
+    (1000, 602, 128, "float32", "float32", "strided offset 3"),
+    (999, 602, 41, "bfloat16", "float32", "strided offset 3"),
+    (1000, 43, 41, "float32", "float32", "contiguous"),
+    (777, 1500, 128, "float32", "float32", "contiguous"),
+    (300, 602, 200, "float32", "float32", "contiguous"),
+    (513, 128, 64, "float32", "bfloat16", "contiguous"),
+    (1, 602, 128, "float32", "float32", "contiguous"),
+]
+
+
+def _k16_inputs(M, K, N, x_dtype, w_dtype, layout, dev):
+    gen = torch.Generator(device=dev).manual_seed(M * 7 + K * 3 + N)
+    if layout == "contiguous":
+        x = torch.randn((M, K), generator=gen, device=dev)
+    else:
+        width, off = (640, 0) if layout == "strided 640" else (K + 8, 3)
+        x = torch.randn((M, width), generator=gen, device=dev)[:, off:off + K]
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    return x.to(getattr(torch, x_dtype)), w.to(getattr(torch, w_dtype))
+
+
+def _k16_bound(xh, w):
+    """4 K 2^-24 (|x̂| |Ŵ|): the float32 bound on a sum of the same K exact
+    products taken in another order."""
+    wh = w.to(torch.bfloat16).float()
+    return 4 * xh.shape[1] * 2.0 ** -24 * (xh.abs() @ wh.abs())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K16_CASES,
+                         ids=["-".join(map(str, c)) for c in K16_CASES])
+def test_k16_matches_plain_version_on_cuda(case):
+    """K16 against its plain version: y within the bound on reordered float32
+    sums, elementwise; x̂ bit for bit; one launch per column tile and
+    k-segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K16 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    M, K, N = case[:3]
+    x, w = _k16_inputs(*case, dev)
+    ref, ref_h = P.dense_xw_plain(x, w, True)
+    before = P.dense_mm.launches
+    y, xh = P._xw_kernel(x, w, True)
+    y2, none = P._xw_kernel(x, w, False)
+    torch.cuda.synchronize(dev)
+    tiles = -(-N // 128)
+    segs = -(-K // P._xw_k_step(next(v for v in P.XW_WIDTHS
+                                      if v >= min(N, 128))))
+    assert P.dense_mm.launches - before == 2 * tiles * segs
+    assert none is None
+    assert torch.equal(xh, ref_h), "x̂ differs from x.to(bf16).float()"
+    assert torch.equal(y, y2)
+    bad = (y - ref).abs() > _k16_bound(ref_h, w)
+    assert not bool(bad.any()), (int(bad.sum()), float((y - ref).abs().max()))
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_grad", [False, True])
+def test_k16_gradients_equal_the_plain_chain_on_cuda(x_grad):
+    """dense_mm's gradients on the card equal autograd's of the rounded
+    float32 chain, bit for bit: the same x̂ (K16 writes it), the same float32
+    products and roundings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K16 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    x, w = _k16_inputs(5000, 602, 128, "float32", "float32", "contiguous", dev)
+    gy = torch.randn((5000, 128), device=dev)
+    grads = []
+    for fn in (lambda a, b: P.dense_mm(a, b, torch.bfloat16),
+               lambda a, b: a.to(torch.bfloat16).float()
+               @ b.to(torch.bfloat16).float()):
+        a = x.clone().requires_grad_(x_grad)
+        b = w.clone().requires_grad_(True)
+        fn(a, b).backward(gy)
+        grads.append((a.grad, b.grad))
+    assert torch.equal(grads[0][1], grads[1][1])
+    if x_grad:
+        assert torch.equal(grads[0][0], grads[1][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("network", ["GCN", "GAT"])
+def test_k16_launches_once_per_per_op_mm(network):
+    """A bf16 forward of the cells' hybrid lowering launches K16 once for
+    every MM op its per-op blocks evaluate, and its answer holds the per-op
+    path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K16 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import hybrid_schedules
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.data.datasets import synthetic_coo
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    n = 4000
+    s, r, _ = synthetic_coo(n, 60_000, seed=3, communities=20, p_in=0.7)
+    hg = G.build_host_graph(s, r, n, add_self_loops=True,
+                            symmetric_norm=True)
+    model = build_model(network, 602, 41, hidden=128, n_layers=2, heads=4,
+                        reorder=network == "GCN",
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev)
+    fwd = model.make_apply(torch.bfloat16,
+                           schedules=hybrid_schedules(model.layers),
+                           host_graph=hg, device=dev)
+    mms = sum(1 for layer, fn in zip(model.layers, fwd.layer_fns)
+              for kind, block, _, _ in fn.plans if kind == "xla"
+              for oid in block if layer.by_id[oid].compute == ir.MM)
+    g = hg.to_device(dev)
+    x = torch.randn((n, 602), generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev)
+    with torch.inference_mode():
+        params = dict(model.params)
+        before = P.dense_mm.launches
+        y = fwd(params, g, x)
+        launched = P.dense_mm.launches - before
+        ref = model.make_apply(torch.bfloat16)(params, g, x)
+    assert mms > 0 and launched == mms, (launched, mms)
+    rel = float((y - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+    assert rel <= 2e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["float64 x", "float16 x", "3-d x", "1-d x"])
+def test_k16_serves_other_dtypes_and_leading_dims_on_cuda(how):
+    """dense_mm's bf16 product launches K16 for x of another dtype (rounded
+    to bf16 once first, as the plain formula does) and for x whose leading
+    dimensions are rows; the answer holds the plain formula's within the
+    bound on reordered float32 sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K16 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    x, w = _k16_inputs(600, 602, 41, "float32", "float32", "contiguous", dev)
+    if how == "float64 x":
+        x = x.double()
+    elif how == "float16 x":
+        x = x.half()
+    elif how == "3-d x":
+        x = x.reshape(4, 150, 602)
+    else:
+        x = x[7]
+    before = P.dense_mm.launches
+    with torch.inference_mode():
+        y = P.dense_mm(x, w, torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    assert P.dense_mm.launches - before == 1
+    ref = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    assert y.dtype == torch.float32 and y.shape == ref.shape
+    xh = x.to(torch.bfloat16).float().reshape(-1, 602)
+    bound = _k16_bound(xh, w).reshape(ref.shape)
+    assert not bool(((y - ref).abs() > bound).any())
