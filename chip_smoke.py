@@ -64,11 +64,13 @@ Reddit's node count, and checks every hand-written kernel on the way:
      warm-up and 2 timed bf16 AdamW steps;
   7. SDDMM and pair aggregation: (a) K11-K13 against their plain versions
      on the fixture cases (K13's hub row cut into two chunks of its work
-     list); (b) DGN-2l and PNA-2l (602/128/41) with their pair chains on
-     K13 (``pair_agg_partition``, 1024²/ET512 ``onehot``): K13's work list
-     built again and timed (its chunks and cut rows printed), K13 checked
-     and timed at each layer's shape, 3 bf16 and 1 float32
-     requests per model on the smoke's graph, and on a reduced graph of
+     list); (b) DGN-2l, PNA-2l and PNA-4x3-2l (PNA as published, the
+     benchmark's ``pna2_e11m_serve`` model; 602/128/41) with their pair
+     chains on K13 (``pair_agg_partition``, 1024²/ET512 ``onehot``): K13's
+     work list built again and timed (its chunks and cut rows printed), K13
+     checked and timed at each layer's shape (PNA-4x3's min and sum of
+     squares too), 3 bf16 and 1 float32 requests per model on the smoke's
+     graph (K13 launched once a layer), and on a reduced graph of
      the same generator (a tenth of the edges, where the per-op path fits)
      answers, float32 losses and gradients against the per-op path; (c)
      GAT-2l with its logit blocks on the ``sddmm`` kind (K11 at the ADD
@@ -341,6 +343,16 @@ TRAIN_STEPS = 4    # timed bf16 steps per model, after one warm-up step
 # phase 7: the tiling of the pair-agg and sddmm blocks, (block rows, block
 # cols, slots per tile) on the ``onehot`` path
 PAIR_TILE = (1024, 1024, 512)
+# phase 7b, PNA-4x3 on the reduced graph: its std, a difference of two
+# moments, amplifies its precision's own rounding on rows of small
+# variance, and the per-op path in bf16 (answers) and float32 (gradients)
+# drifts from float64 by as much as the kernel path, past E2E_TOL and
+# GRAD_TOL on graphs this large; so the kernel path is held against
+# float64 within the larger of those bounds and OWN_X times the per-op
+# path's own error in the same precision (the kernel path rounds z to bf16
+# where the per-op path does not, so bf16 against bf16 tells nothing)
+OWN_FLOOR = ("PNA-4x3-2l",)
+OWN_X = 2
 # phase 7b's reduced graph, where the per-op path holds DGN and PNA: a
 # tenth of the smoke's edges from the same generator
 REDUCED_EDGES = 1_146_158
@@ -1380,7 +1392,9 @@ def reduced_graph(dev):
 def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
     """K13 at each pair-agg layer's shape on the model's tiling, in bf16 and
     float32, sum, max and count apart (the sum scaled by each cell's sum of
-    |term|, as in the fixture cases), timed in bf16."""
+    |term|, as in the fixture cases), and where the plan takes PNA's four
+    aggregators also the min (exact) and the sum of squares (its own
+    scale: every term is a square), timed in bf16."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir
@@ -1391,8 +1405,10 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     for mname, li, plan in plans:
-        D, want_max = plan.width, ir.MAX in plan.gathers
-        kw = dict(sf=plan.sf, slope=plan.slope, want_max=want_max)
+        D, four = plan.width, plan.want_min_sq
+        want_max = four or ir.MAX in plan.gathers
+        kw = dict(sf=plan.sf, slope=plan.slope, want_max=want_max,
+                  want_min_sq=four)
         what = f"{mname} l{li} D={D} {'+'.join(sorted(plan.gathers))}"
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[1]
@@ -1409,37 +1425,51 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
                                           out[1], ref[1]), slice_shape=True)
             checks.compare(KernelCase("pair_agg", f"count {what}", name,
                                       out[2], ref[2]), slice_shape=True)
+            if four:
+                checks.compare(KernelCase("pair_agg", f"min {what}", name,
+                                          out[3], ref[3]), slice_shape=True)
+                checks.compare(KernelCase(
+                    "pair_agg", f"sum of squares {what}", name, out[4],
+                    ref[4], terms=ref[2][:, 0], scale=ref[4]),
+                    slice_shape=True)
             del out, ref, mag
             if dt == torch.bfloat16:
                 checks.time_call(
-                    "pair_agg", f"{mname[:3]} l{li}",
+                    "pair_agg", f"{mname[:-3]} l{li}",
                     lambda: PA.pair_agg(tg, u, v, **kw),
                     lambda: PA._pair_agg_reference(tg, u, v, **kw), dev,
-                    lambda: RL.pair_agg(tg, u, want_max))
+                    lambda: RL.pair_agg(tg, u, want_max, four))
 
 
 def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
-    """Phase 7b: DGN-2l and PNA-2l ('original' PNA) at 602/128/41 with
-    their pair chains on K13 (``pair_agg_partition``, the chain on
-    1024²/ET512 ``onehot``, the rest op by op), lowered once per dtype;
-    each lowering tiles the graph once for its two layers.  K13 checked
-    and timed at each layer's shape on the model's tiling; 3 bf16 and 1
-    float32 requests per model on the smoke's graph (finite, right shape:
-    the per-op path cannot hold these models there); then on a reduced
-    graph of the same generator each served answer against the per-op
-    path (bf16 against bf16; float32 against the per-op path in float64,
-    since the per-op path's own float32 sums over a hub row of ~2e4
-    same-signed terms drift by more than the bound, which is printed),
-    row by row, each row's error over its own max |answer|, since hub rows
-    run orders of magnitude above the rest; and float32 losses and
-    gradients against float64 per-op autograd.  The models and their
-    served answers go into ``measured`` (phase 11 holds its picks to
-    them).  Returns K13's launches during the served requests."""
+    """Phase 7b: DGN-2l, PNA-2l ('original' PNA) and PNA-4x3-2l (PNA as
+    published, the benchmark's ``pna2_e11m_serve`` model) at 602/128/41
+    with their pair chains on K13 (``pair_agg_partition``, the chain on
+    1024²/ET512 ``onehot``, the rest op by op; PNA-4x3 through
+    ``hybrid_schedules``, as the benchmark lowers it, which gives the same
+    blocks and tile), lowered once per dtype; each lowering tiles the graph
+    once for its two layers.  K13 checked and timed at each layer's shape
+    on the model's tiling (PNA-4x3's min and sum of squares too); 3 bf16
+    and 1 float32 requests per model on the smoke's graph (finite, right
+    shape: the per-op path cannot hold these models there), each launching
+    K13 once a layer; then on a reduced graph of the same generator each
+    served answer against the per-op path (bf16 against bf16; float32
+    against the per-op path in float64, since the per-op path's own
+    float32 sums over a hub row of ~2e4 same-signed terms drift by more
+    than the bound, which is printed), row by row, each row's error over
+    its own max |answer|, since hub rows run orders of magnitude above the
+    rest; and float32 losses and gradients against float64 per-op
+    autograd.  PNA-4x3's bf16 answers and float32 gradients are held
+    against float64 within the larger of the bound and OWN_X times the
+    per-op path's own error in that precision (``OWN_FLOOR``).  DGN-2l's
+    and PNA-2l's models and served answers go into ``measured`` (phase 11
+    holds its picks to them).  Returns K13's launches during the served
+    requests."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as S
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
-        classify_block, pair_agg_schedules)
+        classify_block, hybrid_schedules, pair_agg_schedules)
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models import train as TT
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
@@ -1449,10 +1479,11 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
     gen = torch.Generator().manual_seed(4)
     models = {f"{net}-2l": build_model(net, F_IN, N_CLASS, hidden=HIDDEN,
                                        n_layers=2, generator=gen, device=dev)
-              for net in ("DGN", "PNA")}
-    scheds = {m: pair_agg_schedules(model.layers, tile=tc)
+              for net in ("DGN", "PNA", "PNA-4x3")}
+    scheds = {m: (hybrid_schedules(model.layers) if m == "PNA-4x3-2l"
+                  else pair_agg_schedules(model.layers, tile=tc))
               for m, model in models.items()}
-    measured["pair models"] = models
+    measured["pair models"] = {m: models[m] for m in ("DGN-2l", "PNA-2l")}
     dtypes = (("bfloat16", torch.bfloat16), ("float32", None))
     fwd = {}
     for mname, model in models.items():
@@ -1489,13 +1520,13 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
         for f in found:
             pair_agg_checks(checks, [f[:3]], f[3], dev, hg.n_node)
 
-    PA.pair_agg.launches = 0
-    lat = {}
+    launches, lat = 0, {}
+    requests = [("bfloat16", i) for i in range(REQUESTS)] + [("float32", 0)]
     with torch.inference_mode():
         for mname, model in models.items():
             params = dict(model.params)
-            for dtn, seed in [("bfloat16", i) for i in range(REQUESTS)] + [
-                    ("float32", 0)]:
+            PA.pair_agg.launches = 0
+            for dtn, seed in requests:
                 y, ms = _timed(fwd[mname][dtn], params, g,
                                _request_x(seed, hg.n_node, dev))
                 if tuple(y.shape) != (hg.n_node, N_CLASS) or not bool(
@@ -1504,8 +1535,12 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
                 lat.setdefault((mname, dtn), []).append(ms)
                 measured.setdefault((mname, "answers"), {})[(dtn, seed)] = y
                 say(f"  {mname} {dtn} request seed={seed}: {ms:.2f} ms")
-    launches = PA.pair_agg.launches
-    say(f"  K13 launches during the requests: {launches}")
+            got, want = PA.pair_agg.launches, len(model.layers) * len(requests)
+            say(f"  {mname}: K13 launches during its requests: {got}")
+            if got != want:
+                raise AssertionError(f"{mname}: K13 launched {got} times in "
+                                     f"{len(requests)} requests, not {want}")
+            launches += got
     for (mname, dtn), v in sorted(lat.items()):
         say(f"latency {mname} {dtn} kernel: median "
             f"{statistics.median(v):.3f} ms over {len(v)} requests "
@@ -1542,6 +1577,7 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
                     f"own max: worst {worst:.3e}, 99.9% "
                     f"{float(rows.quantile(0.999)):.3e}, median {med:.3e} "
                     f"(bound {E2E_TOL[dtn]:.0e} on every row)")
+                bound = E2E_TOL[dtn]
                 if dt is not None:
                     k64, p64r = (_row_rel(a, ref64) for a in (y, ref))
                     say(f"  {mname} reduced graph {dtn} against float64 per "
@@ -1549,9 +1585,13 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
                         f"median {float(k64.median()):.3e}; per-op path worst "
                         f"{float(p64r.max()):.3e} median "
                         f"{float(p64r.median()):.3e}")
+                    if mname in OWN_FLOOR:
+                        worst = float(k64.max())
+                        bound = max(bound, OWN_X * float(p64r.max()))
+                        say(f"  {mname} reduced graph {dtn}: the kernel path "
+                            f"held against float64 within {bound:.3e}")
                     del k64, p64r
-                if not (bool(torch.isfinite(y).all())
-                        and worst <= E2E_TOL[dtn]):
+                if not (bool(torch.isfinite(y).all()) and worst <= bound):
                     raise AssertionError(f"{mname} reduced {dtn}: a row's "
                                          f"relative error is {worst}")
             del y, ref, ref64
@@ -1571,6 +1611,16 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
             model.make_apply(None)(p64, gr, x.double()), labels_r, mask)
         loss.backward()
         lr, gref = loss.item(), {k: v.grad.float() for k, v in p64.items()}
+        own = {}
+        if mname in OWN_FLOOR:
+            # the per-op path's own float32 error, leaf by leaf
+            p32 = {k: v.detach().float().requires_grad_()
+                   for k, v in p64.items()}
+            TT.masked_cross_entropy(model.make_apply(None)(p32, gr, x),
+                                    labels_r, mask).backward()
+            own = {k: float((v.grad - gref[k]).abs().max())
+                   / float(gref[k].abs().max()) for k, v in p32.items()}
+            del p32
         del loss, p64
         rel = abs(lk - lr) / max(1.0, abs(lr))
         say(f"  {mname} reduced graph float32 loss {lk:.6f}, per-op float64 "
@@ -1580,9 +1630,11 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
         for k in gref:
             err = float((gk[k] - gref[k]).abs().max()) / float(
                 gref[k].abs().max())
-            say(f"  {mname} d{k}: relative {err:.3e}")
-            if not (bool(torch.isfinite(gk[k]).all())
-                    and err <= GRAD_TOL["grad"]):
+            bound = max(GRAD_TOL["grad"], OWN_X * own.get(k, 0.0))
+            say(f"  {mname} d{k}: relative {err:.3e}"
+                + (f" (per-op float32 {own[k]:.3e}; bound {bound:.3e})"
+                   if k in own else ""))
+            if not (bool(torch.isfinite(gk[k]).all()) and err <= bound):
                 raise AssertionError(f"{mname} d{k}: {err}")
         model.zero_grad(set_to_none=True)
         del gk, gref, fns
@@ -1809,7 +1861,7 @@ def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
     for c in (*fixtures.sddmm_kernel_cases(dev),
               *fixtures.pair_agg_kernel_cases(dev)):
         checks.compare(c)
-    say("== 7b DGN-2l and PNA-2l on the pair-aggregate kernel")
+    say("== 7b DGN-2l, PNA-2l and PNA-4x3-2l on the pair-aggregate kernel")
     launches = {"pair_agg": pair_agg_models(checks, hg, g, dev, measured)}
     say("== 7c GAT-2l with its logit blocks on the sddmm kind")
     launches["sddmm_tiles"] = sddmm_gat(checks, gat_model, hg, g, dev)

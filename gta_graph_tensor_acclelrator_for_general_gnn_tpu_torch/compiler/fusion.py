@@ -165,6 +165,10 @@ def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
     return "xla", None
 
 
+# the ``onehot`` tile the pair aggregate (K13) runs on by default
+PAIR_TILE = TileConfig(1024, 1024, 512)
+
+
 def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
                      spmm_tile: TileConfig = TileConfig(
                          1024, 1024, 512, S.PATH_HYBRID, dense_block=256),
@@ -176,7 +180,9 @@ def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
     isolate their aggregation (``aggregation_partition``) and run it as
     ``spmm_hybrid``; GAT layers fuse the attention chain
     (``pattern_partition``) and run it as ``gat_hybrid``; every other block
-    runs op by op.  The default geometries are that script's."""
+    runs op by op.  The default geometries are that script's.  A layer with
+    neither, whose aggregation is a pair chain (DGN, PNA), runs that chain
+    as ``pair_agg`` on ``PAIR_TILE``, as :func:`pair_agg_schedules` does."""
     out = []
     for graph in layers:
         part = S.pattern_partition(graph)
@@ -184,6 +190,9 @@ def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
         if part is None:
             part = S.aggregation_partition(graph)
             tc, want = spmm_tile, "spmm_hybrid"
+        if part is None:
+            part = S.pair_agg_partition(graph)
+            tc, want = PAIR_TILE, "pair_agg"
         if part is None:
             raise ValueError(f"{graph.name}: no hybrid-path block")
         tiles = tuple(tc if classify_block(graph, b, tc)[0] == want
@@ -204,8 +213,7 @@ def _one_kind(graph: ir.OpGraph, part, tc: TileConfig,
 
 
 def pair_agg_schedules(layers: Sequence[ir.OpGraph], *,
-                       tile: TileConfig = TileConfig(1024, 1024, 512)
-                       ) -> List[Schedule]:
+                       tile: TileConfig = PAIR_TILE) -> List[Schedule]:
     """Per-layer schedules of DGN / PNA on the fused pair aggregate: each
     layer's ``pair_agg_partition`` with the pair chain on ``tile`` (the
     ``onehot`` path; the kind ``pair_agg``), every other op alone."""
@@ -452,9 +460,15 @@ def lower_schedule(
                 twin = (get_tiled(tc, True, host_graph_t), get_perm_t())
         elif kind in ("gat_layer", "sddmm", "pair_agg"):
             data = get_tiled(tc, unit_weight=True)
-            if kind == "pair_agg" and data.src_local.is_cuda:
+            n = host_graph.n_node
+            if (kind == "pair_agg" and data.src_local.is_cuda
+                    and ("pair_agg", n) not in data.work_lists):
                 # K13's work list, at set-up rather than in a request
-                pair_mod.pair_work(data, host_graph.n_node)
+                with span("lower.pair_work"):
+                    work = pair_mod.pair_work(data, n)
+                    count("pair_slots", int(work.slot_src.numel()))
+                    count("pair_chunks", work.n_chunks)
+                    count("pair_split_rows", int(work.split_rows.numel()))
         elif kind == "spmm_densefull":
             key = ("densefull", plan.weighted, str(device))
             if key not in cache:
@@ -469,13 +483,25 @@ def lower_schedule(
     outputs = list(graph.outputs)
     block_spans = ["block.op" if p[0] == "xla" else f"block.{p[0]}"
                    for p in plans]
-    inv_deg = None
+    inv_deg = scalers = None
     if any(p[0] in ("spmm", "spmm_grouped", "spmm_hybrid", "spmm_stream",
                     "spmm_densefull") and p[3].mean for p in plans):
         deg = np.bincount(host_graph.receivers,
                           minlength=host_graph.n_node + 1)[: host_graph.n_node]
         inv_deg = torch.as_tensor(1.0 / np.maximum(deg, 1),
                                   dtype=torch.float32, device=device)[:, None]
+    if any(op.compute == ir.SCALER for op in graph.ops):
+        # PNA's degree scalers of the host graph's in-degrees, once for
+        # the layers that share ``tile_cache``
+        key = ("degree_scalers", id(host_graph), str(device))
+        if key not in cache:
+            with span("lower.degree_scalers"):
+                deg = np.bincount(host_graph.receivers,
+                                  minlength=host_graph.n_node + 1
+                                  )[: host_graph.n_node]
+                cache[key] = {k: v.to(device) for k, v in P.degree_scalers(
+                    torch.as_tensor(deg)).items()}
+        scalers = cache[key]
 
     def apply(params: Dict[str, torch.Tensor], g: GraphTensor,
               x: torch.Tensor):
@@ -543,15 +569,27 @@ def lower_schedule(
                     data, g, kin(ref(plan.src_op)), kin(ref(plan.dst_op)),
                     plan.compute)
             elif kind == "pair_agg":
-                y_sum, y_max, cnt = pair_mod.pair_aggregate(
+                four = plan.want_min_sq
+                out = pair_mod.pair_aggregate(
                     data, side(plan.cterms), side(plan.rterms), sf=plan.sf,
-                    slope=plan.slope, want_max=ir.MAX in plan.gathers)
-                if ir.ADD in plan.gathers:
-                    vals[plan.gathers[ir.ADD]] = y_sum
-                if ir.MAX in plan.gathers:
-                    vals[plan.gathers[ir.MAX]] = y_max
-                if ir.MEAN in plan.gathers:
-                    vals[plan.gathers[ir.MEAN]] = y_sum / cnt.clamp(min=1.0)
+                    slope=plan.slope, want_max=four or ir.MAX in plan.gathers,
+                    want_min_sq=four)
+                y_sum, y_max, cnt = out[:3]
+                got = {ir.ADD: y_sum, ir.MAX: y_max}
+                if ir.MEAN in plan.gathers or four:
+                    c = cnt.clamp(min=1.0)
+                    got[ir.MEAN] = y_sum / c
+                if four:
+                    got[ir.MIN] = out[3]
+                    got[ir.STD] = P.std_from_moments(got[ir.MEAN], out[4] / c)
+                    # the aggregates as column slices of one tensor, in op
+                    # order, so that an MM of their concatenation reads it
+                    # without a copy (lower.concat_features)
+                    order = sorted(plan.gathers, key=plan.gathers.get)
+                    got = dict(zip(order, torch.cat(
+                        [got[r] for r in order], 1).split(plan.width, 1)))
+                for r, oid in plan.gathers.items():
+                    vals[oid] = got[r]
             elif kind == "gat_layer":
                 vals[plan.out_op] = gat_mod.gat_layer(
                     data, kin(ref(plan.x_op)), kin(params[plan.w_name]),
@@ -582,6 +620,10 @@ def lower_schedule(
                         vals[oid] = sinput_mod.sparse_input_mm(
                             fg, params[op.extra["weight"][0]],
                             compute_dtype=compute_dtype)
+                        continue
+                    if op.compute == ir.SCALER:
+                        vals[oid] = (ref(op.inputs[0])
+                                     * scalers[op.extra["scaler"]])
                         continue
                     vals[oid] = _eval_op(op, vals, params, g, x,
                                          compute_dtype)

@@ -8,7 +8,7 @@ rest.  Parameters keep the JAX names and the ``[in, out]`` layout.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +42,30 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device=None,
                             device=device) for k, v in params.items()}
 
 
+def concat_features(ins: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The concatenation of [N, F_i] values along features (what an MM of
+    several inputs multiplies).  Without a gradient to record, inputs that
+    are adjacent column slices of one tensor's rows, in order, are read as
+    one view of it, without a copy."""
+    if len(ins) == 1:
+        return ins[0]
+    t0 = ins[0]
+    rows, st = t0.shape[0], t0.stride()
+    off = [t.storage_offset() for t in ins]
+    width = sum(t.shape[-1] for t in ins)
+    if (st[-1] == 1 and all(
+            t.dim() == 2 and t.shape[0] == rows and t.stride() == st
+            and t.untyped_storage().data_ptr()
+            == t0.untyped_storage().data_ptr() for t in ins)
+            and all(off[i + 1] == off[i] + ins[i].shape[1]
+                    for i in range(len(ins) - 1))
+            and off[0] % st[0] + width <= st[0]
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in ins))):
+        return t0.as_strided((rows, width), st, off[0])
+    return torch.cat(list(ins), dim=1)
+
+
 def _eval_op(op: ir.Op, vals: Dict[int, torch.Tensor],
              params: Mapping[str, torch.Tensor], g: GraphTensor,
              x: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -64,7 +88,9 @@ def _eval_op(op: ir.Op, vals: Dict[int, torch.Tensor],
         return ins[0]
     if c == ir.MM:
         name, _, _ = op.extra["weight"]
-        return P.dense_mm(ins[0], params[name], compute_dtype)
+        return P.dense_mm(concat_features(ins), params[name], compute_dtype)
+    if c == ir.SCALER:
+        return ins[0] * P.degree_scalers(P.in_degree(g))[op.extra["scaler"]]
     if c == ir.SF:
         return P.special_function(ins[0], op.extra.get("sf", "relu"),
                                   op.extra.get("negative_slope", 0.2))

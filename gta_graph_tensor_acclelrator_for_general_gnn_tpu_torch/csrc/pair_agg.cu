@@ -4,7 +4,9 @@
 // sender) and V = v[rb*R + dst_local], both in u's dtype:
 //   z = sf(U + V) in float32 (sf: none, or leaky_relu with `slope`)
 //   sum[r] += round_dt(z);  max[r] = max(max[r], round_dt(z));  count[r] += 1
-// Rows without a slot report sum 0, max 0 and count 0.
+// and, in the instantiation PNA's four aggregators take (MINSQ),
+//   min[r] = min(min[r], round_dt(z));  sq[r] += round_dt(z)^2
+// in the same pass.  Rows without a slot report 0 in every output.
 //
 // Replaces the TPU kernel ops/pairagg.py:_pair_agg_kernel of the JAX
 // package, which gathers U and V and scatters the sum and count through
@@ -40,7 +42,10 @@
 // max by the integer order of IEEE-754 bits (signed atomicMax for values
 // >= 0, unsigned atomicMin for negative ones; -0.0 flushed as +0.0, which
 // the signed order would put below -inf), into rows the wrapper set to 0
-// and -inf.
+// and -inf.  The min mirrors the max (signed atomicMin for values >= 0,
+// unsigned atomicMax for negative ones, into rows set to +inf) and the sum
+// of squares adds like the sum.  Four accumulators a feature instead of
+// two hold more registers, so MINSQ runs at BLOCKS_MINSQ blocks an SM.
 #include "tile_walk.cuh"
 
 namespace {
@@ -53,6 +58,7 @@ constexpr int WARPS = 8;
 // all took more time
 constexpr int PF = 4;
 constexpr int BLOCKS = 4;
+constexpr int BLOCKS_MINSQ = 3;
 
 __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
   v = v == 0.f ? 0.f : v;
@@ -60,6 +66,14 @@ __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
     atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
   else
     atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
+  v = v == 0.f ? 0.f : v;
+  if (v >= 0.f)
+    atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
 }
 
 template <int VEC>
@@ -70,12 +84,13 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
     *p = v[0];
 }
 
-template <typename T, int VEC, int NV, int E, bool WANT_MAX>
-__global__ void __launch_bounds__(WARPS * 32, BLOCKS)
+template <typename T, int VEC, int NV, int E, bool WANT_MAX, bool MINSQ>
+__global__ void __launch_bounds__(WARPS * 32, MINSQ ? BLOCKS_MINSQ : BLOCKS)
 pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row,
                 const int* __restrict__ slot_src, const T* __restrict__ u,
                 const T* __restrict__ v, float* __restrict__ sum, float* __restrict__ mx,
-                float* __restrict__ cnt, int n_chunks, int D, bool use_leaky, float slope) {
+                float* __restrict__ mn, float* __restrict__ sq, float* __restrict__ cnt,
+                int n_chunks, int D, bool use_leaky, float slope) {
   using V = typename gta::VecLoad<T, VEC>::type;
   constexpr int LG = 32 / E;        // lanes a group
   constexpr int W = LG * VEC * NV;  // features a pass
@@ -95,9 +110,11 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
       cnt[r] = m;
   }
   const float neg_inf = __uint_as_float(0xff800000u);
+  const float pos_inf = __uint_as_float(0x7f800000u);
   for (int f0 = 0; f0 < D; f0 += W) {
     bool on[NV];
     float vv[NV][VEC], s[NV][VEC], m[NV][VEC];
+    float lo[NV][VEC], s2[NV][VEC];  // MINSQ only
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int f = f0 + (k + LG * i) * VEC;
@@ -108,6 +125,10 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
         vv[i][e] = gta::unpack(x, e);
         s[i][e] = 0.f;
         m[i][e] = neg_inf;
+        if constexpr (MINSQ) {
+          lo[i][e] = pos_inf;
+          s2[i][e] = 0.f;
+        }
       }
     }
     for (int p0 = b; p0 < end; p0 += LG) {
@@ -138,6 +159,11 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
               if (use_leaky) z = gta::leaky(z, slope);
               s[i][e] += gta::round_to<T>(z);
               if (WANT_MAX) m[i][e] = fmaxf(m[i][e], z);
+              if constexpr (MINSQ) {
+                const float zr = gta::round_to<T>(z);
+                lo[i][e] = fminf(lo[i][e], z);
+                s2[i][e] = __fmaf_rn(zr, zr, s2[i][e]);
+              }
             }
         }
       }
@@ -146,17 +172,29 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
     for (int i = 0; i < NV; ++i) {
       if (!on[i]) continue;
       const int64_t o = r * D + f0 + (k + LG * i) * VEC;
-      float mr[VEC];
+      float mr[VEC], lr[VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) mr[e] = end > b ? gta::round_to<T>(m[i][e]) : 0.f;
+      for (int e = 0; e < VEC; ++e) {
+        mr[e] = end > b ? gta::round_to<T>(m[i][e]) : 0.f;
+        if constexpr (MINSQ) lr[e] = end > b ? gta::round_to<T>(lo[i][e]) : 0.f;
+      }
       if (!split) {
         store_vec<VEC>(sum + o, s[i]);
         if (WANT_MAX) store_vec<VEC>(mx + o, mr);
+        if constexpr (MINSQ) {
+          store_vec<VEC>(mn + o, lr);
+          store_vec<VEC>(sq + o, s2[i]);
+        }
       } else {
         gta::add_vec<VEC>(sum + o, s[i]);
         if (WANT_MAX) {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) atomic_max_f32(mx + o + e, mr[e]);
+        }
+        if constexpr (MINSQ) {
+          gta::add_vec<VEC>(sq + o, s2[i]);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) atomic_min_f32(mn + o + e, lr[e]);
         }
       }
     }
@@ -166,7 +204,7 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
 struct Args {
   const int *ptr, *row, *src;
   const void *u, *v;
-  float *sum, *mx, *cnt;
+  float *sum, *mx, *mn, *sq, *cnt;
   int n_chunks, D;
   bool leaky;
   float slope;
@@ -179,12 +217,18 @@ cudaError_t run(const Args& a) {
   const unsigned blocks = static_cast<unsigned>((a.n_chunks + groups - 1) / groups);
   const T* u = static_cast<const T*>(a.u);
   const T* v = static_cast<const T*>(a.v);
-  if (a.mx != nullptr)
-    pair_agg_kernel<T, VEC, NV, E, true><<<blocks, WARPS * 32, 0, a.st>>>(
-        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.cnt, a.n_chunks, a.D, a.leaky, a.slope);
+  if (a.mn != nullptr)
+    pair_agg_kernel<T, VEC, NV, E, true, true><<<blocks, WARPS * 32, 0, a.st>>>(
+        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.mn, a.sq, a.cnt, a.n_chunks, a.D, a.leaky,
+        a.slope);
+  else if (a.mx != nullptr)
+    pair_agg_kernel<T, VEC, NV, E, true, false><<<blocks, WARPS * 32, 0, a.st>>>(
+        a.ptr, a.row, a.src, u, v, a.sum, a.mx, nullptr, nullptr, a.cnt, a.n_chunks, a.D,
+        a.leaky, a.slope);
   else
-    pair_agg_kernel<T, VEC, NV, E, false><<<blocks, WARPS * 32, 0, a.st>>>(
-        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.cnt, a.n_chunks, a.D, a.leaky, a.slope);
+    pair_agg_kernel<T, VEC, NV, E, false, false><<<blocks, WARPS * 32, 0, a.st>>>(
+        a.ptr, a.row, a.src, u, v, a.sum, a.mx, nullptr, nullptr, a.cnt, a.n_chunks, a.D,
+        a.leaky, a.slope);
   return cudaGetLastError();
 }
 
@@ -206,16 +250,18 @@ cudaError_t launch(const Args& a) {
 }  // namespace
 
 // K13 over a work list (ops/pairagg.PairWork): ``sum``, ``mx`` (null: no
-// max) and ``cnt`` float32, 16-byte aligned; the rows of split chunks
-// (chunk_row < 0) set to 0, -inf and 0 by the caller.
+// max), ``mn`` and ``sq`` (null: no min and no sum of squares; non-null
+// needs ``mx``) and ``cnt`` float32, 16-byte aligned; the rows of split
+// chunks (chunk_row < 0) set to 0, -inf, +inf, 0 and 0 by the caller.
 extern "C" int gta_pair_agg(const void* chunk_ptr, const void* chunk_row, const void* slot_src,
                             const void* u, const void* v, int dtype, void* sum, void* mx,
-                            void* cnt, int n_chunks, int D, int leaky, float slope,
-                            void* stream) {
+                            void* mn, void* sq, void* cnt, int n_chunks, int D, int leaky,
+                            float slope, void* stream) {
   const Args a{static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_row),
                static_cast<const int*>(slot_src), u, v, static_cast<float*>(sum),
-               static_cast<float*>(mx), static_cast<float*>(cnt), n_chunks, D, leaky != 0,
-               slope, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(mx), static_cast<float*>(mn), static_cast<float*>(sq),
+               static_cast<float*>(cnt), n_chunks, D, leaky != 0, slope,
+               static_cast<cudaStream_t>(stream)};
   const cudaError_t err = dtype == gta::BF16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
   return static_cast<int>(err);
 }

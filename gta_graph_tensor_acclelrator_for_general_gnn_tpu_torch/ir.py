@@ -242,3 +242,25 @@ def partition_is_legal(graph: OpGraph, blocks: Sequence[Sequence[int]]) -> bool:
             if indeg[b] == 0:
                 ready.append(b)
     return seen == len(blocks)
+
+
+# ---------------------------------------------------------------------------
+# The port's extensions, after the JAX package's IR above (kept byte for
+# byte): PNA as published (Corso et al., arXiv:2004.05718)
+# ---------------------------------------------------------------------------
+#
+# * gather MIN, and gather STD: std = sqrt(relu(mean(e^2) - mean(e)^2) +
+#   STD_EPS), as the PNA authors' code takes it;
+# * apply_node SCALER multiplies each node's row by a degree scaler,
+#   ``extra['scaler']`` in SCALERS: 'amplification' log(d+1)/delta or
+#   'attenuation' delta/log(d+1), d the node's in-degree clamped to at
+#   least 1 and delta the mean of log(d+1) over the graph's nodes;
+# * an MM of several inputs multiplies the concatenation of their
+#   features, in input order.
+
+MIN = "MIN"
+STD = "STD"
+SCALER = "SCALER"
+COMPUTES = COMPUTES + (MIN, STD, SCALER)
+SCALERS = ("amplification", "attenuation")
+STD_EPS = 1e-5

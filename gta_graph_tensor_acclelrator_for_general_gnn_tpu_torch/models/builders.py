@@ -12,6 +12,11 @@ byte-count simulator rather than numerical execution:
   (the defining feature of PNA), expressed with the gather-reduce extension
   documented in ``ir.py``.
 
+Beyond the reference zoo, ``"PNA-4x3"`` is PNA as published (Corso et al.,
+arXiv:2004.05718): the aggregators mean, min, max and std, each under the
+degree scalers identity, amplification and attenuation, and the
+post-transform over [x | 12 scaled aggregates].
+
 Every builder returns a single-layer :class:`~..ir.OpGraph`; multi-layer
 models stack these (see ``models/zoo.py``).
 """
@@ -20,7 +25,10 @@ from __future__ import annotations
 from .. import ir
 from ..ir import Op, OpGraph
 
+# the reference zoo's families, which the JAX package builds too
 NETWORKS = ("GCN", "GAT", "SGC", "GraphSAGE", "GIN", "DGN", "PNA")
+# published forms the port builds beside them
+PUBLISHED = ("PNA-4x3",)
 
 
 def _w(name: str, iw: int, ow: int) -> dict:
@@ -188,8 +196,61 @@ def build_op_graph(
             Op(12, ir.APPLY_NODE, ir.MM, "R", [11], O, _w(f"pna_{t}_wo", D, O)),
         ]
 
+    elif network == "PNA-4x3":
+        ops = _pna_published(F, O, hidden or O, t, reorder, final_sf)
+
     else:
-        raise ValueError(f"unknown network {network!r}; choose from {NETWORKS}")
+        raise ValueError(f"unknown network {network!r}; choose from "
+                         f"{NETWORKS + PUBLISHED}")
 
     variant = "trans" if reorder else "original"
     return OpGraph(name=f"{network}-{variant}-{t}", ops=ops, in_width=F)
+
+
+def _pna_published(F: int, O: int, D: int, t: str, reorder: bool,
+                   final_sf: str) -> list:
+    """One PNA layer as published: messages m = x_dst W_dst + x_src W_src of
+    width D (PyG's ``PNAConv`` with one pre-layer and one tower), the
+    aggregators mean, min, max and std over each receiver's incoming
+    edges, the scalers identity, amplification and attenuation, and the
+    post-transform U([x | A | amp A | att A]) with A = [mean | min | max |
+    std].  A row scaling commutes with a product, so U's aggregate part is
+    A W_id + amp (A W_amp) + att (A W_att): the 12 D-wide input is never
+    formed.  No bias, as everywhere in this zoo."""
+    X = ir.X_INPUT
+    if reorder:
+        # transform first: the two pre-transform products on nodes
+        head = [
+            Op(0, ir.APPLY_NODE, ir.MM, "R", [X], D, _w(f"pna4_{t}_wsrc", F, D)),
+            Op(1, ir.APPLY_NODE, ir.MM, "R", [X], D, _w(f"pna4_{t}_wdst", F, D)),
+            Op(2, ir.SCATTER, ir.NONE, "C", [0], D),
+            Op(3, ir.SCATTER, ir.NONE, "R", [1], D),
+        ]
+    else:
+        head = [
+            Op(0, ir.SCATTER, ir.NONE, "C", [X], F),
+            Op(1, ir.SCATTER, ir.NONE, "R", [X], F),
+            Op(2, ir.APPLY_EDGE, ir.MM, "R", [0], D, _w(f"pna4_{t}_wsrc", F, D)),
+            Op(3, ir.APPLY_EDGE, ir.MM, "R", [1], D, _w(f"pna4_{t}_wdst", F, D)),
+        ]
+    aggs = [5, 6, 7, 8]
+    A = 4 * D
+    return head + [
+        Op(4, ir.APPLY_EDGE, ir.ADD, "R", [2, 3], D),
+        Op(5, ir.GATHER, ir.MEAN, "R", [4], D),
+        Op(6, ir.GATHER, ir.MIN, "R", [4], D),
+        Op(7, ir.GATHER, ir.MAX, "R", [4], D),
+        Op(8, ir.GATHER, ir.STD, "R", [4], D),
+        Op(9, ir.APPLY_NODE, ir.MM, "R", aggs, O, _w(f"pna4_{t}_wid", A, O)),
+        Op(10, ir.APPLY_NODE, ir.MM, "R", aggs, O, _w(f"pna4_{t}_wamp", A, O)),
+        Op(11, ir.APPLY_NODE, ir.MM, "R", aggs, O, _w(f"pna4_{t}_watt", A, O)),
+        Op(12, ir.APPLY_NODE, ir.SCALER, "R", [10], O,
+           {"scaler": "amplification"}),
+        Op(13, ir.APPLY_NODE, ir.SCALER, "R", [11], O,
+           {"scaler": "attenuation"}),
+        Op(14, ir.APPLY_NODE, ir.MM, "R", [X], O, _w(f"pna4_{t}_wx", F, O)),
+        Op(15, ir.APPLY_NODE, ir.ADD, "R", [14, 9], O),
+        Op(16, ir.APPLY_NODE, ir.ADD, "R", [15, 12], O),
+        Op(17, ir.APPLY_NODE, ir.ADD, "R", [16, 13], O),
+        Op(18, ir.APPLY_NODE, ir.SF, "R", [17], O, {"sf": final_sf}),
+    ]

@@ -17,7 +17,7 @@ from ..compiler import lower as L
 from ..compiler.schedule import Schedule
 from ..graph import GraphTensor, HostGraph, resolve_device
 from ..utils.spans import span
-from .builders import NETWORKS, build_op_graph
+from .builders import NETWORKS, PUBLISHED, build_op_graph
 
 
 class Model(nn.Module):
@@ -109,7 +109,7 @@ def build_model(network: str, in_width: int, n_class: int, *,
     its parameters on ``device`` (default the CUDA card).
     Hidden layers use the family's activation, the last emits raw logits;
     hidden GAT layers use ``heads`` heads and the last one a single head."""
-    if network not in NETWORKS:
+    if network not in NETWORKS + PUBLISHED:
         raise ValueError(f"unknown network {network!r}")
     layers: List[ir.OpGraph] = []
     w = in_width
@@ -124,7 +124,7 @@ def build_model(network: str, in_width: int, n_class: int, *,
         )
         if network == "GAT":
             kw["heads"] = 1 if last else heads
-        if network in ("GIN", "PNA"):
+        if network in ("GIN", "PNA", "PNA-4x3"):
             kw["hidden"] = hidden
         layers.append(build_op_graph(network, w, out_w, **kw))
         w = out_w

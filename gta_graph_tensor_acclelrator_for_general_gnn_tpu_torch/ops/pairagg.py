@@ -1,7 +1,7 @@
 """Fused pair-sum aggregation: the DGN / PNA edge chain in one pass,
 
     z_e  = sf(u[src_e] + v[dst_e])          sf: identity or leaky_relu
-    outs = {reduce over e -> r of z_e : reduce in {ADD, MAX, MEAN}}
+    outs = {reduce over e -> r of z_e : reduce in {ADD, MAX, MEAN, MIN, STD}}
 
 without the [E, D] edge tensor of the per-op path.
 
@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``ops/pairagg.py``.  K13
 ``csrc/pair_agg.cu`` (replacing the TPU kernel ``_pair_agg_kernel``) walks
 a receiver-ordered work list of a :class:`~..graph.TiledGraph`'s counted
 slots (:func:`pair_work`, built on the tiling's device at first use and
-kept with the tiling) and returns each row's sum, max and count;
+kept with the tiling) and returns each row's sum, max and count, and in
+the instantiation PNA's four aggregators take (``want_min_sq``) also its
+min and its sum of squares, from the same pass;
 :func:`_pair_agg_reference` is its plain PyTorch version, and the wrapper
 :func:`pair_agg` takes it for a tensor on the CPU and launches the kernel
 for a CUDA tensor (or raises).  :func:`pair_aggregate` is
@@ -25,12 +27,13 @@ reduce to one (u, v) pair.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from .. import ir
 from ..graph import TiledGraph
+from ..utils import spans
 from . import _ext
 from .spmm import _live_slots, _unit_steps
 
@@ -128,19 +131,20 @@ def pair_work(tg: TiledGraph, n: int) -> PairWork:
 
 def _pair_agg_reference(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
                         sf: Optional[str] = None, slope: float = 0.2,
-                        want_max: bool = True, magnitude: bool = False
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                   torch.Tensor]:
+                        want_max: bool = True, magnitude: bool = False,
+                        want_min_sq: bool = False) -> tuple:
     """Plain version of K13: (sum [N, D] float32, max [N, D] float32 or
-    None without ``want_max``, count [N, 1] float32).  U = u[src] and V =
-    v[dst] in u's dtype, z = sf(U + V) in float32; the sum adds z rounded to
-    u's dtype, the max is of z rounded to u's dtype, rows without a slot
-    give 0.  ``magnitude``: the sum adds |rounded z| instead (the scale of
-    a row's sum for the kernel check, whose terms may cancel).  The sum
-    accumulates in float64 and is rounded to float32 once, so the kernel's
-    float32 sums, in whatever order, are held to the exactly rounded sum.
-    Walks the tiles in chunks, so its temporaries stay small on large
-    graphs."""
+    None without ``want_max``, count [N, 1] float32), and with
+    ``want_min_sq`` also (min [N, D], sum of squares [N, D]), both float32.
+    U = u[src] and V = v[dst] in u's dtype, z = sf(U + V) in float32; the
+    sum adds z rounded to u's dtype, the max and min are of z rounded to
+    u's dtype, the sum of squares adds the squares of the rounded z, rows
+    without a slot give 0.  ``magnitude``: the sum adds |rounded z| instead
+    (the scale of a row's sum for the kernel check, whose terms may
+    cancel).  The sums accumulate in float64 and are rounded to float32
+    once, so the kernel's float32 sums, in whatever order, are held to the
+    exactly rounded sum.  Walks the tiles in chunks, so its temporaries
+    stay small on large graphs."""
     n, D = u.shape
     dt = u.dtype
     v = v.to(dt)
@@ -148,6 +152,11 @@ def _pair_agg_reference(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
     y_sum = torch.zeros((n, D), dtype=torch.float64, device=dev)
     y_max = (torch.full((n, D), float("-inf"), dtype=torch.float32,
                         device=dev) if want_max else None)
+    y_min = y_sq = None
+    if want_min_sq:
+        y_min = torch.full((n, D), float("inf"), dtype=torch.float32,
+                           device=dev)
+        y_sq = torch.zeros((n, D), dtype=torch.float64, device=dev)
     cnt = torch.zeros(n, dtype=torch.float32, device=dev)
     for t0, t1 in _unit_steps(tg, 2 * D):
         src, has, dst = _kernel_slots(tg, t0, t1, n)
@@ -159,26 +168,36 @@ def _pair_agg_reference(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
         y_sum.index_add_(0, dst, (zr.abs() if magnitude else zr).double())
         if want_max:
             y_max.scatter_reduce_(0, dst[:, None].expand_as(zr), zr, "amax")
+        if want_min_sq:
+            y_min.scatter_reduce_(0, dst[:, None].expand_as(zr), zr, "amin")
+            y_sq.index_add_(0, dst, zr.double() ** 2)
         cnt += torch.bincount(dst, minlength=n).float()
     cnt = cnt[:, None]
     if want_max:
         y_max.masked_fill_(cnt == 0, 0.0)
-    return y_sum.float(), y_max, cnt
+    if not want_min_sq:
+        return y_sum.float(), y_max, cnt
+    return (y_sum.float(), y_max, cnt, y_min.masked_fill_(cnt == 0, 0.0),
+            y_sq.float())
 
 
 def pair_agg(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
              sf: Optional[str] = None, slope: float = 0.2,
-             want_max: bool = True):
-    """K13 wrapper: (sum, max or None, count) as :func:`_pair_agg_reference`.
-    u and v share a dtype (float32 or bfloat16) and a shape [N, D].  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+             want_max: bool = True, want_min_sq: bool = False):
+    """K13 wrapper: (sum, max or None, count[, min, sum of squares]) as
+    :func:`_pair_agg_reference`.  u and v share a dtype (float32 or
+    bfloat16) and a shape [N, D].  ``want_min_sq`` takes the instantiation
+    of PNA's four aggregators, which computes the max too (it needs
+    ``want_max``).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
     if sf not in (None, "leaky_relu"):
         raise ValueError(f"pair aggregation takes sf None or leaky_relu, not "
                          f"{sf!r}")
+    if want_min_sq and not want_max:
+        raise ValueError("want_min_sq computes the max too: pass want_max")
     if u.device.type == "cpu":
         return _pair_agg_reference(tg, u, v, sf=sf, slope=slope,
-                                   want_max=want_max)
+                                   want_max=want_max, want_min_sq=want_min_sq)
     dev = u.device
     _ext.require(u, "u", dev, (torch.float32, torch.bfloat16), 2)
     _ext.require(v, "v", dev, (u.dtype,), 2)
@@ -191,28 +210,37 @@ def pair_agg(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
     n, D = u.shape
     work = pair_work(tg, n)
     # the kernel writes every row: a row of one chunk by plain stores, a
-    # row cut into several by atomics, into its 0 (sum, count) and -inf
-    # (max) set here
-    y_sum = torch.empty((n, D), dtype=torch.float32, device=dev)
-    y_max = (torch.empty((n, D), dtype=torch.float32, device=dev)
-             if want_max else None)
+    # row cut into several by atomics, into its 0 (sum, sum of squares,
+    # count), -inf (max) and +inf (min) set here
+    def out():
+        return torch.empty((n, D), dtype=torch.float32, device=dev)
+
+    y_sum = out()
+    y_max = out() if want_max else None
+    y_min, y_sq = (out(), out()) if want_min_sq else (None, None)
     cnt = torch.empty((n, 1), dtype=torch.float32, device=dev)
     if work.split_rows.numel():
-        for y, fill in ((y_sum, 0.0), (cnt, 0.0), (y_max, float("-inf"))):
+        for y, fill in ((y_sum, 0.0), (cnt, 0.0), (y_max, float("-inf")),
+                        (y_min, float("inf")), (y_sq, 0.0)):
             if y is not None:
                 y.index_fill_(0, work.split_rows, fill)
     if work.n_chunks:
         lib = _ext.library()
+        def ptr(y):
+            return None if y is None else y.data_ptr()
+
         with torch.cuda.device(dev):
             rc = lib.gta_pair_agg(
                 work.chunk_ptr.data_ptr(), work.chunk_row.data_ptr(),
                 work.slot_src.data_ptr(), u.data_ptr(), v.data_ptr(),
-                _ext.DTYPE_CODE[u.dtype], y_sum.data_ptr(),
-                None if y_max is None else y_max.data_ptr(), cnt.data_ptr(),
-                work.n_chunks, D, int(sf == "leaky_relu"), slope,
-                _ext.stream(u))
+                _ext.DTYPE_CODE[u.dtype], y_sum.data_ptr(), ptr(y_max),
+                ptr(y_min), ptr(y_sq), cnt.data_ptr(), work.n_chunks, D,
+                int(sf == "leaky_relu"), slope, _ext.stream(u))
         _ext.check(rc, "pair_agg")
         pair_agg.launches += 1
+        spans.count("pair_agg.k13", 1)
+    if want_min_sq:
+        return y_sum, y_max, cnt, y_min, y_sq
     return y_sum, y_max, cnt
 
 
@@ -221,20 +249,22 @@ pair_agg.launches = 0
 
 def pair_aggregate_raw(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
                        sf: Optional[str] = None, slope: float = 0.2,
-                       want_max: bool = True):
+                       want_max: bool = True, want_min_sq: bool = False):
     """(sum [N, D] float32, max [N, D] float32 with 0 on empty rows, count
-    [N, 1] float32) on K13; v is cast to u's dtype.  ``want_max=False``
-    skips the max and returns None in its place."""
+    [N, 1] float32) on K13, and with ``want_min_sq`` also (min [N, D] with
+    0 on empty rows, sum of squares [N, D]); v is cast to u's dtype.
+    ``want_max=False`` skips the max and returns None in its place."""
     return pair_agg(tg, u.contiguous(), v.to(u.dtype).contiguous(), sf=sf,
-                    slope=slope, want_max=want_max)
+                    slope=slope, want_max=want_max, want_min_sq=want_min_sq)
 
 
 def _pair_agg_twin(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
-                   sf: Optional[str], slope: float):
+                   sf: Optional[str], slope: float, want_min_sq: bool = False):
     """The JAX package's float32 formulation over the tile edge lists
     (its ``_pair_agg_reference``): slots live when cb >= 0, src < C and
-    dst < R; no rounding; (sum, max, count).  Differentiable: a tie of the
-    max splits its gradient evenly, as JAX's ``segment_max`` does."""
+    dst < R; no rounding; (sum, max, count, min, sum of squares), the last
+    two None without ``want_min_sq``.  Differentiable: a tie of the max or
+    the min splits its gradient evenly, as JAX's ``segment_max`` does."""
     n, D = u.shape
     _, src, dst = _live_slots(tg, 0, tg.n_tiles)
     keep = dst < n
@@ -249,20 +279,29 @@ def _pair_agg_twin(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
     y_max = z.new_full((n, D), float("-inf")).scatter_reduce(
         0, idx, z, "amax", include_self=True)
     cnt = torch.bincount(dst, minlength=n).float()[:, None]
-    return y_sum, torch.where(cnt > 0, y_max, 0.0), cnt
+    y_min = y_sq = None
+    if want_min_sq:
+        y_min = torch.where(cnt > 0, z.new_full((n, D), float("inf"))
+                            .scatter_reduce(0, idx, z, "amin",
+                                            include_self=True), 0.0)
+        y_sq = z.new_zeros((n, D)).index_add(0, dst, z * z)
+    return y_sum, torch.where(cnt > 0, y_max, 0.0), cnt, y_min, y_sq
 
 
 class _PairAggregate(torch.autograd.Function):
-    """Forward on K13; backward by autograd of :func:`_pair_agg_twin`."""
+    """Forward on K13; backward by autograd of :func:`_pair_agg_twin`.
+    Outputs: sum, max (with ``want_max``), count, and min and sum of
+    squares (with ``want_min_sq``)."""
 
     @staticmethod
-    def forward(ctx, u, v, tg, sf, slope, want_max):
-        ctx.tg, ctx.sf, ctx.slope, ctx.want_max = tg, sf, slope, want_max
+    def forward(ctx, u, v, tg, sf, slope, want_max, want_min_sq):
+        ctx.tg, ctx.sf, ctx.slope = tg, sf, slope
+        ctx.want_max, ctx.want_min_sq = want_max, want_min_sq
         ctx.save_for_backward(u, v)
-        y_sum, y_max, cnt = pair_aggregate_raw(tg, u, v, sf=sf, slope=slope,
-                                               want_max=want_max)
-        ctx.mark_non_differentiable(cnt)
-        return (y_sum, y_max, cnt) if want_max else (y_sum, cnt)
+        out = pair_aggregate_raw(tg, u, v, sf=sf, slope=slope,
+                                 want_max=want_max, want_min_sq=want_min_sq)
+        ctx.mark_non_differentiable(out[2])
+        return tuple(t for t in out if t is not None)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -270,32 +309,36 @@ class _PairAggregate(torch.autograd.Function):
         need = ctx.needs_input_grad[:2]
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(r) for t, r in zip((u, v), need)]
-            y_sum, y_max, _ = _pair_agg_twin(ctx.tg, *ins, sf=ctx.sf,
-                                             slope=ctx.slope)
-            outs, gys = [y_sum], [grads[0].float()]
-            if ctx.want_max:
-                outs.append(y_max)
-                gys.append(grads[1].float())
+            y_sum, y_max, _, y_min, y_sq = _pair_agg_twin(
+                ctx.tg, *ins, sf=ctx.sf, slope=ctx.slope,
+                want_min_sq=ctx.want_min_sq)
+            outs = [y_sum] + ([y_max] if ctx.want_max else [])
+            outs += [y_min, y_sq] if ctx.want_min_sq else []
+            cnt_at = 2 if ctx.want_max else 1     # count has no gradient
+            gys = [g.float() for i, g in enumerate(grads) if i != cnt_at]
             wrt = [t for t in ins if t.requires_grad]
             got = iter(torch.autograd.grad(outs, wrt, gys) if wrt else ())
         return (*(next(got) if r else None for r in need), None, None, None,
-                None)
+                None, None)
 
 
 def pair_aggregate(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
                    sf: Optional[str] = None, slope: float = 0.2,
-                   want_max: bool = True):
-    """Differentiable pair aggregation: (sum, max or None, count) as
-    :func:`pair_aggregate_raw`, with gradients in u and v.  The backward
-    holds [live slots, D] float32 temporaries (fine at the sizes the JAX
-    package trains these families at; not chunked)."""
-    out = _PairAggregate.apply(u, v, tg, sf, slope, want_max)
-    return out if want_max else (out[0], None, out[1])
+                   want_max: bool = True, want_min_sq: bool = False):
+    """Differentiable pair aggregation: (sum, max or None, count[, min, sum
+    of squares]) as :func:`pair_aggregate_raw`, with gradients in u and v.
+    The backward holds [live slots, D] float32 temporaries (fine at the
+    sizes the JAX package trains these families at; not chunked)."""
+    out = _PairAggregate.apply(u, v, tg, sf, slope, want_max, want_min_sq)
+    return out if want_max else (out[0], None, *out[1:])
 
 
 # ---------------------------------------------------------------------------
 # matcher: linear pair-term collection over the edge chain (pure IR)
 # ---------------------------------------------------------------------------
+
+
+PAIR_REDUCES = (ir.ADD, ir.MAX, ir.MEAN, ir.MIN, ir.STD)
 
 
 @dataclasses.dataclass
@@ -309,6 +352,12 @@ class PairAggPlan:
     gathers: Dict[str, int]
     ops: frozenset
     width: int
+
+    @property
+    def want_min_sq(self) -> bool:
+        """MIN or STD asked for: K13's instantiation of PNA's four
+        aggregators (min and sum of squares beside the sum and max)."""
+        return bool({ir.MIN, ir.STD} & set(self.gathers))
 
 
 def _collect_terms(graph: ir.OpGraph, oid: int, allow: set):
@@ -346,7 +395,8 @@ def _collect_terms(graph: ir.OpGraph, oid: int, allow: set):
 def match_pair_agg(graph: ir.OpGraph,
                    block: Sequence[int]) -> Optional[PairAggPlan]:
     """Match a block that is exactly: a linear pair expression, an optional
-    leaky_relu, and 1..3 gathers {ADD, MAX, MEAN} consuming it."""
+    leaky_relu, and gathers of distinct reduces {ADD, MAX, MEAN, MIN, STD}
+    consuming it."""
     allow = set(block)
     B = {o: graph.by_id[o] for o in block}
     gathers = {o: op for o, op in B.items() if op.kind == ir.GATHER}
@@ -358,7 +408,7 @@ def match_pair_agg(graph: ir.OpGraph,
     root = next(iter(roots))
     reduces = {}
     for o, op in gathers.items():
-        if op.order != "R" or op.compute not in (ir.ADD, ir.MAX, ir.MEAN):
+        if op.order != "R" or op.compute not in PAIR_REDUCES:
             return None
         if op.compute in reduces:
             return None

@@ -7,8 +7,11 @@ product.  Semantics follow the JAX ``ops/primitives.py``:
 
   scatter  ORDER=C: node rows broadcast to edges by sender;
            ORDER=R: by receiver.  Padding edges read a zero dump row.
-  gather   segment-reduce edge rows to their receiver (ADD / MAX / MEAN);
-           padding edges land in the dump segment ``n_node``, sliced away.
+  gather   segment-reduce edge rows to their receiver (ADD / MAX / MEAN,
+           and PNA's MIN / STD); padding edges land in the dump segment
+           ``n_node``, sliced away.
+  SCALER   PNA's degree scalers (:func:`degree_scalers`) from the graph's
+           in-degrees.
 
 Kernel: K16 ``csrc/dense_xw.cu`` behind :func:`dense_mm` with bf16
 operands on a CUDA tensor (x W: x read once and rounded in registers,
@@ -49,13 +52,45 @@ def gather_to_nodes(e: torch.Tensor, g: GraphTensor, reduce: str = ir.ADD,
         out = e.new_full(shape, float("-inf")).scatter_reduce_(
             0, idx.view(-1, *([1] * (e.dim() - 1))).expand_as(e), e, "amax")
         out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
-    elif reduce == ir.MEAN:
-        s = e.new_zeros(shape).index_add_(0, idx, e)
+    elif reduce == ir.MIN:
+        out = e.new_full(shape, float("inf")).scatter_reduce_(
+            0, idx.view(-1, *([1] * (e.dim() - 1))).expand_as(e), e, "amin")
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    elif reduce in (ir.MEAN, ir.STD):
         d = e.new_zeros(num).index_add_(0, idx, g.edge_mask.to(e.dtype))
-        out = s / torch.clamp(d, min=1.0)[:, None]
+        d = torch.clamp(d, min=1.0)[:, None]
+        out = e.new_zeros(shape).index_add_(0, idx, e) / d
+        if reduce == ir.STD:
+            out = std_from_moments(
+                out, e.new_zeros(shape).index_add_(0, idx, e * e) / d)
     else:
         raise ValueError(f"bad gather reduce {reduce}")
     return out[: g.n_node]
+
+
+def std_from_moments(mean: torch.Tensor, mean_sq: torch.Tensor
+                     ) -> torch.Tensor:
+    """PNA's std from a row's mean and mean of squares, as the PNA authors'
+    code takes it: sqrt(relu(mean_sq - mean^2) + 1e-5)."""
+    return torch.sqrt(torch.relu(mean_sq - mean * mean) + ir.STD_EPS)
+
+
+def in_degree(g: GraphTensor) -> torch.Tensor:
+    """Each node's count of real incoming edges, float32 [N]."""
+    d = torch.zeros(g.n_node + 1, dtype=torch.float32,
+                    device=g.receivers.device)
+    return d.index_add_(0, g.receivers, g.edge_mask.float())[: g.n_node]
+
+
+def degree_scalers(deg: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """PNA's degree scalers of in-degrees ``deg`` [N]: {'amplification':
+    log(d+1)/delta, 'attenuation': delta/log(d+1)} as float32 [N, 1], d
+    clamped to at least 1 and delta the mean of log(d+1) over the nodes,
+    computed in float64 and rounded once."""
+    logd = torch.log(deg.double().clamp(min=1.0) + 1.0)
+    delta = logd.mean()
+    return {"amplification": (logd / delta).float()[:, None],
+            "attenuation": (delta / logd).float()[:, None]}
 
 
 def exp_f64(v: torch.Tensor) -> torch.Tensor:

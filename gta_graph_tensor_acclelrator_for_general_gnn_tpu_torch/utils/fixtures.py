@@ -715,8 +715,11 @@ def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     """K13 against its plain version on the edge-case graph's 128-wide
     tiling at ET 64, in float32 and bfloat16: sf none and leaky_relu, with
     and without the max, at D = 48, 41 (unaligned) and 300 (three passes of
-    the kernel's 128 features).  The graph has empty rows, a hub row whose
-    200 copies of one pair span several tiles (ties in the max) and are
+    the kernel's 128 features), and the instantiation of PNA's four
+    aggregators (min and sum of squares too) at D = 48, 41 and 300 with
+    the first 8 features of u and v -0.0 (z is -0.0 there but in row
+    ``NEG_ROW``).  The graph has empty rows, a hub row whose 200 copies
+    of one pair span several tiles (ties in the max) and are
     cut into two chunks of K13's work list (``PAIR_CHUNK`` 128: its rows
     meet by atomics), and a dead tile whose slots look live (read from
     column block 0, as on the TPU); row ``NEG_ROW`` gets only negative z.  Sum, max and count are separate
@@ -738,14 +741,18 @@ def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     rng = np.random.default_rng(seed)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
-        for D, sf, want_max in ((48, None, True), (48, "leaky_relu", True),
-                                (41, "leaky_relu", True), (41, None, False),
-                                (300, "leaky_relu", True)):
+        for D, sf, want_max, minsq in (
+                (48, None, True, False), (48, "leaky_relu", True, False),
+                (41, "leaky_relu", True, False), (41, None, False, False),
+                (300, "leaky_relu", True, False), (48, None, True, True),
+                (41, "leaky_relu", True, True), (300, None, True, True)):
             u, v = (rng.standard_normal((n, D)).astype(np.float32)
                     for _ in range(2))
+            if minsq:
+                u[:, :8] = v[:, :8] = -0.0
             v[NEG_ROW] = -50.0 - np.abs(v[NEG_ROW])
             u, v = (torch.tensor(a, dtype=dt, device=device) for a in (u, v))
-            kw = dict(sf=sf, want_max=want_max)
+            kw = dict(sf=sf, want_max=want_max, want_min_sq=minsq)
             out = PA.pair_agg(tg, u, v, **kw)
             ref = PA._pair_agg_reference(tg, u, v, **kw)
             mag = PA._pair_agg_reference(tg, u, v, magnitude=True, **kw)[0]
@@ -762,6 +769,14 @@ def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                 raise AssertionError("want_max=False returned a max")
             yield KernelCase("pair_agg", f"count {tag}", name, out[2],
                              ref[2])
+            if minsq:
+                tag += " four"
+                yield KernelCase("pair_agg", f"min {tag}", name, out[3],
+                                 ref[3])
+                # every term is a square: the sum is its own scale
+                yield KernelCase("pair_agg", f"sum of squares {tag}", name,
+                                 out[4], ref[4], terms=ref[2][:, 0],
+                                 scale=ref[4])
 
 
 BWD_KERNELS = ("gat_bwd_tiles_dad", "gat_bwd_tiles_src", "gat_dense_bwd_dad",

@@ -302,16 +302,20 @@ def sddmm_tail(tg, x_src: torch.Tensor, x_dst: torch.Tensor,
                 ops=2.0 * live * F, ops_per_s=_rate(x_src.dtype))
 
 
-def pair_agg(tg, u: torch.Tensor, want_max: bool) -> Work:
+def pair_agg(tg, u: torch.Tensor, want_max: bool,
+             want_min_sq: bool = False) -> Work:
     """K13: per live slot its two int16 indices and about four operations
-    per feature (add, sf, the sum's add, the max; three without the max);
+    per feature (add, sf, the sum's add, the max; three without the max;
+    seven with ``want_min_sq``: the min and the square's multiply and add);
     u and v (u's shape and dtype) read once; the [N, D] float32 sum, the max
-    with ``want_max``, and the [N, 1] count written once."""
+    with ``want_max``, the min and the sum of squares with ``want_min_sq``,
+    and the [N, 1] count written once."""
     live, (n, D) = live_slots(tg), u.shape
+    outs = 1 + int(want_max) + 2 * int(want_min_sq)
+    per = 3 + int(want_max) + 3 * int(want_min_sq)
     return Work(bytes=live * 4 + 8 * tg.n_tiles + 2 * _nbytes(u)
-                + 4 * n * D * (2 if want_max else 1) + 4 * n,
-                ops=float(live * D * (4 if want_max else 3)),
-                ops_per_s=_rate(u.dtype))
+                + 4 * n * D * outs + 4 * n,
+                ops=float(live * D * per), ops_per_s=_rate(u.dtype))
 
 
 def csr_of(graph, dtype, n_cols: int) -> torch.Tensor:

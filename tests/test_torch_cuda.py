@@ -300,6 +300,99 @@ def test_sddmm_and_pair_agg_kernels_match_plain_versions_on_cuda():
 
 
 @pytest.mark.gpu
+def test_k13_four_aggregators_keep_the_sum_and_max_on_cuda():
+    """K13's instantiation of PNA's four aggregators (min and sum of
+    squares too) returns the sum, max and count of the sum-and-max
+    instantiation: bit for bit on the rows of one chunk of the work list
+    (plain stores, the same slot order), and on the rows cut into chunks
+    the same max and count and the sum within float32 sum order (their
+    chunks meet by atomics, in an order that varies by run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K13 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
+    dev = torch.device("cuda", 0)
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    tg = fixtures._dead_tile(G.tile_graph(hg, block_rows=128, block_cols=128,
+                                          tile_edges=64, unit_weight=True,
+                                          device=dev))
+    split = torch.zeros(n, dtype=torch.bool, device=dev)
+    split[PA.pair_work(tg, n).split_rows] = True
+    assert bool(split.any()) and not bool(split.all())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (41, 48, 128, 300):
+            for sf in (None, "leaky_relu"):
+                u, v = (torch.randn((n, D), generator=gen, device=dev
+                                    ).to(dt) for _ in range(2))
+                two = PA.pair_agg(tg, u, v, sf=sf)
+                four = PA.pair_agg(tg, u, v, sf=sf, want_min_sq=True)
+                assert len(four) == 5
+                for i, (a, b) in enumerate(zip(two, four[:3])):
+                    assert torch.equal(a[~split], b[~split]), (dt, D, sf, i)
+                    if i:
+                        assert torch.equal(a[split], b[split])
+                    else:
+                        err = float((a[split] - b[split]).abs().max())
+                        assert err <= 1e-5 * float(a.abs().max()), err
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+def test_published_pna_on_the_hybrid_path_on_cuda():
+    """``"PNA-4x3"`` through ``hybrid_schedules`` on the card (K13's
+    four-aggregator instantiation, K16) against its per-op path in float32
+    and bf16; lowering records ``lower.pair_work`` once with the work
+    list's counters and ``lower.degree_scalers`` once a model, and a
+    request counts one ``pair_agg.k13`` launch under each layer's
+    ``block.pair_agg``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K13 and K16 have no CPU mode")
+    import numpy as np
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import fusion as TF
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import spans
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    n, e = 3000, 40000
+    s = rng.integers(0, n, e)
+    r = np.concatenate([rng.integers(0, n, e - 3000), np.full(3000, 17)])
+    hg = G.build_host_graph(s[s != r], r[s != r], n, add_self_loops=True,
+                            symmetric_norm=True)
+    g = hg.to_device(dev)
+    m = build_model("PNA-4x3", 40, 7, hidden=128, n_layers=2, reorder=True,
+                    generator=torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((n, 40), generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    params = dict(m.params)
+    sched = TF.hybrid_schedules(m.layers)
+    with torch.inference_mode():
+        want = m.make_apply()(params, g, x)
+        got32 = m.make_apply(schedules=sched, host_graph=hg, device=dev)(
+            params, g, x)
+        spans.take()
+        with spans.recording():
+            fn = m.make_apply(torch.bfloat16, schedules=sched,
+                              host_graph=hg, device=dev)
+            got16 = fn(params, g, x)
+        rec = spans.take()["spans"]
+    scale = float(want.abs().max())
+    assert float((got32 - want).abs().max()) <= 1e-4 * scale
+    assert float((got16 - want).abs().max()) <= 3e-2 * scale
+    work = [sp for sp in rec if sp["name"] == "lower.pair_work"]
+    assert len(work) == 1 and work[0]["counters"]["pair_split_rows"] >= 1
+    assert work[0]["counters"]["pair_slots"] == hg.n_edge
+    assert work[0]["counters"]["pair_chunks"] >= n
+    names = [sp["name"] for sp in rec]
+    assert names.count("lower.degree_scalers") == 1
+    blocks = [sp for sp in rec if sp["name"] == "block.pair_agg"]
+    assert [b["counters"].get("pair_agg.k13") for b in blocks] == [1, 1]
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
 def test_k11_walk_follows_the_cuts(dtn):
     """The walk K11 takes (``ops/sddmm.k11_walk``, named by its launch) at

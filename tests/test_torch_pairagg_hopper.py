@@ -283,3 +283,65 @@ def test_work_list_reduction_matches_reference(name, dtn):
     for a, b in zip(got, ref):
         _close(a, b)
     assert torch.equal(got[2], ref[2])
+
+
+def _work_min_sq(work, u, v):
+    """K13's min and sum of squares over the work list in plain torch, in
+    the kernel's shape: per chunk, then per row (a cut row's chunks meet
+    as the kernel's atomics do: sums add, the min is the chunks' min)."""
+    n, D = u.shape
+    ptr = work.chunk_ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    chunk = torch.repeat_interleave(torch.arange(work.n_chunks), lens)
+    crow = work.chunk_row.long()
+    crow = torch.where(crow < 0, -crow - 1, crow)
+    src = work.slot_src.long()
+    us = torch.where((src >= 0)[:, None],
+                     u.index_select(0, src.clamp(min=0)).float(),
+                     torch.zeros(()))
+    zr = (us + v.to(u.dtype).index_select(0, crow[chunk]).float()
+          ).to(u.dtype).float()
+    c_min = torch.full((work.n_chunks, D), float("inf")).scatter_reduce_(
+        0, chunk[:, None].expand_as(zr), zr, "amin")
+    c_sq = torch.zeros((work.n_chunks, D), dtype=torch.float64).index_add_(
+        0, chunk, zr.double() ** 2)
+    y_min = torch.full((n, D), float("inf")).scatter_reduce_(
+        0, crow[:, None].expand_as(c_min), c_min, "amin")
+    y_sq = torch.zeros((n, D), dtype=torch.float64).index_add_(0, crow, c_sq)
+    cnt = torch.zeros(n).index_add_(0, crow, lens.float())[:, None]
+    return torch.where(cnt > 0, y_min, 0.0), y_sq.float()
+
+
+@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["edge cases", "pad senders", "skewed"])
+def test_work_list_min_and_sum_of_squares_match_reference(name, dtn):
+    """K13's instantiation of PNA's four aggregators, in its reduction
+    over the work list, equals the plain version's min and sum of squares
+    (of z rounded to u's dtype): the cut hub, the all-negative row, the
+    empty rows (0), pad senders (u reads 0) and -0.0 inputs; and its sum,
+    max and count are those of the sum-and-max plain version."""
+    tg, n = _graphs()[name]
+    tdt, _ = DTYPES[dtn]
+    rng = np.random.default_rng(11)
+    u, v = (rng.standard_normal((n, 48)).astype(np.float32) for _ in range(2))
+    u[:, :8] = v[:, :8] = -0.0
+    if name != "skewed":
+        v[fixtures.NEG_ROW] = -50.0 - np.abs(v[fixtures.NEG_ROW])
+    ut, vt = (torch.tensor(a, dtype=tdt) for a in (u, v))
+    ref = TP._pair_agg_reference(tg, ut, vt, want_min_sq=True)
+    two = TP._pair_agg_reference(tg, ut, vt)
+    for a, b in zip(two, ref[:3]):
+        assert torch.equal(a, b)
+    got = _work_min_sq(TP.pair_work(tg, n), ut, vt)
+    assert torch.equal(got[0], ref[3])
+    _close(got[1], ref[4])
+    zero = torch.ones(n, dtype=torch.bool)      # rows whose z there is -0.0
+    if name != "skewed":
+        zero[fixtures.NEG_ROW] = False
+    assert float(ref[4].min()) >= 0.0
+    assert float(ref[4][zero, :8].abs().max()) == 0.0
+    assert float(ref[3][zero, :8].abs().max()) == 0.0
+    if name == "edge cases":
+        assert HUB in TP.pair_work(tg, n).split_rows.tolist()
+        assert float(ref[3][fixtures.NEG_ROW].max()) < 0.0
+        assert float(ref[3][512:599].abs().max()) == 0.0
