@@ -1393,12 +1393,17 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
     """K13 at each pair-agg layer's shape on the model's tiling, in bf16 and
     float32, sum, max and count apart (the sum scaled by each cell's sum of
     |term|, as in the fixture cases), and where the plan takes PNA's four
-    aggregators also the min (exact) and the sum of squares (its own
-    scale: every term is a square), timed in bf16."""
+    aggregators also the min (exact), the sum of squares (its own scale:
+    every term is a square) and the final layout the ``pair_agg`` block
+    reads (against the PyTorch formulas over the moments: bit for bit on
+    the rows of one chunk, min, max and count exact, the cut rows' mean
+    and std within the sum-order bound of ``fixtures.pair_layout_gaps``),
+    timed in bf16 (the final layout apart, not in the kernels' row)."""
     import torch
 
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils.fixtures import KernelCase
 
@@ -1410,6 +1415,7 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
         kw = dict(sf=plan.sf, slope=plan.slope, want_max=want_max,
                   want_min_sq=four)
         what = f"{mname} l{li} D={D} {'+'.join(sorted(plan.gathers))}"
+        order = sorted(plan.gathers, key=plan.gathers.get)
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[1]
             u, v = (torch.randn((n, D), generator=gen, device=dev).to(dt)
@@ -1432,6 +1438,17 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
                     "pair_agg", f"sum of squares {what}", name, out[4],
                     ref[4], terms=ref[2][:, 0], scale=ref[4]),
                     slice_shape=True)
+                gap = fixtures.pair_layout_gaps(tg, u, v, order, sf=plan.sf,
+                                                slope=plan.slope)
+                say(f"  pair_agg           final layout {what} {name}: rows "
+                    f"of one chunk equal bit for bit {gap['one_chunk']}, "
+                    f"min / max / count exact {gap['exact']}, "
+                    f"{gap['cut_rows']} cut rows at {gap['cut_err']:.2e} "
+                    "of their sum-order bound")
+                if not (gap["one_chunk"] and gap["exact"]
+                        and gap["cut_err"] <= 1.0):
+                    raise AssertionError(f"K13's final layout {what} {name} "
+                                         f"differs from its moments: {gap}")
             del out, ref, mag
             if dt == torch.bfloat16:
                 checks.time_call(
@@ -1439,6 +1456,14 @@ def pair_agg_checks(checks: Checks, plans, tg, dev, n: int) -> None:
                     lambda: PA.pair_agg(tg, u, v, **kw),
                     lambda: PA._pair_agg_reference(tg, u, v, **kw), dev,
                     lambda: RL.pair_agg(tg, u, want_max, four))
+            if dt == torch.bfloat16 and four:
+                checks.time_call(
+                    "pair_agg", f"{mname[:-3]} l{li} layout",
+                    lambda: PA.pair_agg(tg, u, v, layout=order, **kw),
+                    lambda: PA.finish_moments(
+                        *PA._pair_agg_reference(tg, u, v, **kw), order),
+                    dev, lambda: RL.pair_agg(tg, u, want_max, four),
+                    in_row=False)
 
 
 def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:

@@ -569,25 +569,24 @@ def lower_schedule(
                     data, g, kin(ref(plan.src_op)), kin(ref(plan.dst_op)),
                     plan.compute)
             elif kind == "pair_agg":
-                four = plan.want_min_sq
-                out = pair_mod.pair_aggregate(
-                    data, side(plan.cterms), side(plan.rterms), sf=plan.sf,
-                    slope=plan.slope, want_max=four or ir.MAX in plan.gathers,
-                    want_min_sq=four)
-                y_sum, y_max, cnt = out[:3]
-                got = {ir.ADD: y_sum, ir.MAX: y_max}
-                if ir.MEAN in plan.gathers or four:
-                    c = cnt.clamp(min=1.0)
-                    got[ir.MEAN] = y_sum / c
-                if four:
-                    got[ir.MIN] = out[3]
-                    got[ir.STD] = P.std_from_moments(got[ir.MEAN], out[4] / c)
-                    # the aggregates as column slices of one tensor, in op
-                    # order, so that an MM of their concatenation reads it
-                    # without a copy (lower.concat_features)
+                u, v = side(plan.cterms), side(plan.rterms)
+                if plan.want_min_sq:
+                    # K13 writes the aggregates as column slices of one
+                    # tensor, in op order, so that an MM of their
+                    # concatenation reads it without a copy
+                    # (lower.concat_features)
                     order = sorted(plan.gathers, key=plan.gathers.get)
-                    got = dict(zip(order, torch.cat(
-                        [got[r] for r in order], 1).split(plan.width, 1)))
+                    y, _ = pair_mod.pair_aggregate(
+                        data, u, v, sf=plan.sf, slope=plan.slope,
+                        want_min_sq=True, layout=order)
+                    got = dict(zip(order, y.split(plan.width, 1)))
+                else:
+                    y_sum, y_max, cnt = pair_mod.pair_aggregate(
+                        data, u, v, sf=plan.sf, slope=plan.slope,
+                        want_max=ir.MAX in plan.gathers)
+                    got = {ir.ADD: y_sum, ir.MAX: y_max}
+                    if ir.MEAN in plan.gathers:
+                        got[ir.MEAN] = y_sum / cnt.clamp(min=1.0)
                 for r, oid in plan.gathers.items():
                     vals[oid] = got[r]
             elif kind == "gat_layer":

@@ -46,6 +46,19 @@
 // unsigned atomicMax for negative ones, into rows set to +inf) and the sum
 // of squares adds like the sum.  Four accumulators a feature instead of
 // two hold more registers, so MINSQ runs at BLOCKS_MINSQ blocks an SM.
+//
+// The outputs are rows of stride ld, so that they may be column slices of
+// one [N, ld] tensor.  With `finish` (MINSQ only) K13 writes PNA's
+// aggregates in their final layout: a row of one chunk stores, in place of
+// its sum and sum of squares, its mean and its std
+//   c = max(count, 1),  mean = sum / c,
+//   std = sqrt(relu(sq / c - mean * mean) + eps)
+// (ops/primitives.std_from_moments), each operation rounded on its own
+// (__fdiv_rn and the like: nothing contracts into an FMA), so the row
+// equals those formulas applied in PyTorch to the stored moments bit for
+// bit.  A cut row gathers its moments there by atomics, and
+// pair_agg_finish_kernel turns them into its mean and std afterwards by
+// the same operations.
 #include "tile_walk.cuh"
 
 namespace {
@@ -84,13 +97,26 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
     *p = v[0];
 }
 
+// A row's mean and std from its count c, sum s and sum of squares q, in
+// the operations and order of PyTorch's mean = s / c and
+// std_from_moments(mean, q / c), each rounded on its own
+__device__ __forceinline__ void mean_std(float c, float s, float q, float eps, float& mean,
+                                         float& sd) {
+  c = fmaxf(c, 1.f);
+  mean = __fdiv_rn(s, c);
+  float var = __fsub_rn(__fdiv_rn(q, c), __fmul_rn(mean, mean));
+  var = var < 0.f ? 0.f : var;  // relu; NaN stays NaN, as torch.relu
+  sd = __fsqrt_rn(__fadd_rn(var, eps));
+}
+
 template <typename T, int VEC, int NV, int E, bool WANT_MAX, bool MINSQ>
 __global__ void __launch_bounds__(WARPS * 32, MINSQ ? BLOCKS_MINSQ : BLOCKS)
 pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row,
                 const int* __restrict__ slot_src, const T* __restrict__ u,
                 const T* __restrict__ v, float* __restrict__ sum, float* __restrict__ mx,
                 float* __restrict__ mn, float* __restrict__ sq, float* __restrict__ cnt,
-                int n_chunks, int D, bool use_leaky, float slope) {
+                int n_chunks, int D, int64_t ld, bool use_leaky, float slope, bool finish,
+                float eps) {
   using V = typename gta::VecLoad<T, VEC>::type;
   constexpr int LG = 32 / E;        // lanes a group
   constexpr int W = LG * VEC * NV;  // features a pass
@@ -171,7 +197,7 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       if (!on[i]) continue;
-      const int64_t o = r * D + f0 + (k + LG * i) * VEC;
+      const int64_t o = r * ld + f0 + (k + LG * i) * VEC;
       float mr[VEC], lr[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
@@ -179,11 +205,18 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
         if constexpr (MINSQ) lr[e] = end > b ? gta::round_to<T>(lo[i][e]) : 0.f;
       }
       if (!split) {
-        store_vec<VEC>(sum + o, s[i]);
         if (WANT_MAX) store_vec<VEC>(mx + o, mr);
         if constexpr (MINSQ) {
           store_vec<VEC>(mn + o, lr);
+          if (finish) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              mean_std(static_cast<float>(end - b), s[i][e], s2[i][e], eps, s[i][e], s2[i][e]);
+          }
+          store_vec<VEC>(sum + o, s[i]);
           store_vec<VEC>(sq + o, s2[i]);
+        } else {
+          store_vec<VEC>(sum + o, s[i]);
         }
       } else {
         gta::add_vec<VEC>(sum + o, s[i]);
@@ -201,13 +234,29 @@ pair_agg_kernel(const int* __restrict__ chunk_ptr, const int* __restrict__ chunk
   }
 }
 
+// A cut row's mean and std from the moments K13 gathered there by atomics,
+// in place: a thread per (row, feature) of `rows`
+__global__ void pair_agg_finish_kernel(const int64_t* __restrict__ rows, int64_t n_cells,
+                                       const float* __restrict__ cnt, float* __restrict__ mean,
+                                       float* __restrict__ sd, int64_t ld, int D, float eps) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n_cells;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t r = rows[i / D];
+    const int64_t o = r * ld + i % D;
+    mean_std(cnt[r], mean[o], sd[o], eps, mean[o], sd[o]);
+  }
+}
+
 struct Args {
   const int *ptr, *row, *src;
   const void *u, *v;
   float *sum, *mx, *mn, *sq, *cnt;
   int n_chunks, D;
+  int64_t ld;
   bool leaky;
   float slope;
+  bool finish;
+  float eps;
   cudaStream_t st;
 };
 
@@ -219,16 +268,16 @@ cudaError_t run(const Args& a) {
   const T* v = static_cast<const T*>(a.v);
   if (a.mn != nullptr)
     pair_agg_kernel<T, VEC, NV, E, true, true><<<blocks, WARPS * 32, 0, a.st>>>(
-        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.mn, a.sq, a.cnt, a.n_chunks, a.D, a.leaky,
-        a.slope);
+        a.ptr, a.row, a.src, u, v, a.sum, a.mx, a.mn, a.sq, a.cnt, a.n_chunks, a.D, a.ld,
+        a.leaky, a.slope, a.finish, a.eps);
   else if (a.mx != nullptr)
     pair_agg_kernel<T, VEC, NV, E, true, false><<<blocks, WARPS * 32, 0, a.st>>>(
         a.ptr, a.row, a.src, u, v, a.sum, a.mx, nullptr, nullptr, a.cnt, a.n_chunks, a.D,
-        a.leaky, a.slope);
+        a.ld, a.leaky, a.slope, false, 0.f);
   else
     pair_agg_kernel<T, VEC, NV, E, false, false><<<blocks, WARPS * 32, 0, a.st>>>(
         a.ptr, a.row, a.src, u, v, a.sum, a.mx, nullptr, nullptr, a.cnt, a.n_chunks, a.D,
-        a.leaky, a.slope);
+        a.ld, a.leaky, a.slope, false, 0.f);
   return cudaGetLastError();
 }
 
@@ -251,17 +300,38 @@ cudaError_t launch(const Args& a) {
 
 // K13 over a work list (ops/pairagg.PairWork): ``sum``, ``mx`` (null: no
 // max), ``mn`` and ``sq`` (null: no min and no sum of squares; non-null
-// needs ``mx``) and ``cnt`` float32, 16-byte aligned; the rows of split
-// chunks (chunk_row < 0) set to 0, -inf, +inf, 0 and 0 by the caller.
+// needs ``mx``) float32 rows of stride ``ld`` (16-byte aligned where D is
+// a multiple of 4), ``cnt`` float32 [N]; the rows of split chunks
+// (chunk_row < 0) set to 0, -inf, +inf, 0 and 0 by the caller.  With
+// ``finish`` (needs ``mn``) the rows of one chunk store their mean in
+// ``sum`` and their std in ``sq``; the caller then finishes the cut rows
+// with gta_pair_agg_finish.
 extern "C" int gta_pair_agg(const void* chunk_ptr, const void* chunk_row, const void* slot_src,
                             const void* u, const void* v, int dtype, void* sum, void* mx,
-                            void* mn, void* sq, void* cnt, int n_chunks, int D, int leaky,
-                            float slope, void* stream) {
+                            void* mn, void* sq, void* cnt, int n_chunks, int D, int64_t ld,
+                            int leaky, float slope, int finish, float eps, void* stream) {
   const Args a{static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_row),
                static_cast<const int*>(slot_src), u, v, static_cast<float*>(sum),
                static_cast<float*>(mx), static_cast<float*>(mn), static_cast<float*>(sq),
-               static_cast<float*>(cnt), n_chunks, D, leaky != 0, slope,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(cnt), n_chunks, D, ld, leaky != 0, slope,
+               finish != 0 && mn != nullptr, eps, static_cast<cudaStream_t>(stream)};
   const cudaError_t err = dtype == gta::BF16 ? launch<__nv_bfloat16>(a) : launch<float>(a);
   return static_cast<int>(err);
+}
+
+// The cut rows ``rows`` (int64, n_rows of them) of K13's final layout:
+// their moments in ``mean`` and ``sd`` (rows of stride ``ld``, D wide)
+// become the mean and the std, in place, by K13's own operations
+extern "C" int gta_pair_agg_finish(const void* rows, int64_t n_rows, const void* cnt,
+                                   void* mean, void* sd, int64_t ld, int D, float eps,
+                                   void* stream) {
+  const int64_t cells = n_rows * D;
+  if (cells == 0) return 0;
+  constexpr int T = 256;
+  const int64_t need = (cells + T - 1) / T;
+  const unsigned blocks = static_cast<unsigned>(need < 4096 ? need : 4096);
+  pair_agg_finish_kernel<<<blocks, T, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(rows), cells, static_cast<const float*>(cnt),
+      static_cast<float*>(mean), static_cast<float*>(sd), ld, D, eps);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,10 @@ a receiver-ordered work list of a :class:`~..graph.TiledGraph`'s counted
 slots (:func:`pair_work`, built on the tiling's device at first use and
 kept with the tiling) and returns each row's sum, max and count, and in
 the instantiation PNA's four aggregators take (``want_min_sq``) also its
-min and its sum of squares, from the same pass;
+min and its sum of squares, from the same pass.  Given a ``layout``, that
+instantiation finishes PNA's aggregates itself and writes the mean, max,
+min and std as column slices of one [N, 4D] tensor, in the layout's order
+(:func:`finish_moments` is the same arithmetic in PyTorch);
 :func:`_pair_agg_reference` is its plain PyTorch version, and the wrapper
 :func:`pair_agg` takes it for a tensor on the CPU and launches the kernel
 for a CUDA tensor (or raises).  :func:`pair_aggregate` is
@@ -35,6 +38,7 @@ from .. import ir
 from ..graph import TiledGraph
 from ..utils import spans
 from . import _ext
+from . import primitives as P
 from .spmm import _live_slots, _unit_steps
 
 # ---------------------------------------------------------------------------
@@ -181,23 +185,65 @@ def _pair_agg_reference(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
             y_sq.float())
 
 
+# the aggregates K13 finishes in its final layout, in the order of the
+# columns it leaves to those a layout does not ask for
+LAYOUT_REDUCES = (ir.MEAN, ir.MAX, ir.MIN, ir.STD)
+
+
+def finish_moments(y_sum: torch.Tensor, y_max: Optional[torch.Tensor],
+                   cnt: torch.Tensor, y_min: Optional[torch.Tensor],
+                   y_sq: Optional[torch.Tensor],
+                   layout: Sequence[str]) -> torch.Tensor:
+    """The aggregates ``layout`` (distinct reduces of ``PAIR_REDUCES``) of a
+    pair aggregation's moments, as adjacent column slices of one float32
+    tensor in that order: the mean sum / c and the std
+    ``primitives.std_from_moments(mean, sq / c)``, with c = max(count, 1).
+    K13's final layout takes these operations in this order, each rounded
+    on its own."""
+    c = cnt.clamp(min=1.0)
+    mean = y_sum / c
+    got = {ir.ADD: y_sum, ir.MAX: y_max, ir.MEAN: mean, ir.MIN: y_min}
+    if ir.STD in layout:
+        got[ir.STD] = P.std_from_moments(mean, y_sq / c)
+    return torch.cat([got[r] for r in layout], 1)
+
+
 def pair_agg(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
              sf: Optional[str] = None, slope: float = 0.2,
-             want_max: bool = True, want_min_sq: bool = False):
+             want_max: bool = True, want_min_sq: bool = False,
+             layout: Optional[Sequence[str]] = None):
     """K13 wrapper: (sum, max or None, count[, min, sum of squares]) as
     :func:`_pair_agg_reference`.  u and v share a dtype (float32 or
     bfloat16) and a shape [N, D].  ``want_min_sq`` takes the instantiation
     of PNA's four aggregators, which computes the max too (it needs
-    ``want_max``).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    ``want_max``).  With ``layout`` (reduces of ``PAIR_REDUCES``; needs
+    ``want_min_sq``) it returns (y, count) instead: y [N, len(layout) D]
+    float32 holds :func:`finish_moments` of the moments, which K13 writes
+    itself where the layout holds no ADD (y is then a view of an [N, 4D]
+    tensor whose last columns hold the aggregates the layout left out).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if sf not in (None, "leaky_relu"):
         raise ValueError(f"pair aggregation takes sf None or leaky_relu, not "
                          f"{sf!r}")
     if want_min_sq and not want_max:
         raise ValueError("want_min_sq computes the max too: pass want_max")
-    if u.device.type == "cpu":
-        return _pair_agg_reference(tg, u, v, sf=sf, slope=slope,
-                                   want_max=want_max, want_min_sq=want_min_sq)
+    if layout is not None:
+        if not want_min_sq:
+            raise ValueError("a layout takes want_min_sq")
+        if len(set(layout)) != len(layout) or not set(layout) <= set(
+                PAIR_REDUCES):
+            raise ValueError(f"a layout is distinct reduces of "
+                             f"{PAIR_REDUCES}, not {list(layout)}")
+    if u.device.type == "cpu" or (layout is not None and ir.ADD in layout):
+        # K13's epilogue leaves no sum beside the mean: a layout with ADD
+        # takes the moments and finishes them in PyTorch
+        kw = dict(sf=sf, slope=slope, want_max=want_max,
+                  want_min_sq=want_min_sq)
+        out = (_pair_agg_reference(tg, u, v, **kw) if u.device.type == "cpu"
+               else pair_agg(tg, u, v, **kw))
+        return out if layout is None else (finish_moments(*out, layout),
+                                           out[2])
     dev = u.device
     _ext.require(u, "u", dev, (torch.float32, torch.bfloat16), 2)
     _ext.require(v, "v", dev, (u.dtype,), 2)
@@ -215,9 +261,19 @@ def pair_agg(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
     def out():
         return torch.empty((n, D), dtype=torch.float32, device=dev)
 
-    y_sum = out()
-    y_max = out() if want_max else None
-    y_min, y_sq = (out(), out()) if want_min_sq else (None, None)
+    if layout is None:
+        y_sum = out()
+        y_max = out() if want_max else None
+        y_min, y_sq = (out(), out()) if want_min_sq else (None, None)
+        ld = D
+    else:
+        # the final layout: the sum's columns hold the mean, the sum of
+        # squares' the std
+        cols = [*layout, *(r for r in LAYOUT_REDUCES if r not in layout)]
+        agg = torch.empty((n, 4 * D), dtype=torch.float32, device=dev)
+        at = dict(zip(cols, agg.split(D, 1)))
+        y_sum, y_max, y_min, y_sq = (at[r] for r in LAYOUT_REDUCES)
+        ld = 4 * D
     cnt = torch.empty((n, 1), dtype=torch.float32, device=dev)
     if work.split_rows.numel():
         for y, fill in ((y_sum, 0.0), (cnt, 0.0), (y_max, float("-inf")),
@@ -234,11 +290,26 @@ def pair_agg(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
                 work.chunk_ptr.data_ptr(), work.chunk_row.data_ptr(),
                 work.slot_src.data_ptr(), u.data_ptr(), v.data_ptr(),
                 _ext.DTYPE_CODE[u.dtype], y_sum.data_ptr(), ptr(y_max),
-                ptr(y_min), ptr(y_sq), cnt.data_ptr(), work.n_chunks, D,
-                int(sf == "leaky_relu"), slope, _ext.stream(u))
-        _ext.check(rc, "pair_agg")
-        pair_agg.launches += 1
-        spans.count("pair_agg.k13", 1)
+                ptr(y_min), ptr(y_sq), cnt.data_ptr(), work.n_chunks, D, ld,
+                int(sf == "leaky_relu"), slope, int(layout is not None),
+                ir.STD_EPS, _ext.stream(u))
+            _ext.check(rc, "pair_agg")
+            pair_agg.launches += 1
+            spans.count("pair_agg.k13", 1)
+            if layout is not None:
+                spans.count("pair_agg.layout", 1)
+                cut = work.split_rows.numel()
+                if cut:
+                    # the cut rows' moments, gathered by atomics, into their
+                    # mean and std
+                    rc = lib.gta_pair_agg_finish(
+                        work.split_rows.data_ptr(), cut, cnt.data_ptr(),
+                        y_sum.data_ptr(), y_sq.data_ptr(), ld, D,
+                        ir.STD_EPS, _ext.stream(u))
+                    _ext.check(rc, "pair_agg_finish")
+                    spans.count("pair_agg.cut_rows", cut)
+    if layout is not None:
+        return agg[:, : len(layout) * D], cnt
     if want_min_sq:
         return y_sum, y_max, cnt, y_min, y_sq
     return y_sum, y_max, cnt
@@ -249,13 +320,16 @@ pair_agg.launches = 0
 
 def pair_aggregate_raw(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
                        sf: Optional[str] = None, slope: float = 0.2,
-                       want_max: bool = True, want_min_sq: bool = False):
+                       want_max: bool = True, want_min_sq: bool = False,
+                       layout: Optional[Sequence[str]] = None):
     """(sum [N, D] float32, max [N, D] float32 with 0 on empty rows, count
     [N, 1] float32) on K13, and with ``want_min_sq`` also (min [N, D] with
     0 on empty rows, sum of squares [N, D]); v is cast to u's dtype.
-    ``want_max=False`` skips the max and returns None in its place."""
+    ``want_max=False`` skips the max and returns None in its place.  With
+    ``layout``: (aggregates, count), as :func:`pair_agg`."""
     return pair_agg(tg, u.contiguous(), v.to(u.dtype).contiguous(), sf=sf,
-                    slope=slope, want_max=want_max, want_min_sq=want_min_sq)
+                    slope=slope, want_max=want_max, want_min_sq=want_min_sq,
+                    layout=layout)
 
 
 def _pair_agg_twin(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
@@ -289,48 +363,62 @@ def _pair_agg_twin(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
 
 
 class _PairAggregate(torch.autograd.Function):
-    """Forward on K13; backward by autograd of :func:`_pair_agg_twin`.
-    Outputs: sum, max (with ``want_max``), count, and min and sum of
-    squares (with ``want_min_sq``)."""
+    """Forward on K13; backward by autograd of :func:`_pair_agg_twin`
+    (with a ``layout``, followed by :func:`finish_moments` at the forward's
+    count).  Outputs: sum, max (with ``want_max``), count, and min and sum
+    of squares (with ``want_min_sq``); with a ``layout``: the aggregates and
+    the count."""
 
     @staticmethod
-    def forward(ctx, u, v, tg, sf, slope, want_max, want_min_sq):
+    def forward(ctx, u, v, tg, sf, slope, want_max, want_min_sq, layout):
         ctx.tg, ctx.sf, ctx.slope = tg, sf, slope
-        ctx.want_max, ctx.want_min_sq = want_max, want_min_sq
-        ctx.save_for_backward(u, v)
+        ctx.want_max, ctx.want_min_sq, ctx.layout = (want_max, want_min_sq,
+                                                     layout)
         out = pair_aggregate_raw(tg, u, v, sf=sf, slope=slope,
-                                 want_max=want_max, want_min_sq=want_min_sq)
-        ctx.mark_non_differentiable(out[2])
+                                 want_max=want_max, want_min_sq=want_min_sq,
+                                 layout=layout)
+        cnt = out[-1] if layout is not None else out[2]
+        ctx.save_for_backward(u, v, cnt)
+        ctx.mark_non_differentiable(cnt)
         return tuple(t for t in out if t is not None)
 
     @staticmethod
     def backward(ctx, *grads):
-        u, v = ctx.saved_tensors
+        u, v, cnt = ctx.saved_tensors
         need = ctx.needs_input_grad[:2]
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(r) for t, r in zip((u, v), need)]
             y_sum, y_max, _, y_min, y_sq = _pair_agg_twin(
                 ctx.tg, *ins, sf=ctx.sf, slope=ctx.slope,
                 want_min_sq=ctx.want_min_sq)
-            outs = [y_sum] + ([y_max] if ctx.want_max else [])
-            outs += [y_min, y_sq] if ctx.want_min_sq else []
-            cnt_at = 2 if ctx.want_max else 1     # count has no gradient
-            gys = [g.float() for i, g in enumerate(grads) if i != cnt_at]
+            if ctx.layout is not None:
+                outs = [finish_moments(y_sum, y_max, cnt, y_min, y_sq,
+                                       ctx.layout)]
+                gys = [grads[0].float()]
+            else:
+                outs = [y_sum] + ([y_max] if ctx.want_max else [])
+                outs += [y_min, y_sq] if ctx.want_min_sq else []
+                cnt_at = 2 if ctx.want_max else 1     # count has no gradient
+                gys = [g.float() for i, g in enumerate(grads) if i != cnt_at]
             wrt = [t for t in ins if t.requires_grad]
             got = iter(torch.autograd.grad(outs, wrt, gys) if wrt else ())
         return (*(next(got) if r else None for r in need), None, None, None,
-                None, None)
+                None, None, None)
 
 
 def pair_aggregate(tg: TiledGraph, u: torch.Tensor, v: torch.Tensor, *,
                    sf: Optional[str] = None, slope: float = 0.2,
-                   want_max: bool = True, want_min_sq: bool = False):
+                   want_max: bool = True, want_min_sq: bool = False,
+                   layout: Optional[Sequence[str]] = None):
     """Differentiable pair aggregation: (sum, max or None, count[, min, sum
-    of squares]) as :func:`pair_aggregate_raw`, with gradients in u and v.
-    The backward holds [live slots, D] float32 temporaries (fine at the
-    sizes the JAX package trains these families at; not chunked)."""
-    out = _PairAggregate.apply(u, v, tg, sf, slope, want_max, want_min_sq)
-    return out if want_max else (out[0], None, *out[1:])
+    of squares]) as :func:`pair_aggregate_raw`, or with ``layout``
+    (aggregates, count), with gradients in u and v.  The backward holds
+    [live slots, D] float32 temporaries (fine at the sizes the JAX package
+    trains these families at; not chunked)."""
+    out = _PairAggregate.apply(u, v, tg, sf, slope, want_max, want_min_sq,
+                               None if layout is None else tuple(layout))
+    return out if want_max or layout is not None else (out[0], None,
+                                                       *out[1:])
 
 
 # ---------------------------------------------------------------------------

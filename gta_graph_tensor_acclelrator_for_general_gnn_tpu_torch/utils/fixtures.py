@@ -14,6 +14,8 @@ from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from .. import ir
+
 N_NODE = 600
 HOT_PAIR = (5, 7)          # sender, receiver
 HOT_COPIES = 200           # > 127: int8 counts saturate
@@ -709,6 +711,68 @@ def sddmm_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
 
 PAIR_KERNELS = ("pair_agg",)
 NEG_ROW = 300      # a receiver whose z the pair-agg cases push below 0
+# PNA-4x3's aggregates in its op order
+PNA_LAYOUT = (ir.MEAN, ir.MIN, ir.MAX, ir.STD)
+
+
+def pair_layout_glue(tg, u, v, layout, *, sf=None, slope: float = 0.2):
+    """K13's final layout (``pair_agg(..., layout=)``: (aggregates, count))
+    and what the path before it computed from K13's moments in PyTorch:
+    mean = sum / c, std = sqrt(relu(sq / c - mean^2) + STD_EPS), c =
+    max(count, 1), concatenated in ``layout``'s order; then (layout,
+    count, glue, moments' count, {reduce: glue's aggregate})."""
+    import torch
+
+    from ..ops import pairagg as PA
+
+    kw = dict(sf=sf, slope=slope, want_min_sq=True)
+    got, cnt = PA.pair_agg(tg, u, v, layout=layout, **kw)
+    y_sum, y_max, c0, y_min, y_sq = PA.pair_agg(tg, u, v, **kw)
+    c = c0.clamp(min=1.0)
+    mean = y_sum / c
+    parts = {ir.ADD: y_sum, ir.MEAN: mean, ir.MAX: y_max, ir.MIN: y_min,
+             ir.STD: torch.sqrt(torch.relu(y_sq / c - mean * mean)
+                                + ir.STD_EPS)}
+    return got, cnt, torch.cat([parts[r] for r in layout], 1), c0, parts
+
+
+def pair_layout_gaps(tg, u, v, layout, *, sf=None, slope: float = 0.2):
+    """:func:`pair_layout_glue` compared: {"one_chunk": the rows of one
+    chunk of K13's work list equal bit for bit, "exact": every count and
+    the cut rows' min and max equal, "cut_err": the cut rows' worst error
+    in the sum, mean or std over its bound, "cut_rows": how many rows are
+    cut}.  A cut row's chunks meet by float32 atomics in an order that
+    varies by run, so each of the two runs' sums of n terms lies within
+    ``SUM_ORDER`` sqrt(n) 2^-24 of its terms' magnitudes (the rule of
+    :func:`kernel_error`): with q the row's mean square (sq / c), the
+    mean's terms weigh at most sqrt(q) and the sum's c sqrt(q), and std^2
+    = q - mean^2 moves by at most three such shares of q, so the std by
+    that over 2 std."""
+    import torch
+
+    from ..ops import pairagg as PA
+
+    got, cnt, want, c0, parts = pair_layout_glue(tg, u, v, layout, sf=sf,
+                                                 slope=slope)
+    n, D = u.shape
+    cut = torch.zeros(n, dtype=torch.bool, device=u.device)
+    cut[PA.pair_work(tg, n).split_rows] = True
+    c = c0[cut].clamp(min=1.0)
+    share = 2 * SUM_ORDER * 2.0 ** -24 * c.sqrt()      # two runs' orders
+    mean, std = parts[ir.MEAN][cut], parts[ir.STD][cut]
+    q = (std * std - ir.STD_EPS).clamp(min=0.0) + mean * mean
+    bound = {ir.ADD: share * c * q.sqrt(), ir.MEAN: share * q.sqrt(),
+             ir.STD: 3 * share * q / (2 * std)}
+    exact, err = torch.equal(cnt, c0), 0.0
+    for i, r in enumerate(layout):
+        a, b = got[cut, i * D:(i + 1) * D], want[cut, i * D:(i + 1) * D]
+        if r in (ir.MIN, ir.MAX):
+            exact = exact and torch.equal(a, b)
+        elif a.numel():
+            err = max(err, float(((a - b).abs()
+                                  / bound[r].clamp(min=ROW_FLOOR)).max()))
+    return {"one_chunk": torch.equal(got[~cut], want[~cut]), "exact": exact,
+            "cut_err": err, "cut_rows": int(cut.sum())}
 
 
 def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
@@ -724,7 +788,9 @@ def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
     meet by atomics), and a dead tile whose slots look live (read from
     column block 0, as on the TPU); row ``NEG_ROW`` gets only negative z.  Sum, max and count are separate
     cases: the sum scaled by its row's sum of |term| (terms may cancel),
-    the max and count by themselves."""
+    the max and count by themselves.  The four-aggregator cases also hold
+    K13's final layout (mean, min, max, std in PNA's order) to the
+    PyTorch formulas over its moments (:func:`pair_layout_glue`)."""
     import torch
 
     from .. import graph as G
@@ -777,6 +843,11 @@ def pair_agg_kernel_cases(device, seed: int = 0) -> Iterator[KernelCase]:
                 yield KernelCase("pair_agg", f"sum of squares {tag}", name,
                                  out[4], ref[4], terms=ref[2][:, 0],
                                  scale=ref[4])
+                got, cnt, glue, c0, _ = pair_layout_glue(
+                    tg, u, v, PNA_LAYOUT, sf=sf)
+                yield KernelCase("pair_agg", f"final layout {tag}", name,
+                                 torch.cat([got, cnt], 1),
+                                 torch.cat([glue, c0], 1))
 
 
 BWD_KERNELS = ("gat_bwd_tiles_dad", "gat_bwd_tiles_src", "gat_dense_bwd_dad",

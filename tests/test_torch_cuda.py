@@ -339,6 +339,140 @@ def test_k13_four_aggregators_keep_the_sum_and_max_on_cuda():
     torch.cuda.synchronize(dev)
 
 
+_CELL = {}
+
+
+def _pair_tiling(where):
+    """(K13's tiling, rows, feature widths) on the card: the edge-case
+    fixture's 128-wide tiling at ET 64 (a dead tile, empty rows, a hub row
+    cut into chunks), or the ``pna2_e11m_serve`` cell's graph (232,965
+    nodes, its community COO, self loops, hubs+labels order) on the
+    ``pair_agg`` kind's 1024² tiles of 512 slots, built once."""
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    dev = torch.device("cuda", 0)
+    if where == "fixture":
+        s, r, n, _ = fixtures.edge_case_graph()
+        hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+        return fixtures._dead_tile(G.tile_graph(
+            hg, block_rows=128, block_cols=128, tile_edges=64,
+            unit_weight=True, device=dev)), n, (41, 48, 128, 300)
+    if not _CELL:
+        from gnnbench import inputs, spec
+        from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import PAIR_TILE
+        cfg = spec.cell("pna2_e11m_serve").config
+        s, r, com = inputs.make_graph(cfg, dev)
+        hg = G.build_host_graph(s.cpu().numpy(), r.cpu().numpy(),
+                                cfg["nodes"], add_self_loops=True,
+                                symmetric_norm=True)
+        hg, _ = G.reorder_nodes(hg, cfg["reorder_nodes"],
+                                labels=com.cpu().numpy())
+        _CELL["tg"] = G.tile_graph(
+            hg, block_rows=PAIR_TILE.block_rows,
+            block_cols=PAIR_TILE.block_cols, tile_edges=PAIR_TILE.tile_edges,
+            unit_weight=True, device=dev)
+        _CELL["n"], _CELL["D"] = hg.n_node, cfg["hidden"]
+    return _CELL["tg"], _CELL["n"], (_CELL["D"],)
+
+
+def _k13_sequential(work, u, v, sf=None, slope=0.2):
+    """K13's arithmetic per chunk of its work list in plain torch: z =
+    sf(u[sender] + v[row]) in float32 (0 for a pad sender's u), rounded to
+    u's dtype, summed in float32 in slot order (the order each lane group
+    sums in), and its max; (sum, max) [chunks, D]."""
+    ptr = work.chunk_ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    row = work.chunk_row.long()
+    row = torch.where(row < 0, -row - 1, row)
+    src = work.slot_src.long()
+    D = u.shape[1]
+    s = torch.zeros((work.n_chunks, D), device=u.device)
+    m = torch.full((work.n_chunks, D), float("-inf"), device=u.device)
+    uf, vf = u.float(), v.float()
+    for j in range(int(lens.max())):
+        live = torch.nonzero(lens > j).squeeze(1)
+        sj = src[ptr[live] + j]
+        z = torch.where((sj >= 0)[:, None], uf[sj.clamp(min=0)], 0.0) \
+            + vf[row[live]]
+        if sf == "leaky_relu":
+            z = torch.where(z >= 0, z, slope * z)
+        zr = z.to(u.dtype).float()
+        s[live] += zr
+        m[live] = torch.maximum(m[live], zr)
+    return s, torch.where((lens > 0)[:, None], m, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["fixture", "cell"])
+def test_k13_sum_and_max_is_the_sequential_sum_on_cuda(where):
+    """K13's sum-and-max instantiation (DGN's, the reference zoo's PNA's)
+    on a row of one chunk is its slots' float32 sum in slot order and their
+    max, bit for bit, and on a cut row the max and count exactly and the
+    sum within float32 sum order; the same holds for the sum, max and count
+    of the four-aggregator instantiation's moments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K13 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
+    tg, n, widths = _pair_tiling(where)
+    dev = torch.device("cuda", 0)
+    work = PA.pair_work(tg, n)
+    one = work.chunk_row >= 0
+    rows = work.chunk_row[one].long()
+    cut = torch.zeros(n, dtype=torch.bool, device=dev)
+    cut[work.split_rows] = True
+    assert bool(one.any()) and bool(cut.any())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dt in (torch.float32, torch.bfloat16):
+        for D in widths:
+            for sf in (None, "leaky_relu"):
+                u, v = (torch.randn((n, D), generator=gen, device=dev
+                                    ).to(dt) for _ in range(2))
+                s, m = _k13_sequential(work, u, v, sf)
+                ref = PA._pair_agg_reference(tg, u, v, sf=sf)
+                for four in (False, True):
+                    got = PA.pair_agg(tg, u, v, sf=sf, want_min_sq=four)
+                    what = (where, dt, D, sf, four)
+                    assert torch.equal(got[0][rows], s[one]), what
+                    assert torch.equal(got[1][rows], m[one]), what
+                    assert torch.equal(got[1][cut], ref[1][cut]), what
+                    assert torch.equal(got[2], ref[2]), what
+                    err = float((got[0][cut] - ref[0][cut]).abs().max())
+                    assert err <= 1e-5 * float(ref[0][cut].abs().max()), what
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["fixture", "cell"])
+def test_k13_final_layout_equals_moments_and_glue_on_cuda(where):
+    """K13's final layout (``pair_agg(..., layout=)``: the epilogue's mean
+    and std, the finishing kernel's on the cut rows) against the path
+    before it (K13's moments, then mean = sum / c and std = sqrt(relu(sq /
+    c - mean^2) + 1e-5) in PyTorch, concatenated): bit for bit on every
+    row of one chunk; on the cut rows the min, max and count exactly and
+    the mean and std within float32 rounding of the atomics' order
+    (``fixtures.pair_layout_gaps``' bound from the sum-order rule); in
+    PNA-4x3's order, another order, and two aggregates with the rest left
+    in the tensor's last columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K13 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir
+    tg, n, widths = _pair_tiling(where)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    layouts = (fixtures.PNA_LAYOUT, (ir.STD, ir.MAX, ir.MEAN, ir.MIN),
+               (ir.MIN, ir.STD))
+    for dt in (torch.float32, torch.bfloat16):
+        for D in widths:
+            for sf in (None, "leaky_relu"):
+                u, v = (torch.randn((n, D), generator=gen, device=dev
+                                    ).to(dt) for _ in range(2))
+                for layout in layouts:
+                    gap = fixtures.pair_layout_gaps(tg, u, v, layout, sf=sf)
+                    what = (where, dt, D, sf, layout, gap)
+                    assert gap["one_chunk"] and gap["exact"], what
+                    assert gap["cut_err"] <= 1.0 and gap["cut_rows"], what
+    torch.cuda.synchronize(dev)
+
+
 @pytest.mark.gpu
 def test_published_pna_on_the_hybrid_path_on_cuda():
     """``"PNA-4x3"`` through ``hybrid_schedules`` on the card (K13's
@@ -346,7 +480,8 @@ def test_published_pna_on_the_hybrid_path_on_cuda():
     and bf16; lowering records ``lower.pair_work`` once with the work
     list's counters and ``lower.degree_scalers`` once a model, and a
     request counts one ``pair_agg.k13`` launch under each layer's
-    ``block.pair_agg``."""
+    ``block.pair_agg``, which wrote the final layout (``pair_agg.layout``)
+    and finished the work list's cut rows (``pair_agg.cut_rows``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K13 and K16 have no CPU mode")
     import numpy as np
@@ -389,6 +524,12 @@ def test_published_pna_on_the_hybrid_path_on_cuda():
     assert names.count("lower.degree_scalers") == 1
     blocks = [sp for sp in rec if sp["name"] == "block.pair_agg"]
     assert [b["counters"].get("pair_agg.k13") for b in blocks] == [1, 1]
+    # each launch wrote the final layout and finished the work list's cut
+    # rows
+    cut = work[0]["counters"]["pair_split_rows"]
+    assert [b["counters"].get("pair_agg.layout") for b in blocks] == [1, 1]
+    assert [b["counters"].get("pair_agg.cut_rows") for b in blocks] == [
+        cut, cut]
     torch.cuda.synchronize(dev)
 
 

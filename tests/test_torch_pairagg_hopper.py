@@ -11,7 +11,10 @@ row in order, marks exactly the rows it cuts, and is built once per tiling
 (never for a tiling no K13 call reads).  A plain torch reduction over the
 list in the kernel's shape (per chunk, then per row) equals
 ``_pair_agg_reference`` and, through it, the JAX package's
-``pair_aggregate_raw`` with its TPU kernel in interpret mode.
+``pair_aggregate_raw`` with its TPU kernel in interpret mode.  K13's final
+layout (``pair_agg(..., layout=)``: PNA's mean, min, max and std as
+column slices of one tensor) equals the PyTorch formulas over the moments
+that the path before it applied, bit for bit.
 
 Graphs: the edge-case graph of ``utils/fixtures`` (empty rows 512-598,
 receiver 7 takes 200 copies of one pair, which the cap of 128 cuts into
@@ -39,6 +42,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu import graph as JG  # noqa
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops import pairagg as JP  # noqa: E402
 
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import ir  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as TP  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 
@@ -345,3 +349,60 @@ def test_work_list_min_and_sum_of_squares_match_reference(name, dtn):
         assert HUB in TP.pair_work(tg, n).split_rows.tolist()
         assert float(ref[3][fixtures.NEG_ROW].max()) < 0.0
         assert float(ref[3][512:599].abs().max()) == 0.0
+
+
+LAYOUTS = {"PNA-4x3": fixtures.PNA_LAYOUT,
+           "permuted": (ir.STD, ir.MAX, ir.MEAN, ir.MIN),
+           "min and std": (ir.MIN, ir.STD),
+           "with the sum": (ir.ADD, ir.MIN, ir.STD, ir.MEAN)}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["edge cases", "pad senders", "skewed"])
+def test_final_layout_equals_moments_and_glue(name, dtn, layout):
+    """K13's final layout equals, bit for bit, what the path before it
+    computed from the moments: mean = sum / c and std = sqrt(relu(sq / c -
+    mean^2) + 1e-5), c = max(count, 1), concatenated in the layout's order
+    (a layout with the sum keeps it); empty rows read mean 0 and std
+    sqrt(1e-5), rows of one slot std sqrt(1e-5), and the hub's row, cut
+    into chunks, is among them.  The differentiable form returns the
+    same."""
+    tg, n = _graphs()[name]
+    tdt, _ = DTYPES[dtn]
+    order = LAYOUTS[layout]
+    rng = np.random.default_rng(12)
+    u, v = (torch.tensor(rng.standard_normal((n, 48)).astype(np.float32),
+                         dtype=tdt) for _ in range(2))
+    got, cnt, glue, c0, _ = fixtures.pair_layout_glue(tg, u, v, order,
+                                                      sf="leaky_relu")
+    assert got.shape == (n, 48 * len(order))
+    assert torch.equal(got, glue) and torch.equal(cnt, c0)
+    same, same_cnt = TP.pair_aggregate(tg, u, v, sf="leaky_relu",
+                                       want_min_sq=True, layout=order)
+    assert torch.equal(same, got) and torch.equal(same_cnt, cnt)
+    eps = torch.sqrt(torch.tensor(ir.STD_EPS))
+    cols = dict(zip(order, got.split(48, 1)))
+    empty, single = cnt[:, 0] == 0, cnt[:, 0] == 1
+    assert bool(single.any())
+    if ir.STD in cols:
+        assert bool((cols[ir.STD][empty | single] == eps).all())
+    if ir.MEAN in cols:
+        assert not bool(cols[ir.MEAN][empty].any())
+    if name == "edge cases":
+        assert bool(empty.any())
+        assert HUB in TP.pair_work(tg, n).split_rows.tolist()
+
+
+def test_final_layout_takes_the_four_aggregator_instantiation():
+    """A layout needs ``want_min_sq`` and distinct reduces of
+    ``PAIR_REDUCES``."""
+    tg, n = _graphs()["skewed"]
+    u = torch.zeros((n, 8))
+    for kw, what in ((dict(layout=fixtures.PNA_LAYOUT), "want_min_sq"),
+                     (dict(want_min_sq=True, layout=(ir.MIN, ir.MIN)),
+                      "distinct"),
+                     (dict(want_min_sq=True, layout=(ir.MIN, "MUL")),
+                      "distinct")):
+        with pytest.raises(ValueError, match=what):
+            TP.pair_agg(tg, u, u, **kw)

@@ -39,6 +39,7 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.lower impor
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.builders import (  # noqa: E402
     build_op_graph)
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as P  # noqa: E402
 
 CPU = "cpu"
@@ -338,7 +339,9 @@ def test_hybrid_schedules_unchanged_for_gcn_and_gat(net, reorder):
 
 def test_concat_reads_adjacent_slices_without_a_copy():
     """An MM of several inputs reads adjacent column slices of one tensor
-    as one view where no gradient is recorded, and copies otherwise."""
+    as one view where no gradient is recorded, and copies otherwise; the
+    four aggregates of K13's final layout, split as the ``pair_agg`` block
+    splits them, are read as that one tensor."""
     a = torch.randn((6, 8))
     with torch.inference_mode():
         b = a.clone()
@@ -353,6 +356,51 @@ def test_concat_reads_adjacent_slices_without_a_copy():
     assert torch.equal(got, a)
     got.sum().backward()
     assert torch.equal(leaf.grad, torch.ones_like(a))
+    hg, _ = _five()
+    tg = TG.tile_graph(hg, block_rows=TF.PAIR_TILE.block_rows,
+                       block_cols=TF.PAIR_TILE.block_cols,
+                       tile_edges=TF.PAIR_TILE.tile_edges, unit_weight=True,
+                       device=CPU)
+    u, v = torch.randn((2, 5, 4), generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        y, _ = PA.pair_aggregate(tg, u, v, want_min_sq=True,
+                                 layout=(ir.MEAN, ir.MIN, ir.MAX, ir.STD))
+        got = concat_features(y.split(4, 1))
+        assert got.data_ptr() == y.data_ptr() and torch.equal(got, y)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("net", ["PNA", "PNA-4x3"])
+def test_pair_block_outputs_are_the_moments_formulas(case, net, dtype):
+    """The ``pair_agg`` block's gathers, bit for bit, from K13's plain
+    version on the block's own u and v: the sum-and-max instantiation of
+    the reference zoo's PNA (sum, max, and the mean sum / max(count, 1))
+    as before, and the published PNA's final layout (mean, min, max and
+    std = sqrt(relu(sq / c - mean^2) + 1e-5))."""
+    hg, _, x = case
+    full = build_op_graph(net, F, HID, hidden=HID, reorder=True)
+    gathers = [op.op_id for op in full.ops if op.kind == ir.GATHER]
+    graph = ir.OpGraph("aggregates", [op for op in full.ops
+                                      if op.op_id <= max(gathers)],
+                       in_width=F, outputs=[0, 1, *gathers])
+    params = init_params(graph, torch.Generator().manual_seed(6), device=CPU)
+    sched = TF.hybrid_schedules([graph])[0]
+    fn = TF.lower_schedule(graph, sched, hg, dtype, device=CPU)
+    with torch.inference_mode():
+        out = fn(params, hg.to_device(CPU), x)
+    (tg, sf), = [(d, TF.classify_block(graph, b, t)[1].sf)
+                 for (k, b, d, _), t in zip(fn.plans, sched.tiles)
+                 if k == "pair_agg"]
+    dt = dtype or torch.float32
+    s, mx, c, mn, sq = PA._pair_agg_reference(
+        tg, out[0].to(dt), out[1].to(dt), sf=sf, want_min_sq=True)
+    c = c.clamp(min=1.0)
+    mean = s / c
+    want = {ir.ADD: s, ir.MAX: mx, ir.MEAN: mean, ir.MIN: mn,
+            ir.STD: torch.sqrt(torch.relu(sq / c - mean * mean)
+                               + ir.STD_EPS)}
+    for oid in gathers:
+        assert torch.equal(out[oid], want[graph.by_id[oid].compute]), oid
 
 
 def test_degree_scalers_span_once_a_model(case):
@@ -360,7 +408,8 @@ def test_degree_scalers_span_once_a_model(case):
     share a tile cache (a model's); the work
     list of K13 and its launches exist only on the card (the CPU takes
     the plain version), so no ``lower.pair_work`` span or ``pair_agg.k13``
-    count here."""
+    count here, nor its final layout's ``pair_agg.layout`` and
+    ``pair_agg.cut_rows``."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import spans
     hg, _, x = case
     m, _ = _model()
@@ -376,4 +425,5 @@ def test_degree_scalers_span_once_a_model(case):
     assert names.count("lower.degree_scalers") == 1
     assert names.count("block.pair_agg") == 2
     assert "lower.pair_work" not in names
-    assert not any("pair_agg.k13" in s["counters"] for s in got)
+    assert not any(k in s["counters"] for s in got for k in (
+        "pair_agg.k13", "pair_agg.layout", "pair_agg.cut_rows"))
