@@ -355,30 +355,6 @@ def _tile_arrays_numpy(senders, receivers, weight, rb, cb, n_col_blocks,
         w[tile_of_edge, slot] = weight
     return data_rb, data_cb, src_l, dst_l, eid, w
 
-    # every row block owns >= 1 tile, so kernels write every output stripe
-    missing = np.setdiff1d(np.arange(n_row_blocks, dtype=np.int32),
-                           np.unique(data_rb))
-    tile_rb, tile_cb = data_rb, data_cb
-    if len(missing):
-        m = len(missing)
-        src_l = np.concatenate(
-            [src_l, np.full((m, tile_edges), block_cols, np.int32)])
-        dst_l = np.concatenate(
-            [dst_l, np.full((m, tile_edges), block_rows, np.int32)])
-        eid = np.concatenate([eid, np.full((m, tile_edges), pad_eid, np.int32)])
-        w = np.concatenate([w, np.zeros((m, tile_edges), np.float32)])
-        tile_rb = np.concatenate([data_rb, missing])
-        tile_cb = np.concatenate([data_cb, np.zeros(m, np.int32)])
-        torder = np.argsort(tile_rb, kind="stable")
-        tile_rb, tile_cb = tile_rb[torder], tile_cb[torder]
-        src_l, dst_l, eid, w = src_l[torder], dst_l[torder], eid[torder], w[torder]
-    row_first = np.searchsorted(tile_rb, np.arange(n_row_blocks + 1)
-                                ).astype(np.int32)
-    return dict(tile_rb=tile_rb, tile_cb=tile_cb, src_local=src_l,
-                dst_local=dst_l, edge_id=eid, weight=w,
-                row_first_tile=row_first, n_row_blocks=n_row_blocks,
-                n_col_blocks=n_col_blocks)
-
 
 def tile_graph(
     g: HostGraph,

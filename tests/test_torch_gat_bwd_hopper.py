@@ -14,18 +14,14 @@ dense walk of ``csrc/gat_bwd.cuh`` over ``segments``.  The tuner prunes by
 wrapper takes, are held to the JAX package's TPU kernels (interpret mode)
 at 1, 2, 4 and 8 heads and at D = 41 (padded to 48 on the card) in both
 dtypes, and to a float64 sum of the same terms on row blocks of 8, 9, 16
-and 17 dense blocks (both sides of the run cuts).  The patches by which
-``utils/bwd_variants.py`` builds variants of K5, K6 and K7 are held to
-apply to the sources as they are.  Tolerances: float32 max |port -
-ref| <= 1e-5 * max(1, max |ref|) (the same terms summed in another order);
-bfloat16 2e-2 * max(1, max |ref|), as ``test_torch_backward.py`` holds the
-dense backward (a value that lands on the other side of a bf16 rounding
-boundary moves one term by up to 2^-8 of itself).  The kernel itself is
-held to the plain version on the card by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``."""
+and 17 dense blocks (both sides of the run cuts).  Tolerances: float32
+max |port - ref| <= 1e-5 * max(1, max |ref|) (the same terms summed in
+another order); bfloat16 2e-2 * max(1, max |ref|), as
+``test_torch_backward.py`` holds the dense backward (a value that lands on
+the other side of a bf16 rounding boundary moves one term by up to 2^-8 of
+itself).  The kernel itself is held to the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 import dataclasses
-import shutil
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,7 +39,6 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops import dense as JD  # 
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as TG  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import schedule as TSc  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as TD  # noqa: E402
-from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import bwd_variants as BV  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline  # noqa: E402
 
@@ -392,21 +387,3 @@ def test_dense_bwd_dad_plain_matches_float64_across_run_cuts(H, HD):
         want[rows] += dz.sum(1)
     _close(got, want, TOL["float32"])
     assert float(got[len(fixtures.SEG_COUNTS) * R:].abs().max()) == 0.0
-
-
-@pytest.mark.parametrize("patch,edits", [
-    ("base", 0), ("k6_pf2", 1), ("k6_blocks3", 1), ("k7_skip_all", 1),
-    ("k7_noskip", 1), ("k7_blocks2", 1), ("k5_blocks3", 1), ("k5_e1", 1)])
-def test_bwd_variant_patches_apply_to_the_sources(patch, edits, tmp_path):
-    """``utils/bwd_variants.py`` builds each variant of K5, K6 and K7 from a
-    copy of ``csrc/`` with texts replaced: every patch finds its texts in
-    the sources as they are and edits one file (a source edit that drops
-    a text fails here, not on the card); an unknown patch raises."""
-    csrc = tmp_path / "csrc"
-    shutil.copytree(Path(BV.__file__).resolve().parents[1] / "csrc", csrc)
-    before = {f.name: f.read_text() for f in csrc.iterdir()}
-    BV._patch(csrc, patch)
-    assert sum(f.read_text() != before[f.name]
-               for f in csrc.iterdir()) == edits
-    with pytest.raises(ValueError):
-        BV._patch(csrc, "k9_pf2")

@@ -2,9 +2,7 @@
 and the backward of the ``gat`` kind (``_gat_vjp``: K5 and K6 through
 their plain versions, or the edge formulation) against the JAX package,
 whose Pallas kernels run in interpret mode on the CPU.  Inputs are made
-with numpy from a seed and handed to both.  The patches by which
-``utils/layer_variants.py`` builds variants of K14 and K15 are held to
-apply to the sources as they are.
+with numpy from a seed and handed to both.
 
 Tolerance: max |port - jax| <= 1e-5 * max(1, max |jax|) in float32; in
 bfloat16 1e-3 relative, the bound of ``test_torch_gat.py``'s bf16 test
@@ -12,8 +10,6 @@ bfloat16 1e-3 relative, the bound of ``test_torch_gat.py``'s bf16 test
 so a value near a bf16 rounding boundary may round the other way; one flip
 moves one term by 2^-8 of itself)."""
 import dataclasses
-import shutil
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,7 +37,6 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.lower impor
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import primitives as TP  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as TA  # noqa: E402
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures  # noqa: E402
-from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import layer_variants as LV  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 CPU = "cpu"     # the port's entry points default to the CUDA card
@@ -198,46 +193,6 @@ def test_gat_layer_smem_follows_the_launch():
             assert TS._kind_smem("gat_layer", HD, H, db) == (
                 TS._gat_layer_smem(HD, H, db))
             assert TS._gat_layer_smem(HD, H, db) <= TS.SMEM_BLOCK_BYTES
-
-
-@pytest.mark.parametrize("variant,edits", [
-    ("base", 0), ("fold", 2), ("walk_blocks2", 1), ("proj_blocks1", 1),
-    ("proj_stages4", 1), ("k15_packed", 1), ("x_padded", 1)])
-def test_layer_variant_patches_apply_to_the_sources(variant, edits,
-                                                     tmp_path):
-    """``utils/layer_variants.py`` builds each variant of K14 and K15 from a
-    copy of ``csrc/`` with texts replaced: every patch finds each of its
-    texts once in the sources as they are and edits the files it names
-    (``fold`` the walk's header and K14's source); K14's wrapper is given
-    the shared-memory size of the variant's ring, which at 3 stages is
-    ``_gat_layer_smem``'s, and K15's wrapper that of its column terms
-    (with ``k15_packed``: 16 bytes a column and head, and 16 more a
-    column when H > 1); an unknown patch raises."""
-    csrc = tmp_path / "csrc"
-    shutil.copytree(Path(LV.__file__).resolve().parents[1] / "csrc", csrc)
-    before = {f.name: f.read_text() for f in csrc.iterdir()}
-    for patch in variant.split("+"):
-        LV._patch(csrc, patch)
-    assert sum(f.read_text() != before[f.name]
-               for f in csrc.iterdir()) == edits
-    with pytest.raises(ValueError):
-        LV._patch(csrc, "k14_pf2")
-    smem = LV._layer_smem(LV._stages(variant))
-    for HD, H, db in ((128, 4, 2), (41, 1, 2), (128, 4, 4), (256, 8, 2)):
-        deep = LV._stages(variant) if db == 2 and HD <= 128 else 3
-        assert smem(HD, H, db) - TS._gat_layer_smem(HD, H, db) == (
-            (deep - 3) * 128 * (128 + TS._gat_wgmma_width(1, HD)))
-    panel = LV._panel_smem(variant == "k15_packed")
-    for HD, H, N in ((128, 4, 32), (41, 1, 48), (64, 8, 8)):
-        for vb in (1, 2):
-            tile = max(64 * (256 * vb + 16), 256 * (64 * vb + 16))
-            cols = 4 * H + (4 if H > 1 else 0) if variant == "k15_packed" \
-                else 3 * H
-            stage = -(-(H * N * 128 + tile + 256 * cols) // 1024) * 1024
-            assert panel(HD, H, 2, True, vb) == (
-                3 * stage + 1024 + 3 * 1024 * H)
-            assert panel(HD, H, 2, False, vb) == (
-                TS._dense_attention_smem(HD, H, 2, False, vb))
 
 
 def test_gat_layer_tiles_takes_its_plain_version_on_cpu(edge_tiles):
