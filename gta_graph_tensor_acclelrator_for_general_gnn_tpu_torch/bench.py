@@ -183,7 +183,7 @@ def gat_recipe(hg: G.HostGraph, device=None,
     a_d = torch.randn((hg.n_node, HEADS), generator=gen).to(dev)
 
     def run():
-        acc = D._gat_hybrid_raw(hyb, h, w_a, a_d, True, 0.2)
+        acc, _ = D._gat_hybrid_raw(hyb, h, w_a, a_d, True, 0.2)
         den = acc[:, HD:].clamp(min=1e-20).repeat_interleave(HD // HEADS, 1)
         return acc[:, :HD] / den
 

@@ -34,7 +34,7 @@ from ..compiler.schedule import (_dense_attention_smem, _dense_bwd_smem,
                                  _gat_wgmma_width, _spmm_dense_smem)
 from ..graph import (DENSE_SEGMENT, DENSE_WIDE_SEGMENT, DenseBlockGraph,
                      GraphTensor, HybridGraph, TiledGraph, block_nnz)
-from ..utils.spans import spanned
+from ..utils.spans import count, spanned
 from . import _ext
 from .gat import _edge_grad, _gat_forward, _leaky
 from .primitives import exp_f64
@@ -478,6 +478,13 @@ def gat_dense_panel_blocks(bg: DenseBlockGraph, h: torch.Tensor,
 gat_dense_panel_blocks.launches = 0
 
 
+def _block_values(bg: DenseBlockGraph, dt: torch.dtype) -> torch.Tensor:
+    """The blocks' values as the attention kernels read them: int8 counts
+    as they are, float values rounded to h's dtype ``dt``."""
+    return (bg.values if _is_int(bg.values) else bg.values.to(dt)
+            ).contiguous()
+
+
 def gat_dense_partial(bg: DenseBlockGraph, h_src: torch.Tensor,
                       a_src: torch.Tensor, a_dst: torch.Tensor,
                       msrc: torch.Tensor, *,
@@ -488,8 +495,7 @@ def gat_dense_partial(bg: DenseBlockGraph, h_src: torch.Tensor,
     'cr' blocks run K15 on exp panels when ``DENSE_EXP_PANEL`` is set (the
     JAX package's ``gat_dense_partial_t`` branch), else K4."""
     H = a_dst.shape[1]
-    vals = (bg.values if _is_int(bg.values)
-            else bg.values.to(h_src.dtype)).contiguous()
+    vals = _block_values(bg, h_src.dtype)
     if DENSE_EXP_PANEL and bg.values_layout == "cr":
         pan_s, pan_d = exp_panels(a_src, a_dst, msrc,
                                   bg.n_col_blocks * bg.block_cols,
@@ -585,8 +591,9 @@ def _gat_dense_bwd_reference(bg: DenseBlockGraph, h: torch.Tensor,
 
 
 def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
-                   negative_slope, src_mode: bool, entry: str):
-    from .gat import _require_bwd
+                   negative_slope, src_mode: bool, entry: str,
+                   out: Optional[torch.Tensor]):
+    from .gat import _bwd_out, _require_bwd
     dev = h.device
     _require_bwd(h, gbar, side, msrc, dev)
     _ext.require(values, "values", dev, (torch.int8, h.dtype), 3)
@@ -600,8 +607,7 @@ def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
     HD = h.shape[1]
     n = h.shape[0]
     # segments add their rows atomically: unvisited stripes stay 0
-    out = torch.zeros((n, H + (HD if src_mode else 0)), dtype=torch.float32,
-                      device=dev)
+    out = _bwd_out(out, (n, H + (HD if src_mode else 0)), dev)
     # K7's and K8's bf16 paths run on wgmma over the wide segments (K4's
     # shapes)
     N = _gat_wgmma_width(H, HD // H) if h.dtype == torch.bfloat16 else 0
@@ -644,21 +650,25 @@ def _gat_dense_bwd(bg: DenseBlockGraph, h, gbar, values, side, msrc,
 def gat_dense_bwd_dad(bg: DenseBlockGraph, h: torch.Tensor,
                       gbar: torch.Tensor, values: torch.Tensor,
                       side: torch.Tensor, msrc: torch.Tensor, *,
-                      negative_slope: float = 0.2) -> torch.Tensor:
+                      negative_slope: float = 0.2,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 wrapper: dad [n, H] float32 over the rb-major 'cr' dense split.
     ``h`` and ``gbar`` [N, HD] share a dtype, ``values`` holds int8 counts
     or is of that dtype, ``side`` [N, 4H] float32 is [a_s | a_d | 1/den |
-    s2] and ``msrc`` [1, H] the forward's shift bound.  bf16 ``h`` at K4's
-    wgmma shapes (``_gat_wgmma_width``) runs te per head on tensor cores
-    over ``bg.wide_segments``; float32 and other shapes the dense walk over
+    s2] and ``msrc`` [1, H] the forward's shift bound; ``out`` ([n, H]
+    float32) takes the kernel's adds and is returned in place of a zeroed
+    output of its own.  bf16 ``h`` at K4's wgmma shapes
+    (``_gat_wgmma_width``) runs te per head on tensor cores over
+    ``bg.wide_segments``; float32 and other shapes the dense walk over
     ``bg.segments``.  CPU tensors take the plain version; CUDA tensors
     launch or raise."""
     if h.device.type == "cpu":
-        return _gat_dense_bwd_reference(bg, h, gbar, values, side, msrc,
-                                        src_mode=False,
-                                        negative_slope=negative_slope)
+        y = _gat_dense_bwd_reference(bg, h, gbar, values, side, msrc,
+                                     src_mode=False,
+                                     negative_slope=negative_slope)
+        return y if out is None else out.add_(y)
     out = _gat_dense_bwd(bg, h, gbar, values, side, msrc, negative_slope,
-                         False, "gta_gat_dense_bwd_dad")
+                         False, "gta_gat_dense_bwd_dad", out)
     gat_dense_bwd_dad.launches += 1
     return out
 
@@ -669,20 +679,22 @@ gat_dense_bwd_dad.launches = 0
 def gat_dense_bwd_src(bg_t: DenseBlockGraph, h: torch.Tensor,
                       gbar: torch.Tensor, values: torch.Tensor,
                       side: torch.Tensor, msrc: torch.Tensor, *,
-                      negative_slope: float = 0.2) -> torch.Tensor:
+                      negative_slope: float = 0.2,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8 wrapper: [das | dh] [n, H + HD] float32 over the TRANSPOSED
     graph's 'cr' dense split (rows = original senders); arguments as
-    :func:`gat_dense_bwd_dad`.  bf16 ``h`` at K4's wgmma shapes
-    (``_gat_wgmma_width``) runs both products per head on tensor cores over
-    ``bg_t.wide_segments``; float32 and other shapes the dense walk over
-    ``bg_t.segments``.  CPU tensors take the plain version; CUDA tensors
-    launch or raise."""
+    :func:`gat_dense_bwd_dad`, ``out`` [n, H + HD].  bf16 ``h`` at K4's
+    wgmma shapes (``_gat_wgmma_width``) runs both products per head on
+    tensor cores over ``bg_t.wide_segments``; float32 and other shapes the
+    dense walk over ``bg_t.segments``.  CPU tensors take the plain version;
+    CUDA tensors launch or raise."""
     if h.device.type == "cpu":
-        return _gat_dense_bwd_reference(bg_t, h, gbar, values, side, msrc,
-                                        src_mode=True,
-                                        negative_slope=negative_slope)
+        y = _gat_dense_bwd_reference(bg_t, h, gbar, values, side, msrc,
+                                     src_mode=True,
+                                     negative_slope=negative_slope)
+        return y if out is None else out.add_(y)
     out = _gat_dense_bwd(bg_t, h, gbar, values, side, msrc, negative_slope,
-                         True, "gta_gat_dense_bwd_src")
+                         True, "gta_gat_dense_bwd_src", out)
     gat_dense_bwd_src.launches += 1
     return out
 
@@ -702,28 +714,18 @@ def gat_dense_bwd(bg: DenseBlockGraph, bg_t: DenseBlockGraph,
     on the same grid.  Either may be None (that split has no dense
     blocks): dad comes from ``bg`` alone and (dh, das) from ``bg_t``
     alone, so each is the share of the edges its own split sends dense."""
-    from .gat import bwd_node_terms
+    from .gat import bwd_inputs
     for b in (bg, bg_t):
         if b is not None and b.values_layout != "cr":
             raise ValueError("gat_dense_bwd needs 'cr' blocks")
     dt = h_src.dtype
-    s2, rden = bwd_node_terms(gbar, out, den)
-    msrc = a_src.float().amax(0, keepdim=True)
-    side = torch.cat([a_src.float(), a_dst.float(), rden, s2],
-                     dim=1).contiguous()
-    hc = h_src.contiguous()
-    gc = gbar.to(dt).contiguous()
-
-    def vals(b):
-        return (b.values if _is_int(b.values) else b.values.to(dt)
-                ).contiguous()
-
+    hc, gc, side, msrc = bwd_inputs(h_src, a_src, a_dst, den, out, gbar)
     n, H, HD = hc.shape[0], a_dst.shape[1], hc.shape[1]
-    dad = (gat_dense_bwd_dad(bg, hc, gc, vals(bg), side, msrc,
+    dad = (gat_dense_bwd_dad(bg, hc, gc, _block_values(bg, dt), side, msrc,
                              negative_slope=negative_slope)
            if bg is not None else hc.new_zeros((n, H), dtype=torch.float32))
-    sd = (gat_dense_bwd_src(bg_t, hc, gc, vals(bg_t), side, msrc,
-                            negative_slope=negative_slope)
+    sd = (gat_dense_bwd_src(bg_t, hc, gc, _block_values(bg_t, dt), side,
+                            msrc, negative_slope=negative_slope)
           if bg_t is not None
           else hc.new_zeros((n, H + HD), dtype=torch.float32))
     return sd[:, H:].to(dt), sd[:, :H], dad
@@ -836,8 +838,8 @@ def _a_s_kernel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _gat_hybrid_raw(hyb: HybridGraph, h, sw, d, wmode: bool, slope: float):
-    """Raw [num | den] of the tail (K3, or K10 for a grouped one) plus the
-    dense blocks (K4) under one shift bound, all reading one a_s."""
+    """(raw [num | den], a_s): the tail (K3, or K10 for a grouped one) plus
+    the dense blocks (K4) under one shift bound, all reading one a_s."""
     sv = _a_s_kernel(h, sw) if wmode else sw
     msrc = sv.float().amax(0, keepdim=True)
     acc = _gat_forward(hyb.tiles, h, None if wmode else sw, d,
@@ -848,23 +850,21 @@ def _gat_hybrid_raw(hyb: HybridGraph, h, sw, d, wmode: bool, slope: float):
         accd = gat_dense_partial(hyb.dense, h, sv, d, msrc,
                                  negative_slope=slope)
         acc = acc + accd[: acc.shape[0]]
-    return acc
+    return acc, sv
 
 
 class _GatHybrid(torch.autograd.Function):
-    """gat_hybrid with the kernel backward: the tail's share on K5/K6
-    (:func:`~.gat._gat_bwd_fused`) plus the dense share on K7/K8
-    (:func:`gat_dense_bwd`), both from the combined den and output, added
-    in float32.  Each split covers every edge once, so the forward split
-    gives dad and the twin (dh, das) whichever of them has dense blocks.
-    Without a twin, or with grouped or class tails (the tail backward
-    kernels read per-tile tilings; JAX's ``kernel_bwd`` rule), autograd
-    of the full-graph formulation, unweighted as the attention kernels
-    are."""
+    """gat_hybrid with the kernel backward (:func:`_gat_hybrid_grads`): the
+    tail's share on K5/K6 and the dense share on K7/K8, from the combined
+    den and output and the forward's a_s, added into one float32 buffer
+    per output.  Without a twin, or with grouped or class tails (the tail
+    backward kernels read per-tile tilings; JAX's ``kernel_bwd`` rule),
+    autograd of the full-graph formulation, unweighted as the attention
+    kernels are."""
 
     @staticmethod
     def forward(ctx, h, sw, d, hyb, hyb_t, g, slope, wmode):
-        acc = _gat_hybrid_raw(hyb, h, sw, d, wmode, slope)
+        acc, a_s = _gat_hybrid_raw(hyb, h, sw, d, wmode, slope)
         H = d.shape[1]
         HD = h.shape[1]
         num, den = acc[:, :HD], acc[:, HD:]
@@ -875,7 +875,7 @@ class _GatHybrid(torch.autograd.Function):
         ctx.kernel_bwd = (hyb_t is not None and type(hyb.tiles) is TiledGraph
                           and type(hyb_t.tiles) is TiledGraph)
         if ctx.kernel_bwd:
-            ctx.save_for_backward(h, sw, d, y, den)
+            ctx.save_for_backward(h, sw, d, y, den, a_s)
         else:
             ctx.save_for_backward(h, sw, d)
         return y
@@ -883,29 +883,55 @@ class _GatHybrid(torch.autograd.Function):
     @staticmethod
     @spanned("bwd.gat_hybrid")
     def backward(ctx, gbar):
-        from .gat import _gat_bwd_fused
         none = (None,) * 5
         if not ctx.kernel_bwd:
             return _gat_hybrid_fallback_grads(ctx, gbar) + none
-        h, sw, d, y, den = ctx.saved_tensors
-        hyb, hyb_t, slope = ctx.hyb, ctx.hyb_t, ctx.slope
-        s_all = _a_s_kernel(h, sw) if ctx.wmode else sw
-        dh, das, dad = _gat_bwd_fused(hyb.tiles, hyb_t.tiles, h, s_all, d,
-                                      den, y, gbar, slope)
-        if hyb.dense is not None or hyb_t.dense is not None:
-            dhd, dasd, dadd = gat_dense_bwd(hyb.dense, hyb_t.dense, h, s_all,
-                                            d, den, y, gbar,
-                                            negative_slope=slope)
-            dh = (dh.float() + dhd.float()).to(h.dtype)
-            das = das.float() + dasd
-            dad = dad.float() + dadd
-        if ctx.wmode:
-            # the chain rule through a_s = h @ w, in float32
-            das32 = das.float()
-            dh = (dh.float() + das32 @ sw.float().T).to(h.dtype)
-            dw = (h.float().T @ das32).to(sw.dtype)
-            return (dh, dw, dad.to(d.dtype)) + none
-        return (dh, das.to(sw.dtype), dad.to(d.dtype)) + none
+        h, sw, d, y, den, a_s = ctx.saved_tensors
+        return _gat_hybrid_grads(ctx.hyb, ctx.hyb_t, h, sw, a_s, d, den, y,
+                                 gbar, ctx.slope, ctx.wmode) + none
+
+
+def _gat_hybrid_grads(hyb: HybridGraph, hyb_t: HybridGraph, h, sw, a_s, d,
+                      den, y, gbar, slope: float, wmode: bool) -> tuple:
+    """(dh, dsw, dad) of gat_hybrid on K5-K8, one backward over both
+    shares: the kernels' inputs built once (the dense kernels read the
+    float32 side panel, the tail kernels it rounded to h's dtype), K5 and
+    K7 adding dad into one float32 buffer and K6 and K8 [das | dh] into
+    another (each split covers every edge once, so the forward split gives
+    dad and the twin (dh, das), whichever of them has dense blocks); in
+    derive mode the chain rule through a_s = h w adds into dh's float32
+    columns; dh rounds to h's dtype once."""
+    from .gat import (bwd_inputs, gat_bwd_tiles_dad, gat_bwd_tiles_src,
+                      pack_side)
+    dt = h.dtype
+    hc, gc, side, msrc = bwd_inputs(h, a_s, d, den, y, gbar)
+    side_t = side.to(dt).float()
+    packed = None if h.device.type == "cpu" else pack_side(side_t)
+    tg, tg_t = hyb.tiles, hyb_t.tiles
+    n, H, HD = hc.shape[0], d.shape[1], hc.shape[1]
+    rows = max(n, tg.n_node, tg_t.n_node)
+    dad = torch.zeros((rows, H), dtype=torch.float32, device=h.device)
+    sd = torch.zeros((rows, H + HD), dtype=torch.float32, device=h.device)
+    kw = dict(negative_slope=slope)
+    gat_bwd_tiles_dad(tg, hc, gc, side_t, msrc, packed=packed,
+                      out=dad[: tg.n_node], **kw)
+    gat_bwd_tiles_src(tg_t, hc, gc, side_t, msrc, packed=packed,
+                      out=sd[: tg_t.n_node], **kw)
+    if hyb.dense is not None:
+        gat_dense_bwd_dad(hyb.dense, hc, gc, _block_values(hyb.dense, dt),
+                          side, msrc, out=dad[:n], **kw)
+    if hyb_t.dense is not None:
+        gat_dense_bwd_src(hyb_t.dense, hc, gc,
+                          _block_values(hyb_t.dense, dt), side, msrc,
+                          out=sd[:n], **kw)
+    count("gat_bwd.shared", 1)
+    das, dh, dad = sd[:n, :H], sd[:n, H:], dad[:n]
+    if wmode:
+        # the chain rule through a_s = h w, in float32
+        dh.addmm_(das, sw.float().T)
+        dw = (h.float().T @ das).to(sw.dtype)
+        return dh.to(dt), dw, dad.to(d.dtype)
+    return dh.to(dt), das.to(sw.dtype), dad.to(d.dtype)
 
 
 def _gat_hybrid_fallback_grads(ctx, gbar):

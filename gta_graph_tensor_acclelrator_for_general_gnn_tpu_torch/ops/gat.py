@@ -454,6 +454,18 @@ def _require_bwd(h, gbar, side, msrc, dev):
                          f"msrc {tuple(msrc.shape)}")
 
 
+def _bwd_out(out: Optional[torch.Tensor], shape: tuple,
+             dev: torch.device) -> torch.Tensor:
+    """The float32 buffer a backward kernel adds into with atomics: the
+    caller's ``out`` (checked), else a zeroed one of its own."""
+    if out is None:
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    _ext.require(out, "out", dev, (torch.float32,), 2)
+    if tuple(out.shape) != shape:
+        raise ValueError(f"out shape {tuple(out.shape)} != {shape}")
+    return out
+
+
 def pack_side(side: torch.Tensor) -> torch.Tensor:
     """The side panel [N, 4H] = [a_s | a_d | 1/den | s2] repacked per node
     and head, [N, H, 4] float32 (one 16-byte load a head in the tail
@@ -464,7 +476,8 @@ def pack_side(side: torch.Tensor) -> torch.Tensor:
 
 def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
                    src_mode: bool, entry: str,
-                   packed: Optional[torch.Tensor]) -> torch.Tensor:
+                   packed: Optional[torch.Tensor],
+                   out: Optional[torch.Tensor]) -> torch.Tensor:
     dev = h.device
     _require_bwd(h, gbar, side, msrc, dev)
     packed = pack_side(side) if packed is None else packed
@@ -481,9 +494,7 @@ def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
         _ext.require(getattr(tg, name), name, dev, (torch.int32,), 1)
     H = msrc.shape[1]
     HD = h.shape[1]
-    # the kernel adds into a zeroed buffer with atomics
-    out = torch.zeros((tg.n_node, H + (HD if src_mode else 0)),
-                      dtype=torch.float32, device=dev)
+    out = _bwd_out(out, (tg.n_node, H + (HD if src_mode else 0)), dev)
     if tg.n_tiles == 0 or tg.n_node == 0:
         return out
     lib = _ext.library()
@@ -504,19 +515,21 @@ def _gat_bwd_tiles(tg: TiledGraph, h, gbar, side, msrc, negative_slope,
 def gat_bwd_tiles_dad(tg: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
                       side: torch.Tensor, msrc: torch.Tensor, *,
                       negative_slope: float = 0.2,
-                      packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      packed: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5 wrapper: dad [n, H] float32 over the forward tail tiling.  ``h``
     and ``gbar`` [N, HD] share a dtype; ``side`` [N, 4H] float32 is
     [a_s | a_d | 1/den | s2]; ``msrc`` [1, H] is the forward's shift bound;
     ``packed`` is ``pack_side(side)`` where the caller has it (else the
-    wrapper packs).  CPU tensors take the plain version; CUDA tensors
-    launch or raise."""
+    wrapper packs); ``out`` ([n, H] float32) takes the kernel's adds and is
+    returned in place of a zeroed output of its own.  CPU tensors take the
+    plain version; CUDA tensors launch or raise."""
     if h.device.type == "cpu":
-        return _gat_bwd_tiles_reference(tg, h, gbar, side, msrc,
-                                        src_mode=False,
-                                        negative_slope=negative_slope)
+        y = _gat_bwd_tiles_reference(tg, h, gbar, side, msrc, src_mode=False,
+                                     negative_slope=negative_slope)
+        return y if out is None else out.add_(y)
     out = _gat_bwd_tiles(tg, h, gbar, side, msrc, negative_slope, False,
-                         "gta_gat_bwd_tiles_dad", packed)
+                         "gta_gat_bwd_tiles_dad", packed, out)
     gat_bwd_tiles_dad.launches += 1
     return out
 
@@ -527,17 +540,18 @@ gat_bwd_tiles_dad.launches = 0
 def gat_bwd_tiles_src(tg_t: TiledGraph, h: torch.Tensor, gbar: torch.Tensor,
                       side: torch.Tensor, msrc: torch.Tensor, *,
                       negative_slope: float = 0.2,
-                      packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      packed: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6 wrapper: [das | dh] [n, H + HD] float32 over the TRANSPOSED tail
     tiling (its rows are the original senders); arguments as
-    :func:`gat_bwd_tiles_dad`.  CPU tensors take the plain version; CUDA
-    tensors launch or raise."""
+    :func:`gat_bwd_tiles_dad`, ``out`` [n, H + HD].  CPU tensors take the
+    plain version; CUDA tensors launch or raise."""
     if h.device.type == "cpu":
-        return _gat_bwd_tiles_reference(tg_t, h, gbar, side, msrc,
-                                        src_mode=True,
-                                        negative_slope=negative_slope)
+        y = _gat_bwd_tiles_reference(tg_t, h, gbar, side, msrc, src_mode=True,
+                                     negative_slope=negative_slope)
+        return y if out is None else out.add_(y)
     out = _gat_bwd_tiles(tg_t, h, gbar, side, msrc, negative_slope, True,
-                         "gta_gat_bwd_tiles_src", packed)
+                         "gta_gat_bwd_tiles_src", packed, out)
     gat_bwd_tiles_src.launches += 1
     return out
 
@@ -555,6 +569,21 @@ def bwd_node_terms(gbar: torch.Tensor, out: torch.Tensor,
     return s2, 1.0 / torch.clamp(den.float(), min=1e-20)
 
 
+def bwd_inputs(h: torch.Tensor, a_s: torch.Tensor, a_d: torch.Tensor,
+               den: torch.Tensor, out: torch.Tensor, gbar: torch.Tensor,
+               a_s_bound: Optional[torch.Tensor] = None) -> tuple:
+    """What the backward kernels K5-K8 read, built once: (h, gbar in h's
+    dtype, both contiguous; the float32 side panel [a_s | a_d | 1/den |
+    s2] [N, 4H]; msrc [1, H], the per-head max of ``a_s`` or of
+    ``a_s_bound``).  The dense kernels read the panel as it is, the tail
+    kernels rounded to h's dtype (``side.to(h.dtype).float()``)."""
+    s2, rden = bwd_node_terms(gbar, out, den)
+    msrc = (a_s if a_s_bound is None else a_s_bound).float().amax(
+        0, keepdim=True)
+    side = torch.cat([a_s.float(), a_d.float(), rden, s2], dim=1)
+    return h.contiguous(), gbar.to(h.dtype).contiguous(), side, msrc
+
+
 def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h: torch.Tensor,
                    a_s: torch.Tensor, a_d: torch.Tensor, den: torch.Tensor,
                    out: torch.Tensor, gbar: torch.Tensor, slope: float,
@@ -568,13 +597,8 @@ def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h: torch.Tensor,
     packed per node and head once, for K5 and K6 both."""
     H = a_d.shape[1]
     dt = h.dtype
-    s2, rden = bwd_node_terms(gbar, out, den)
-    msrc = (a_s if a_s_bound is None else a_s_bound).float().amax(
-        0, keepdim=True)
-    side = torch.cat([v.to(dt).float() for v in (a_s, a_d, rden, s2)],
-                     dim=1).contiguous()
-    hc = h.contiguous()
-    gc = gbar.to(dt).contiguous()
+    hc, gc, side, msrc = bwd_inputs(h, a_s, a_d, den, out, gbar, a_s_bound)
+    side = side.to(dt).float()
     packed = None if h.device.type == "cpu" else pack_side(side)
     dad = gat_bwd_tiles_dad(tg, hc, gc, side, msrc, negative_slope=slope,
                             packed=packed)

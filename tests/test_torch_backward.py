@@ -360,6 +360,88 @@ def test_gat_hybrid_grads_when_one_split_has_no_dense_blocks(
         _close(a, b, 1e-5)
 
 
+@pytest.mark.parametrize("lacks", ["neither", "forward", "twin"])
+@pytest.mark.parametrize("mode", ["values", "derive"])
+def test_gat_hybrid_shared_backward_is_the_two_share_sum(sym_pair, mode,
+                                                         lacks):
+    """gat_hybrid's backward, one float32 buffer per output that the tail
+    (K5, K6) and dense (K7, K8) kernels' plain versions both add into,
+    against the two backwards it replaces: ``_gat_bwd_fused``'s tail share
+    plus ``gat_dense_bwd``'s dense share, added in float32 (then, in derive
+    mode, the chain rule through a_s = h w), within 1e-6 of each gradient's
+    max; also where the forward split or the twin has no dense blocks."""
+    t = sym_pair["port"]
+    hyb, twin = t["att"]
+    if lacks != "neither":
+        # min_nnz 0: no block goes dense, every edge stays in the tail
+        tail = TG.hybrid_graph(t["host"][lacks == "twin"],
+                               **{**ATT_SPLIT, "min_nnz": 0}, device=CPU)
+        hyb, twin = (tail, twin) if lacks == "forward" else (hyb, tail)
+    assert (hyb.dense is None, twin.dense is None) == (
+        lacks == "forward", lacks == "twin")
+    H, HD = 4, 32
+    wmode = mode == "derive"
+    rng = np.random.default_rng(9)
+    h, sw, d, gy = (torch.tensor(rng.standard_normal(shape),
+                                 dtype=torch.float32) for shape in (
+        (N, HD), (HD, H) if wmode else (N, H), (N, H), (N, HD)))
+    if wmode:
+        sw = sw * 0.3
+    tv = [v.clone().requires_grad_(True) for v in (h, sw, d)]
+    y = TD.gat_hybrid(hyb, None, tv[0], None if wmode else tv[1], tv[2],
+                      w_asrc=tv[1] if wmode else None, hyb_t=twin)
+    got = torch.autograd.grad((y * gy).sum(), tv)
+
+    acc, a_s = TD._gat_hybrid_raw(hyb, h, sw, d, wmode, 0.2)
+    den, out = acc[:, HD:], y.detach()
+    dh, das, dad = TA._gat_bwd_fused(hyb.tiles, twin.tiles, h, a_s, d, den,
+                                     out, gy, 0.2)
+    dhd, dasd, dadd = TD.gat_dense_bwd(hyb.dense, twin.dense, h, a_s, d,
+                                       den, out, gy)
+    dh, das, dad = dh + dhd, das + dasd, dad + dadd
+    if wmode:
+        dh, das = dh + das @ sw.T, h.T @ das
+    for name, a, b in zip(("dh", "dsw", "dad"), got, (dh, das, dad)):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        err = float((a - b).abs().max())
+        assert err <= 1e-6 * float(b.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("wrapper", ["gat_bwd_tiles_dad", "gat_bwd_tiles_src",
+                                     "gat_dense_bwd_dad", "gat_dense_bwd_src"])
+def test_bwd_wrapper_given_out_adds_into_it(sym_pair, wrapper):
+    """Each backward wrapper given ``out`` returns ``out`` itself, holding
+    what it held plus what the wrapper returns without it (plain
+    versions)."""
+    hyb, twin = sym_pair["port"]["att"]
+    H, HD = 4, 32
+    rng = np.random.default_rng(10)
+    h, gy = (torch.tensor(rng.standard_normal((N, HD)), dtype=torch.float32)
+             for _ in range(2))
+    a_s, a_d = (torch.tensor(rng.standard_normal((N, H)),
+                             dtype=torch.float32) for _ in range(2))
+    acc, _ = TD._gat_hybrid_raw(hyb, h, a_s, a_d, False, 0.2)
+    den = acc[:, HD:]
+    y = acc[:, :HD] / den.repeat_interleave(HD // H, dim=1)
+    hc, gc, side, msrc = TA.bwd_inputs(h, a_s, a_d, den, y, gy)
+    split = {"gat_bwd_tiles_dad": hyb.tiles, "gat_bwd_tiles_src": twin.tiles,
+             "gat_dense_bwd_dad": hyb.dense,
+             "gat_dense_bwd_src": twin.dense}[wrapper]
+    args = (split, hc, gc, side, msrc)
+    if wrapper.startswith("gat_dense"):
+        args = (split, hc, gc, TD._block_values(split, hc.dtype), side, msrc)
+    fn = getattr(TA if "tiles" in wrapper else TD, wrapper)
+    plain = fn(*args)
+    assert plain.shape == (N, H + (HD if wrapper.endswith("src") else 0))
+    assert float(plain.abs().max()) > 0
+    base = torch.tensor(rng.standard_normal(tuple(plain.shape)),
+                        dtype=torch.float32)
+    out = base.clone()
+    got = fn(*args, out=out)
+    assert got is out
+    assert torch.equal(got, base + plain)
+
+
 def test_backward_with_twin_never_takes_the_full_graph_path(sym_pair,
                                                             monkeypatch):
     """With the twin, the backward runs the kernels' functions only: the

@@ -260,6 +260,79 @@ def test_gat_hybrid_backward_on_cuda_when_one_split_has_no_dense_blocks(
         assert err <= 1e-4 * float(b.abs().max()), err
 
 
+@pytest.mark.gpu
+def test_gat_hybrid_shared_backward_rounds_once_on_cuda():
+    """gat_hybrid's bf16 derive-mode backward on the card (the models'
+    path, at the fixture's graph, H = 4 and HD = 128): K5, K6, K7 and K8
+    launch once each, ``gat_bwd.shared`` counts 1 under
+    ``spans.recording()``, and dh, dw and dad each lie within one bf16
+    rounding (2^-8 of the value, plus 1e-5 of the largest for the float32
+    atomics' order) of the float32 sums of the same inputs' shares: the
+    four kernels' outputs added in float32, then das w^T into dh and
+    h^T das for dw, from the a_s the forward saved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3-K8 have no CPU mode")
+    import numpy as np
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import spans
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    s, r, n, _ = fixtures.edge_case_graph()
+    hg = G.build_host_graph(s, r, n, edge_pad_multiple=128)
+    hg_t, _ = G.transpose_host_graph(hg)
+    hyb, twin = (G.hybrid_graph(g, block_rows=128, block_cols=128,
+                                tile_edges=128, min_nnz=100, unit_weight=True,
+                                values_dtype=np.int8, block_layout="cr",
+                                device=dev) for g in (hg, hg_t))
+    assert hyb.dense is not None and twin.dense is not None
+    H, HD = 4, 128
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    h, w, a_d, gy = (torch.randn(shape, generator=gen) for shape in
+                     ((n, HD), (HD, H), (n, H), (n, HD)))
+    tv = [t.to(dev, bf).requires_grad_(True) for t in (h, w * 0.1, a_d)]
+    gy = gy.to(dev)
+    kernels = (A.gat_bwd_tiles_dad, A.gat_bwd_tiles_src,
+               D.gat_dense_bwd_dad, D.gat_dense_bwd_src)
+    for k in kernels:
+        k.launches = 0
+    spans.take()
+    with spans.recording():
+        y = D.gat_hybrid(hyb, None, tv[0], None, tv[2], w_asrc=tv[1],
+                         hyb_t=twin)
+        got = torch.autograd.grad((y * gy).sum(), tv, retain_graph=True)
+    rec = spans.take()["spans"]
+    assert [k.launches for k in kernels] == [1, 1, 1, 1]
+    (bwd,) = [sp for sp in rec if sp["name"] == "bwd.gat_hybrid"]
+    assert bwd["counters"] == {"gat_bwd.shared": 1}
+    assert [g.dtype for g in got] == [bf] * 3
+
+    # the backward's own saved den and a_s: a recomputed den may differ
+    # in float32 by the atomics' order, and its bf16 rounding with it
+    hb, wb, db, yb, den, a_s = y.grad_fn.saved_tensors
+    with torch.no_grad():
+        hc, gc, side, msrc = A.bwd_inputs(hb, a_s, db, den, yb, gy)
+        side_t = side.to(bf).float()
+        dad = (A.gat_bwd_tiles_dad(hyb.tiles, hc, gc, side_t, msrc)
+               + D.gat_dense_bwd_dad(hyb.dense, hc, gc,
+                                     D._block_values(hyb.dense, bf), side,
+                                     msrc))
+        sd = (A.gat_bwd_tiles_src(twin.tiles, hc, gc, side_t, msrc)
+              + D.gat_dense_bwd_src(twin.dense, hc, gc,
+                                    D._block_values(twin.dense, bf), side,
+                                    msrc))
+        das = sd[:, :H]
+        want = (sd[:, H:] + das @ wb.float().T, hb.float().T @ das, dad)
+    for name, a, b in zip(("dh", "dw", "dad"), got, want):
+        err = (a.float() - b).abs()
+        bound = 2.0 ** -8 * b.abs() + 1e-5 * float(b.abs().max())
+        assert bool((err <= bound).all()), (name, float((err / bound).max()))
+    torch.cuda.synchronize(dev)
+
+
 def _check_new_cases(device):
     seen = set()
     for cases in (fixtures.sddmm_kernel_cases, fixtures.pair_agg_kernel_cases):

@@ -108,8 +108,9 @@ def test_k10_derive_and_a_src_forms_agree(tiling, H, HD, dtn):
 def test_gat_hybrid_raw_hands_k10_the_a_s_of_msrc_and_k4(monkeypatch):
     """On a split with dense blocks and a grouped tail, ``_gat_hybrid_raw``
     forms a_s once and hands that tensor to K10 (as ``a_src``, no
-    ``w_asrc``) and to the dense partial (K4), with msrc its column max:
-    one a_src precision for every partial."""
+    ``w_asrc``) and to the dense partial (K4), with msrc its column max,
+    and returns it beside the raw partials (the backward reads it): one
+    a_src precision for every partial."""
     s, r, n, _ = fixtures.edge_case_graph()
     hg = TG.build_host_graph(s, r, n, edge_pad_multiple=128)
     hyb = TG.hybrid_graph(hg, block_rows=128, block_cols=128, tile_edges=64,
@@ -137,12 +138,12 @@ def test_gat_hybrid_raw_hands_k10_the_a_s_of_msrc_and_k4(monkeypatch):
     monkeypatch.setattr(TD, "_a_s_kernel", a_s_rec)
     monkeypatch.setattr(TA, "gat_grouped", k10_rec)
     monkeypatch.setattr(TD, "gat_dense_partial", k4_rec)
-    acc = TD._gat_hybrid_raw(hyb, h, w, a_d, True, 0.2)
+    acc, a_ret = TD._gat_hybrid_raw(hyb, h, w, a_d, True, 0.2)
     assert acc.shape == (n, 128 + 4)
     a_s = seen["a_s"]
     w_k10, a_k10, ms_k10 = seen["k10"]
     a_k4, ms_k4 = seen["k4"]
-    assert w_k10 is None and a_k10 is a_s and a_k4 is a_s
+    assert w_k10 is None and a_k10 is a_s and a_k4 is a_s and a_ret is a_s
     want = a_s.amax(0, keepdim=True)
     assert torch.equal(ms_k10, want) and torch.equal(ms_k4, want)
 

@@ -6,7 +6,8 @@ trace; on, spans nest by parent and unit (a request or a step), also
 across autograd's thread; inside ``utils/profile.trace`` each span is a
 ``user_annotation`` event on the recorder's clock; ``lower.split``'s
 counters equal the splits' own counts; a training step records its
-forward, backward and optimizer phases once each."""
+forward, backward and optimizer phases once each, and a GAT step's
+kernel backward counts ``gat_bwd.shared``."""
 import json
 import threading
 import time
@@ -277,6 +278,28 @@ def test_a_step_records_forward_backward_optimizer_once(host_graph, net):
                                             "train.backward",
                                             "train.optimizer")]
     assert order == sorted(order)
+
+
+@pytest.mark.parametrize("twin", [True, False])
+def test_gat_backward_counts_the_shared_path(host_graph, twin):
+    """``gat_bwd.shared`` counts 1 under each ``bwd.gat_hybrid`` of a GAT
+    training step whose backward runs on the kernels over both shares (the
+    lowering built the transposed twin), and is absent from the
+    full-graph fallback (no twin)."""
+    with SP.recording():
+        m, fwd = _lowered("GAT", host_graph, build_transpose=twin)
+        state = TT.TrainState(m.params, TT.adamw(m.params, 0.01))
+        step = TT.make_train_step(fwd)
+        rng = np.random.default_rng(5)
+        x = torch.tensor(rng.standard_normal((N, F_IN)).astype(np.float32))
+        y = torch.tensor(rng.integers(0, N_CLASS, N))
+        mask = torch.tensor(rng.random(N) < 0.8)
+        SP.take()
+        step(state, host_graph.to_device(CPU), x, y, mask)
+    bwd = _by_name(SP.take()["spans"])["bwd.gat_hybrid"]
+    assert len(bwd) == 2
+    for s in bwd:
+        assert s["counters"] == ({"gat_bwd.shared": 1} if twin else {})
 
 
 def test_adamw_records_its_construction():
