@@ -81,6 +81,13 @@ Reddit's node count, and checks every hand-written kernel on the way:
      grouped and per-tile logits compared in edge order; at each of
      K11's timed shapes (c, d) its walk, its edges per second and
      ``sampled_addmm`` beside it; at K12's (d) its walk (K11's rule);
+     (e) GATv2-2l (the benchmark's ``gatv2_e11m_serve`` model, 602 ->
+     4 heads of 32 -> 1 head of 41) through ``hybrid_schedules``: K17
+     against its plain version at both layers' shapes on the model's
+     tiling, bf16 and float32, each row's error over its magnitude within
+     ``fixtures.K17_TOL`` (the cut rows apart), timed in bf16 beside its
+     bound; 3 bf16 and 1 float32 requests (K17 launched once a layer), and
+     on the reduced graph the answers against the per-op path;
   8. the whole-layer GAT kind, the gat kind's backward, the exp panels:
      (a) K14 and K15 against their plain versions on the fixture cases
      (``fixtures.layer_kernel_cases``: dead tile, empty rows, pad slots, 1
@@ -320,6 +327,8 @@ KERNELS = {
     "dense_xw": dict(source=f"{PKG}/csrc/dense_xw.cu",
                      replaces="none: XLA's dot of bf16 operands with "
                               "preferred_element_type=float32"),
+    "gatv2_attn": dict(source=f"{PKG}/csrc/gatv2_attn.cu",
+                       replaces="none: the JAX package has no GATv2"),
 }
 # kernel path vs per-op path: the per-op path rounds only the matmul
 # operands to bf16, the kernels also their gathered rows and products
@@ -1666,6 +1675,151 @@ def pair_agg_models(checks: Checks, hg, g, dev, measured) -> int:
     return launches
 
 
+def gatv2_model(checks: Checks, hg, g, dev) -> int:
+    """Phase 7e: GATv2-2l, the benchmark's ``gatv2_e11m_serve`` model (602
+    -> 128 as 4 heads of 32 -> 41 as one head), through
+    ``hybrid_schedules`` and ``make_apply`` as the benchmark lowers it: its
+    attention on the ``gatv2`` kind (K17 on K13's work list over
+    ``fusion.PAIR_TILE``), x [W_l | W_r] on K16, lowered once per dtype.
+    K17 checked at both layers' shapes on the model's tiling against its
+    plain version in bf16 and float32, each row's error over the row's sum
+    of alpha |u_j| within ``fixtures.K17_TOL`` over every row and over the
+    work list's cut rows apart (the finishing kernel's), and timed in bf16
+    beside its bound (``roofline.gatv2_attn``); 3 bf16 and 1 float32
+    requests on the smoke's graph, each launching K17 once a layer; then
+    on phase 7b's reduced graph each answer against the per-op path (bf16
+    against bf16 within E2E_TOL of max |answer|; float32 against the
+    per-op path in float64 row by row, each row's error over its own max
+    |answer|).  Returns K17's launches during the served requests."""
+    import torch
+
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler.fusion import (
+        PAIR_TILE as TILE, classify_block, hybrid_schedules)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gatv2 as GV
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import roofline as RL
+
+    model = build_model("GATv2", F_IN, N_CLASS, hidden=HIDDEN, n_layers=2,
+                        heads=HEADS, generator=torch.Generator().manual_seed(4),
+                        device=dev)
+    sched = hybrid_schedules(model.layers)
+    dtypes = (("bfloat16", torch.bfloat16), ("float32", None))
+    t0 = time.perf_counter()
+    fwd = {dtn: model.make_apply(dt, schedules=sched, host_graph=hg,
+                                 device=dev)
+           for dtn, dt in dtypes}
+    say(f"  GATv2-2l: schedules {[s.key()[:40] for s in sched]}, lowered "
+        f"in {time.perf_counter() - t0:.1f} s")
+    found = [(li, classify_block(model.layers[li], block, TILE)[1], data)
+             for li, fn in enumerate(fwd["bfloat16"].layer_fns)
+             for kind, block, data, _ in fn.plans if kind == "gatv2"]
+    shapes = [(p.heads, p.width) for _, p, _ in found]
+    if shapes != [(HEADS, HIDDEN), (1, N_CLASS)]:
+        raise AssertionError(f"GATv2-2l: gatv2 blocks of (heads, width) "
+                             f"{shapes}, expected one a layer")
+    n = hg.n_node
+    tg = found[0][2]
+    work = GV.gatv2_work(tg, n)
+    cut = work.pair.split_rows
+    say(f"  GATv2-2l K17 work list: {work.pair.slot_src.numel()} slots in "
+        f"{work.pair.n_chunks} chunks over {tg.n_tiles} tiles, "
+        f"{cut.numel()} of {n} rows cut into {work.n_parts} partial rows")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for li, plan, tgl in found:
+        H, C = plan.heads, plan.width // plan.heads
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[1]
+            u, v = (torch.randn((n, H * C), generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+            att = torch.randn((H, C), generator=gen, device=dev)
+            got = GV.gatv2_attn(tgl, u, v, att)
+            want = GV._gatv2_attn_reference(tgl, u, v, att)
+            mag = GV._gatv2_attn_reference(tgl, u, v, att, magnitude=True)
+            err = float((got - want).abs().max())
+            rows = fixtures.k17_error(got, want, mag)
+            rows_cut = fixtures.k17_error(got, want, mag, cut)
+            say(f"  {'gatv2_attn':18s} {f'GATv2 l{li} H={H} C={C}':34s} "
+                f"{name:8s} max_abs_err={err:.3e}, worst row {rows:.3e} of "
+                f"its magnitude, worst cut row {rows_cut:.3e} (bound "
+                f"{fixtures.K17_TOL:.0e})")
+            if not (bool(torch.isfinite(got).all())
+                    and max(rows, rows_cut) <= fixtures.K17_TOL):
+                raise AssertionError(f"K17 GATv2 l{li} {name}: a row's "
+                                     f"error is {max(rows, rows_cut)} of "
+                                     "its magnitude")
+            checks.worst["gatv2_attn"] = max(
+                checks.worst.get("gatv2_attn", 0.0), err)
+            del got, want, mag
+            if dt == torch.bfloat16:
+                checks.time_call(
+                    "gatv2_attn", f"GATv2 l{li}",
+                    lambda: GV.gatv2_attn(tgl, u, v, att),
+                    lambda: GV._gatv2_attn_reference(tgl, u, v, att), dev,
+                    lambda: RL.gatv2_attn(tgl, u, H))
+        del u, v
+
+    lat = {}
+    requests = [("bfloat16", i) for i in range(REQUESTS)] + [("float32", 0)]
+    with torch.inference_mode():
+        params = dict(model.params)
+        GV.gatv2_attn.launches = 0
+        for dtn, seed in requests:
+            y, ms = _timed(fwd[dtn], params, g, _request_x(seed, n, dev))
+            if tuple(y.shape) != (n, N_CLASS) or not bool(
+                    torch.isfinite(y).all()):
+                raise AssertionError(f"GATv2-2l {dtn}: bad output")
+            lat.setdefault(dtn, []).append(ms)
+            say(f"  GATv2-2l {dtn} request seed={seed}: {ms:.2f} ms")
+        launches = GV.gatv2_attn.launches
+    want = len(model.layers) * len(requests)
+    say(f"  GATv2-2l: K17 launches during its requests: {launches}")
+    if launches != want:
+        raise AssertionError(f"GATv2-2l: K17 launched {launches} times in "
+                             f"{len(requests)} requests, not {want}")
+    for dtn, v in sorted(lat.items()):
+        say(f"latency GATv2-2l {dtn} kernel: median "
+            f"{statistics.median(v):.3f} ms over {len(v)} requests "
+            f"{['%.3f' % t for t in v]}")
+    del fwd, y
+
+    hr, gr = reduced_graph(dev)
+    x = _request_x(20, hr.n_node, dev)
+    with torch.inference_mode():
+        params = dict(model.params)
+        p64 = {k: p.detach().double() for k, p in params.items()}
+        ref64 = model.make_apply(None)(p64, gr, x.double())
+        for dtn, dt in dtypes:
+            y = model.make_apply(dt, schedules=sched, host_graph=hr,
+                                 device=dev)(params, gr, x)
+            if dt is None:
+                rows = _row_rel(y, ref64)
+                worst = float(rows.max())
+                say(f"  GATv2-2l reduced graph float32: against the per-op "
+                    f"path in float64 per row of its own max: worst "
+                    f"{worst:.3e}, median {float(rows.median()):.3e} (bound "
+                    f"{E2E_TOL[dtn]:.0e} on every row)")
+            else:
+                ref = model.make_apply(dt)(params, gr, x)
+                worst = _rel_err(y, ref)
+                rows = _row_rel(y, ref)
+                say(f"  GATv2-2l reduced graph {dtn}: against the per-op "
+                    f"path in {dtn}, relative {worst:.3e} of max |answer| "
+                    f"(bound {E2E_TOL[dtn]:.0e}); per row of its own max: "
+                    f"worst {float(rows.max()):.3e}, median "
+                    f"{float(rows.median()):.3e}; against float64 "
+                    f"{_rel_err(y, ref64):.3e}")
+                del ref
+            if not (bool(torch.isfinite(y).all()) and worst <= E2E_TOL[dtn]):
+                raise AssertionError(f"GATv2-2l reduced {dtn}: relative "
+                                     f"error {worst}")
+            del y, rows
+        del ref64
+    return launches
+
+
 def k11_walk_and_library(checks: Checks, tg, xs, xd, H: int, what: str,
                          dev, library) -> None:
     """At one of K11's timed shapes: the walk it takes (``ops/sddmm.
@@ -1878,8 +2032,9 @@ def hybrid_sddmm(checks: Checks, recipes, hg, dev) -> dict:
 
 def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
                      dev, measured) -> dict:
-    """Phase 7; returns K11's, K12's and K13's launches on its main-path
-    runs (7b's and 7c's requests, 7d's hybrid SDDMM requests)."""
+    """Phase 7; returns K11's, K12's, K13's and K17's launches on its
+    main-path runs (7b's and 7c's requests, 7d's hybrid SDDMM requests,
+    7e's GATv2-2l requests)."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import fixtures
     t0 = time.perf_counter()
     say("== 7a SDDMM and pair-aggregate kernels K11-K13: edge cases")
@@ -1895,7 +2050,9 @@ def sddmm_pair_phase(checks: Checks, gat_model, recipes, hg, g,
     launches["sddmm_tiles"] += d["sddmm_tiles"]
     launches["sddmm_grouped"] = d["sddmm_grouped"]
     checks.csr.clear()
-    say(f"launches of K11-K13 in phase 7: {launches}; phase 7 took "
+    say("== 7e GATv2-2l on K17")
+    launches["gatv2_attn"] = gatv2_model(checks, hg, g, dev)
+    say(f"launches of K11-K13 and K17 in phase 7: {launches}; phase 7 took "
         f"{_took('7', t0):.1f} s")
     for k, v in launches.items():
         if v <= 0:
@@ -3337,6 +3494,7 @@ def _all_counted():
     """Every kernel's wrapper, by the kernels line's names."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import dense as D
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gat as A
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gatv2 as GV
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import pairagg as PA
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import sddmm as SD
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import spmm as SP
@@ -3350,7 +3508,8 @@ def _all_counted():
             "spmm_grouped": SP.spmm_grouped, "gat_grouped": A.gat_grouped,
             "sddmm_tiles": SD.sddmm_tiles, "sddmm_grouped": SD.sddmm_grouped,
             "pair_agg": PA.pair_agg, "gat_layer": A.gat_layer_tiles,
-            "gat_dense_panel": D.gat_dense_panel_blocks}
+            "gat_dense_panel": D.gat_dense_panel_blocks,
+            "gatv2_attn": GV.gatv2_attn}
 
 
 @contextlib.contextmanager
@@ -4879,7 +5038,9 @@ def main(argv=None) -> int:
         # K14 one GAT-2l request on the gat_layer kind (both layers); K15
         # both layers' dense splits of one GAT-2l hybrid request; K16 a
         # GCN-2l forward's two products (602 -> 128, 128 -> 41); its
-        # launches are phase 5d's, as K1-K8's
+        # launches are phase 5d's, as K1-K8's; K17 both layers of one
+        # GATv2-2l request (4 heads of 32, then 1 of 41), its launches
+        # phase 7e's requests
         calls = list(checks.times[k].values())
         bound_ms, bound_by = bound_of(c[2] for c in calls)
         libs = [c[3] for c in calls]

@@ -7,7 +7,8 @@ what each (block, TileConfig) lowers to, and the port lowers every kind
 it names: ``xla``, ``spmm``, ``spmm_grouped``, ``spmm_hybrid``, ``gat``,
 ``gat_hybrid``, ``gat_layer`` (the whole layer on K14), ``sddmm`` (the
 attention-logit block on K11), ``pair_agg`` (the DGN / PNA aggregation on
-K13), ``spmm_stream`` and ``gat_stream`` (the edge-chunk loops of
+K13), ``gatv2`` (GATv2's attention on K17, which the JAX package does
+not know), ``spmm_stream`` and ``gat_stream`` (the edge-chunk loops of
 ``ops/chunked.py``) and ``spmm_densefull`` (one product with the full
 dense adjacency, ``graph.dense_adjacency``; above ``DENSEFULL_MAX_N``
 nodes the block runs op by op, as in the JAX package).
@@ -28,6 +29,7 @@ from ..graph import (DENSE_ROWS, DENSEFULL_MAX_N, GraphTensor, HostGraph,
 from ..ops import chunked
 from ..ops import dense as dense_mod
 from ..ops import gat as gat_mod
+from ..ops import gatv2 as gatv2_mod
 from ..ops import pairagg as pair_mod
 from ..ops import primitives as P
 from ..ops import sddmm as sddmm_mod
@@ -125,7 +127,8 @@ def match_spmm(graph: ir.OpGraph,
 
 def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
     """Which execution path a (block, TileConfig) pair lowers to:
-    ``(kind, plan)``, exactly as the JAX package classifies it."""
+    ``(kind, plan)``, exactly as the JAX package classifies it, and the
+    GATv2 chain on the ``onehot`` path as ``gatv2`` (K17)."""
     spmm_plan = match_spmm(graph, block) if tc.kernel else None
     layer_plan = (gat_mod.match_gat_layer(graph, block)
                   if tc.kernel and spmm_plan is None else None)
@@ -136,9 +139,11 @@ def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
                   if tc.kernel and spmm_plan is None
                   and layer_plan is None and gat_plan is None else None)
     pair_plan = None
+    gatv2_plan = None
     if (tc.kernel and spmm_plan is None and layer_plan is None
             and gat_plan is None and sddmm_plan is None):
         pair_plan = pair_mod.match_pair_agg(graph, block)
+        gatv2_plan = gatv2_mod.match_gatv2(graph, block)
     if tc.path == S.PATH_GROUPED:
         return ("spmm_grouped", spmm_plan) if spmm_plan is not None \
             else ("xla", None)
@@ -162,6 +167,8 @@ def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
         return "sddmm", sddmm_plan
     if pair_plan is not None and tc.path == S.PATH_ONEHOT:
         return "pair_agg", pair_plan
+    if gatv2_plan is not None and tc.path == S.PATH_ONEHOT:
+        return "gatv2", gatv2_plan
     return "xla", None
 
 
@@ -181,8 +188,10 @@ def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
     ``spmm_hybrid``; GAT layers fuse the attention chain
     (``pattern_partition``) and run it as ``gat_hybrid``; every other block
     runs op by op.  The default geometries are that script's.  A layer with
-    neither, whose aggregation is a pair chain (DGN, PNA), runs that chain
-    as ``pair_agg`` on ``PAIR_TILE``, as :func:`pair_agg_schedules` does."""
+    neither runs a GATv2 attention chain as ``gatv2`` (K17) on
+    ``PAIR_TILE``, whose work list it walks, and else an aggregation that
+    is a pair chain (DGN, PNA) as ``pair_agg`` on ``PAIR_TILE``, as
+    :func:`pair_agg_schedules` does."""
     out = []
     for graph in layers:
         part = S.pattern_partition(graph)
@@ -190,6 +199,9 @@ def hybrid_schedules(layers: Sequence[ir.OpGraph], *,
         if part is None:
             part = S.aggregation_partition(graph)
             tc, want = spmm_tile, "spmm_hybrid"
+        if part is None:
+            part = S.gatv2_partition(graph)
+            tc, want = PAIR_TILE, "gatv2"
         if part is None:
             part = S.pair_agg_partition(graph)
             tc, want = PAIR_TILE, "pair_agg"
@@ -334,7 +346,7 @@ def lower_schedule(
     block, so its gradient runs the kernels (dx = Aᵀ ȳ, and the attention
     backward K5-K8) instead of autograd of the plain formulation; it doubles
     the set-up and the tilings' device memory.  The ``gat_layer``,
-    ``sddmm`` and ``pair_agg`` kinds run forward on their kernels and
+    ``sddmm``, ``pair_agg`` and ``gatv2`` kinds run forward on their kernels and
     differentiate through their plain per-edge formulations, as in the JAX
     package; the stream and densefull kinds are plain PyTorch, which
     autograd differentiates.  ``spmm_stream`` and ``gat_stream`` stream
@@ -458,17 +470,20 @@ def lower_schedule(
             data = get_tiled(tc, unit_weight=True)
             if host_graph_t is not None:
                 twin = (get_tiled(tc, True, host_graph_t), get_perm_t())
-        elif kind in ("gat_layer", "sddmm", "pair_agg"):
+        elif kind in ("gat_layer", "sddmm", "pair_agg", "gatv2"):
             data = get_tiled(tc, unit_weight=True)
             n = host_graph.n_node
-            if (kind == "pair_agg" and data.src_local.is_cuda
-                    and ("pair_agg", n) not in data.work_lists):
-                # K13's work list, at set-up rather than in a request
+            if (kind in ("pair_agg", "gatv2") and data.src_local.is_cuda
+                    and (kind, n) not in data.work_lists):
+                # K13's work list (K17 walks it too, with its partial
+                # rows), at set-up rather than in a request
                 with span("lower.pair_work"):
                     work = pair_mod.pair_work(data, n)
                     count("pair_slots", int(work.slot_src.numel()))
                     count("pair_chunks", work.n_chunks)
                     count("pair_split_rows", int(work.split_rows.numel()))
+                    if kind == "gatv2":
+                        gatv2_mod.gatv2_work(data, n)
         elif kind == "spmm_densefull":
             key = ("densefull", plan.weighted, str(device))
             if key not in cache:
@@ -589,6 +604,12 @@ def lower_schedule(
                         got[ir.MEAN] = y_sum / cnt.clamp(min=1.0)
                 for r, oid in plan.gathers.items():
                     vals[oid] = got[r]
+            elif kind == "gatv2":
+                # u and v in the compute dtype, the attention vectors in
+                # float32; the output float32
+                vals[plan.out_op] = gatv2_mod.gatv2_attention(
+                    data, kin(ref(plan.u_op)), kin(ref(plan.v_op)),
+                    params[plan.att], slope=plan.slope)
             elif kind == "gat_layer":
                 vals[plan.out_op] = gat_mod.gat_layer(
                     data, kin(ref(plan.x_op)), kin(params[plan.w_name]),

@@ -20,9 +20,10 @@ from ..ops import primitives as P
 
 def init_params(graph: ir.OpGraph, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
-    """Glorot-uniform init for every MM weight in the op graph, drawn on
-    the CPU from ``generator`` and placed on ``device`` (default the CUDA
-    card)."""
+    """Glorot-uniform init for every parameter in the op graph
+    (``OpGraph.param_specs``: the MM weights and GATv2's attention vectors),
+    drawn on the CPU from ``generator`` and placed on ``device`` (default
+    the CUDA card)."""
     device = resolve_device(device)
     params: Dict[str, torch.Tensor] = {}
     for name, iw, ow in graph.param_specs():
@@ -89,6 +90,8 @@ def _eval_op(op: ir.Op, vals: Dict[int, torch.Tensor],
     if c == ir.MM:
         name, _, _ = op.extra["weight"]
         return P.dense_mm(concat_features(ins), params[name], compute_dtype)
+    if c == ir.HEAD_DOT:
+        return P.head_dot(ins[0], params[op.extra["weight"][0]])
     if c == ir.SCALER:
         return ins[0] * P.degree_scalers(P.in_degree(g))[op.extra["scaler"]]
     if c == ir.SF:

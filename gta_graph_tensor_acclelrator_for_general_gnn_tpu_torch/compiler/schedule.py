@@ -232,6 +232,22 @@ def pair_agg_partition(
     return None
 
 
+def gatv2_partition(
+        graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]]:
+    """Partition isolating the GATv2 attention chain (the scatters of u and
+    v through the division on nodes) as ONE block for K17, everything
+    else singleton; None when there is none.  As the GAT chain, it crosses
+    breakpoints the fused kernel may: it keeps each row's softmax on
+    chip."""
+    from ..ops.gatv2 import find_gatv2_chain
+    plan = find_gatv2_chain(graph)
+    if plan is None:
+        return None
+    rest = [[o] for o in graph.topo_order() if o not in plan.ops]
+    part = _order_blocks(graph, [sorted(plan.ops)] + rest)
+    return tuple(tuple(b) for b in part)
+
+
 def max_fusion_partition(graph: ir.OpGraph) -> Tuple[Tuple[int, ...], ...]:
     """Greedy max fusion: fuse every non-breakpoint edge whose fusion keeps
     the partition legal."""
@@ -290,16 +306,18 @@ def partition_is_legal_with_patterns(
         graph: ir.OpGraph, blocks: Sequence[Sequence[int]]) -> bool:
     """Partition legality with the kernel-pattern exemption: a block that
     exactly matches a fused-kernel pattern (attention chain, whole layer,
-    pair aggregation) may contain breakpoint edges; the quotient must still
+    pair aggregation, GATv2 attention) may contain breakpoint edges; the quotient must still
     be a DAG and every other block breakpoint-free."""
     from ..ops.gat import match_gat_block, match_gat_layer
+    from ..ops.gatv2 import match_gatv2
     from ..ops.pairagg import match_pair_agg
     if ir.partition_is_legal(graph, blocks):
         return True
     exempt = {i for i, b in enumerate(blocks)
               if match_gat_block(graph, b) is not None
               or match_gat_layer(graph, b) is not None
-              or match_pair_agg(graph, b) is not None}
+              or match_pair_agg(graph, b) is not None
+              or match_gatv2(graph, b) is not None}
     if not exempt:
         return False
     block_of: Dict[int, int] = {}
@@ -387,7 +405,7 @@ LOCAL_INDEX_MAX = 32_000     # tilings keep int16 block-local offsets below
 # the kernel kinds each path lowers to (classify_block)
 PATH_KINDS = {
     PATH_XLA: (),
-    PATH_ONEHOT: ("spmm", "gat", "gat_layer", "sddmm", "pair_agg"),
+    PATH_ONEHOT: ("spmm", "gat", "gat_layer", "sddmm", "pair_agg", "gatv2"),
     PATH_HYBRID: ("spmm_hybrid", "gat_hybrid"),
     PATH_GROUPED: ("spmm_grouped",),
     PATH_STREAM: ("spmm_stream", "gat_stream"),
@@ -518,7 +536,7 @@ def _kind_smem(kind: str, HD: int, H: int, dtype_bytes: int) -> int:
         return _gat_layer_smem(HD, H, dtype_bytes)
     if kind == "spmm_hybrid":                       # K2 (K1: none)
         return _spmm_dense_smem(HD, dtype_bytes)
-    return 0                                        # K1, K9, K11-K13: none
+    return 0                                        # K1, K9, K11-K13, K17: none
 
 
 def smem_bytes(tile: TileConfig, feat_width: int, heads: int = 1,

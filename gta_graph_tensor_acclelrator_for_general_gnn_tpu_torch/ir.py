@@ -264,3 +264,34 @@ SCALER = "SCALER"
 COMPUTES = COMPUTES + (MIN, STD, SCALER)
 SCALERS = ("amplification", "attenuation")
 STD_EPS = 1e-5
+
+# GATv2 (Brody, Alon and Yahav, arXiv:2105.14491):
+#
+# * apply_edge HEAD_DOT takes each head's dot of an edge value [E, H*C]
+#   (heads head-major) with that head's attention vector, row h of the
+#   [H, C] parameter ``extra['weight']`` = (name, H, C):
+#   out[e, h] = sum_c x[e, h*C + c] * a[h, c].
+
+HEAD_DOT = "HEAD_DOT"
+COMPUTES = COMPUTES + (HEAD_DOT,)
+
+
+def _param_specs(self: OpGraph) -> List[Tuple[str, int, int]]:
+    """(name, rows, cols) of every parameter, in topo order: each MM
+    weight ([in_width, out_width]), then each HEAD_DOT's [H, C] attention
+    vectors.  A graph without HEAD_DOT (every network of the JAX package)
+    gets the JAX package's list."""
+    specs = _mm_param_specs(self)
+    seen = {name for name, _, _ in specs}
+    for oid in self.topo_order():
+        op = self.by_id[oid]
+        if op.compute == HEAD_DOT:
+            name, h, c = op.extra["weight"]
+            if name not in seen:
+                specs.append((name, h, c))
+                seen.add(name)
+    return specs
+
+
+_mm_param_specs = OpGraph.param_specs
+OpGraph.param_specs = _param_specs

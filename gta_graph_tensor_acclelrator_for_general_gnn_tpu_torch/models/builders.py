@@ -15,7 +15,10 @@ byte-count simulator rather than numerical execution:
 Beyond the reference zoo, ``"PNA-4x3"`` is PNA as published (Corso et al.,
 arXiv:2004.05718): the aggregators mean, min, max and std, each under the
 degree scalers identity, amplification and attenuation, and the
-post-transform over [x | 12 scaled aggregates].
+post-transform over [x | 12 scaled aggregates], and ``"GATv2"`` is GATv2
+(Brody, Alon and Yahav, arXiv:2105.14491): dynamic attention, whose
+score puts a LeakyReLU between the sender's and the receiver's
+transformed features.
 
 Every builder returns a single-layer :class:`~..ir.OpGraph`; multi-layer
 models stack these (see ``models/zoo.py``).
@@ -28,7 +31,7 @@ from ..ir import Op, OpGraph
 # the reference zoo's families, which the JAX package builds too
 NETWORKS = ("GCN", "GAT", "SGC", "GraphSAGE", "GIN", "DGN", "PNA")
 # published forms the port builds beside them
-PUBLISHED = ("PNA-4x3",)
+PUBLISHED = ("PNA-4x3", "GATv2")
 
 
 def _w(name: str, iw: int, ow: int) -> dict:
@@ -199,6 +202,9 @@ def build_op_graph(
     elif network == "PNA-4x3":
         ops = _pna_published(F, O, hidden or O, t, reorder, final_sf)
 
+    elif network == "GATv2":
+        ops = _gatv2(F, O, heads, t, final_sf)
+
     else:
         raise ValueError(f"unknown network {network!r}; choose from "
                          f"{NETWORKS + PUBLISHED}")
@@ -253,4 +259,37 @@ def _pna_published(F: int, O: int, D: int, t: str, reorder: bool,
         Op(16, ir.APPLY_NODE, ir.ADD, "R", [15, 12], O),
         Op(17, ir.APPLY_NODE, ir.ADD, "R", [16, 13], O),
         Op(18, ir.APPLY_NODE, ir.SF, "R", [17], O, {"sf": final_sf}),
+    ]
+
+
+def _gatv2(F: int, O: int, H: int, t: str, final_sf: str) -> list:
+    """One GATv2 layer (PyG's ``GATv2Conv`` with ``share_weights=False``,
+    no bias): u = x W_l and v = x W_r of width O = H*C, per edge (j, i)
+    and head h the score e = a_h . leaky_relu(u_j,h + v_i,h, 0.2), a
+    softmax over each receiver's incoming edges (stabilised by the
+    segment max, as GAT's), out_i,h = sum_j alpha_ij,h u_j,h, heads
+    concatenated head-major.  Numerator and denominator are gathered and
+    divided on nodes, the form of GAT's ``reorder`` variant; u and v are
+    node products in either variant, so ``reorder`` changes nothing."""
+    X = ir.X_INPUT
+    assert O % H == 0, "GATv2 out_width must be a multiple of heads"
+    C = O // H
+    return [
+        Op(0, ir.APPLY_NODE, ir.MM, "R", [X], O, _w(f"gatv2_{t}_wl", F, O)),
+        Op(1, ir.APPLY_NODE, ir.MM, "R", [X], O, _w(f"gatv2_{t}_wr", F, O)),
+        Op(2, ir.SCATTER, ir.NONE, "C", [0], O),            # u_j on edges
+        Op(3, ir.SCATTER, ir.NONE, "R", [1], O),            # v_i on edges
+        Op(4, ir.APPLY_EDGE, ir.ADD, "R", [2, 3], O),
+        Op(5, ir.APPLY_EDGE, ir.SF, "R", [4], O, {"sf": "leaky_relu"}),
+        Op(6, ir.APPLY_EDGE, ir.HEAD_DOT, "R", [5], H,
+           _w(f"gatv2_{t}_att", H, C)),
+        Op(7, ir.GATHER, ir.MAX, "R", [6], H),              # segment max
+        Op(8, ir.SCATTER, ir.NONE, "R", [7], H),
+        Op(9, ir.APPLY_EDGE, ir.SUB, "R", [6, 8], H),
+        Op(10, ir.APPLY_EDGE, ir.SF, "R", [9], H, {"sf": "exp"}),
+        Op(11, ir.APPLY_EDGE, ir.MUL, "R", [10, 2], O),     # exp * u_j
+        Op(12, ir.GATHER, ir.ADD, "R", [11], O),            # numerator
+        Op(13, ir.GATHER, ir.ADD, "R", [10], H),            # denominator
+        Op(14, ir.APPLY_NODE, ir.DIV, "R", [12, 13], O),
+        Op(15, ir.APPLY_NODE, ir.SF, "R", [14], O, {"sf": final_sf}),
     ]

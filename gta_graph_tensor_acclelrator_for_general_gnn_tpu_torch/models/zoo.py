@@ -108,7 +108,8 @@ def build_model(network: str, in_width: int, n_class: int, *,
     """An ``n_layers`` model of ``network`` ending in ``n_class`` logits,
     its parameters on ``device`` (default the CUDA card).
     Hidden layers use the family's activation, the last emits raw logits;
-    hidden GAT layers use ``heads`` heads and the last one a single head."""
+    hidden GAT and GATv2 layers use ``heads`` heads and the last one a
+    single head."""
     if network not in NETWORKS + PUBLISHED:
         raise ValueError(f"unknown network {network!r}")
     layers: List[ir.OpGraph] = []
@@ -119,10 +120,10 @@ def build_model(network: str, in_width: int, n_class: int, *,
         kw: Dict = dict(
             reorder=reorder,
             layer_tag=f"l{i}",
-            final_sf="identity" if last else ("elu" if network == "GAT"
-                                              else "relu"),
+            final_sf="identity" if last else (
+                "elu" if network in ("GAT", "GATv2") else "relu"),
         )
-        if network == "GAT":
+        if network in ("GAT", "GATv2"):
             kw["heads"] = 1 if last else heads
         if network in ("GIN", "PNA", "PNA-4x3"):
             kw["hidden"] = hidden

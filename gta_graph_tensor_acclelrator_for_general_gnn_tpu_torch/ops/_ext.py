@@ -78,6 +78,9 @@ _SIGNATURES = {
     "gta_pair_agg": [VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, VP, I32, I32,
                      I64, I32, F32, I32, F32, VP],
     "gta_pair_agg_finish": [VP, I64, VP, VP, VP, I64, I32, F32, VP],
+    "gta_gatv2_attn": [VP, VP, VP, VP, VP, VP, I32, VP, VP, VP, VP, VP, I32,
+                       I32, I32, F32, VP],
+    "gta_gatv2_attn_finish": [VP, VP, VP, VP, VP, VP, I64, I32, I32, VP],
     "gta_gat_layer": [VP, VP, VP, VP, VP, VP, VP, VP, I32, VP, I64, VP, VP,
                       VP, VP, VP, I32, I32, I32, I32, I64, I32, I32, I32, I32,
                       F32, I32, I64, VP],

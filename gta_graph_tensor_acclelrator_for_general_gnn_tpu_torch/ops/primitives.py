@@ -75,6 +75,14 @@ def std_from_moments(mean: torch.Tensor, mean_sq: torch.Tensor
     return torch.sqrt(torch.relu(mean_sq - mean * mean) + ir.STD_EPS)
 
 
+def head_dot(e: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+    """GATv2's per-head score of edge values ``e`` [E, H*C] (heads
+    head-major) under the attention vectors ``att`` [H, C]: [E, H], the
+    sum over c of e[:, h*C + c] * att[h, c], in e's dtype."""
+    H, C = att.shape
+    return (e.view(-1, H, C) * att.to(e.dtype)).sum(-1)
+
+
 def in_degree(g: GraphTensor) -> torch.Tensor:
     """Each node's count of real incoming edges, float32 [N]."""
     d = torch.zeros(g.n_node + 1, dtype=torch.float32,

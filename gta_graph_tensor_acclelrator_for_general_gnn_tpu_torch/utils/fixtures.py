@@ -42,6 +42,13 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SUM_ORDER = 4.0
 # rows whose scale is below this share of their group's largest take it
 ROW_FLOOR = 1e-6
+# K17 (GATv2's attention) against its plain version: each row's error over
+# the row's sum of alpha |u_j| (the plain version's ``magnitude``).  Both
+# take the same rounded u and v and return float32 in either dtype; the
+# kernel's float32 scores, __expf and sums in another order move alpha by
+# a few 1e-6 relative, and a hub row merges thousands of chunk partials in
+# float32
+K17_TOL = 1e-4
 
 
 class KernelCase(NamedTuple):
@@ -112,6 +119,19 @@ def kernel_error(c: KernelCase) -> Tuple[float, float]:
         bound = row_scale.clamp(min=floor) * tol
         share = max(share, float((err[:, cols].amax(dim=1) / bound).max()))
     return float(err.max()), share
+
+
+def k17_error(got, want, mag, rows=None) -> float:
+    """The largest |K17 - plain| over each row's magnitude ``mag`` (see
+    ``K17_TOL``), over ``rows`` where given; raise unless a row of
+    magnitude 0 is exactly 0."""
+    if rows is not None:
+        got, want, mag = got[rows], want[rows], mag[rows]
+    scale = mag.abs().amax(1, keepdim=True)
+    err = (got - want).abs()
+    if not bool((err[scale[:, 0] == 0] == 0).all()):
+        raise AssertionError("K17: a row without weight is not 0")
+    return float((err / scale.clamp(min=1e-30)).amax())
 
 
 def check_kernel(c: KernelCase) -> Tuple[float, float]:

@@ -318,6 +318,21 @@ def pair_agg(tg, u: torch.Tensor, want_max: bool,
                 ops=float(live * D * per), ops_per_s=_rate(u.dtype))
 
 
+def gatv2_attn(tg, u: torch.Tensor, heads: int) -> Work:
+    """K17: per live slot its int32 sender and, per feature, the message's
+    add, the leaky ReLU, the head dot's multiply and add and the weighted
+    sum's multiply and add (six), per head the max, the subtraction, the
+    exponent and the denominator's add (four); per row and feature the
+    division.  u and v (u's shape and dtype) and the [H, C] float32
+    attention vectors read once, the [N, H*C] float32 output written once:
+    ``gnnbench/work/gatv2.py``'s ``attn{i}`` less the ELU after it."""
+    live, (n, HC) = live_slots(tg), u.shape
+    return Work(bytes=live * 4 + 8 * tg.n_tiles + 2 * _nbytes(u) + 4 * HC
+                + 4 * n * HC,
+                ops=float(live * (6 * HC + 4 * heads) + n * HC),
+                ops_per_s=_rate(u.dtype))
+
+
 def csr_of(graph, dtype, n_cols: int) -> torch.Tensor:
     """The same edges as one sparse CSR matrix [rows, n_cols] of ``dtype``
     (values: the slot weights of a tiling, the counts of dense blocks), the

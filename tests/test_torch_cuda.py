@@ -1,4 +1,4 @@
-"""PyTorch port: the hand-written CUDA kernels K1-K16 against their plain
+"""PyTorch port: the hand-written CUDA kernels K1-K17 against their plain
 PyTorch versions on the edge cases of ``utils/fixtures.kernel_cases`` (the
 forward kernels K1-K4), ``utils/fixtures.bwd_kernel_cases`` (the GAT
 backward kernels K5-K8), ``utils/fixtures.grouped_kernel_cases`` (the
@@ -6,7 +6,8 @@ grouped-tail kernels K9 and K10), ``utils/fixtures.sddmm_kernel_cases``
 (the SDDMM kernels K11 and K12), ``utils/fixtures.pair_agg_kernel_cases``
 (the pair aggregation K13) and ``utils/fixtures.layer_kernel_cases`` (the
 whole GAT layer K14, stage by stage, and the exp-panel dense partial
-K15), K16 (x W, ``ops/primitives.dense_mm``) at the main path's shapes and
+K15), K17 (GATv2's attention on K13's work list) on that fixture and
+the ``gatv2_e11m_serve`` cell's graph, K16 (x W, ``ops/primitives.dense_mm``) at the main path's shapes and
 ragged ones, with its gradients and its launches per forward, and the
 walk K11 picks at the cuts between its paths.  Also the
 sampled trainer's captured CUDA graph against its eager loop on one
@@ -603,6 +604,133 @@ def test_published_pna_on_the_hybrid_path_on_cuda():
     assert [b["counters"].get("pair_agg.layout") for b in blocks] == [1, 1]
     assert [b["counters"].get("pair_agg.cut_rows") for b in blocks] == [
         cut, cut]
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["fixture", "cell"])
+def test_k17_matches_plain_version_on_cuda(where):
+    """K17 (``ops/gatv2.gatv2_attn``) against its plain version on K13's
+    work list, float32 and bf16, 4 heads of 32 and 1 head of 41 features:
+    on the edge-case fixture (empty rows, a dead tile, a hub row cut into
+    chunks) and on the ``gatv2_e11m_serve`` cell's graph and tiling
+    (``pna2_e11m_serve``'s: the two configurations share the graph).  A
+    row of one slot takes its sender's u exactly (alpha = 1); a row whose
+    scores are all equal (attention vectors 0) takes the mean of its
+    senders' u; the cut rows come from the finishing kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K17 has no CPU mode")
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.ops import gatv2 as GV
+    from gnnbench import spec
+    same = ("nodes", "edges", "graph", "reorder_nodes")
+    assert ({k: spec.cell("gatv2_e11m_serve").config[k] for k in same}
+            == {k: spec.cell("pna2_e11m_serve").config[k] for k in same})
+    tg, n, _ = _pair_tiling(where)
+    dev = torch.device("cuda", 0)
+    work = GV.gatv2_work(tg, n)
+    pw = work.pair
+    lens = (pw.chunk_ptr[1:] - pw.chunk_ptr[:-1]).long()
+    one = pw.chunk_row >= 0
+    rows = pw.chunk_row[one].long()
+    single = rows[lens[one] == 1]
+    single_src = pw.slot_src[pw.chunk_ptr[:-1][one][lens[one] == 1]].long()
+    cut = pw.split_rows
+    assert single.numel() and cut.numel() and work.n_parts > cut.numel()
+    slot_src = pw.slot_src.long()
+    crow = pw.chunk_row.long()
+    slot_row = torch.repeat_interleave(torch.where(crow < 0, -crow - 1, crow),
+                                       lens)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dt in (torch.float32, torch.bfloat16):
+        for H, C in ((4, 32), (1, 41)):
+            u, v = (torch.randn((n, H * C), generator=gen, device=dev
+                                ).to(dt) for _ in range(2))
+            att = torch.randn((H, C), generator=gen, device=dev)
+            for a in (att, torch.zeros_like(att)):
+                got = GV.gatv2_attn(tg, u, v, a)
+                want = GV._gatv2_attn_reference(tg, u, v, a)
+                mag = GV._gatv2_attn_reference(tg, u, v, a, magnitude=True)
+                what = (where, dt, H, C, bool(a.any()))
+                tol = fixtures.K17_TOL
+                assert fixtures.k17_error(got, want, mag) <= tol, what
+                assert fixtures.k17_error(got, want, mag, cut) <= tol, what
+                ok = single_src >= 0
+                assert torch.equal(got[single[ok]],
+                                   u[single_src[ok]].float()), what
+            # attention vectors 0 (the last ``got``): every score equal,
+            # the mean of the senders' rows
+            keep = slot_src >= 0
+            num = torch.zeros((n, H * C), dtype=torch.float64, device=dev)
+            num.index_add_(0, slot_row[keep], u[slot_src[keep]].double())
+            cnt = torch.bincount(slot_row[keep], minlength=n)[:, None]
+            mean = (num / cnt.clamp(min=1)).float()
+            assert fixtures.k17_error(got, mean, mag) <= fixtures.K17_TOL
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+def test_gatv2_on_the_hybrid_path_on_cuda():
+    """``"GATv2"`` through ``hybrid_schedules`` on the card (K17, K16)
+    against its per-op path in float32 and bf16, and its float32 gradients
+    through the twin against per-op autograd; lowering records
+    ``lower.pair_work`` once with the work list's counters, and a request
+    counts one ``gatv2.k17`` launch under each layer's ``block.gatv2``,
+    whose finishing kernel merged the work list's cut rows
+    (``gatv2.cut_rows``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K17 and K16 have no CPU mode")
+    import numpy as np
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch import graph as G
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.compiler import fusion as TF
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.models.zoo import build_model
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu_torch.utils import spans
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    n, e = 3000, 40000
+    s = rng.integers(0, n, e)
+    r = np.concatenate([rng.integers(0, n, e - 3000), np.full(3000, 17)])
+    hg = G.build_host_graph(s[s != r], r[s != r], n, add_self_loops=True,
+                            symmetric_norm=True)
+    g = hg.to_device(dev)
+    m = build_model("GATv2", 40, 7, hidden=128, n_layers=2, heads=4,
+                    reorder=True, generator=torch.Generator().manual_seed(0),
+                    device=dev)
+    x = torch.randn((n, 40), generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    params = dict(m.params)
+    sched = TF.hybrid_schedules(m.layers)
+    with torch.inference_mode():
+        want = m.make_apply()(params, g, x)
+        got32 = m.make_apply(schedules=sched, host_graph=hg, device=dev)(
+            params, g, x)
+        spans.take()
+        with spans.recording():
+            fn = m.make_apply(torch.bfloat16, schedules=sched,
+                              host_graph=hg, device=dev)
+            got16 = fn(params, g, x)
+        rec = spans.take()["spans"]
+    scale = float(want.abs().max())
+    assert float((got32 - want).abs().max()) <= 1e-4 * scale
+    assert float((got16 - want).abs().max()) <= 3e-2 * scale
+    work = [sp for sp in rec if sp["name"] == "lower.pair_work"]
+    assert len(work) == 1 and work[0]["counters"]["pair_split_rows"] >= 1
+    assert work[0]["counters"]["pair_slots"] == hg.n_edge
+    blocks = [sp for sp in rec if sp["name"] == "block.gatv2"]
+    cut = work[0]["counters"]["pair_split_rows"]
+    assert [b["counters"].get("gatv2.k17") for b in blocks] == [1, 1]
+    assert [b["counters"].get("gatv2.cut_rows") for b in blocks] == [cut,
+                                                                    cut]
+    gy = torch.randn(want.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(dev)
+    fwd = m.make_apply(schedules=sched, host_graph=hg, device=dev)
+    got = torch.autograd.grad((fwd(params, g, x) * gy).sum(),
+                              list(params.values()))
+    ref = torch.autograd.grad((m.make_apply()(params, g, x) * gy).sum(),
+                              list(params.values()))
+    for k, a, b in zip(params, got, ref):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
     torch.cuda.synchronize(dev)
 
 
